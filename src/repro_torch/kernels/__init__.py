@@ -1,0 +1,2 @@
+"""The plan engine and the hand-written CUDA kernels with their plain
+PyTorch versions."""

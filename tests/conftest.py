@@ -11,3 +11,8 @@ set here — smoke tests and benchmarks must see 1 device; only
 import jax
 
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips with a reason without one")
