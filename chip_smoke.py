@@ -88,7 +88,7 @@ class Smoke:
     unless a caller shrinks them."""
 
     def __init__(self, dev, *, main_side=104, check_side=32,
-                 suite="small", reps=50):
+                 suite="small", reps=50, force="auto"):
         from repro_torch.core import testmats
         from repro_torch.kernels import packsell_spmv as kpk
         from repro_torch.kernels import sell_spmv as ksl
@@ -98,6 +98,7 @@ class Smoke:
         self.check_side = check_side
         self.suite = testmats.suite(suite)
         self.reps = reps
+        self.force = force          # the main path's plan variant
         self.k1, self.k3, self.k2 = (kpk.packsell_spmv_fused,
                                      kpk.packsell_spmm_fused,
                                      ksl.sell_spmv_bucket)
@@ -212,7 +213,8 @@ class Smoke:
         a = testmats.hpcg(side, side, side)
         s, _ = sym_scale(a)
         t1 = time.perf_counter()
-        ops_set = OperatorSet(s, C=32, sigma=256, device=self.dev)
+        ops_set = OperatorSet(s, C=32, sigma=256, device=self.dev,
+                              force=self.force)
         mat, plan = ops_set.plan_pair("plan_fp16")
         t2 = time.perf_counter()
         sell = sl.from_csr(s, C=32, sigma=256, value_dtype="float16",
@@ -233,11 +235,12 @@ class Smoke:
         rng = np.random.default_rng(11)
         X = rng.standard_normal((mat.m, 8)).astype(np.float32)
 
+        diag = s.diagonal()
         for k in (self.k1, self.k2, self.k3):
             k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        x, info = cg.jacobi_pcg_stored(mat, plan, s.diagonal(), b, tol=1e-8,
+        x, info = cg.jacobi_pcg_stored(mat, plan, diag, b, tol=1e-8,
                                        maxiter=2000)
         torch.cuda.synchronize()
         solve_s = time.perf_counter() - t0
@@ -262,7 +265,7 @@ class Smoke:
                        / np.abs(y_h[:, 0]).max())
         q_rel = float(np.linalg.norm(1.0 - y_h[:, 0]) / np.sqrt(n))
         print(f"  Jacobi-PCG (tol 1e-8): iterations {info.iters}, "
-              f"recurrence relres {relres!r}, solve wall {solve_s:.3f} s "
+              f"recurrence relres {relres!r}, solve wall {solve_s!r} s "
               "(host clock, ends in synchronize)", flush=True)
         print(f"  true relres vs unquantized s (host scipy float64): "
               f"{true_rel!r}", flush=True)
@@ -284,8 +287,8 @@ class Smoke:
         before = self.k1.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        xj, info_j = cg.jacobi_pcg_stored(mat, pj, s.diagonal(), b,
-                                          tol=1e-8, maxiter=2000)
+        xj, info_j = cg.jacobi_pcg_stored(mat, pj, diag, b, tol=1e-8,
+                                          maxiter=2000)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
         if self.k1.launches != before:
@@ -293,7 +296,7 @@ class Smoke:
         dx = float(torch.linalg.vector_norm(x - xj)
                    / torch.linalg.vector_norm(x))
         print(f"  plain body (force='jnp') on the card: iterations "
-              f"{info_j.iters}, solve wall {plain_s:.3f} s, "
+              f"{info_j.iters}, solve wall {plain_s!r} s, "
               f"||x - x_plain|| / ||x|| {dx!r}", flush=True)
         if info_j.iters != info.iters:
             fail(f"plain solve took {info_j.iters} iterations, kernel "
@@ -387,11 +390,17 @@ class Smoke:
         return rows
 
     # -- phase 6: where a solve's time goes --------------------------------
-    def breakdown(self, mp, iters: int = 20):
-        """A solve's cost per iteration and per solve, from the host-clock
-        walls of solves cut to ``iters`` and ``2 * iters`` iterations, and
-        the device time by kernel over the shorter one (torch.profiler):
-        the device's busy share of its wall."""
+    def breakdown(self, mp, iters: int = 20, reps: int = 3):
+        """A solve's cost split into set-up and iterations, and the device's
+        busy share of the same run. Each solve is timed by CUDA events
+        recorded around the call: its wall on the device's clock, host gaps
+        included. ``maxiter=0`` is the set-up (the stored-order permutes,
+        the first residual's matvec, the final gather); ``iters`` more
+        iterations give the cost per iteration. The profiler's device time
+        by kernel is divided by the event wall of the one solve it
+        traced."""
+        from statistics import median
+
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -399,38 +408,54 @@ class Smoke:
 
         mat, plan, s = mp["mat"], mp["plan"], mp["a"]
         b = torch.ones(s.shape[0], dtype=torch.float64, device=self.dev)
+        t0 = time.perf_counter()
+        diag = torch.as_tensor(s.diagonal(), device=self.dev)
+        torch.cuda.synchronize()
+        diag_ms = (time.perf_counter() - t0) * 1e3
 
         def solve(k: int) -> float:    # tol 0: exactly k iterations
-            t0 = time.perf_counter()
-            cg.jacobi_pcg_stored(mat, plan, s.diagonal(), b, tol=0.0,
-                                 maxiter=k)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            cg.jacobi_pcg_stored(mat, plan, diag, b, tol=0.0, maxiter=k)
+            stop.record()
             torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3
+            return start.elapsed_time(stop)
+
+        def profiled(k: int):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         acc_events=True) as prof:
+                wall = solve(k)
+            kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                           for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA
+                           and e.self_device_time_total > 0), reverse=True)
+            return wall, kern
 
         solve(iters)
-        wall, wall2 = solve(iters), solve(2 * iters)
-        per_iter = (wall2 - wall) / iters
-        print(f"  {iters} PCG iterations: wall {wall!r} ms; per iteration "
-              f"{per_iter!r} ms, per solve (set-up, final gather) "
-              f"{wall - iters * per_iter!r} ms, from the walls of {iters} "
-              f"and {2 * iters} iterations (host clock, unprofiled)",
-              flush=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            solve(iters)
-        kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and e.self_device_time_total > 0), reverse=True)
+        set_up = median(solve(0) for _ in range(reps))
+        whole = median(solve(iters) for _ in range(reps))
+        per_iter = (whole - set_up) / iters
+        print(f"  host: the diagonal from scipy and its copy to the card "
+              f"{diag_ms!r} ms, once, outside the solves", flush=True)
+        print(f"  solve walls (CUDA events, median of {reps}): set-up "
+              f"(maxiter=0) {set_up!r} ms, {iters} iterations {whole!r} ms; "
+              f"per iteration {per_iter!r} ms", flush=True)
+        wall0, kern0 = profiled(0)
+        wall, kern = profiled(iters)
         if not kern:
             print("  device time by kernel: not measured (the profiler saw "
                   "no device events)", flush=True)
             return
-        busy = sum(k[0] for k in kern)
-        print(f"  device busy {busy!r} ms = {busy / wall!r} of the {iters}-"
-              f"iteration wall (idle share {1 - busy / wall!r}); by kernel:",
-              flush=True)
-        for ms, count, key in kern[:10]:
+        busy0, busy = sum(k[0] for k in kern0), sum(k[0] for k in kern)
+        print(f"  profiled set-up: device busy {busy0!r} ms of a {wall0!r} ms "
+              f"event wall", flush=True)
+        print(f"  profiled {iters} iterations: device busy {busy!r} ms of a "
+              f"{wall!r} ms event wall (idle share {1 - busy / wall!r}); "
+              f"device time per iteration {(busy - busy0) / iters!r} ms; "
+              f"by kernel:", flush=True)
+        for ms, count, key in kern[:12]:
             print(f"    {ms:10.4f} ms  {count:5d}x  {key[:90]}", flush=True)
 
 
@@ -471,7 +496,7 @@ def main() -> int:
     print("== 6. where a solve's time goes (torch.profiler)", flush=True)
     smoke.breakdown(mp)
 
-    src ="src/repro_torch/kernels/csrc/"
+    src = "src/repro_torch/kernels/csrc/"
     meta = {
         "K1": ("packsell_spmv_fused", src + "packsell_fused.cu",
                "src/repro/kernels/packsell_spmv.py:567"),

@@ -16,7 +16,7 @@ from . import sell_spmv as _sk
 
 
 def packsell_spmv(mat: PackSELLMatrix, x: torch.Tensor, *,
-                  force: str | None = None, decode_cache: str | None = None,
+                  force: str = "auto", decode_cache: str = "checkpoint",
                   permuted: bool = False) -> torch.Tensor:
     """y = A @ x via the plan engine."""
     plan = _plan.get_plan(mat, force=force, decode_cache=decode_cache)
@@ -24,7 +24,7 @@ def packsell_spmv(mat: PackSELLMatrix, x: torch.Tensor, *,
 
 
 def packsell_spmm(mat: PackSELLMatrix, x: torch.Tensor, *,
-                  force: str | None = None, decode_cache: str | None = None,
+                  force: str = "auto", decode_cache: str = "checkpoint",
                   permuted: bool = False) -> torch.Tensor:
     """Y = A @ X for X: [m, nb] (one pass over the words for all nb
     right-hand sides)."""

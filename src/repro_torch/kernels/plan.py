@@ -13,8 +13,10 @@ LRU); every matvec then runs the plan's operands with no host work:
   σ-permutation gather (:func:`_fused_unpermute2`), or no permutation at
   all with ``permuted=True`` (``cg.jacobi_pcg_stored``).
 
-Variant policy (``force=`` or ``REPRO_SPMV_POLICY``, logged in
-:attr:`SpMVPlan.policy`):
+Variant policy (``force=``, default ``auto``; logged in
+:attr:`SpMVPlan.policy`). No environment variable moves it: the
+reference's ``REPRO_SPMV_POLICY`` and ``REPRO_PLAN_CURSOR_CACHE`` are not
+read here.
 
 * On CUDA, ``auto`` picks ``fused`` when the stream is feasible. An
   infeasible stream (a group's column span overflows every offset
@@ -33,7 +35,6 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-import os
 import weakref
 from typing import Optional
 
@@ -56,25 +57,6 @@ _CKPT_WIDTHS = (128, 64, 32, 16, 8)
 _K4_K6 = ("the per-bucket kernels K4 (packsell_spmv_bucket) and K6 "
           "(packsell_spmv_band_bucket) are not ported to CUDA yet "
           "(ROADMAP.md, queue 2)")
-
-
-def _env_policy() -> str:
-    pol = os.environ.get("REPRO_SPMV_POLICY", "auto").lower()
-    if pol not in _POLICIES:
-        raise ValueError(f"REPRO_SPMV_POLICY={pol!r} not in {_POLICIES}")
-    return pol
-
-
-def _env_cache_mode() -> str:
-    raw = os.environ.get("REPRO_PLAN_CURSOR_CACHE", "checkpoint").lower()
-    if raw in ("1", "checkpoint"):
-        return "checkpoint"
-    if raw == "full":
-        return "full"
-    if raw in ("0", "off", "none"):
-        return "0"
-    raise ValueError(
-        f"REPRO_PLAN_CURSOR_CACHE={raw!r} not in {_CACHE_MODES}")
 
 
 # ---------------------------------------------------------------------------
@@ -388,22 +370,6 @@ def _fused_unpermute2(t2, inv2):
     return t2[inv2[:, 0].long(), inv2[:, 1].long()]
 
 
-def _fused_part_spmv(words3d, ckpt, xc, mat: PackSELLMatrix,
-                     layout: FusedLayout):
-    """The plain fused SpMV body (group partials [G, C])."""
-    return _pk.packsell_spmv_fused_plain(
-        words3d, ckpt, xc, codec_name=mat.codec_name, D=mat.D,
-        encoding=layout.encoding, scale=layout.scale)
-
-
-def _fused_part_spmm(words3d, ckpt, xc, mat: PackSELLMatrix,
-                     layout: FusedLayout):
-    """The plain fused SpMM body (group partials [G, C, nb])."""
-    return _pk.packsell_spmm_fused_plain(
-        words3d, ckpt, xc, codec_name=mat.codec_name, D=mat.D,
-        encoding=layout.encoding, scale=layout.scale)
-
-
 def stored_permute(v, outrow_cat, n: int):
     """Original-row order → stored-row order (σ-padding slots become 0)."""
     o = outrow_cat.long()
@@ -419,8 +385,9 @@ def stored_permute(v, outrow_cat, n: int):
 def stored_unpermute(t, inv_cat):
     """Stored-row order → original-row order: the σ-permutation as a
     gather by the precomputed inverse map (each original row has exactly
-    one stored slot, so this equals the scatter)."""
-    return t[inv_cat.long()]
+    one stored slot, so this equals the scatter). ``index_select`` takes
+    the int32 map as it is, so no index cast runs per call."""
+    return torch.index_select(t, 0, inv_cat)
 
 
 def _build_inverse_perm(mat: PackSELLMatrix, outrow_cat: torch.Tensor):
@@ -487,14 +454,13 @@ class SpMVPlan:
         if fused is not None:
             lay = self.fused_layout
             if self.variant == "fused":
-                kern = (_pk.packsell_spmm_fused if multi_rhs
+                body = (_pk.packsell_spmm_fused if multi_rhs
                         else _pk.packsell_spmv_fused)
-                part = kern(fused[0], fused[1], xc,
-                            codec_name=mat.codec_name, D=mat.D,
-                            encoding=lay.encoding, scale=lay.scale)
             else:
-                body = _fused_part_spmm if multi_rhs else _fused_part_spmv
-                part = body(fused[0], fused[1], xc, mat, lay)
+                body = (_pk.packsell_spmm_fused_plain if multi_rhs
+                        else _pk.packsell_spmv_fused_plain)
+            part = body(fused[0], fused[1], xc, codec_name=mat.codec_name,
+                        D=mat.D, encoding=lay.encoding, scale=lay.scale)
             return self._fused_epilogue(part, dev, permuted)
         if self.variant == "fused":
             raise ValueError("fused plan dispatched without its stream "
@@ -577,22 +543,21 @@ class SpMVPlan:
 # ---------------------------------------------------------------------------
 
 
-def build_plan(mat: PackSELLMatrix, *, force: str | None = None,
-               decode_cache: str | None = None, fused_trim: bool = True,
+def build_plan(mat: PackSELLMatrix, *, force: str = "auto",
+               decode_cache: str = "checkpoint", fused_trim: bool = True,
                ckpt_wr: int | None = None) -> SpMVPlan:
     """Host-side plan construction (run once per matrix; the policy is in
     the module docstring). ``decode_cache`` in {'checkpoint', 'full', '0'}
-    (default ``REPRO_PLAN_CURSOR_CACHE``, itself 'checkpoint') picks the
-    plain body's decode cache; ``fused_trim=False`` keeps the fused layout
-    shape-derived; ``ckpt_wr=`` pins the checkpoint width."""
-    policy = (force or _env_policy()).lower()
+    picks the plain body's decode cache; ``fused_trim=False`` keeps the
+    fused layout shape-derived; ``ckpt_wr=`` pins the checkpoint width."""
+    policy = force.lower()
     if policy not in _POLICIES:
         raise ValueError(f"force={policy!r} not in {_POLICIES}")
-    mode = (decode_cache or _env_cache_mode()).lower()
+    mode = decode_cache.lower()
     if mode not in _CACHE_MODES:
         raise ValueError(f"decode_cache={mode!r} not in {_CACHE_MODES}")
     on_cuda = mat.device.type == "cuda"
-    src = f"force={force!r}" if force else "REPRO_SPMV_POLICY"
+    src = f"force={policy!r}"
     if policy in ("full", "band"):
         raise NotImplementedError(
             f"variant {policy!r} ({src}): {_K4_K6}")
@@ -713,13 +678,8 @@ def _quick_validate(plan: SpMVPlan) -> None:
 _PLANS: dict = {}
 _STATS = {"hits": 0, "misses": 0, "evicted": 0}
 _TOKENS = itertools.count()
-
-
-def _plan_cache_cap() -> int:
-    try:
-        return max(int(os.environ.get("REPRO_PLAN_CACHE_CAP", 256)), 1)
-    except ValueError:
-        return 256
+#: most plans the cache holds before the least recently used one drops
+PLAN_CACHE_CAP = 256
 
 
 def _plan_token(mat: PackSELLMatrix) -> int:
@@ -733,15 +693,14 @@ def _plan_token(mat: PackSELLMatrix) -> int:
     return tok
 
 
-def get_plan(mat: PackSELLMatrix, *, force: str | None = None,
-             decode_cache: str | None = None, fused_trim: bool = True,
+def get_plan(mat: PackSELLMatrix, *, force: str = "auto",
+             decode_cache: str = "checkpoint", fused_trim: bool = True,
              ckpt_wr: int | None = None) -> SpMVPlan:
     """Cached plan lookup, keyed on ``(matrix token, policy, decode-cache
     mode, trim, ckpt_wr)``; entries drop when the matrix dies (weakref) or
-    fall off the LRU end (``REPRO_PLAN_CACHE_CAP``, default 256)."""
-    policy = (force or _env_policy()).lower()
-    mode = (decode_cache or _env_cache_mode()).lower()
-    key = (_plan_token(mat), policy, mode, fused_trim, ckpt_wr)
+    fall off the LRU end (:data:`PLAN_CACHE_CAP`)."""
+    key = (_plan_token(mat), force.lower(), decode_cache.lower(), fused_trim,
+           ckpt_wr)
     ent = _PLANS.get(key)
     if ent is not None and ent[0]() is mat:
         _STATS["hits"] += 1
@@ -756,8 +715,7 @@ def get_plan(mat: PackSELLMatrix, *, force: str | None = None,
 
     _PLANS[key] = (weakref.ref(mat, _drop), plan)
     _STATS["misses"] += 1
-    cap = _plan_cache_cap()
-    while len(_PLANS) > cap:
+    while len(_PLANS) > PLAN_CACHE_CAP:
         _PLANS.pop(next(iter(_PLANS)))
         _STATS["evicted"] += 1
     return plan

@@ -146,12 +146,14 @@ def parse_kind(kind: str) -> KindSpec:
 @dataclasses.dataclass
 class OperatorSet:
     """The operator variants of one (scaled) matrix, built lazily on
-    ``device`` (``None`` means the GPU)."""
+    ``device`` (``None`` means the GPU). ``force`` is the plan variant of
+    every ``plan_<codec>`` kind (``kernels.plan.build_plan``)."""
 
     csr: sp.csr_matrix
     C: int = 32
     sigma: int = 256
     device: object = None
+    force: str = "auto"
     _cache: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -176,7 +178,7 @@ class OperatorSet:
                 f"ported yet: {_NOT_PORTED[spec.family]}")
         mat = pk.from_csr(self.csr, C=self.C, sigma=self.sigma, D=spec.D,
                           codec=spec.codec, device=self.device)
-        p = kplan.get_plan(mat)
+        p = kplan.get_plan(mat, force=self.force)
         fn = lambda x, mat=mat, p=p: p.spmv(mat, x)  # noqa: E731
         self._cache[kind] = (fn, mat)
         return fn
@@ -195,4 +197,4 @@ class OperatorSet:
                 f"<codec>: fp16 | bf16 | e8m<D>)")
         self.matvec(kind)
         mat = self._cache[kind][1]
-        return mat, kplan.get_plan(mat)
+        return mat, kplan.get_plan(mat, force=self.force)

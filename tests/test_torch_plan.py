@@ -24,7 +24,6 @@ from repro.kernels import packsell_spmv as rkp
 from repro.kernels import plan as rpl
 from repro_torch.core import codecs as tcd
 from repro_torch.core import packsell as tpk
-from repro_torch.kernels import ops as tops
 from repro_torch.kernels import packsell_spmv as tkp
 from repro_torch.kernels import plan as tpl
 
@@ -285,11 +284,14 @@ def test_bad_policy_and_cache_mode_raise(monkeypatch):
         tpl.build_plan(t, force="fast")
     with pytest.raises(ValueError, match="not in"):
         tpl.build_plan(t, decode_cache="sometimes")
+    # the reference's environment knobs do not reach the port
     monkeypatch.setenv("REPRO_SPMV_POLICY", "nope")
-    with pytest.raises(ValueError, match="REPRO_SPMV_POLICY"):
-        tpl.build_plan(t)
+    monkeypatch.setenv("REPRO_PLAN_CURSOR_CACHE", "full")
+    plan = tpl.build_plan(t)
+    assert plan.variant == "jnp" and plan.cache_mode == "checkpoint"
     monkeypatch.setenv("REPRO_SPMV_POLICY", "fused")
-    assert tpl.build_plan(t).variant == "fused"
+    assert tpl.get_plan(t).variant == "jnp"
+    assert tpl.build_plan(t, force="fused").variant == "fused"
 
 
 def test_plan_cache_token_lru_and_weakref():
@@ -308,7 +310,7 @@ def test_plan_cache_token_lru_and_weakref():
 
 def test_plan_cache_capacity(monkeypatch):
     tpl.clear_cache()
-    monkeypatch.setenv("REPRO_PLAN_CACHE_CAP", "2")
+    monkeypatch.setattr(tpl, "PLAN_CACHE_CAP", 2)
     mats = [_pair(SUITE["hpcg_mini"], "fp16", 15)[1] for _ in range(3)]
     for m in mats:
         tpl.get_plan(m)

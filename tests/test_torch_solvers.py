@@ -145,11 +145,13 @@ def test_jacobi_pcg_stored_matches_reference(side, kind):
     assert it.iters == int(ir.iters) > 5
     assert float(it.relres) < 1e-8
     assert _rel(xt.numpy(), xr) <= 1e-6
-    # the kernel wrapper's path (its plain version on the CPU) stops at the
-    # same iteration
-    fplan = tpl.get_plan(tmat, force="fused")
-    assert fplan.variant == "fused"
-    xf, itf = tcg.jacobi_pcg_stored(tmat, fplan, s.diagonal(), b, tol=1e-8,
+    # the kernel wrapper's path (its plain version on the CPU), asked for
+    # through the operator set, stops at the same iteration
+    fmat, fplan = top.OperatorSet(s, device="cpu",
+                                  force="fused").plan_pair(kind)
+    assert fplan.variant == "fused" and fplan is tpl.get_plan(fmat,
+                                                             force="fused")
+    xf, itf = tcg.jacobi_pcg_stored(fmat, fplan, s.diagonal(), b, tol=1e-8,
                                     maxiter=500)
     assert itf.iters == it.iters
     assert _rel(xf.numpy(), xr) <= 1e-6
