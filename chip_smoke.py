@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of repro_torch on one NVIDIA GPU: builds the CUDA kernels from
 the sources in this checkout, holds each against its plain PyTorch
-version, drives the main path (PackSELL fp16 at HPCG 104^3, the
-fused-stream plan, Jacobi-PCG in stored-row order, a multi-RHS product and
-the SELL baseline), times the kernels, and ends with one JSON line.
+version, drives the two main paths at HPCG 104^3 -- PackSELL fp16 through
+the fused-stream plan with Jacobi-PCG in stored-row order, a multi-RHS
+product and the SELL baseline; then the mixed-precision adaptive PCG over
+the e8m tier ladder (per-bucket kernels, a float64 SELL outer operator),
+a multi-RHS product and a band-windowed plan -- times the kernels, and
+ends with one JSON line.
 
     python3 chip_smoke.py
 
@@ -56,7 +59,8 @@ def same_bits(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
     if a.shape != b.shape or a.dtype != b.dtype:
         fail(f"{what}: {tuple(a.shape)}/{a.dtype} vs {tuple(b.shape)}/"
              f"{b.dtype}")
-    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+    bits = torch.int64 if a.dtype == torch.float64 else torch.int32
+    if not torch.equal(a.view(bits), b.view(bits)):
         fail(f"{what}: kernel differs from its plain version "
              f"(max |diff| {max_abs(a, b)})")
     return max_abs(a, b)
@@ -77,6 +81,58 @@ def timed(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time per call of ``fn``: the profiler's summed durations
+    of the kernels whose name contains ``kernel``, over ``reps`` calls. The
+    Python wrapper's host work between launches is not counted, so this is
+    the kernel's own time even where the eager loop is host-bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key)
+    if not total > 0:
+        fail(f"the profiler saw no {kernel} kernel")
+    return total / 1e3 / reps
+
+
+def sparse_csr(a, values, dev, dtype=np.float32) -> torch.Tensor:
+    """``torch.sparse`` CSR (cuSPARSE on the card) of ``a``'s pattern with
+    ``values``: the library yardstick, used nowhere in the port."""
+    with warnings.catch_warnings():     # "sparse CSR is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(a.indptr.astype(np.int64)),
+            torch.from_numpy(a.indices.astype(np.int64)),
+            torch.from_numpy(values.astype(dtype)),
+            size=a.shape, check_invariants=False).to(dev)
+
+
+def smallest_hw(mat, sb: int = 8) -> int:
+    """The smallest multiple of 128 for which the band plan is feasible."""
+    from repro_torch.kernels import plan as kplan
+
+    for hw in range(128, 1 << 24, 128):
+        if kplan.band_plan(mat, sb, hw) is not None:
+            return hw
+    fail("no half-window makes the band plan feasible")
+
+
+def print_rows(rows: dict, per: str) -> None:
+    card = card_line()
+    for k, (t, tp, tl, tb, by, te) in rows.items():
+        print(f"  {k}: {t!r} ms{per} on the device (profiler; eager loop "
+              f"{te!r} ms by CUDA events), plain {tp!r} ms, torch.sparse CSR "
+              f"{tl!r} ms, bound {tb!r} ms by {by}; on {card}", flush=True)
+
+
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
     to = ops / PEAK_F32_OPS_PER_S * 1e3
@@ -88,7 +144,8 @@ class Smoke:
     unless a caller shrinks them."""
 
     def __init__(self, dev, *, main_side=104, check_side=32,
-                 suite="small", reps=50, force="auto"):
+                 suite="small", reps=50, force="auto", force_mixed="auto",
+                 force_band="auto"):
         from repro_torch.core import testmats
         from repro_torch.kernels import packsell_spmv as kpk
         from repro_torch.kernels import sell_spmv as ksl
@@ -99,11 +156,33 @@ class Smoke:
         self.suite = testmats.suite(suite)
         self.reps = reps
         self.force = force          # the main path's plan variant
+        self.force_mixed = force_mixed      # the mixed path's tier plans
+        self.force_band = force_band        # its uniform-bucket plan
         self.k1, self.k3, self.k2 = (kpk.packsell_spmv_fused,
                                      kpk.packsell_spmm_fused,
                                      ksl.sell_spmv_bucket)
-        self.err = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
-        self.cases = {"K1": 0, "K2": 0, "K3": 0}
+        self.k4, self.k5, self.k6 = (kpk.packsell_spmv_bucket,
+                                     kpk.packsell_spmm_bucket,
+                                     kpk.packsell_spmv_band_bucket)
+        ids = ("K1", "K2", "K3", "K4", "K5", "K6", "K2-f64")
+        self.err = dict.fromkeys(ids, 0.0)
+        self.cases = dict.fromkeys(ids, 0)
+
+    def counts(self) -> dict:
+        """Every wrapper's launch count (K2-f64: K2's float64 launches)."""
+        return {"K1": self.k1.launches, "K2": self.k2.launches,
+                "K3": self.k3.launches, "K4": self.k4.launches,
+                "K5": self.k5.launches, "K6": self.k6.launches,
+                "K2-f64": self.k2.launches_f64}
+
+    def zero_counts(self) -> None:
+        for k in (self.k1, self.k2, self.k3, self.k4, self.k5, self.k6):
+            k.launches = 0
+        self.k2.launches_f64 = 0
+
+    def note(self, k: str, e: float) -> None:
+        self.err[k] = max(self.err[k], e)
+        self.cases[k] += 1
 
     # -- phase 3: each kernel against its plain version --------------------
     def check_packsell(self, label, a, codec, D, wr=None):
@@ -124,19 +203,17 @@ class Smoke:
         rng = np.random.default_rng(7)
         x = torch.from_numpy(rng.standard_normal(mat.m).astype(
             np.float32)).to(self.dev)
-        e = same_bits(self.k1(words, ckpt, x, **kw),
-                      kpk.packsell_spmv_fused_plain(words, ckpt, x, **kw),
-                      f"K1 {label}")
-        self.err["K1"] = max(self.err["K1"], e)
-        self.cases["K1"] += 1
+        self.note("K1", same_bits(
+            self.k1(words, ckpt, x, **kw),
+            kpk.packsell_spmv_fused_plain(words, ckpt, x, **kw),
+            f"K1 {label}"))
         for nb in (1, 3, 8):
             X = torch.from_numpy(rng.standard_normal((mat.m, nb)).astype(
                 np.float32)).to(self.dev)
-            e = same_bits(self.k3(words, ckpt, X, **kw),
-                          kpk.packsell_spmm_fused_plain(words, ckpt, X, **kw),
-                          f"K3 {label} nb={nb}")
-            self.err["K3"] = max(self.err["K3"], e)
-            self.cases["K3"] += 1
+            self.note("K3", same_bits(
+                self.k3(words, ckpt, X, **kw),
+                kpk.packsell_spmm_fused_plain(words, ckpt, X, **kw),
+                f"K3 {label} nb={nb}"))
         # the whole plan against the plain plan, and against the quantized
         # matrix in float64 on the host (an oracle independent of the port)
         pj = kplan.build_plan(mat, force="jnp", ckpt_wr=wr)
@@ -154,25 +231,86 @@ class Smoke:
               f"G={lay.groups} bit-equal K1,K3(nb=1,3,8); "
               f"vs host f64 oracle rel {rel:.2e}", flush=True)
 
-    def check_sell(self, label, a, value_dtype):
+    def check_sell(self, label, a, value_dtype, compute=torch.float32):
         from repro_torch.core import sell as sl
         from repro_torch.kernels import ops
 
         mat = sl.from_csr(a, C=32, sigma=256, value_dtype=value_dtype,
                           device=self.dev)
         rng = np.random.default_rng(8)
+        x = torch.from_numpy(rng.standard_normal(mat.m)).to(self.dev,
+                                                             compute)
+        k = "K2-f64" if compute == torch.float64 else "K2"
+        for val, col in zip(mat.vals, mat.cols):
+            self.note(k, same_bits(self.k2(val, col, x, compute),
+                                   sl.sell_bucket_spmv(val, col, x, compute),
+                                   f"{k} {label} {value_dtype}"))
+        same_bits(ops.sell_spmv(mat, x, compute),
+                  sl.sell_spmv(mat, x, compute),
+                  f"sell_spmv {label} {value_dtype} {compute}")
+        print(f"  {label:28s} SELL {value_dtype:8s} buckets="
+              f"{len(mat.vals)} bit-equal {k}", flush=True)
+
+    def check_bucket(self, label, a, codec, D, strategy="pow2"):
+        """K4 and K5 in both bodies (carry; checkpoint at wb = 32 and 8,
+        partials compared before the width sum) and, on uniform buckets at
+        the smallest feasible half-window, K6; then the plans against the
+        quantized matrix in float64 on the host."""
+        from repro_torch.core import codecs as cd
+        from repro_torch.core import packsell as pk
+        from repro_torch.kernels import packsell_spmv as kpk
+        from repro_torch.kernels import plan as kplan
+
+        mat = pk.from_csr(a, C=32, sigma=256, D=D, codec=codec,
+                          device=self.dev, bucket_strategy=strategy)
+        rng = np.random.default_rng(9)
         x = torch.from_numpy(rng.standard_normal(mat.m).astype(
             np.float32)).to(self.dev)
-        for val, col in zip(mat.vals, mat.cols):
-            e = same_bits(self.k2(val, col, x),
-                          sl.sell_bucket_spmv(val, col, x),
-                          f"K2 {label} {value_dtype}")
-            self.err["K2"] = max(self.err["K2"], e)
-            self.cases["K2"] += 1
-        same_bits(ops.sell_spmv(mat, x), sl.sell_spmv(mat, x),
-                  f"sell_spmv {label} {value_dtype}")
-        print(f"  {label:28s} SELL {value_dtype:8s} buckets="
-              f"{len(mat.vals)} bit-equal K2", flush=True)
+        Xs = {nb: torch.from_numpy(rng.standard_normal((mat.m, nb)).astype(
+            np.float32)).to(self.dev) for nb in (1, 3, 8)}
+        band = strategy == "uniform"
+        hw = smallest_hw(mat) if band else None
+        wins = ([torch.from_numpy(w).to(self.dev)
+                 for w in kplan.band_plan(mat, 8, hw)] if band
+                else [None] * len(mat.packs))
+        for wb in (None, 32, 8):
+            tiles = tuple((8, wb or 32) for _ in mat.packs)
+            ckpts = (kplan._build_block_checkpoints(mat, tiles) if wb
+                     else (None,) * len(mat.packs))
+            for pack, d0, ck, win in zip(mat.packs, mat.d0s, ckpts, wins):
+                kw = dict(codec_name=codec, D=D, wb=wb or 32, ckpt=ck)
+                self.note("K4", same_bits(
+                    self.k4(pack, d0, x, **kw),
+                    kpk.packsell_spmv_bucket_plain(pack, d0, x, **kw),
+                    f"K4 {label} wb={wb}"))
+                for nb, X in Xs.items():
+                    self.note("K5", same_bits(
+                        self.k5(pack, d0, X, **kw),
+                        kpk.packsell_spmm_bucket_plain(pack, d0, X, **kw),
+                        f"K5 {label} wb={wb} nb={nb}"))
+                if band:
+                    self.note("K6", same_bits(
+                        self.k6(pack, d0, win, x, hw=hw, **kw),
+                        kpk.packsell_spmv_band_bucket_plain(
+                            pack, d0, win, x, hw=hw, **kw),
+                        f"K6 {label} wb={wb}"))
+        pf = kplan.build_plan(mat, force="full")
+        y = pf.spmv(mat, x)
+        if band:
+            pb = kplan.build_plan(mat, force="band", hw=hw)
+            same_bits(pb.spmv(mat, x), y, f"band vs full plan {label}")
+        aq = a.tocsr().astype(np.float64)
+        aq.data = cd.quantize_np(aq.data, cd.make_codec(codec), D).astype(
+            np.float64)
+        want = aq @ x.cpu().numpy().astype(np.float64)
+        rel = float(np.abs(y.cpu().numpy() - want).max()
+                    / max(np.abs(want).max(), 1e-30))
+        if not rel < 1e-5:
+            fail(f"{label}: full plan vs host float64 oracle rel {rel:.3e}")
+        print(f"  {label:28s} {strategy:7s} buckets={len(mat.packs)} "
+              f"bit-equal K4,K5(nb=1,3,8){',K6 hw=' + str(hw) if band else ''}"
+              f" (carry, wb=32, wb=8); vs host f64 oracle rel {rel:.2e}",
+              flush=True)
 
     def kernels_vs_plain(self):
         from repro_torch.core import testmats
@@ -195,7 +333,14 @@ class Smoke:
             self.check_packsell(f"{hn} fp16/D15 wr={wr}", h, "fp16", 15, wr)
         for vd in ("float16", "bfloat16", "float32"):
             self.check_sell(hn, h, vd)
-        for k in ("K1", "K2", "K3"):
+        for vd in ("float64", "float32"):
+            self.check_sell(hn, h, vd, torch.float64)
+        for codec, D in (("e8m", 12), ("e8m", 8), ("e8m", 4), ("e8m", 1),
+                         ("bf16", 15)):
+            self.check_bucket(f"{hn} {codec}/D{D}", h, codec, D)
+        for codec, D in (("e8m", 8), ("e8m", 12), ("fp16", 15)):
+            self.check_bucket(f"{hn} {codec}/D{D}", h, codec, D, "uniform")
+        for k in self.err:
             print(f"  {k}: cases {self.cases[k]}, max |kernel - plain| "
                   f"{self.err[k]!r}", flush=True)
 
@@ -236,8 +381,7 @@ class Smoke:
         X = rng.standard_normal((mat.m, 8)).astype(np.float32)
 
         diag = s.diagonal()
-        for k in (self.k1, self.k2, self.k3):
-            k.launches = 0
+        self.zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         x, info = cg.jacobi_pcg_stored(mat, plan, diag, b, tol=1e-8,
@@ -304,7 +448,175 @@ class Smoke:
         return dict(a=s, mat=mat, plan=plan, sell=sell, launches=launches,
                     iters=info.iters)
 
-    # -- phase 5: times at the main path's shapes --------------------------
+    # -- phase 5: the mixed-precision path ----------------------------------
+    def mixed_path(self, a_s):
+        """``adaptive_pcg`` over the e8m tier ladder of ``OperatorSet.
+        adaptive_tiers`` on the sym-scaled matrix ``a_s`` (K4 in every e8m
+        tier, K2 with a float64 sum for the outer residual), then
+        ``plan.spmm`` (nb = 8) on the e8m/D8 tier (K5) and the band plan
+        of e8m/D8 on uniform buckets (K6). Then the same solve on the plain
+        bodies, and fp32 Jacobi-PCG through K2 to 1e-8."""
+        from repro_torch.core import packsell as pk
+        from repro_torch.kernels import plan as kplan
+        from repro_torch.precision import select as psel
+        from repro_torch.solvers import cg
+        from repro_torch.solvers.operators import OperatorSet
+
+        n = a_s.shape[0]
+        ops_k = OperatorSet(a_s, C=32, sigma=256, device=self.dev,
+                            force=self.force_mixed)
+        t0 = time.perf_counter()
+        pplan = ops_k.precision_plan(1e-3, n_probes=2)
+        ladder = psel.tier_ladder(pplan)
+        print(f"  analysis (select_codec, budget 1e-3, 2 probes): "
+              f"{time.perf_counter() - t0:.1f} s (host); ladder "
+              f"{[c.label for c in ladder]}", flush=True)
+        for c in ladder + [psel.PrecisionClass("fp64", 0)]:
+            kind = "fp64" if c.codec == "fp64" else psel.operator_kind(c)
+            t0 = time.perf_counter()
+            ops_k.matvec(kind)
+            built = time.perf_counter() - t0
+            if kind.startswith("plan_"):
+                mat, plan = ops_k.plan_pair(kind)
+                desc = f"buckets={len(mat.packs)} plan: {plan.policy}"
+                if c.D < 15 and plan.variant != "full":
+                    fail(f"tier {c.label}: plan variant {plan.variant!r}, "
+                         "not 'full'")
+            else:
+                desc = f"SELL buckets={len(ops_k.stored(kind).vals)}"
+            print(f"  tier {kind:10s} built in {built:.1f} s (host): {desc}",
+                  flush=True)
+        tiers, labels, sub32, hi = ops_k.adaptive_tiers(1e-3, n_probes=2)
+        diag = torch.as_tensor(a_s.diagonal(), device=self.dev)
+        dinv = torch.where(diag == 0, torch.ones_like(diag), 1.0 / diag)
+        M = lambda r: r * dinv                              # noqa: E731
+        b_h = np.random.default_rng(0).standard_normal(n)
+        b = torch.from_numpy(b_h).to(self.dev)
+        kw = dict(M=M, tol=1e-8, maxiter=60, m_in=16)
+
+        def true_rel(x):
+            x_h = x.cpu().numpy().astype(np.float64)
+            if not np.isfinite(x_h).all():
+                fail("non-finite solution of the mixed-precision solve")
+            return float(np.linalg.norm(b_h - a_s @ x_h)
+                         / np.linalg.norm(b_h))
+
+        self.zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = cg.adaptive_pcg(tiers, b, matvec_hi=hi, **kw)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        after_solve = self.counts()
+        counts = info.tier_matvecs.tolist()
+        share = sum(c for c, s32 in zip(counts, sub32) if s32) / (
+            sum(counts) + info.hi_matvecs)
+        rel = true_rel(x)
+        print(f"  adaptive_pcg (tol 1e-8, m_in 16, Jacobi M): outer steps "
+              f"{info.iters}, promotions {info.promotions}, tier_history "
+              f"{info.tier_history[:info.iters].tolist()}, tier_matvecs "
+              f"{counts}, hi_matvecs {info.hi_matvecs}, sub-32-bit share "
+              f"{share!r}", flush=True)
+        print(f"  solve wall {solve_s!r} s (host clock, ends in synchronize; "
+              f"set-up outside); true relres vs s (host scipy float64) "
+              f"{rel!r}", flush=True)
+        want_k4 = 0
+        for i, c in enumerate(ladder):
+            if c.codec != "fp32":
+                mat, plan = ops_k.plan_pair(psel.operator_kind(c))
+                if plan.variant == "full":
+                    want_k4 += counts[i] * len(mat.packs)
+        fp64_buckets = len(ops_k.stored("fp64").vals)
+        print(f"  launches in the solve: {after_solve}; want K4 "
+              f"{want_k4}, K2-f64 {info.hi_matvecs * fp64_buckets} "
+              f"(hi_matvecs x {fp64_buckets} buckets)", flush=True)
+        if not rel <= 1e-8:
+            fail(f"true relres {rel} > 1e-8")
+        if after_solve["K4"] != want_k4:
+            fail(f"K4 launches {after_solve['K4']} != {want_k4}")
+        if after_solve["K2-f64"] != info.hi_matvecs * fp64_buckets:
+            fail(f"K2-f64 launches {after_solve['K2-f64']} != hi_matvecs "
+                 f"{info.hi_matvecs} x {fp64_buckets} buckets")
+
+        # K5: the multi-RHS product on the e8m/D8 tier's plan
+        mat8, plan8 = ops_k.plan_pair("plan_e8m8")
+        rng = np.random.default_rng(13)
+        X = torch.from_numpy(rng.standard_normal((n, 8)).astype(
+            np.float32)).to(self.dev)
+        Y = plan8.spmm(mat8, X)
+        y0 = plan8.spmv(mat8, X[:, 0].contiguous())
+        if not torch.equal(Y[:, 0], y0):
+            # K5 and K4 add one column in the same order
+            fail("plan.spmm column 0 differs from plan.spmv on it")
+
+        # K6: e8m/D8 on uniform buckets at the smallest feasible half-window
+        t0 = time.perf_counter()
+        mat_u = pk.from_csr(a_s, C=32, sigma=256, D=8, codec="e8m",
+                            device=self.dev, bucket_strategy="uniform")
+        H = smallest_hw(mat_u)
+        band = kplan.get_plan(mat_u, hw=H, force=self.force_band)
+        full = kplan.get_plan(mat_u, force="full")
+        print(f"  e8m/D8 uniform buckets: built in "
+              f"{time.perf_counter() - t0:.1f} s (host), smallest feasible "
+              f"hw {H} ({H / (self.main_side ** 2):.2f} nx*ny); plan: "
+              f"{band.policy}", flush=True)
+        if band.variant != "band":
+            fail(f"uniform e8m/D8 plan is {band.variant!r}, not 'band'")
+        xb = torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).to(self.dev)
+        same_bits(band.spmv(mat_u, xb), full.spmv(mat_u, xb),
+                  "band plan vs full plan, uniform e8m/D8")
+        torch.cuda.synchronize()
+        launches = self.counts()
+        print(f"  launches in this run (solve, spmm, band and full spmv): "
+              f"{launches}", flush=True)
+        for k in ("K4", "K5", "K6", "K2-f64"):
+            if launches[k] < 1:
+                fail(f"{k} never launched on the mixed-precision path")
+
+        # the same solve on the plain bodies, on the card: same schedule
+        ops_p = OperatorSet(a_s, C=32, sigma=256, device=self.dev,
+                            force="jnp")
+        tiers_p, _, _ = psel.build_tier_matvecs(ops_p, ladder)
+        hi_p = ops_p.matvec("fp64")
+        before = self.counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xp, info_p = cg.adaptive_pcg(tiers_p, b, matvec_hi=hi_p, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        dx = float(torch.linalg.vector_norm(x - xp)
+                   / torch.linalg.vector_norm(x))
+        print(f"  plain bodies (force='jnp') on the card: outer steps "
+              f"{info_p.iters}, tier_history "
+              f"{info_p.tier_history[:info_p.iters].tolist()}, tier_matvecs "
+              f"{info_p.tier_matvecs.tolist()}, hi_matvecs "
+              f"{info_p.hi_matvecs}, solve wall {plain_s!r} s, "
+              f"||x - x_plain|| / ||x|| {dx!r}, true relres "
+              f"{true_rel(xp)!r}", flush=True)
+        if self.counts() != before:
+            fail("the plain solve launched a kernel")
+        if (info_p.iters, info_p.promotions, info_p.hi_matvecs) != \
+                (info.iters, info.promotions, info.hi_matvecs) \
+                or not torch.equal(info_p.tier_history, info.tier_history) \
+                or not torch.equal(info_p.tier_matvecs, info.tier_matvecs):
+            fail("the plain solve's schedule differs from the kernels'")
+
+        # the paper's comparison: fp32 Jacobi-PCG through K2 to 1e-8
+        mv32 = ops_k.matvec("fp32")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x32, info32 = cg.pcg(mv32, b, M=M, tol=1e-8, maxiter=5000)
+        torch.cuda.synchronize()
+        fp32_s = time.perf_counter() - t0
+        print(f"  fp32 Jacobi-PCG through K2 (tol 1e-8): iterations "
+              f"{info32.iters}, recurrence relres {float(info32.relres)!r}, "
+              f"solve wall {fp32_s!r} s, true relres {true_rel(x32)!r}",
+              flush=True)
+        return dict(ops=ops_k, ladder=ladder, mat_u=mat_u, band=band,
+                    launches=launches, info=info)
+
+    # -- phase 6: times at the main path's shapes --------------------------
     def times(self, mp):
         from repro_torch.core import codecs as cd
         from repro_torch.core import sell as sl
@@ -333,31 +645,25 @@ class Smoke:
                 *(("K2", lambda v=v, c=c: self.k2(v, c, x),
                    lambda v=v, c=c: sl.sell_bucket_spmv(v, c, x))
                   for v, c in zip(sell.vals, sell.cols))):
-            e = same_bits(got(), want(), f"{k} at HPCG {self.main_side}^3")
-            self.err[k] = max(self.err[k], e)
-            self.cases[k] += 1
+            self.note(k, same_bits(got(), want(),
+                                   f"{k} at HPCG {self.main_side}^3"))
         print(f"  K1, K3 (nb={nb}) and K2 (f16, {len(sell.vals)} buckets) "
               "bit-equal to their plain versions at these shapes", flush=True)
 
-        def csr(values):
-            with warnings.catch_warnings():     # "sparse CSR is in beta"
-                warnings.simplefilter("ignore", UserWarning)
-                return torch.sparse_csr_tensor(
-                    torch.from_numpy(s.indptr.astype(np.int64)),
-                    torch.from_numpy(s.indices.astype(np.int64)),
-                    torch.from_numpy(values.astype(np.float32)),
-                    size=s.shape, check_invariants=False).to(self.dev)
-
-        a_q = csr(cd.quantize_np(s.data, mat.codec, mat.D))
-        a_h = csr(s.data.astype(np.float16))
+        a_q = sparse_csr(s, cd.quantize_np(s.data, mat.codec, mat.D),
+                         self.dev)
+        a_h = sparse_csr(s, s.data.astype(np.float16), self.dev)
         rows = {}
 
-        k1 = timed(lambda: self.k1(words, ckpt, x, **kw), reps)
+        def k1():
+            self.k1(words, ckpt, x, **kw)
+
         k1p = timed(lambda: kpk.packsell_spmv_fused_plain(words, ckpt, x,
                                                           **kw), preps)
         lib1 = timed(lambda: a_q @ x, reps)
         nbytes = 4 * G * wr * C + 4 * G * C + 4 * m + 4 * G * C
-        rows["K1"] = (k1, k1p, lib1, *bound_ms(nbytes, 2 * G * wr * C))
+        rows["K1"] = (device_ms(k1, reps, "spmv_fused_kernel"), k1p, lib1,
+                      *bound_ms(nbytes, 2 * G * wr * C), timed(k1, reps))
 
         def k2_all():
             for v, c in zip(sell.vals, sell.cols):
@@ -367,29 +673,125 @@ class Smoke:
             for v, c in zip(sell.vals, sell.cols):
                 sl.sell_bucket_spmv(v, c, x)
 
-        k2 = timed(k2_all, reps)
         k2p = timed(k2_plain, preps)
         lib2 = timed(lambda: a_h @ x, reps)
         ent = sum(v.numel() for v in sell.vals)
         nbytes = ent * (2 + 4) + 4 * m + 4 * sum(
             v.shape[0] * v.shape[2] for v in sell.vals)
-        rows["K2"] = (k2, k2p, lib2, *bound_ms(nbytes, 2 * ent))
+        rows["K2"] = (device_ms(k2_all, reps, "sell_spmv_kernel"), k2p, lib2,
+                      *bound_ms(nbytes, 2 * ent), timed(k2_all, reps))
 
-        k3 = timed(lambda: self.k3(words, ckpt, X, **kw), reps)
+        def k3():
+            self.k3(words, ckpt, X, **kw)
+
         k3p = timed(lambda: kpk.packsell_spmm_fused_plain(words, ckpt, X,
                                                           **kw), preps)
         lib3 = timed(lambda: a_q @ X, reps)
         nbytes = 4 * G * wr * C + 4 * G * C + 4 * m * nb + 4 * G * C * nb
-        rows["K3"] = (k3, k3p, lib3, *bound_ms(nbytes, 2 * G * wr * C * nb))
-
-        card = card_line()
-        for k, (t, tp, tl, tb, by) in rows.items():
-            print(f"  {k}: {t!r} ms (plain {tp!r} ms, torch.sparse CSR "
-                  f"{tl!r} ms, bound {tb!r} ms by {by}) on {card}",
-                  flush=True)
+        rows["K3"] = (device_ms(k3, reps, "spmm_fused_kernel"), k3p, lib3,
+                      *bound_ms(nbytes, 2 * G * wr * C * nb), timed(k3, reps))
+        print_rows(rows, "")
         return rows
 
-    # -- phase 6: where a solve's time goes --------------------------------
+    def times_bucket(self, mx):
+        """K4 (the e8m/D8, D12 and D1 tiers), K5 (nb = 8, the e8m/D8 tier),
+        K6 (the uniform e8m/D8 band plan) and K2-f64 (the fp64 operator) at
+        the mixed path's shapes, each per matvec: every bucket's launch in
+        the plan's body (checkpoint partials, before the width sum)."""
+        from repro_torch.core import codecs as cd
+        from repro_torch.core import sell as sl
+        from repro_torch.kernels import packsell_spmv as kpk
+
+        ops_k = mx["ops"]
+        s = ops_k.csr
+        m, nb = s.shape[1], 8
+        rng = np.random.default_rng(14)
+        x = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(
+            self.dev)
+        X = torch.from_numpy(rng.standard_normal((m, nb)).astype(
+            np.float32)).to(self.dev)
+        x64 = torch.from_numpy(rng.standard_normal(m)).to(self.dev)
+        reps, preps = self.reps, max(self.reps // 10, 2)
+
+        def bucket_row(k, mat, plan, kernel, plain, xx, name):
+            kck = plan.kckpts or (None,) * len(mat.packs)
+            calls = []
+            for b, (pack, d0) in enumerate(zip(mat.packs, mat.d0s)):
+                sb, wb = plan.tiles[b]
+                kw = dict(codec_name=mat.codec_name, D=mat.D, wb=wb,
+                          ckpt=kck[b])
+                if kernel is self.k6:
+                    calls.append(((pack, d0, plan.wins[b], xx),
+                                  dict(kw, hw=plan.hw, sb=sb)))
+                else:
+                    calls.append(((pack, d0, xx), kw))
+            outs = []
+            for a, kw in calls:
+                got = kernel(*a, **kw)
+                self.note(k, same_bits(got, plain(*a, **kw),
+                                       f"{k} at HPCG {self.main_side}^3"))
+                outs.append(got)
+
+            def run():
+                for a, kw in calls:
+                    kernel(*a, **kw)
+
+            tp = timed(lambda: [plain(*a, **kw) for a, kw in calls], preps)
+            words = sum(p.numel() for p in mat.packs)
+            seeds = sum((c.numel() if c is not None else d0.numel())
+                        for c, d0 in zip(kck, mat.d0s))
+            nbytes = 4 * (words + seeds + sum(o.numel() for o in outs)
+                          + xx.numel())
+            if kernel is self.k6:
+                nbytes += 4 * sum(w.numel() for w in plan.wins)
+            cols = xx.shape[1] if xx.dim() == 2 else 1
+            tb, by = bound_ms(nbytes, 2 * words * cols)
+            return device_ms(run, reps, name), tp, tb, by, timed(run, reps)
+
+        rows = {}
+        for D, key in ((8, "K4"), (12, "K4 e8m/D12"), (1, "K4 e8m/D1")):
+            mat, plan = ops_k.plan_pair(f"plan_e8m{D}")
+            t, tp, tb, by, te = bucket_row(
+                "K4", mat, plan, self.k4, kpk.packsell_spmv_bucket_plain, x,
+                "bucket_spmv_kernel")
+            a_q = sparse_csr(s, cd.quantize_np(s.data, mat.codec, D),
+                             self.dev)
+            rows[key] = (t, tp, timed(lambda: a_q @ x, reps), tb, by, te)
+        mat, plan = ops_k.plan_pair("plan_e8m8")
+        a_q8 = sparse_csr(s, cd.quantize_np(s.data, mat.codec, 8), self.dev)
+        t, tp, tb, by, te = bucket_row(
+            "K5", mat, plan, self.k5, kpk.packsell_spmm_bucket_plain, X,
+            "bucket_spmm_kernel")
+        rows["K5"] = (t, tp, timed(lambda: a_q8 @ X, reps), tb, by, te)
+        t, tp, tb, by, te = bucket_row(
+            "K6", mx["mat_u"], mx["band"], self.k6,
+            kpk.packsell_spmv_band_bucket_plain, x, "bucket_spmv_kernel")
+        rows["K6"] = (t, tp, timed(lambda: a_q8 @ x, reps), tb, by, te)
+
+        sell = ops_k.stored("fp64")
+        f64 = torch.float64
+        for v, c in zip(sell.vals, sell.cols):
+            self.note("K2-f64", same_bits(
+                self.k2(v, c, x64, f64), sl.sell_bucket_spmv(v, c, x64, f64),
+                f"K2-f64 at HPCG {self.main_side}^3"))
+
+        def k2_all():
+            for v, c in zip(sell.vals, sell.cols):
+                self.k2(v, c, x64, f64)
+
+        tp = timed(lambda: [sl.sell_bucket_spmv(v, c, x64, f64)
+                            for v, c in zip(sell.vals, sell.cols)], preps)
+        a64 = sparse_csr(s, s.data, self.dev, np.float64)
+        ent = sum(v.numel() for v in sell.vals)
+        nbytes = ent * (8 + 4) + 8 * m + 8 * sum(
+            v.shape[0] * v.shape[2] for v in sell.vals)
+        rows["K2-f64"] = (device_ms(k2_all, reps, "sell_spmv_kernel"), tp,
+                          timed(lambda: a64 @ x64, reps),
+                          *bound_ms(nbytes, 2 * ent), timed(k2_all, reps))
+        print_rows(rows, " per matvec")
+        return rows
+
+    # -- phase 7: where a solve's time goes --------------------------------
     def breakdown(self, mp, iters: int = 20, reps: int = 3):
         """A solve's cost split into set-up and iterations, and the device's
         busy share of the same run. Each solve is timed by CUDA events
@@ -491,9 +893,13 @@ def main() -> int:
     smoke.kernels_vs_plain()
     print("== 4. main path: HPCG 104^3, plan_fp16, Jacobi-PCG", flush=True)
     mp = smoke.main_path()
-    print("== 5. times at the main path's shapes (CUDA events)", flush=True)
+    print("== 5. mixed-precision PCG, HPCG 104^3: adaptive_pcg over the e8m "
+          "tier ladder", flush=True)
+    mx = smoke.mixed_path(mp["a"])
+    print("== 6. times at the main paths' shapes (CUDA events)", flush=True)
     rows = smoke.times(mp)
-    print("== 6. where a solve's time goes (torch.profiler)", flush=True)
+    rows.update(smoke.times_bucket(mx))
+    print("== 7. where a solve's time goes (torch.profiler)", flush=True)
     smoke.breakdown(mp)
 
     src = "src/repro_torch/kernels/csrc/"
@@ -504,18 +910,27 @@ def main() -> int:
                "src/repro/kernels/sell_spmv.py:47"),
         "K3": ("packsell_spmm_fused", src + "packsell_fused.cu",
                "src/repro/kernels/packsell_spmv.py:620"),
+        "K4": ("packsell_spmv_bucket", src + "packsell_bucket.cu",
+               "src/repro/kernels/packsell_spmv.py:133"),
+        "K5": ("packsell_spmm_bucket", src + "packsell_bucket.cu",
+               "src/repro/kernels/packsell_spmv.py:412"),
+        "K6": ("packsell_spmv_band_bucket", src + "packsell_bucket.cu",
+               "src/repro/kernels/packsell_spmv.py:271"),
+        "K2-f64": ("sell_spmv_bucket (float64 sum)", src + "sell_spmv.cu",
+                   "src/repro/kernels/sell_spmv.py:47"),
     }
+    launches = {**mx["launches"], **mp["launches"]}
     kernels = []
     for k, (kname, source, replaces) in meta.items():
-        t, tp, tl, tb, by = rows[k]
+        t, tp, tl, tb, by, te = rows[k]
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": mp["launches"][k],
+                        "launches": launches[k],
                         "max_abs_err": smoke.err[k], "ms": t,
                         "plain_ms": tp, "bound_ms": tb, "bound_by": by,
-                        "library_ms": tl,
+                        "library_ms": tl, "eager_ms": te,
                         "checked_cases": smoke.cases[k]})
-    print(f"== 7. done in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"== 8. done in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

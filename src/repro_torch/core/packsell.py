@@ -120,9 +120,10 @@ def _bucket_spmv_scan(pack, d0, xc, codec, D, mlim):
     return t
 
 
-def _scatter_rows(n: int, parts, outrows, tail, device) -> torch.Tensor:
+def _scatter_rows(n: int, parts, outrows, tail, device,
+                  dtype=torch.float32) -> torch.Tensor:
     """y[outrow[k]] = t[k], sentinel rows (>= n) dropped."""
-    y = torch.zeros((n,) + tail, dtype=torch.float32, device=device)
+    y = torch.zeros((n,) + tail, dtype=dtype, device=device)
     for t, outrow in zip(parts, outrows):
         o = outrow.to(torch.int64)
         keep = o < n

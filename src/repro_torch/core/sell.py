@@ -58,26 +58,31 @@ class SELLMatrix:
                     words_bucketed=self.words_bucketed)
 
 
-def sell_bucket_spmv(val: torch.Tensor, col: torch.Tensor,
-                     x: torch.Tensor) -> torch.Tensor:
-    """One bucket's stored-row outputs ``y[s, c] = Σ_j f32(val[s,j,c]) ·
-    x[min(col[s,j,c], m-1)]``, float32, added in j order from 0. SELL
-    columns are < m by construction (padding has col 0), so the clamp
-    never moves a read."""
+def sell_bucket_spmv(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
+                     compute_dtype=torch.float32) -> torch.Tensor:
+    """One bucket's stored-row outputs ``y[s, c] = Σ_j cd(val[s,j,c]) ·
+    cd(x)[min(col[s,j,c], m-1)]`` in the compute dtype ``cd`` (float32, or
+    float64 for the fp64 operator), added in j order from 0. SELL columns
+    are < m by construction (padding has col 0), so the clamp never moves
+    a read."""
     S, w, C = val.shape
-    xc = _nonempty(x.to(torch.float32))
+    xc = _nonempty(x.to(compute_dtype))
     col = col.long().clamp(0, xc.shape[0] - 1)
-    t = torch.zeros((S, C), dtype=torch.float32, device=x.device)
+    t = torch.zeros((S, C), dtype=compute_dtype, device=x.device)
     for j in range(w):
-        t = t + val[:, j, :].to(torch.float32) * xc[col[:, j, :]]
+        t = t + val[:, j, :].to(compute_dtype) * xc[col[:, j, :]]
     return t
 
 
-def sell_spmv(mat: SELLMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x over SELL (paper §3) with the plain bucket body;
+def sell_spmv(mat: SELLMatrix, x: torch.Tensor,
+              compute_dtype=torch.float32) -> torch.Tensor:
+    """y = A @ x over SELL (paper §3) with the plain bucket body, in
+    ``compute_dtype`` (the reference's ``sell_spmv_jnp``);
     ``repro_torch.kernels.ops.sell_spmv`` runs the kernel instead."""
-    parts = [sell_bucket_spmv(v, c, x) for v, c in zip(mat.vals, mat.cols)]
-    return _scatter_rows(mat.n, parts, mat.outrows, (), x.device)
+    parts = [sell_bucket_spmv(v, c, x, compute_dtype)
+             for v, c in zip(mat.vals, mat.cols)]
+    return _scatter_rows(mat.n, parts, mat.outrows, (), x.device,
+                         compute_dtype)
 
 
 def _values_to_torch(v: np.ndarray, value_dtype: str) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``build/repro_torch_kernels/<name>-<hash>.so`` at the root of the
-checkout, keyed by a hash of the source and the flags, at first use.
+checkout, keyed by a hash of the source, the shared ``*.cuh`` headers
+and the flags, at first use.
 :func:`build_all` starts one ``nvcc`` per source, all at once. A missing
 ``nvcc`` or a failed build raises; nothing falls back to the CPU.
 """
@@ -19,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("packsell_fused", "sell_spmv")
+SOURCES = ("packsell_fused", "packsell_bucket", "sell_spmv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +38,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # the shared includes
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -18,6 +18,9 @@
 // offset 0 and are NOT skipped: 0 * x[ckpt] keeps 0 * inf = NaN, as the
 // reference does.
 //
+// The word decode and the clamp live in packsell_decode.cuh, shared with
+// the per-bucket kernels (packsell_bucket.cu).
+//
 // Bit-exactness: products and sums are __fmul_rn / __fadd_rn in j order
 // starting from the first product, so nvcc cannot contract them into an
 // FMA and each kernel equals its plain PyTorch version bit for bit.
@@ -34,58 +37,13 @@
 // and the word read is a broadcast.
 
 #include <cstdint>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "packsell_decode.cuh"
 
 namespace {
 
-// Encodings of the fused stream (plan.FusedLayout.encoding).
-enum Encoding { ENC_F16 = 0, ENC_TOP16 = 1, ENC_FIXED16 = 2, ENC_WORDS = 3 };
-// Codecs of the canonical word (core/codecs.py), used by ENC_WORDS.
-enum Codec { CODEC_FP16 = 0, CODEC_BF16 = 1, CODEC_E8M = 2, CODEC_FIXED = 3 };
-
-struct DecodeArgs {
-  int D;        // delta width of the canonical words
-  float scale;  // fixed16: dequant scale; ENC_WORDS + fixed: 2^-frac
-};
-
-// (value, run-local column offset) of one fused-stream word: the device
-// twin of repro_torch.kernels.packsell_spmv.fused_decode_word.
-template <int ENC, int CODEC>
-__device__ __forceinline__ void decode_word(uint32_t w, const DecodeArgs& a,
-                                            float& v, uint32_t& off) {
-  if (ENC == ENC_F16) {
-    v = __half2float(__ushort_as_half(static_cast<unsigned short>(w >> 16)));
-    off = w & 0xFFFFu;
-  } else if (ENC == ENC_TOP16) {
-    v = __uint_as_float(w & 0xFFFF0000u);
-    off = w & 0xFFFFu;
-  } else if (ENC == ENC_FIXED16) {
-    v = __fmul_rn(__int2float_rn(static_cast<int32_t>(w) >> 16), a.scale);
-    off = w & 0xFFFFu;
-  } else {
-    // canonical branch-free unpack (paper Fig. 3b); shift <= 30, so no
-    // shift reaches the word width
-    const uint32_t flag = w & 1u;
-    const uint32_t shift = static_cast<uint32_t>(31 - a.D) * flag;
-    off = (w << shift) >> (shift + 1u);
-    const uint32_t vbits = flag ? (w & ~((2u << a.D) - 1u)) : 0u;
-    if (CODEC == CODEC_FP16) {
-      v = __half2float(__ushort_as_half(static_cast<unsigned short>(vbits >> 16)));
-    } else if (CODEC == CODEC_BF16) {
-      v = __uint_as_float(vbits & 0xFFFF0000u);
-    } else if (CODEC == CODEC_E8M) {
-      v = __uint_as_float(vbits);
-    } else {
-      v = __fmul_rn(__int2float_rn(static_cast<int32_t>(vbits) >> (a.D + 1)),
-                    a.scale);
-    }
-  }
-}
-
-__device__ __forceinline__ int64_t clamp_col(int64_t col, int64_t mlim) {
-  return col < 0 ? 0 : (col > mlim ? mlim : col);
-}
+using namespace packsell;  // decode_word, clamp_col, the enumerators
 
 template <int ENC, int CODEC>
 __global__ void spmv_fused_kernel(const uint32_t* __restrict__ words,

@@ -1,21 +1,38 @@
-"""The fused-stream PackSELL SpMV (K1) and SpMM (K3): CUDA kernels and
-their plain PyTorch versions.
+"""The PackSELL SpMV kernels and their plain PyTorch versions.
 
-They replace the Pallas kernels ``packsell_spmv_fused`` and
-``packsell_spmm_fused`` of ``repro/kernels/packsell_spmv.py`` (bodies
-``_kernel_fused`` / ``_kernel_fused_mm``, decode ``fused_decode_word``).
-Both walk the plan engine's fused stream: words ``[G, wr, C]`` (int32
-bits of uint32 words) with one int32 checkpoint per group lane, and
-return float32 group partials ``[G, C]`` (``[G, C, nb]`` for SpMM); the
-plan applies the level-chain tail and the inverse-permutation gather.
+Fused stream (the plan engine's repacked ``[G, wr, C]`` words with one
+int32 checkpoint per group lane; the plan applies the level-chain tail
+and the inverse-permutation gather):
 
-Each wrapper takes its plain version for CPU tensors only; a CUDA tensor
-launches the kernel (``csrc/packsell_fused.cu``) or raises. Both versions
-add in the same order with no fused multiply-add, so on the card they
-agree bit for bit. The column clamp is the jnp fused body's ``[0, m-1]``
-(see the note in the CUDA source). The bound on the H100 is bytes: the
-words are read once, coalesced across lanes, and x is gathered from L2.
-``launches`` on each wrapper counts the kernel launches it made.
+* K1 ``packsell_spmv_fused`` → group partials ``[G, C]``;
+* K3 ``packsell_spmm_fused`` → ``[G, C, nb]``.
+
+Per width bucket (canonical words ``[S, w, C]``, a column cursor per
+stored row; the plan concatenates the buckets):
+
+* K4 ``packsell_spmv_bucket`` → ``[S, C]``, the full-x SpMV;
+* K6 ``packsell_spmv_band_bucket``, K4 with x cut to a ``2·hw`` window
+  per block of ``sb`` slices;
+* K5 ``packsell_spmm_bucket`` → ``[S, C, nb]``, the multi-RHS K4.
+
+The carry body (no checkpoints) walks all ``w`` words from ``d0[s]``; the
+checkpoint body seeds each width block of ``wb`` words from ``ckpt[s, wi,
+c]`` and returns partials ``[nw, S, C(, nb)]`` that
+:func:`sum_width_partials` adds.
+
+They replace the Pallas kernels of ``repro/kernels/packsell_spmv.py`` of
+the same names (bodies ``_kernel_fused``/``_kernel_fused_mm``,
+``_kernel_full``/``_kernel_full_ckpt``, ``_kernel_band``/
+``_kernel_band_ckpt``, ``_kernel_spmm``/``_kernel_spmm_ckpt``). Each
+wrapper takes its plain version for CPU tensors only; a CUDA tensor
+launches the kernel (``csrc/packsell_fused.cu``, ``csrc/packsell_bucket.cu``)
+or raises. Both versions add in the same order with no fused
+multiply-add, so on the card they agree bit for bit. K1, K3, K4 and K5
+clamp columns to ``[0, m-1]`` (the jnp bodies' rule); K6 keeps the
+reference's zero-padded window (see the notes in the CUDA sources). The
+bound on the H100 is bytes: the words are read once, coalesced across
+lanes, and x is gathered from L2. ``launches`` on each wrapper counts the
+kernel launches it made.
 """
 from __future__ import annotations
 
@@ -28,6 +45,10 @@ from ..core.packsell import _nonempty
 from . import _build
 
 ENCODINGS = {"f16": 0, "top16": 1, "fixed16": 2, "words": 3}
+
+
+#: kernel kinds of ``csrc/packsell_bucket.cu``
+_BUCKET_KINDS = {"full": 0, "band": 1, "spmm": 2}
 
 
 def _codec_id(codec_name: str) -> int:
@@ -105,6 +126,100 @@ def packsell_spmm_fused_plain(words3d: torch.Tensor, ckpt: torch.Tensor,
         t = v[..., None] * xc[(ck + local).clamp_(0, xc.shape[0] - 1)]
         acc = t if acc is None else acc + t
     return acc
+
+
+def _bucket_walk(pack: torch.Tensor, d0: torch.Tensor, ckpt, codec_name: str,
+                 D: int, wb: int):
+    """Decode one bucket: ``(v float32 [S, w, C], cursor int64 [S, w, C],
+    wb, nw)``, the cursor taken after each word's delta. The carry body
+    seeds it from ``d0[s]`` (one block of all ``w`` words); the checkpoint
+    body seeds block ``wi`` from ``ckpt[s, wi, c]``."""
+    S, w, C = pack.shape
+    v, d = cd.unpack_words_torch(pack, cd.make_codec(codec_name), D)
+    csum = torch.cumsum(d, dim=1)
+    if ckpt is None:
+        return (v.to(torch.float32),
+                d0.to(torch.int64)[:, None, None] + csum, max(w, 1), 1)
+    nw = -(-w // wb)
+    if tuple(ckpt.shape) != (S, nw, C):
+        raise ValueError(f"checkpoints {tuple(ckpt.shape)} do not fit pack "
+                         f"{tuple(pack.shape)} at wb={wb} (want {(S, nw, C)})")
+    blk = torch.arange(w, device=pack.device) // wb
+    start = (csum - d)[:, ::wb, :]          # delta sum before each block
+    cur = ckpt.to(torch.int64)[:, blk, :] + csum - start[:, blk, :]
+    return v.to(torch.float32), cur, wb, nw
+
+
+def _block_sums(p: torch.Tensor, wb: int, nw: int) -> torch.Tensor:
+    """Products ``[S, w, C(, nb)]`` → partials ``[nw, S, C(, nb)]``: per
+    width block, a sum in j order from 0. The zeros that fill the last
+    block add +0, which changes no sum (one that starts at +0 is never
+    -0), so this equals a walk that stops at word ``w``."""
+    S, w = p.shape[:2]
+    tail = tuple(p.shape[2:])
+    if nw * wb > w:
+        p = torch.cat([p, p.new_zeros((S, nw * wb - w) + tail)], dim=1)
+    p = p.reshape((S, nw, wb) + tail)
+    acc = p.new_zeros((S, nw) + tail)
+    for jj in range(wb):
+        acc = acc + p[:, :, jj]
+    return acc.transpose(0, 1).contiguous()
+
+
+def sum_width_partials(part: torch.Tensor) -> torch.Tensor:
+    """``[nw, S, C(, nb)]`` → ``[S, C(, nb)]``: the width-block partials of
+    a checkpoint body added in wi order. The plan applies this one function
+    to a kernel's partials and to its plain version's alike."""
+    if part.shape[0] == 0:
+        return part.new_zeros(part.shape[1:])
+    acc = part[0]
+    for wi in range(1, part.shape[0]):
+        acc = acc + part[wi]
+    return acc
+
+
+def packsell_spmv_bucket_plain(pack: torch.Tensor, d0: torch.Tensor,
+                               x: torch.Tensor, *, codec_name: str, D: int,
+                               wb: int = 32, ckpt=None) -> torch.Tensor:
+    """One bucket's stored-row outputs ``[S, C]`` (carry body) or width-block
+    partials ``[nw, S, C]`` (``ckpt`` given), columns clamped to [0, m-1]."""
+    xc = _nonempty(x.to(torch.float32))
+    v, cur, wb, nw = _bucket_walk(pack, d0, ckpt, codec_name, D, wb)
+    part = _block_sums(v * xc[cur.clamp(0, xc.shape[0] - 1)], wb, nw)
+    return part if ckpt is not None else part[0]
+
+
+def packsell_spmv_band_bucket_plain(pack: torch.Tensor, d0: torch.Tensor,
+                                    win: torch.Tensor, x: torch.Tensor, *,
+                                    codec_name: str, D: int, hw: int,
+                                    sb: int = 8, wb: int = 32,
+                                    ckpt=None) -> torch.Tensor:
+    """K6's plain version: as :func:`packsell_spmv_bucket_plain`, but slice
+    ``s`` reads x through the window at ``base = win[s // sb] · hw``:
+    ``x[base + clip(cur - base, 0, 2hw-1)]``, and 0 at and past m (the
+    reference's x zero-padded by ``(-m) % hw + hw``)."""
+    xc = _nonempty(x.to(torch.float32))
+    m = xc.shape[0]
+    v, cur, wb, nw = _bucket_walk(pack, d0, ckpt, codec_name, D, wb)
+    S = pack.shape[0]
+    base = (win.to(torch.int64)[torch.arange(S, device=pack.device) // sb]
+            * hw)[:, None, None]
+    g = base + (cur - base).clamp(0, 2 * hw - 1)
+    xv = torch.where(g < m, xc[g.clamp(max=m - 1)], xc.new_zeros(()))
+    part = _block_sums(v * xv, wb, nw)
+    return part if ckpt is not None else part[0]
+
+
+def packsell_spmm_bucket_plain(pack: torch.Tensor, d0: torch.Tensor,
+                               x: torch.Tensor, *, codec_name: str, D: int,
+                               wb: int = 32, ckpt=None) -> torch.Tensor:
+    """K5's plain version for x: [m, nb]: ``[S, C, nb]`` (carry body) or
+    partials ``[nw, S, C, nb]``."""
+    xc = _nonempty(x.to(torch.float32))
+    v, cur, wb, nw = _bucket_walk(pack, d0, ckpt, codec_name, D, wb)
+    part = _block_sums(v[..., None] * xc[cur.clamp(0, xc.shape[0] - 1)],
+                       wb, nw)
+    return part if ckpt is not None else part[0]
 
 
 # ---------------------------------------------------------------------------
@@ -221,3 +336,126 @@ def packsell_spmm_fused(words3d: torch.Tensor, ckpt: torch.Tensor,
 
 
 packsell_spmm_fused.launches = 0
+
+
+def _bucket_lib() -> ctypes.CDLL:
+    lib = _build.load("packsell_bucket")
+    if not getattr(lib, "_typed", False):
+        lib.packsell_bucket.argtypes = [_I, _P, _P, _P, _P, _P, _P, _L, _I,
+                                        _I, _I, _I, _I, _L, _I, _L, _I, _I,
+                                        ctypes.c_float, _P]
+        lib.packsell_bucket.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _launch_bucket(kind: str, pack, d0, ckpt, win, x, *, codec_name: str,
+                   D: int, wb: int, sb: int = 1, hw: int = 0):
+    """Check the operands, allocate the output ``[nw, S, C(, nb)]`` and
+    launch one per-bucket kernel (none when the output is empty), counting
+    the launch on its wrapper."""
+    wrapper = {"full": packsell_spmv_bucket,
+               "band": packsell_spmv_band_bucket,
+               "spmm": packsell_spmm_bucket}[kind]
+    what = wrapper.__name__
+    dev = pack.device
+    ops = [t for t in (pack, d0, ckpt, win, x) if t is not None]
+    if dev.type != "cuda" or any(t.device != dev for t in ops):
+        raise ValueError(f"{what}: operands must lie on one CUDA device (got "
+                         f"{[str(t.device) for t in ops]})")
+    if any(t.dtype != torch.int32 for t in ops[:-1]):
+        raise TypeError(f"{what}: pack, d0, ckpt and win must be int32 (got "
+                        f"{[t.dtype for t in ops[:-1]]})")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what}: x must be float32 (got {x.dtype})")
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError(f"{what}: operands must be contiguous")
+    S, w, C = pack.shape
+    xdim = 2 if kind == "spmm" else 1
+    if tuple(d0.shape) != (S,) or x.dim() != xdim:
+        raise ValueError(f"{what}: shapes pack {tuple(pack.shape)}, d0 "
+                         f"{tuple(d0.shape)}, x {tuple(x.shape)} do not fit")
+    if ckpt is None:
+        wb, nw = w, 1
+    else:
+        nw = -(-w // wb)
+        if tuple(ckpt.shape) != (S, nw, C):
+            raise ValueError(f"{what}: checkpoints {tuple(ckpt.shape)} do "
+                             f"not fit pack {tuple(pack.shape)} at wb={wb}")
+    if win is not None and win.numel() < -(-S // sb):
+        raise ValueError(f"{what}: {win.numel()} windows for {S} slices at "
+                         f"sb={sb}")
+    nb = x.shape[1] if kind == "spmm" else 0
+    shape = (nw, S, C) + ((nb,) if kind == "spmm" else ())
+    if S * nw * C == 0 or w == 0 or (kind == "spmm" and nb == 0):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)   # all written
+    xc = _nonempty(x)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bucket_lib().packsell_bucket(
+            _BUCKET_KINDS[kind], pack.data_ptr(), d0.data_ptr(),
+            None if ckpt is None else ckpt.data_ptr(),
+            None if win is None else win.data_ptr(), xc.data_ptr(),
+            out.data_ptr(), S, w, C, wb, nw, nb, xc.shape[0], sb, hw,
+            _codec_id(codec_name), D, _scale_arg(codec_name, "words", 0.0),
+            stream)
+    wrapper.launches += 1
+    _build.check(rc, what)
+    return out
+
+
+def packsell_spmv_bucket(pack: torch.Tensor, d0: torch.Tensor,
+                         x: torch.Tensor, *, codec_name: str, D: int,
+                         wb: int = 32, ckpt=None) -> torch.Tensor:
+    """K4: one bucket's ``[S, C]`` float32 (carry body), or width-block
+    partials ``[nw, S, C]`` with ``ckpt`` int32 ``[S, nw, C]``. CPU tensors
+    take :func:`packsell_spmv_bucket_plain`; CUDA tensors launch the
+    kernel."""
+    if pack.device.type == "cpu":
+        return packsell_spmv_bucket_plain(pack, d0, x, codec_name=codec_name,
+                                          D=D, wb=wb, ckpt=ckpt)
+    out = _launch_bucket("full", pack, d0, ckpt, None, x,
+                         codec_name=codec_name, D=D, wb=wb)
+    return out if ckpt is not None else out[0]
+
+
+packsell_spmv_bucket.launches = 0
+
+
+def packsell_spmv_band_bucket(pack: torch.Tensor, d0: torch.Tensor,
+                              win: torch.Tensor, x: torch.Tensor, *,
+                              codec_name: str, D: int, hw: int, sb: int = 8,
+                              wb: int = 32, ckpt=None) -> torch.Tensor:
+    """K6: K4 with slice ``s`` reading x through the ``2·hw`` window that
+    starts at ``win[s // sb] · hw`` (``win`` int32 from
+    ``plan.band_plan``). CPU tensors take
+    :func:`packsell_spmv_band_bucket_plain`; CUDA tensors launch the
+    kernel."""
+    if pack.device.type == "cpu":
+        return packsell_spmv_band_bucket_plain(
+            pack, d0, win, x, codec_name=codec_name, D=D, hw=hw, sb=sb,
+            wb=wb, ckpt=ckpt)
+    out = _launch_bucket("band", pack, d0, ckpt, win, x,
+                         codec_name=codec_name, D=D, wb=wb, sb=sb, hw=hw)
+    return out if ckpt is not None else out[0]
+
+
+packsell_spmv_band_bucket.launches = 0
+
+
+def packsell_spmm_bucket(pack: torch.Tensor, d0: torch.Tensor,
+                         x: torch.Tensor, *, codec_name: str, D: int,
+                         wb: int = 32, ckpt=None) -> torch.Tensor:
+    """K5: multi-RHS K4 for x: [m, nb]: ``[S, C, nb]`` float32 (carry body)
+    or partials ``[nw, S, C, nb]``. CPU tensors take
+    :func:`packsell_spmm_bucket_plain`; CUDA tensors launch the kernel."""
+    if pack.device.type == "cpu":
+        return packsell_spmm_bucket_plain(pack, d0, x, codec_name=codec_name,
+                                          D=D, wb=wb, ckpt=ckpt)
+    out = _launch_bucket("spmm", pack, d0, ckpt, None, x,
+                         codec_name=codec_name, D=D, wb=wb)
+    return out if ckpt is not None else out[0]
+
+
+packsell_spmm_bucket.launches = 0

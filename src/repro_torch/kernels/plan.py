@@ -14,15 +14,22 @@ LRU); every matvec then runs the plan's operands with no host work:
   all with ``permuted=True`` (``cg.jacobi_pcg_stored``).
 
 Variant policy (``force=``, default ``auto``; logged in
-:attr:`SpMVPlan.policy`). No environment variable moves it: the
-reference's ``REPRO_SPMV_POLICY`` and ``REPRO_PLAN_CURSOR_CACHE`` are not
-read here.
+:attr:`SpMVPlan.policy`; the decision is :func:`choose_variant`). No
+environment variable moves it: the reference's ``REPRO_SPMV_POLICY`` and
+``REPRO_PLAN_CURSOR_CACHE`` are not read here.
 
-* On CUDA, ``auto`` picks ``fused`` when the stream is feasible. An
-  infeasible stream (a group's column span overflows every offset
-  encoding, e.g. e8m at D=8), ``force="full"`` and ``force="band"`` raise
-  ``NotImplementedError``: they need the per-bucket kernels K4/K6, not yet
-  ported. ``force="jnp"`` asks for the plain PyTorch body explicitly.
+* On CUDA, ``auto`` picks ``fused`` (K1) when the stream is feasible, then
+  ``band`` (K6) when :func:`band_plan` is feasible and ``m >=
+  _BAND_MIN_M``, else ``full`` (K4): the reference's order without its
+  x-residency limit. ``force="full"``/``"band"`` pin the per-bucket
+  kernels (an infeasible band raises ``ValueError``); a forced ``fused``
+  whose stream is infeasible runs ``full``. ``force="jnp"`` asks for the
+  plain PyTorch body explicitly.
+* The per-bucket variants get width-block checkpoints ``int32[S, nw, C]``
+  under ``decode_cache='checkpoint'`` (the kernels' checkpoint body, whose
+  partials the plan adds with ``packsell_spmv.sum_width_partials``) and
+  none under ``'full'``/``'0'`` (the carry body). ``plan.spmm`` on them
+  runs K5.
 * On the CPU the decisions mirror the reference's on a non-TPU backend:
   ``auto`` gives ``jnp`` (the plain body over the fused stream, or the full
   cursor cache when the stream is infeasible), and ``force="fused"`` runs
@@ -53,10 +60,90 @@ _CACHE_MODES = ("checkpoint", "full", "0")
 #: first. Power-of-two so pow2 bucket widths >= wr need no run padding.
 _CKPT_WIDTHS = (128, 64, 32, 16, 8)
 
-#: where the per-bucket kernels are tracked (ROADMAP.md, TPU kernels queue)
-_K4_K6 = ("the per-bucket kernels K4 (packsell_spmv_bucket) and K6 "
-          "(packsell_spmv_band_bucket) are not ported to CUDA yet "
-          "(ROADMAP.md, queue 2)")
+#: default half-window of the band variant (elements, a multiple of 128)
+_DEF_HW = 4096
+#: smallest m for which ``auto`` on CUDA takes a feasible band plan
+_BAND_MIN_M = 65_536
+
+_NO_X_LIMIT = ("; no x-residency limit (the CUDA kernels gather x from "
+               "device memory through L2)")
+
+
+# ---------------------------------------------------------------------------
+# Band-window planning (host-side, per bucket)
+# ---------------------------------------------------------------------------
+
+
+def bucket_band_windows(d0, maxcol, sb: int, hw: int):
+    """Per-slice-block window ids (half-window units) for one bucket, or
+    None when some slice-block's column span exceeds the 2*hw window."""
+    d0 = np.asarray(d0)
+    mc = np.asarray(maxcol)
+    S = len(d0)
+    s_pad = -S % sb
+    if s_pad:
+        d0 = np.concatenate([d0, np.full(s_pad, d0[-1] if S else 0, np.int32)])
+        mc = np.concatenate([mc, np.full(s_pad, mc[-1] if S else 0, np.int32)])
+    d0b = d0.reshape(-1, sb).min(axis=1)
+    mcb = mc.reshape(-1, sb).max(axis=1)
+    win = d0b // hw
+    if np.any(mcb - win * hw >= 2 * hw):
+        return None
+    return win.astype(np.int32)
+
+
+def band_plan(mat: PackSELLMatrix, sb: int, hw: int):
+    """Per-bucket window ids (numpy int32) if the band kernel is feasible
+    for every slice-block, else None. Feasibility needs column locality
+    within each ``sb``-slice block, so banded matrices want
+    ``bucket_strategy='uniform'`` (contiguous slices)."""
+    wins = []
+    for d0, maxcol in zip(mat.d0s, mat.maxcols):
+        win = bucket_band_windows(d0.cpu().numpy(), maxcol.cpu().numpy(), sb,
+                                  hw)
+        if win is None:
+            return None
+        wins.append(win)
+    return wins
+
+
+def choose_variant(policy: str, *, on_cuda: bool, fused_ok: bool,
+                   band_ok: bool, m: int) -> tuple[str, str]:
+    """``(variant, reason)`` for a policy, given whether the plan lives on
+    CUDA, whether the fused stream and the band windows are feasible, and
+    the column count ``m``. A forced band that is infeasible raises."""
+    src = f"force={policy!r}"
+    if policy == "jnp":
+        return "jnp", f"forced via {src}: plain PyTorch body"
+    if policy == "full":
+        return "full", f"forced via {src}: per-bucket kernel K4"
+    if policy == "band":
+        if not band_ok:
+            raise ValueError("band kernel infeasible for this matrix/hw")
+        return "band", f"forced via {src}: band-windowed kernel K6"
+    overflow = ("fused stream infeasible (group column span overflows every "
+                "compact offset encoding)")
+    if policy == "fused":
+        if fused_ok:
+            return "fused", f"forced via {src}"
+        if on_cuda:
+            return "full", (f"forced fused via {src} demoted to full: "
+                            f"{overflow} — per-bucket kernel K4")
+        return "jnp", f"forced fused via {src} demoted to jnp: {overflow}"
+    if not on_cuda:
+        return "jnp", ("auto on the CPU: plain PyTorch body (force='fused' "
+                       "runs the kernel wrapper, which takes the plain "
+                       "version for CPU tensors)")
+    if fused_ok:
+        return "fused", ("auto on CUDA: fused stream feasible — "
+                         "fused-stream kernel K1")
+    if band_ok and m >= _BAND_MIN_M:
+        return "band", (f"auto on CUDA: {overflow}; band feasible and "
+                        f"m={m} >= _BAND_MIN_M={_BAND_MIN_M} — "
+                        "band-windowed kernel K6")
+    why = ("band infeasible" if not band_ok else
+           f"band feasible but m={m} < _BAND_MIN_M={_BAND_MIN_M}")
+    return "full", f"auto on CUDA: {overflow}; {why} — per-bucket kernel K4"
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +191,20 @@ def _build_cursor_cache(mat: PackSELLMatrix):
         cols.append(torch.from_numpy(
             np.minimum(cum0[:, 1:, :], mlim).astype(np.int32)).to(mat.device))
     return tuple(cols)
+
+
+def _build_block_checkpoints(mat: PackSELLMatrix, tiles):
+    """Per-bucket ``int32[S, nw, C]`` width-block checkpoints for the
+    per-bucket kernels: the exact cursor before word ``wi * wb`` of each
+    stored row, so width blocks need no cursor carry."""
+    out = []
+    for (_, wb), pack, d0 in zip(tiles, mat.packs, mat.d0s):
+        S, w, C = pack.shape
+        nw = -(-w // wb)
+        cum0 = _bucket_cursor_prefix(pack, d0, mat.codec, mat.D)
+        ck = cum0[:, ::wb, :][:, :nw, :]
+        out.append(torch.from_numpy(ck.astype(np.int32)).to(mat.device))
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -411,7 +512,7 @@ class SpMVPlan:
     variant, the decode-cache layout and the σ-permutation maps, fixed at
     build time on the matrix's device."""
 
-    variant: str                      # 'fused' | 'jnp'
+    variant: str                      # 'fused' | 'band' | 'full' | 'jnp'
     policy: str                       # human-readable decision log
     outrow_cat: torch.Tensor          # int32 [total_stored] stored → orig row
     n: int
@@ -426,6 +527,10 @@ class SpMVPlan:
     fused_layout: Optional[FusedLayout] = None
     total_words: int = 0              # bucketed words (decode-cache pricing)
     fused_trim: bool = True
+    hw: int = _DEF_HW                 # band half-window (elements)
+    tiles: tuple = ()                 # per-bucket (sb, wb)
+    wins: Optional[tuple] = None      # per-bucket int32 windows (band only)
+    kckpts: Optional[tuple] = None    # per-bucket int32 [S, nw, C]
 
     # -- σ-permutation helpers (stored-row order <-> original order) -------
     def from_stored(self, t: torch.Tensor) -> torch.Tensor:
@@ -442,7 +547,8 @@ class SpMVPlan:
     def device_operands(self) -> dict:
         return {"cols": self.cols, "inv": self.inv_cat,
                 "inv2": self.inv2_cat, "outrow": self.outrow_cat,
-                "fused": self.fused}
+                "fused": self.fused, "kckpt": self.kckpts,
+                "wins": self.wins}
 
     def execute_with(self, mat: PackSELLMatrix, dev: dict, x: torch.Tensor,
                      *, permuted: bool = False,
@@ -465,7 +571,7 @@ class SpMVPlan:
         if self.variant == "fused":
             raise ValueError("fused plan dispatched without its stream "
                              "operand (dev['fused'] is None)")
-        t_cat = self._bucket_parts(mat, dev, xc)
+        t_cat = self._bucket_parts(mat, dev, xc, multi_rhs)
         return t_cat if permuted else stored_unpermute(t_cat, dev["inv"])
 
     def _fused_epilogue(self, part, dev: dict, permuted: bool):
@@ -474,14 +580,32 @@ class SpMVPlan:
         return _fused_unpermute2(_fused_tail2(part, self.fused_layout),
                                  dev["inv2"])
 
-    def _bucket_parts(self, mat, dev, xc):
-        """The per-bucket plain bodies: the full cursor cache, or the scan
-        decode when there is no cache (``decode_cache='0'``)."""
+    def _bucket_parts(self, mat, dev, xc, multi_rhs: bool):
+        """The per-bucket bodies: the kernels K4/K6 (K5 for SpMM) of the
+        ``full``/``band`` variants, else the plain full cursor cache, or
+        the scan decode when there is no cache (``decode_cache='0'``)."""
         tail = tuple(xc.shape[1:])
         xg = pk._nonempty(xc)
+        kck = dev.get("kckpt")
         parts = []
         for b, (pack, d0) in enumerate(zip(mat.packs, mat.d0s)):
-            if dev["cols"] is not None:
+            if self.variant in ("full", "band"):
+                sb, wb = self.tiles[b]
+                ck = None if kck is None else kck[b]
+                kw = dict(codec_name=mat.codec_name, D=mat.D, wb=wb, ckpt=ck)
+                if multi_rhs:
+                    # a band plan's SpMM runs the full-x K5, as the
+                    # reference's does
+                    t = _pk.packsell_spmm_bucket(pack, d0, xc, **kw)
+                elif self.variant == "band":
+                    t = _pk.packsell_spmv_band_bucket(
+                        pack, d0, dev["wins"][b], xc, hw=self.hw, sb=sb,
+                        **kw)
+                else:
+                    t = _pk.packsell_spmv_bucket(pack, d0, xc, **kw)
+                if ck is not None:
+                    t = _pk.sum_width_partials(t)
+            elif dev["cols"] is not None:
                 t = _cursor_spmv(pack, dev["cols"][b], xg, mat.codec, mat.D)
             else:
                 t = pk._bucket_spmv_scan(pack, d0, xg, mat.codec, mat.D,
@@ -508,6 +632,7 @@ class SpMVPlan:
 
     def describe(self) -> dict:
         return {"variant": self.variant, "policy": self.policy,
+                "tiles": [list(t) for t in self.tiles], "hw": self.hw,
                 "device": str(self.device), "n": self.n, "m": self.m,
                 "total_stored": self.total_stored,
                 "cache_mode": self.cache_mode,
@@ -526,6 +651,9 @@ class SpMVPlan:
             cache = self.fused_layout.checkpoint_bytes
             stream = self.fused_layout.stream_bytes
             pad = self.fused_layout.pad_words
+        elif self.cache_mode == "checkpoint" and self.kckpts is not None:
+            cache = sum(4 * c.numel() for c in self.kckpts)
+            stream, pad = 0, 0
         elif self.cols is not None:
             cache, stream, pad = full, 0, 0
         else:
@@ -543,13 +671,16 @@ class SpMVPlan:
 # ---------------------------------------------------------------------------
 
 
-def build_plan(mat: PackSELLMatrix, *, force: str = "auto",
+def build_plan(mat: PackSELLMatrix, *, sb: int = 8, wb: int = 32,
+               hw: int = _DEF_HW, force: str = "auto",
                decode_cache: str = "checkpoint", fused_trim: bool = True,
                ckpt_wr: int | None = None) -> SpMVPlan:
     """Host-side plan construction (run once per matrix; the policy is in
-    the module docstring). ``decode_cache`` in {'checkpoint', 'full', '0'}
-    picks the plain body's decode cache; ``fused_trim=False`` keeps the
-    fused layout shape-derived; ``ckpt_wr=`` pins the checkpoint width."""
+    the module docstring). ``sb``/``wb`` are the per-bucket kernels' slice
+    and width blocks and ``hw`` the band half-window; ``decode_cache`` in
+    {'checkpoint', 'full', '0'} picks the decode cache; ``fused_trim=False``
+    keeps the fused layout shape-derived; ``ckpt_wr=`` pins the checkpoint
+    width."""
     policy = force.lower()
     if policy not in _POLICIES:
         raise ValueError(f"force={policy!r} not in {_POLICIES}")
@@ -557,47 +688,35 @@ def build_plan(mat: PackSELLMatrix, *, force: str = "auto",
     if mode not in _CACHE_MODES:
         raise ValueError(f"decode_cache={mode!r} not in {_CACHE_MODES}")
     on_cuda = mat.device.type == "cuda"
-    src = f"force={policy!r}"
-    if policy in ("full", "band"):
-        raise NotImplementedError(
-            f"variant {policy!r} ({src}): {_K4_K6}")
-
+    tiles = tuple((sb, wb) for _ in mat.packs)
+    wins = None
+    if policy in ("auto", "band") and mat.m > 0:
+        wins = band_plan(mat, sb, hw)
     fused, layout, orders = (None, None, None)
     if policy == "fused" or (policy == "auto" and on_cuda):
         fused, layout, orders = _build_fused_stream(mat, trim=fused_trim,
                                                     wr=ckpt_wr)
-    if policy == "jnp":
-        variant, reason = "jnp", f"forced via {src}: plain PyTorch body"
-    elif policy == "auto" and not on_cuda:
-        variant = "jnp"
-        reason = ("auto on the CPU: plain PyTorch body (force='fused' runs "
-                  "the kernel wrapper, which takes the plain version for "
-                  "CPU tensors)")
-    elif fused is None:
-        if on_cuda:
-            raise NotImplementedError(
-                f"fused stream infeasible for codec {mat.codec_name} at "
-                f"D={mat.D} (a group's column span overflows every compact "
-                f"offset encoding) and {_K4_K6}; force='jnp' runs the plain "
-                "body")
-        variant = "jnp"
-        reason = (f"forced fused via {src} demoted to jnp: fused stream "
-                  "infeasible (group column span overflows every compact "
-                  "offset encoding)")
-        mode = "full"
-    else:
-        variant = "fused"
-        reason = (f"forced via {src}" if policy == "fused" else
-                  "auto on CUDA: fused stream feasible — fused-stream kernel")
-        reason += ("; no x-residency limit (the CUDA kernels gather x from "
-                   "device memory through L2)")
+    variant, reason = choose_variant(policy, on_cuda=on_cuda,
+                                     fused_ok=fused is not None,
+                                     band_ok=wins is not None, m=mat.m)
+    if variant == "jnp" and policy == "fused":
+        mode = "full"            # the demoted plan runs the cursor cache
+    if variant != "jnp" and on_cuda:
+        reason += _NO_X_LIMIT
+    if variant != "band":
+        wins = None
+    if variant in ("full", "band"):
+        fused, layout, orders = (None, None, None)
 
-    cols = None
+    cols = kckpts = None
     if variant == "fused":
         if mode != "checkpoint":
             reason += (f"; decode_cache={mode!r} overridden to "
                        "'checkpoint' (the fused stream is the decode cache)")
             mode = "checkpoint"
+    elif variant in ("full", "band"):
+        if mode == "checkpoint":
+            kckpts = _build_block_checkpoints(mat, tiles)
     else:
         if mode != "checkpoint":
             fused, layout, orders = (None, None, None)
@@ -634,7 +753,10 @@ def build_plan(mat: PackSELLMatrix, *, force: str = "auto",
         device=mat.device, inv_cat=inv, inv2_cat=inv2, cols=cols,
         cache_mode=mode, fused=fused, fused_layout=layout,
         total_words=sum(int(np.prod(p.shape)) for p in mat.packs),
-        fused_trim=fused_trim)
+        fused_trim=fused_trim, hw=hw, tiles=tiles,
+        wins=None if wins is None else tuple(
+            torch.from_numpy(w).to(mat.device) for w in wins),
+        kckpts=kckpts)
     _quick_validate(plan)
     return plan
 
@@ -693,21 +815,23 @@ def _plan_token(mat: PackSELLMatrix) -> int:
     return tok
 
 
-def get_plan(mat: PackSELLMatrix, *, force: str = "auto",
+def get_plan(mat: PackSELLMatrix, *, sb: int = 8, wb: int = 32,
+             hw: int = _DEF_HW, force: str = "auto",
              decode_cache: str = "checkpoint", fused_trim: bool = True,
              ckpt_wr: int | None = None) -> SpMVPlan:
-    """Cached plan lookup, keyed on ``(matrix token, policy, decode-cache
-    mode, trim, ckpt_wr)``; entries drop when the matrix dies (weakref) or
-    fall off the LRU end (:data:`PLAN_CACHE_CAP`)."""
-    key = (_plan_token(mat), force.lower(), decode_cache.lower(), fused_trim,
-           ckpt_wr)
+    """Cached plan lookup, keyed on ``(matrix token, sb, wb, hw, policy,
+    decode-cache mode, trim, ckpt_wr)``; entries drop when the matrix dies
+    (weakref) or fall off the LRU end (:data:`PLAN_CACHE_CAP`)."""
+    key = (_plan_token(mat), sb, wb, hw, force.lower(), decode_cache.lower(),
+           fused_trim, ckpt_wr)
     ent = _PLANS.get(key)
     if ent is not None and ent[0]() is mat:
         _STATS["hits"] += 1
         _PLANS[key] = _PLANS.pop(key)       # move to MRU position
         return ent[1]
-    plan = build_plan(mat, force=force, decode_cache=decode_cache,
-                      fused_trim=fused_trim, ckpt_wr=ckpt_wr)
+    plan = build_plan(mat, sb=sb, wb=wb, hw=hw, force=force,
+                      decode_cache=decode_cache, fused_trim=fused_trim,
+                      ckpt_wr=ckpt_wr)
 
     def _drop(_ref, key=key):
         if _PLANS.pop(key, None) is not None:

@@ -1,4 +1,5 @@
-"""Preconditioned CG and Jacobi-PCG in stored-row order.
+"""Preconditioned CG, Jacobi-PCG in stored-row order, and the
+residual-adaptive mixed-precision PCG.
 
 The convergence criterion is the paper's eq. (6), ``||b - A x||_2 /
 ||b||_2 < tol``, tracked through the CG recurrence residual. The loop is
@@ -7,12 +8,14 @@ update order, the same ``done`` test after each residual update, so a
 solve stops at the same iteration. Outer vectors keep ``b``'s dtype
 (float64 when ``b`` is float64); the SpMV runs in float32 and its output
 is cast up. Each iteration reads ``done`` on the host, one device
-synchronisation per iteration.
+synchronisation per iteration. :func:`adaptive_pcg` syncs once per outer
+step: its ``m_in`` inner iterations have a fixed count.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 Matvec = Callable[[torch.Tensor], torch.Tensor]
@@ -22,6 +25,18 @@ class SolveInfo(NamedTuple):
     iters: int               # iterations executed
     relres: torch.Tensor     # final relative residual (recurrence)
     history: torch.Tensor    # relres per iteration, -1 past convergence
+
+
+class AdaptiveSolveInfo(NamedTuple):
+    """Outcome of :func:`adaptive_pcg` (the reference's seven fields)."""
+
+    iters: int                 # outer (refinement) steps executed
+    relres: torch.Tensor       # final TRUE relative residual ||b-Ax||/||b||
+    history: torch.Tensor      # true relres per outer step, -1 past end
+    tier_history: torch.Tensor  # int32 tier used per outer step, -1 past end
+    promotions: int            # number of codec-tier promotions
+    tier_matvecs: torch.Tensor  # int32[n_tiers] inner matvecs per tier
+    hi_matvecs: int            # high-precision (residual) matvecs
 
 
 def _nonzero(v: torch.Tensor) -> torch.Tensor:
@@ -100,3 +115,82 @@ def jacobi_pcg_stored(mat, plan, diag, b: torch.Tensor, *,
     x_s, info = pcg(matvec_s, b_s, M=lambda r: r * dinv_s, tol=tol,
                     maxiter=maxiter, dtype=dtype)
     return _kp.stored_unpermute(x_s, dev["inv"]), info
+
+
+def adaptive_pcg(tiers, b: torch.Tensor, *, M: Matvec | None = None,
+                 matvec_hi: Matvec | None = None, tol: float = 1e-9,
+                 maxiter: int = 60, m_in: int = 16, x0=None, dtype=None,
+                 stag_factor: float = 0.25, start_tier: int = 0
+                 ) -> tuple[torch.Tensor, AdaptiveSolveInfo]:
+    """Residual-adaptive mixed-precision PCG (iterative refinement).
+
+    ``tiers`` is a codec ladder of matvecs, lowest precision first
+    (``precision.select.build_tier_matvecs`` over a ``tier_ladder``). Each
+    outer step runs ``m_in`` inner PCG iterations on ``A_tier d = r`` from
+    ``d = 0`` with the current tier and ``M``, updates ``x`` and
+    recomputes the TRUE residual with ``matvec_hi`` (default: the last
+    tier). A step that contracts the true residual by less than
+    ``stag_factor`` promotes the operator to the next tier. The reference's
+    ``lax.while_loop`` written as a host loop, in the same update order:
+    the stop and promotion tests read the residual on the host once per
+    outer step, and the tier is chosen there.
+    """
+    if not tiers:
+        raise ValueError("need at least one tier")
+    dot, norm = torch.dot, torch.linalg.vector_norm
+    n_tiers = len(tiers)
+    dtype = dtype or b.dtype
+    b = b.to(dtype)
+    x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
+    bnorm = _nonzero(norm(b))
+    M = M or (lambda r: r)
+    hi = matvec_hi or tiers[-1]
+    # the host's stop and promotion tests compare in the history's type,
+    # as the reference's traced comparisons do
+    hdt = torch.float64 if dtype == torch.float64 else torch.float32
+    as_h = (np.float64 if hdt == torch.float64 else np.float32)
+
+    def inner_solve(tier: int, rhs: torch.Tensor) -> torch.Tensor:
+        """m_in PCG iterations on A_tier d = rhs from d = 0: no host sync."""
+        d = torch.zeros_like(rhs)
+        r = rhs
+        z = M(r).to(dtype)
+        p = z
+        rz = dot(r, z)
+        for _ in range(m_in):
+            Ap = tiers[tier](p).to(dtype)
+            alpha = rz / _nonzero(dot(p, Ap))
+            d = d + alpha * p
+            r = r - alpha * Ap
+            z = M(r).to(dtype)
+            rz_new = dot(r, z)
+            p = z + (rz_new / _nonzero(rz)) * p
+            rz = rz_new
+        return d
+
+    r = b - hi(x).to(dtype)
+    rel_t = norm(r) / bnorm
+    hist = torch.full((maxiter + 1,), -1.0, dtype=hdt, device=b.device)
+    hist[0] = rel_t
+    thist = torch.full((maxiter + 1,), -1, dtype=torch.int32)
+    mvc = torch.zeros((n_tiers,), dtype=torch.int32)
+    relres = as_h(float(rel_t))
+    tol_h, stag_h = as_h(tol), as_h(stag_factor)
+    k, tier, nprom, hic = 0, min(start_tier, n_tiers - 1), 0, 1
+    while k < maxiter and relres >= tol_h:
+        x = x + inner_solve(tier, r)
+        r = b - hi(x).to(dtype)
+        rel_t = norm(r) / bnorm
+        mvc[tier] += m_in
+        hic += 1
+        hist[k + 1] = rel_t
+        thist[k] = tier
+        rel_new = as_h(float(rel_t))
+        # stagnation: the tier's quantization floor caps the contraction
+        if rel_new > stag_h * relres and rel_new >= tol_h \
+                and tier < n_tiers - 1:
+            tier += 1
+            nprom += 1
+        relres = rel_new
+        k += 1
+    return x, AdaptiveSolveInfo(k, rel_t, hist, thist, nprom, mvc, hic)

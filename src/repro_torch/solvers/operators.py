@@ -1,10 +1,14 @@
 """Linear operators over the sparse formats, with per-precision variants.
 
 ``OperatorSet`` builds the requested variants of one matrix once, on one
-device, and hands out matvec callables. This slice of the port carries
-the ``plan_<codec>`` kinds (the cached plan engine) and ``plan_pair`` for
-``cg.jacobi_pcg_stored``; the other kind families of the reference parse
-but raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+device, and hands out matvec callables. The port carries the dense SELL
+kinds (``fp64`` with a float64 sum, ``fp32``, ``fp16``, ``bf16``; kernel
+K2), the ``plan_<codec>`` kinds (the cached plan engine) with
+``plan_pair`` for ``cg.jacobi_pcg_stored``, the budget-driven ``auto:``
+kind, and the ``cg.adaptive_pcg`` inputs (:meth:`OperatorSet.precision_plan`,
+:meth:`OperatorSet.adaptive_tiers`). The other kind families of the
+reference parse but raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -17,7 +21,10 @@ import torch
 
 from .. import _device
 from ..core import packsell as pk
+from ..core import sell as sl
+from ..kernels import ops as kops
 from ..kernels import plan as kplan
+from ..precision import select as psel
 
 Matvec = Callable[[torch.Tensor], torch.Tensor]
 
@@ -53,14 +60,12 @@ KIND_MENU = (
     "| dist_mixed:<budget> | guarded:plan_<codec>   (<codec>: fp16 | bf16 "
     "| e8m<D>, e.g. e8m8; <budget>: a positive float, e.g. 1e-3)")
 
-#: where each family not in this slice is tracked
+#: where each family not ported yet is tracked
 _NOT_PORTED = {
-    "dense": "ROADMAP.md queue 1, M4 (SELL operator kinds)",
     "csr64": "ROADMAP.md queue 1, M4 (CSR operator kind)",
     "packsell": "ROADMAP.md queue 1, M4 (per-call packsell_ kinds)",
     "dist": "ROADMAP.md queue 1, M9 (distribution)",
-    "auto": "ROADMAP.md queue 1, M5 (mixed precision)",
-    "mixed": "ROADMAP.md queue 1, M5 (mixed precision)",
+    "mixed": "ROADMAP.md queue 1, M5 (MixedPackSELL and the composite)",
     "dist_auto": "ROADMAP.md queue 1, M5 and M9",
     "dist_mixed": "ROADMAP.md queue 1, M5 and M9",
     "guarded": "ROADMAP.md queue 1, M6 (guards)",
@@ -143,11 +148,15 @@ def parse_kind(kind: str) -> KindSpec:
         f"unknown operator kind {kind!r}; valid kinds: {KIND_MENU}")
 
 
+_STORE = "ROADMAP.md queue 1, M5 (PrecisionStore)"
+
+
 @dataclasses.dataclass
 class OperatorSet:
     """The operator variants of one (scaled) matrix, built lazily on
     ``device`` (``None`` means the GPU). ``force`` is the plan variant of
-    every ``plan_<codec>`` kind (``kernels.plan.build_plan``)."""
+    every ``plan_<codec>`` kind (``kernels.plan.build_plan``); ``"jnp"``
+    also gives the dense kinds the plain SELL body instead of K2."""
 
     csr: sp.csr_matrix
     C: int = 32
@@ -166,20 +175,60 @@ class OperatorSet:
     def diag(self) -> np.ndarray:
         return self.csr.diagonal()
 
+    # -- adaptive precision (repro_torch.precision) ------------------------
+    def precision_plan(self, error_budget: float, *, mode: str = "global",
+                       store=None, **select_kw):
+        """Budget → :class:`~repro_torch.precision.select.PrecisionPlan`
+        for this matrix (cached per budget, mode and selection
+        arguments)."""
+        if store is not None:
+            raise NotImplementedError(f"store= is not ported yet: {_STORE}")
+        key = ("pplan", error_budget, mode, tuple(sorted(select_kw.items())))
+        if key not in self._cache:
+            self._cache[key] = psel.select_codec(
+                self.csr, error_budget, mode=mode, sigma=self.sigma,
+                **select_kw)
+        return self._cache[key]
+
+    def adaptive_tiers(self, error_budget: float, *, store=None,
+                       **select_kw):
+        """The ``cg.adaptive_pcg`` inputs at a budget: ``(matvecs, labels,
+        sub32_mask, matvec_hi)`` over the plan's tier ladder; ``matvec_hi``
+        is the fp64 operator (float64 sum) of the outer residual."""
+        plan = self.precision_plan(error_budget, store=store, **select_kw)
+        mvs, labels, sub32 = psel.build_tier_matvecs(
+            self, psel.tier_ladder(plan))
+        return mvs, labels, sub32, self.matvec("fp64")
+
     def matvec(self, kind: str) -> Matvec:
-        """The matvec of a ``plan_<codec>`` kind: the matrix's cached
-        SpMVPlan (on CUDA the fused-stream kernel)."""
+        """The matvec of a dense SELL kind (K2; ``fp64`` sums in float64),
+        a ``plan_<codec>`` kind (the matrix's cached SpMVPlan) or an
+        ``auto:<budget>`` kind (the selected codec's ``plan_`` kind, or
+        ``fp32``)."""
         if kind in self._cache:
             return self._cache[kind][0]
         spec = parse_kind(kind)
-        if spec.family != "plan":
+        if spec.family == "dense":
+            dtype = {"fp64": "float64", "fp32": "float32",
+                     "fp16": "float16", "bf16": "bfloat16"}[spec.codec]
+            mat = sl.from_csr(self.csr, C=self.C, sigma=self.sigma,
+                              value_dtype=dtype, device=self.device)
+            comp = torch.float64 if spec.codec == "fp64" else torch.float32
+            body = sl.sell_spmv if self.force == "jnp" else kops.sell_spmv
+            fn = lambda x, mat=mat, comp=comp: body(mat, x, comp)  # noqa: E731
+        elif spec.family == "plan":
+            mat = pk.from_csr(self.csr, C=self.C, sigma=self.sigma, D=spec.D,
+                              codec=spec.codec, device=self.device)
+            p = kplan.get_plan(mat, force=self.force)
+            fn = lambda x, mat=mat, p=p: p.spmv(mat, x)  # noqa: E731
+        elif spec.family == "auto":
+            sub = psel.operator_kind(self.precision_plan(spec.budget).primary)
+            fn = self.matvec(sub)
+            mat = self._cache[sub][1]
+        else:
             raise NotImplementedError(
                 f"operator kind {kind!r} (family {spec.family!r}) is not "
                 f"ported yet: {_NOT_PORTED[spec.family]}")
-        mat = pk.from_csr(self.csr, C=self.C, sigma=self.sigma, D=spec.D,
-                          codec=spec.codec, device=self.device)
-        p = kplan.get_plan(mat, force=self.force)
-        fn = lambda x, mat=mat, p=p: p.spmv(mat, x)  # noqa: E731
         self._cache[kind] = (fn, mat)
         return fn
 

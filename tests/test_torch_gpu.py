@@ -1,8 +1,11 @@
 """repro_torch's CUDA kernels against their plain PyTorch versions, on the
 card: K1 (fused-stream SpMV) and K3 (its multi-RHS twin) on every stream
-encoding and checkpoint width, K2 (SELL) on every value type, bit for bit
-over the tiny suite, and a Jacobi-PCG solve through K1 that stops at the
-plain body's iteration.
+encoding and checkpoint width, K4 (per-bucket SpMV), K5 (its multi-RHS
+twin) and K6 (band-windowed) in both bodies over every codec, K2 (SELL)
+on every value type and with a float64 accumulator, bit for bit over the
+tiny suite; a Jacobi-PCG solve through K1 that stops at the plain body's
+iteration, and a mixed-precision solve through K4 and K2-f64 with the
+plain bodies' schedule.
 
 Run on a machine with a CUDA device:
 
@@ -22,6 +25,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import packsell_spmv as kpk
 from repro_torch.kernels import plan as kplan
 from repro_torch.kernels import sell_spmv as ksl
+from repro_torch.precision import select as psel
 from repro_torch.solvers import cg
 from repro_torch.solvers.operators import OperatorSet, sym_scale
 
@@ -59,9 +63,8 @@ def _x(m, dev, nb=None, seed=0):
 def test_k1_k3_bit_equal_plain(cuda, klass, codec, D):
     mat = pk.from_csr(SUITE[klass], C=32, sigma=64, D=D, codec=codec,
                       device=cuda)
-    try:
-        plan = kplan.build_plan(mat, force="fused")
-    except NotImplementedError:
+    plan = kplan.build_plan(mat, force="fused")
+    if plan.variant != "fused":
         pytest.skip(f"{codec}/D{D} has no fused stream on {klass}")
     words, ckpt = plan.fused
     lay = plan.fused_layout
@@ -166,3 +169,144 @@ def test_jacobi_pcg_through_k1_matches_plain_iterations(cuda):
                                       s.diagonal(), b, tol=1e-8, maxiter=500)
     assert info_p.iters == info.iters
     assert torch.equal(x, xp)
+
+
+# ---------------------------------------------------------------------------
+# K4, K5, K6 and K2-f64
+# ---------------------------------------------------------------------------
+
+BUCKET_CODECS = (("fp16", 15), ("bf16", 15), ("e8m", 12), ("e8m", 8),
+                 ("e8m", 4), ("e8m", 1), ("fixed12", 15))
+
+
+def _smallest_hw(mat, sb=8):
+    return next(h for h in range(128, 1 << 22, 128)
+                if kplan.band_plan(mat, sb, h) is not None)
+
+
+@pytest.mark.parametrize("klass", sorted(SUITE))
+@pytest.mark.parametrize("codec,D", BUCKET_CODECS)
+@pytest.mark.parametrize("wb", [None, 32, 8])
+def test_k4_k5_k6_bit_equal_plain(cuda, klass, codec, D, wb):
+    """Carry body (wb None) and checkpoint body (partials compared before
+    the shared width sum), on uniform buckets so that K6 has windows."""
+    mat = pk.from_csr(SUITE[klass], C=32, sigma=64, D=D, codec=codec,
+                      device=cuda, bucket_strategy="uniform")
+    tiles = tuple((8, wb or 32) for _ in mat.packs)
+    ckpts = (kplan._build_block_checkpoints(mat, tiles) if wb
+             else (None,) * len(mat.packs))
+    hw = _smallest_hw(mat)
+    wins = [torch.from_numpy(w).to(cuda) for w in kplan.band_plan(mat, 8, hw)]
+    x = _x(mat.m, cuda)
+    X = _x(mat.m, cuda, nb=11, seed=4)       # two K5 groups of rhs
+    launches = [(k.launches) for k in (kpk.packsell_spmv_bucket,
+                                       kpk.packsell_spmv_band_bucket,
+                                       kpk.packsell_spmm_bucket)]
+    for pack, d0, ck, win in zip(mat.packs, mat.d0s, ckpts, wins):
+        kw = dict(codec_name=codec, D=D, wb=wb or 32, ckpt=ck)
+        _bits_equal(kpk.packsell_spmv_bucket(pack, d0, x, **kw),
+                    kpk.packsell_spmv_bucket_plain(pack, d0, x, **kw))
+        _bits_equal(
+            kpk.packsell_spmv_band_bucket(pack, d0, win, x, hw=hw, **kw),
+            kpk.packsell_spmv_band_bucket_plain(pack, d0, win, x, hw=hw,
+                                                **kw))
+        for nb in (1, 3, 8, 11):
+            _bits_equal(kpk.packsell_spmm_bucket(pack, d0, X[:, :nb]
+                                                 .contiguous(), **kw),
+                        kpk.packsell_spmm_bucket_plain(pack, d0, X[:, :nb],
+                                                       **kw))
+    nbk = len(mat.packs)
+    assert [k.launches for k in (kpk.packsell_spmv_bucket,
+                                 kpk.packsell_spmv_band_bucket,
+                                 kpk.packsell_spmm_bucket)] == \
+        [launches[0] + nbk, launches[1] + nbk, launches[2] + 4 * nbk]
+    # the plans: band and full agree bit for bit on finite x, and each
+    # equals its plain body's plan output within float32 rounding
+    mode = "checkpoint" if wb else "0"
+    pb = kplan.build_plan(mat, force="band", hw=hw, decode_cache=mode,
+                          wb=wb or 32)
+    pf = kplan.build_plan(mat, force="full", decode_cache=mode, wb=wb or 32)
+    assert (pb.variant, pf.variant) == ("band", "full")
+    _bits_equal(pb.spmv(mat, x), pf.spmv(mat, x))
+    _bits_equal(pb.spmm(mat, X), pf.spmm(mat, X))
+    pj = kplan.build_plan(mat, force="jnp")
+    torch.testing.assert_close(pf.spmv(mat, x), pj.spmv(mat, x), rtol=1e-5,
+                               atol=1e-5)
+    torch.cuda.synchronize()
+
+
+def test_k4_k6_pad_words_differ_only_past_m(cuda):
+    """The σ-padding rows' PAD words have cursors past m - 1: K4 reads
+    x[m - 1] (inf, so 0 · inf = NaN) where K6 reads the zero padding."""
+    import scipy.sparse as sp
+
+    rows = np.repeat(np.arange(8), 3)
+    a = sp.csr_matrix((np.arange(1.0, 25.0), (rows, np.tile([0, 2, 4], 8))),
+                      shape=(40, 5))
+    mat = pk.from_csr(a, C=8, sigma=8, D=12, codec="e8m", device=cuda)
+    x = torch.tensor([1, 2, 3, 4, float("inf")], device=cuda)
+    hw, n_differ = 128, 0
+    for pack, d0, win in zip(mat.packs, mat.d0s, kplan.band_plan(mat, 8, hw)):
+        win = torch.from_numpy(win).to(cuda)
+        kw = dict(codec_name="e8m", D=12)
+        k4 = kpk.packsell_spmv_bucket(pack, d0, x, **kw)
+        k6 = kpk.packsell_spmv_band_bucket(pack, d0, win, x, hw=hw, **kw)
+        _bits_equal(k4, kpk.packsell_spmv_bucket_plain(pack, d0, x, **kw))
+        _bits_equal(k6, kpk.packsell_spmv_band_bucket_plain(pack, d0, win, x,
+                                                            hw=hw, **kw))
+        differ = ~((k4 == k6) | (torch.isnan(k4) & torch.isnan(k6)))
+        assert torch.isnan(k4[differ]).all() and (k6[differ] == 0).all()
+        n_differ += int(differ.sum())
+    assert n_differ > 0
+
+
+@pytest.mark.parametrize("klass", sorted(SUITE))
+@pytest.mark.parametrize("vdt", ["float16", "bfloat16", "float32",
+                                 "float64"])
+def test_k2_f64_accumulator_bit_equal_plain(cuda, klass, vdt):
+    mat = sl.from_csr(SUITE[klass], C=32, sigma=64, value_dtype=vdt,
+                      device=cuda)
+    x = _x(mat.m, cuda).double()
+    for val, col in zip(mat.vals, mat.cols):
+        y = ksl.sell_spmv_bucket(val, col, x, torch.float64)
+        assert y.dtype == torch.float64
+        want = sl.sell_bucket_spmv(val, col, x, torch.float64)
+        assert torch.equal(y.view(torch.int64), want.view(torch.int64))
+    got = ops.sell_spmv(mat, x, torch.float64)
+    assert torch.equal(got, sl.sell_spmv(mat, x, torch.float64))
+
+
+def test_adaptive_pcg_through_k4_matches_plain_schedule(cuda):
+    s, _ = sym_scale(testmats.hpcg(16, 16, 16))
+    ops_k = OperatorSet(s, device=cuda)
+    tiers, labels, sub32, hi = ops_k.adaptive_tiers(1e-3, n_probes=2)
+    diag = torch.as_tensor(s.diagonal(), device=cuda)
+    M = lambda r: r * (1.0 / diag)                    # noqa: E731
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        s.shape[0])).to(cuda)
+    k4 = kpk.packsell_spmv_bucket
+    before = (k4.launches, ksl.sell_spmv_bucket.launches)
+    x, info = cg.adaptive_pcg(tiers, b, M=M, matvec_hi=hi, tol=1e-8,
+                              maxiter=60, m_in=16)
+    ladder = psel.tier_ladder(ops_k.precision_plan(1e-3, n_probes=2))
+    want_k4 = 0
+    for i, c in enumerate(ladder):
+        if c.codec == "e8m":
+            mat, plan = ops_k.plan_pair(psel.operator_kind(c))
+            if plan.variant == "full":
+                want_k4 += int(info.tier_matvecs[i]) * len(mat.packs)
+    assert k4.launches - before[0] == want_k4 > 0
+    assert ksl.sell_spmv_bucket.launches - before[1] == info.hi_matvecs * len(
+        ops_k.stored("fp64").vals) + int(info.tier_matvecs[-1]) * len(
+        ops_k.stored("fp32").vals)
+    assert float(info.relres) <= 1e-8
+    # the same ladder over the plain bodies (no kernel launches)
+    ops_p = OperatorSet(s, device=cuda, force="jnp")
+    tiers_p, _, _ = psel.build_tier_matvecs(ops_p, ladder)
+    xp, info_p = cg.adaptive_pcg(tiers_p, b, M=M,
+                                 matvec_hi=ops_p.matvec("fp64"), tol=1e-8,
+                                 maxiter=60, m_in=16)
+    assert info_p.iters == info.iters
+    assert torch.equal(info_p.tier_history, info.tier_history)
+    assert torch.equal(info_p.tier_matvecs, info.tier_matvecs)
+    assert info_p.hi_matvecs == info.hi_matvecs

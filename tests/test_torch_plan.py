@@ -7,8 +7,9 @@ reference, on the CPU.
 * the plain bucket bodies (full cursor cache, scan) of the jnp variant;
 * the parity traps: the column clamp with inf in x (PAD words keep
   0 · inf = NaN), the empty stream (G = 0), the int32 checkpoints;
-* the variant policy on the CPU mirrors the reference's decisions, and
-  the token-keyed plan cache.
+* the variant policy on the CPU mirrors the reference's decisions, the
+  forced per-bucket variants build the reference's plans, and the
+  token-keyed plan cache.
 """
 import gc
 
@@ -272,10 +273,23 @@ def test_forced_fused_demotion_mirrors_reference_on_cpu():
 
 
 @pytest.mark.parametrize("force", ["full", "band"])
-def test_per_bucket_variants_not_ported(force):
-    _, t = _pair(SUITE["banded"], "fp16", 15)
-    with pytest.raises(NotImplementedError, match="K4"):
-        tpl.build_plan(t, force=force)
+def test_per_bucket_variants_build_and_match_reference(force):
+    """force='full'/'band' build the per-bucket plans (K4/K6 on CUDA, their
+    plain versions here) with the reference's layout, windows and
+    checkpoints, and give its output bit for bit on integer data."""
+    r, t = _pair(INT_SUITE["banded"], "fp16", 15)
+    rp = rpl.build_plan(r, force=force, interpret=True)
+    tp = tpl.build_plan(t, force=force)
+    assert tp.variant == rp.variant == force
+    _assert_plans_equal(tp, rp)
+    assert (tp.wins is None) == (rp.wins is None) == (force == "full")
+    for wt, wr in zip(tp.wins or (), rp.wins or ()):
+        np.testing.assert_array_equal(wt.numpy(), np.asarray(wr))
+    for ct, cr in zip(tp.kckpts, rp.kckpts):
+        np.testing.assert_array_equal(ct.numpy(), np.asarray(cr))
+    x = _int_x(r.m)
+    np.testing.assert_array_equal(tp.spmv(t, torch.from_numpy(x)).numpy(),
+                                  np.asarray(rp.spmv(r, jnp.asarray(x))))
 
 
 def test_bad_policy_and_cache_mode_raise(monkeypatch):
