@@ -16,6 +16,7 @@ nothing of JAX or of the ``repro`` package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -81,26 +82,32 @@ def timed(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
-    """Mean device time per call of ``fn``: the profiler's summed durations
-    of the kernels whose name contains ``kernel``, over ``reps`` calls. The
-    Python wrapper's host work between launches is not counted, so this is
-    the kernel's own time even where the eager loop is host-bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+def device_ms(fn, reps: int, replays: int = 3) -> float:
+    """Mean device time of one call of ``fn``: ``reps`` calls captured in
+    one CUDA graph, replayed back to back and timed by CUDA events. The
+    Python wrapper's host work is not in the graph, so this is the
+    kernels' own time (with the device's gap between graph nodes, about a
+    microsecond). The profiler is not used: in a long run it dropped
+    kernel records and misreported durations of some windows."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm up off the capturing stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and kernel in e.key)
-    if not total > 0:
-        fail(f"the profiler saw no {kernel} kernel")
-    return total / 1e3 / reps
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * reps)
 
 
 def sparse_csr(a, values, dev, dtype=np.float32) -> torch.Tensor:
@@ -128,9 +135,52 @@ def smallest_hw(mat, sb: int = 8) -> int:
 def print_rows(rows: dict, per: str) -> None:
     card = card_line()
     for k, (t, tp, tl, tb, by, te) in rows.items():
-        print(f"  {k}: {t!r} ms{per} on the device (profiler; eager loop "
-              f"{te!r} ms by CUDA events), plain {tp!r} ms, torch.sparse CSR "
-              f"{tl!r} ms, bound {tb!r} ms by {by}; on {card}", flush=True)
+        print(f"  {k}: {t!r} ms{per} on the device (a CUDA graph of the "
+              f"calls; eager loop {te!r} ms), plain {tp!r} ms, torch.sparse "
+              f"CSR {tl!r} ms, bound {tb!r} ms by {by}; on {card}",
+              flush=True)
+
+
+def _short_kernel_name(mangled: str) -> str:
+    """``spmv_fused_kernel<0, 0>`` from a mangled entry name, through the
+    toolkit's demangler where there is one."""
+    for tool in ("cu++filt", "/usr/local/cuda/bin/cu++filt", "c++filt"):
+        try:
+            out = subprocess.run([tool, mangled], capture_output=True,
+                                 text=True, timeout=30).stdout.strip()
+        except (OSError, subprocess.SubprocessError):
+            continue
+        if out and out != mangled:
+            name = re.sub(r"\((?:anonymous namespace|int|bool)\)|<unnamed>",
+                          "", out).replace("::", "")
+            name = name.split("(", 1)[0]
+            return name[5:] if name.startswith("void ") else name
+    return mangled
+
+
+def ptxas_table(logs: dict) -> list:
+    """``(source, kernel, registers, spill stores, spill loads)`` for every
+    kernel in the ``-Xptxas -v`` logs of :func:`_build.build_all`."""
+    rows = []
+    for src, log in logs.items():
+        cur, spills = None, (0, 0)
+        for line in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)'?", line)
+            if m:
+                cur = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                spills = (int(m.group(1)), int(m.group(2)))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                rows.append((src, _short_kernel_name(cur), int(m.group(1)),
+                             *spills))
+                cur, spills = None, (0, 0)
+    return rows
 
 
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
@@ -161,7 +211,7 @@ class Smoke:
         self.k1, self.k3, self.k2 = (kpk.packsell_spmv_fused,
                                      kpk.packsell_spmm_fused,
                                      ksl.sell_spmv_bucket)
-        self.k4, self.k5, self.k6 = (kpk.packsell_spmv_bucket,
+        self.k4, self.k5, self.k6 = (kpk.packsell_spmv_buckets,
                                      kpk.packsell_spmm_bucket,
                                      kpk.packsell_spmv_band_bucket)
         ids = ("K1", "K2", "K3", "K4", "K5", "K6", "K2-f64")
@@ -207,13 +257,7 @@ class Smoke:
             self.k1(words, ckpt, x, **kw),
             kpk.packsell_spmv_fused_plain(words, ckpt, x, **kw),
             f"K1 {label}"))
-        for nb in (1, 3, 8):
-            X = torch.from_numpy(rng.standard_normal((mat.m, nb)).astype(
-                np.float32)).to(self.dev)
-            self.note("K3", same_bits(
-                self.k3(words, ckpt, X, **kw),
-                kpk.packsell_spmm_fused_plain(words, ckpt, X, **kw),
-                f"K3 {label} nb={nb}"))
+        self.check_k3(words, ckpt, mat.m, kw, rng, label)
         # the whole plan against the plain plan, and against the quantized
         # matrix in float64 on the host (an oracle independent of the port)
         pj = kplan.build_plan(mat, force="jnp", ckpt_wr=wr)
@@ -228,8 +272,27 @@ class Smoke:
         if not rel < 1e-5:
             fail(f"{label}: fused plan vs host float64 oracle rel {rel:.3e}")
         print(f"  {label:28s} enc={lay.encoding:7s} wr={lay.wr:3d} "
-              f"G={lay.groups} bit-equal K1,K3(nb=1,3,8); "
-              f"vs host f64 oracle rel {rel:.2e}", flush=True)
+              f"G={lay.groups} bit-equal K1,K3(nb=1,3,4,8,12; aligned and "
+              f"not); vs host f64 oracle rel {rel:.2e}", flush=True)
+
+    def check_k3(self, words, ckpt, m, kw, rng, label):
+        """K3 against its plain version at nb = 1, 3, 4, 8, 12, on X
+        16-byte aligned (vector loads where nb % 4 == 0) and on a view 4
+        bytes past that (scalar loads)."""
+        from repro_torch.kernels import packsell_spmv as kpk
+
+        for nb in (1, 3, 4, 8, 12):
+            flat = torch.from_numpy(rng.standard_normal(m * nb + 1).astype(
+                np.float32)).to(self.dev)
+            for X, how in ((flat[:m * nb].view(m, nb), "aligned"),
+                           (flat[1:].view(m, nb), "offset by 4 B")):
+                vec = kpk.spmm_vector_loads(X)
+                if vec != (how == "aligned" and nb % 4 == 0):
+                    fail(f"K3 {label} nb={nb} {how}: vector loads {vec}")
+                self.note("K3", same_bits(
+                    self.k3(words, ckpt, X, **kw),
+                    kpk.packsell_spmm_fused_plain(words, ckpt, X, **kw),
+                    f"K3 {label} nb={nb} {how}"))
 
     def check_sell(self, label, a, value_dtype, compute=torch.float32):
         from repro_torch.core import sell as sl
@@ -252,10 +315,11 @@ class Smoke:
               f"{len(mat.vals)} bit-equal {k}", flush=True)
 
     def check_bucket(self, label, a, codec, D, strategy="pow2"):
-        """K4 and K5 in both bodies (carry; checkpoint at wb = 32 and 8,
-        partials compared before the width sum) and, on uniform buckets at
-        the smallest feasible half-window, K6; then the plans against the
-        quantized matrix in float64 on the host."""
+        """K4 (all buckets, one launch) and K5 in both bodies (carry;
+        checkpoint at wb = 32 and 8, K5's partials compared before the
+        width sum) and, on uniform buckets at the smallest feasible
+        half-window, K6; then the plans against the quantized matrix in
+        float64 on the host."""
         from repro_torch.core import codecs as cd
         from repro_torch.core import packsell as pk
         from repro_torch.kernels import packsell_spmv as kpk
@@ -277,12 +341,17 @@ class Smoke:
             tiles = tuple((8, wb or 32) for _ in mat.packs)
             ckpts = (kplan._build_block_checkpoints(mat, tiles) if wb
                      else (None,) * len(mat.packs))
+            kck = list(ckpts) if wb else None
+            table = kpk.bucket_table(mat.packs, mat.d0s, kck,
+                                     [t[1] for t in tiles])
+            kw4 = dict(codec_name=codec, D=D)
+            self.note("K4", same_bits(
+                self.k4(mat.packs, mat.d0s, kck, table, x, **kw4),
+                kpk.packsell_spmv_buckets_plain(mat.packs, mat.d0s, kck,
+                                                table, x, **kw4),
+                f"K4 {label} wb={wb}"))
             for pack, d0, ck, win in zip(mat.packs, mat.d0s, ckpts, wins):
                 kw = dict(codec_name=codec, D=D, wb=wb or 32, ckpt=ck)
-                self.note("K4", same_bits(
-                    self.k4(pack, d0, x, **kw),
-                    kpk.packsell_spmv_bucket_plain(pack, d0, x, **kw),
-                    f"K4 {label} wb={wb}"))
                 for nb, X in Xs.items():
                     self.note("K5", same_bits(
                         self.k5(pack, d0, X, **kw),
@@ -308,7 +377,8 @@ class Smoke:
         if not rel < 1e-5:
             fail(f"{label}: full plan vs host float64 oracle rel {rel:.3e}")
         print(f"  {label:28s} {strategy:7s} buckets={len(mat.packs)} "
-              f"bit-equal K4,K5(nb=1,3,8){',K6 hw=' + str(hw) if band else ''}"
+              f"bit-equal K4(one launch),K5(nb=1,3,8)"
+              f"{',K6 hw=' + str(hw) if band else ''}"
               f" (carry, wb=32, wb=8); vs host f64 oracle rel {rel:.2e}",
               flush=True)
 
@@ -520,15 +590,16 @@ class Smoke:
         print(f"  solve wall {solve_s!r} s (host clock, ends in synchronize; "
               f"set-up outside); true relres vs s (host scipy float64) "
               f"{rel!r}", flush=True)
-        want_k4 = 0
+        want_k4 = 0             # one launch per matvec of a full plan
         for i, c in enumerate(ladder):
             if c.codec != "fp32":
                 mat, plan = ops_k.plan_pair(psel.operator_kind(c))
                 if plan.variant == "full":
-                    want_k4 += counts[i] * len(mat.packs)
+                    want_k4 += counts[i]
         fp64_buckets = len(ops_k.stored("fp64").vals)
         print(f"  launches in the solve: {after_solve}; want K4 "
-              f"{want_k4}, K2-f64 {info.hi_matvecs * fp64_buckets} "
+              f"{want_k4} (one per packed-tier matvec of the full plans), "
+              f"K2-f64 {info.hi_matvecs * fp64_buckets} "
               f"(hi_matvecs x {fp64_buckets} buckets)", flush=True)
         if not rel <= 1e-8:
             fail(f"true relres {rel} > 1e-8")
@@ -618,9 +689,13 @@ class Smoke:
 
     # -- phase 6: times at the main path's shapes --------------------------
     def times(self, mp):
+        """K1, K2 (f16 values) and K3 at the main path's shapes; K3 at nb =
+        1, 2, 4 beside K1 (nb = 8 is its row); K4 over the same fp16/D15
+        words as K1, through a ``full`` plan of the main matrix."""
         from repro_torch.core import codecs as cd
         from repro_torch.core import sell as sl
         from repro_torch.kernels import packsell_spmv as kpk
+        from repro_torch.kernels import plan as kplan
 
         s, mat, plan, sell = mp["a"], mp["mat"], mp["plan"], mp["sell"]
         lay = plan.fused_layout
@@ -628,27 +703,25 @@ class Smoke:
         kw = dict(codec_name=mat.codec_name, D=mat.D, encoding=lay.encoding,
                   scale=lay.scale)
         G, wr, C = words.shape
-        m, nb = mat.m, 8
+        m = mat.m
         rng = np.random.default_rng(12)
         x = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(
             self.dev)
-        X = torch.from_numpy(rng.standard_normal((m, nb)).astype(
-            np.float32)).to(self.dev)
         reps, preps = self.reps, max(self.reps // 10, 2)
+        where = f"HPCG {self.main_side}^3"
 
         # each kernel against its plain version at the main path's shapes
         for k, got, want in (
                 ("K1", lambda: self.k1(words, ckpt, x, **kw),
                  lambda: kpk.packsell_spmv_fused_plain(words, ckpt, x, **kw)),
-                ("K3", lambda: self.k3(words, ckpt, X, **kw),
-                 lambda: kpk.packsell_spmm_fused_plain(words, ckpt, X, **kw)),
                 *(("K2", lambda v=v, c=c: self.k2(v, c, x),
                    lambda v=v, c=c: sl.sell_bucket_spmv(v, c, x))
                   for v, c in zip(sell.vals, sell.cols))):
-            self.note(k, same_bits(got(), want(),
-                                   f"{k} at HPCG {self.main_side}^3"))
-        print(f"  K1, K3 (nb={nb}) and K2 (f16, {len(sell.vals)} buckets) "
-              "bit-equal to their plain versions at these shapes", flush=True)
+            self.note(k, same_bits(got(), want(), f"{k} at {where}"))
+        self.check_k3(words, ckpt, m, kw, rng, where)
+        print(f"  K1, K3 (nb=1,3,4,8,12; aligned and not) and K2 (f16, "
+              f"{len(sell.vals)} buckets) bit-equal to their plain versions "
+              "at these shapes", flush=True)
 
         a_q = sparse_csr(s, cd.quantize_np(s.data, mat.codec, mat.D),
                          self.dev)
@@ -662,7 +735,7 @@ class Smoke:
                                                           **kw), preps)
         lib1 = timed(lambda: a_q @ x, reps)
         nbytes = 4 * G * wr * C + 4 * G * C + 4 * m + 4 * G * C
-        rows["K1"] = (device_ms(k1, reps, "spmv_fused_kernel"), k1p, lib1,
+        rows["K1"] = (device_ms(k1, reps), k1p, lib1,
                       *bound_ms(nbytes, 2 * G * wr * C), timed(k1, reps))
 
         def k2_all():
@@ -678,26 +751,88 @@ class Smoke:
         ent = sum(v.numel() for v in sell.vals)
         nbytes = ent * (2 + 4) + 4 * m + 4 * sum(
             v.shape[0] * v.shape[2] for v in sell.vals)
-        rows["K2"] = (device_ms(k2_all, reps, "sell_spmv_kernel"), k2p, lib2,
+        rows["K2"] = (device_ms(k2_all, reps), k2p, lib2,
                       *bound_ms(nbytes, 2 * ent), timed(k2_all, reps))
 
-        def k3():
-            self.k3(words, ckpt, X, **kw)
+        # K3: nb = 8 is the kernel's row; nb = 1, 2, 4 show how its time
+        # grows with the right-hand sides
+        for nb in (8, 1, 2, 4):
+            X = torch.from_numpy(rng.standard_normal((m, nb)).astype(
+                np.float32)).to(self.dev)
 
-        k3p = timed(lambda: kpk.packsell_spmm_fused_plain(words, ckpt, X,
-                                                          **kw), preps)
-        lib3 = timed(lambda: a_q @ X, reps)
-        nbytes = 4 * G * wr * C + 4 * G * C + 4 * m * nb + 4 * G * C * nb
-        rows["K3"] = (device_ms(k3, reps, "spmm_fused_kernel"), k3p, lib3,
-                      *bound_ms(nbytes, 2 * G * wr * C * nb), timed(k3, reps))
+            def k3(X=X):
+                self.k3(words, ckpt, X, **kw)
+
+            k3p = timed(lambda: kpk.packsell_spmm_fused_plain(
+                words, ckpt, X, **kw), preps)
+            lib3 = timed(lambda: a_q @ X, reps)
+            nbytes = (4 * G * wr * C + 4 * G * C + 4 * m * nb
+                      + 4 * G * C * nb)
+            rows["K3" if nb == 8 else f"K3 nb={nb}"] = (
+                device_ms(k3, reps), k3p, lib3,
+                *bound_ms(nbytes, 2 * G * wr * C * nb), timed(k3, reps))
+
+        # K4 on the words K1 walks: the fp16/D15 matrix through a full plan
+        pk4 = kplan.build_plan(mat, force="full")
+        print(f"  fp16/D15 full plan buckets "
+              f"{[tuple(p.shape) for p in mat.packs]} (K1's stream "
+              f"{[G, wr, C]})", flush=True)
+        self.k4_rows(rows, "K4 fp16/D15", mat, pk4, x, a_q, per_bucket=True)
         print_rows(rows, "")
+        for nb in (1, 2, 4, 8):
+            t = rows["K3" if nb == 8 else f"K3 nb={nb}"][0]
+            print(f"  K3 nb={nb}: {t / rows['K1'][0]!r} x K1's device time, "
+                  f"{t / nb!r} ms per right-hand side", flush=True)
         return rows
 
+    def k4_rows(self, rows, key, mat, plan, x, a_q, per_bucket=False):
+        """K4's row ``key`` for a full plan: one launch per matvec through
+        the plan's table, bit-equal to its plain version; with
+        ``per_bucket``, also one row per bucket through a one-bucket
+        table (``key bucket b``)."""
+        from repro_torch.kernels import packsell_spmv as kpk
+
+        reps, preps = self.reps, max(self.reps // 10, 2)
+        kw = dict(codec_name=mat.codec_name, D=mat.D)
+        kck = plan.kckpts
+        sel = [list(range(len(mat.packs)))]
+        if per_bucket:
+            sel += [[b] for b in range(len(mat.packs))]
+        for bs in sel:
+            packs = [mat.packs[b] for b in bs]
+            d0s = [mat.d0s[b] for b in bs]
+            cks = None if kck is None else [kck[b] for b in bs]
+            table = (plan.ktable if len(bs) == len(mat.packs) else
+                     kpk.bucket_table(packs, d0s, cks,
+                                      [plan.tiles[b][1] for b in bs]))
+
+            def run():
+                return self.k4(packs, d0s, cks, table, x, **kw)
+
+            def plain():
+                return kpk.packsell_spmv_buckets_plain(packs, d0s, cks,
+                                                       table, x, **kw)
+
+            self.note("K4", same_bits(run(), plain(),
+                                      f"{key} at HPCG {self.main_side}^3"))
+            words = sum(p.numel() for p in packs)
+            nbytes = 4 * (words + sum(d.numel() for d in d0s) + table.total
+                          + x.numel())
+            name = key if len(bs) == len(mat.packs) else (
+                f"K4 {mat.codec_name}/D{mat.D} bucket {bs[0]} "
+                f"{list(packs[0].shape)}")
+            lib = (timed(lambda: a_q @ x, reps)
+                   if len(bs) == len(mat.packs) else None)
+            rows[name] = (device_ms(run, reps),
+                          timed(plain, preps), lib,
+                          *bound_ms(nbytes, 2 * words), timed(run, reps))
+
     def times_bucket(self, mx):
-        """K4 (the e8m/D8, D12 and D1 tiers), K5 (nb = 8, the e8m/D8 tier),
-        K6 (the uniform e8m/D8 band plan) and K2-f64 (the fp64 operator) at
-        the mixed path's shapes, each per matvec: every bucket's launch in
-        the plan's body (checkpoint partials, before the width sum)."""
+        """K4 (the e8m/D8, D4, D12 and D1 tiers, one launch per matvec; D8
+        and D1 also bucket by bucket), K5 (nb = 8, the e8m/D8 tier), K6
+        (the uniform e8m/D8 band plan), K2-f64 (the fp64 operator) and K2
+        with fp32 values (the fp32 tier) at the mixed path's shapes, each
+        per matvec."""
         from repro_torch.core import codecs as cd
         from repro_torch.core import sell as sl
         from repro_torch.kernels import packsell_spmv as kpk
@@ -713,7 +848,9 @@ class Smoke:
         x64 = torch.from_numpy(rng.standard_normal(m)).to(self.dev)
         reps, preps = self.reps, max(self.reps // 10, 2)
 
-        def bucket_row(k, mat, plan, kernel, plain, xx, name):
+        def bucket_row(k, mat, plan, kernel, plain, xx):
+            """K5 or K6: every bucket's launch in the plan's body
+            (checkpoint partials, before the width sum)."""
             kck = plan.kckpts or (None,) * len(mat.packs)
             calls = []
             for b, (pack, d0) in enumerate(zip(mat.packs, mat.d0s)):
@@ -746,48 +883,54 @@ class Smoke:
                 nbytes += 4 * sum(w.numel() for w in plan.wins)
             cols = xx.shape[1] if xx.dim() == 2 else 1
             tb, by = bound_ms(nbytes, 2 * words * cols)
-            return device_ms(run, reps, name), tp, tb, by, timed(run, reps)
+            return device_ms(run, reps), tp, tb, by, timed(run, reps)
 
         rows = {}
-        for D, key in ((8, "K4"), (12, "K4 e8m/D12"), (1, "K4 e8m/D1")):
+        for D, key in ((8, "K4"), (4, "K4 e8m/D4"), (12, "K4 e8m/D12"),
+                       (1, "K4 e8m/D1")):
             mat, plan = ops_k.plan_pair(f"plan_e8m{D}")
-            t, tp, tb, by, te = bucket_row(
-                "K4", mat, plan, self.k4, kpk.packsell_spmv_bucket_plain, x,
-                "bucket_spmv_kernel")
             a_q = sparse_csr(s, cd.quantize_np(s.data, mat.codec, D),
                              self.dev)
-            rows[key] = (t, tp, timed(lambda: a_q @ x, reps), tb, by, te)
+            self.k4_rows(rows, key, mat, plan, x, a_q,
+                         per_bucket=D in (8, 1))
         mat, plan = ops_k.plan_pair("plan_e8m8")
         a_q8 = sparse_csr(s, cd.quantize_np(s.data, mat.codec, 8), self.dev)
         t, tp, tb, by, te = bucket_row(
-            "K5", mat, plan, self.k5, kpk.packsell_spmm_bucket_plain, X,
-            "bucket_spmm_kernel")
+            "K5", mat, plan, self.k5, kpk.packsell_spmm_bucket_plain, X)
         rows["K5"] = (t, tp, timed(lambda: a_q8 @ X, reps), tb, by, te)
         t, tp, tb, by, te = bucket_row(
             "K6", mx["mat_u"], mx["band"], self.k6,
-            kpk.packsell_spmv_band_bucket_plain, x, "bucket_spmv_kernel")
+            kpk.packsell_spmv_band_bucket_plain, x)
         rows["K6"] = (t, tp, timed(lambda: a_q8 @ x, reps), tb, by, te)
 
-        sell = ops_k.stored("fp64")
-        f64 = torch.float64
-        for v, c in zip(sell.vals, sell.cols):
-            self.note("K2-f64", same_bits(
-                self.k2(v, c, x64, f64), sl.sell_bucket_spmv(v, c, x64, f64),
-                f"K2-f64 at HPCG {self.main_side}^3"))
-
-        def k2_all():
+        def k2_row(k, sell, xx, acc, lib):
+            """K2 over every bucket of a SELL operator, per matvec."""
+            note = "K2-f64" if acc == torch.float64 else "K2"
             for v, c in zip(sell.vals, sell.cols):
-                self.k2(v, c, x64, f64)
+                self.note(note, same_bits(
+                    self.k2(v, c, xx, acc), sl.sell_bucket_spmv(v, c, xx, acc),
+                    f"{k} at HPCG {self.main_side}^3"))
 
-        tp = timed(lambda: [sl.sell_bucket_spmv(v, c, x64, f64)
-                            for v, c in zip(sell.vals, sell.cols)], preps)
-        a64 = sparse_csr(s, s.data, self.dev, np.float64)
-        ent = sum(v.numel() for v in sell.vals)
-        nbytes = ent * (8 + 4) + 8 * m + 8 * sum(
-            v.shape[0] * v.shape[2] for v in sell.vals)
-        rows["K2-f64"] = (device_ms(k2_all, reps, "sell_spmv_kernel"), tp,
-                          timed(lambda: a64 @ x64, reps),
-                          *bound_ms(nbytes, 2 * ent), timed(k2_all, reps))
+            def k2_all():
+                for v, c in zip(sell.vals, sell.cols):
+                    self.k2(v, c, xx, acc)
+
+            tp = timed(lambda: [sl.sell_bucket_spmv(v, c, xx, acc)
+                                for v, c in zip(sell.vals, sell.cols)],
+                       preps)
+            ent = sum(v.numel() for v in sell.vals)
+            vbytes = sell.vals[0].element_size()
+            obytes = xx.element_size()
+            nbytes = ent * (vbytes + 4) + obytes * m + obytes * sum(
+                v.shape[0] * v.shape[2] for v in sell.vals)
+            rows[k] = (device_ms(k2_all, reps), tp,
+                       timed(lambda: lib @ xx, reps),
+                       *bound_ms(nbytes, 2 * ent), timed(k2_all, reps))
+
+        k2_row("K2-f64", ops_k.stored("fp64"), x64, torch.float64,
+               sparse_csr(s, s.data, self.dev, np.float64))
+        k2_row("K2 fp32 values", ops_k.stored("fp32"), x, torch.float32,
+               sparse_csr(s, s.data.astype(np.float32), self.dev))
         print_rows(rows, " per matvec")
         return rows
 
@@ -882,10 +1025,9 @@ def main() -> int:
     logs = _build.build_all()
     print(f"  nvcc (all sources at once): {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for src, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {src}: {line.strip()}", flush=True)
+    for src, kernel, regs, st, ld in ptxas_table(logs):
+        print(f"  {src}.cu {kernel}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B", flush=True)
 
     smoke = Smoke(dev)
     print("== 3. kernels against their plain versions, on the card",
@@ -910,7 +1052,7 @@ def main() -> int:
                "src/repro/kernels/sell_spmv.py:47"),
         "K3": ("packsell_spmm_fused", src + "packsell_fused.cu",
                "src/repro/kernels/packsell_spmv.py:620"),
-        "K4": ("packsell_spmv_bucket", src + "packsell_bucket.cu",
+        "K4": ("packsell_spmv_buckets", src + "packsell_bucket.cu",
                "src/repro/kernels/packsell_spmv.py:133"),
         "K5": ("packsell_spmm_bucket", src + "packsell_bucket.cu",
                "src/repro/kernels/packsell_spmv.py:412"),

@@ -59,12 +59,15 @@ def _start(name: str):
 
 
 def _wait(proc, tmp: Path, out: Path):
-    """Wait for nvcc; returns ``(log, error or None)``."""
+    """Wait for nvcc; returns ``(log, error or None)``. The log of a build
+    is kept beside its library, so a library built earlier returns it."""
+    log_file = out.with_suffix(".log")
     if proc is None:
-        return "", None
+        return (log_file.read_text() if log_file.exists() else ""), None
     log, _ = proc.communicate()
     if proc.returncode != 0:
         return log, f"exit {proc.returncode}"
+    log_file.write_text(log)
     os.replace(tmp, out)        # atomic: concurrent loaders never see half a file
     return log, None
 
@@ -78,8 +81,9 @@ def _finish(name: str, proc, tmp: Path, out: Path) -> str:
 
 def build_all() -> dict:
     """Build every source concurrently (one nvcc each) and wait for all of
-    them; returns the compiler logs by name (empty for a library already
-    built) or raises naming every source that failed."""
+    them; returns the compiler logs by name (with ``-Xptxas -v``: each
+    kernel's registers and spills) or raises naming every source that
+    failed."""
     started = {name: _start(name) for name in SOURCES}
     done = {name: _wait(*args) for name, args in started.items()}
     failed = {name: r for name, r in done.items() if r[1]}

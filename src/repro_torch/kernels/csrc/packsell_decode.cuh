@@ -64,4 +64,42 @@ __device__ __forceinline__ int64_t clamp_col(int64_t col, int64_t mlim) {
   return col < 0 ? 0 : (col > mlim ? mlim : col);
 }
 
+// L2 eviction policies (PTX createpolicy) for the redesigned K3 and K4:
+// the streamed words are read once and leave L2 first; x (K4) and X (K3)
+// are gathered again and again and stay. The loads are read-only (.nc)
+// and plain asm (not volatile), so the compiler may schedule them.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint32_t ld_hint(const uint32_t* p, uint64_t pol) {
+  uint32_t v;
+  asm("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;"
+      : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ float ld_hint(const float* p, uint64_t pol) {
+  float v;
+  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"
+      : "=f"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+// four floats from a 16-byte aligned address
+__device__ __forceinline__ float4 ld_hint4(const float* p, uint64_t pol) {
+  float4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p), "l"(pol));
+  return v;
+}
+
 }  // namespace packsell

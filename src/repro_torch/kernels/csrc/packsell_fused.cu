@@ -1,8 +1,8 @@
 // Fused-stream PackSELL SpMV (K1) and SpMM (K3) for Hopper (sm_90a).
 //
 // Replaces the Pallas kernels of src/repro/kernels/packsell_spmv.py:
-//   K1  packsell_spmv_fused (_kernel_fused, decode fused_decode_word)
-//   K3  packsell_spmm_fused (_kernel_fused_mm)
+//   K1  packsell_spmv_fused (:567; _kernel_fused, decode fused_decode_word)
+//   K3  packsell_spmm_fused (:620; _kernel_fused_mm)
 //
 // What they compute: group partials over the plan's fused word stream
 //   part[g, c(, b)] = sum_j v(w[g,j,c]) * x[clamp(ckpt[g,c] + off(w[g,j,c]), 0, m-1)(, b)]
@@ -32,9 +32,24 @@
 // 3.35 TB/s. The design streams the words coalesced: one thread per
 // (group, lane), a warp covers 32 consecutive lanes of one group, so each
 // j step reads 128 contiguous bytes per warp; x goes through __ldg (the
-// read-only path into L2). K3 uses one thread per (group, lane, rhs), rhs
-// minor, so a warp's x reads and output writes are contiguous over rhs
-// and the word read is a broadcast.
+// read-only path into L2).
+//
+// K3's bound is the same words and checkpoints, X [m, nb] once and the
+// output [G, C, nb] once (at nb = 8: 144 + 4.5 + 36 + 36 MB, ~66 us). With
+// one thread per (group, lane, rhs) each word is loaded and decoded nb
+// times, and on the H100 the time grows in proportion to nb (0.075, 0.122,
+// 0.221, 0.409 ms at nb = 1, 2, 4, 8; PERF.md). So K3 runs K1's threads,
+// one per (group, lane), with K1's 128-byte word reads per warp step, and
+// keeps the sums of up to 8 right-hand sides in registers (a second grid
+// axis takes nb > 8 in chunks of 8; the chunk's width picks a body
+// compiled for it, so the sums stay in registers and no load waits on a
+// predicate). Each word is loaded once, evict-first in L2; a batch of
+// kFusedBatch words is loaded, decoded and has all its X rows (nbc floats
+// each) issued before the sums. X rows are read with 16-byte vector loads
+// when the wrapper finds nb % 4 == 0 and X 16-byte aligned (else scalar
+// loads), evict-last, so the 144 MB of words do not push the 36 MB of X
+// out of the 50 MB L2; part[g, c, :] is written with 16-byte stores on the
+// same condition.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,29 +83,134 @@ __global__ void spmv_fused_kernel(const uint32_t* __restrict__ words,
   part[t] = acc;
 }
 
-template <int ENC, int CODEC>
-__global__ void spmm_fused_kernel(const uint32_t* __restrict__ words,
-                                  const int32_t* __restrict__ ckpt,
-                                  const float* __restrict__ x,
-                                  float* __restrict__ part, int64_t G, int wr,
-                                  int C, int nb, int64_t mlim, DecodeArgs a) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= G * C * nb) return;
-  const int64_t gc = t / nb;
-  const int b = static_cast<int>(t - gc * nb);
-  const int64_t g = gc / C;
-  const int c = static_cast<int>(gc - g * C);
-  const int64_t ck = ckpt[gc];
-  const uint32_t* wp = words + g * wr * C + c;
-  float acc = 0.0f;
-  for (int j = 0; j < wr; ++j) {
-    float v;
-    uint32_t off;
-    decode_word<ENC, CODEC>(wp[static_cast<int64_t>(j) * C], a, v, off);
-    const float p = __fmul_rn(v, __ldg(x + clamp_col(ck + off, mlim) * nb + b));
-    acc = j == 0 ? p : __fadd_rn(acc, p);
+constexpr int kMaxRhs = 8;      // K3: right-hand sides per thread
+constexpr int kFusedBatch = 4;  // K3: word loads in flight per thread
+
+// One X row's NB floats (VEC: NB / 4 16-byte loads).
+template <int NB, bool VEC>
+__device__ __forceinline__ void load_row(const float* __restrict__ xr,
+                                         uint64_t pol, float (&xv)[NB]) {
+  if constexpr (VEC) {
+#pragma unroll
+    for (int q = 0; q < NB / 4; ++q) {
+      const float4 f = ld_hint4(xr + 4 * q, pol);
+      xv[4 * q] = f.x; xv[4 * q + 1] = f.y;
+      xv[4 * q + 2] = f.z; xv[4 * q + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) xv[b] = ld_hint(xr + b, pol);
   }
-  part[t] = acc;
+}
+
+// The next n words of one (group, lane), n = kFusedBatch when FULL: the
+// word loads, the decode and every X row of the batch are issued before
+// the sums, which add each rhs's products in j order from the first.
+template <int ENC, int CODEC, int NB, bool VEC, bool FULL>
+__device__ __forceinline__ void spmm_batch(const uint32_t* __restrict__ wp,
+                                           int C, int n, bool first,
+                                           int64_t ck, const float* xb, int nb,
+                                           int64_t mlim, const DecodeArgs& a,
+                                           uint64_t words_pol, uint64_t x_pol,
+                                           float (&acc)[NB]) {
+  uint32_t wv[kFusedBatch];
+#pragma unroll
+  for (int k = 0; k < kFusedBatch; ++k) {
+    wv[k] = (FULL || k < n) ? ld_hint(wp + k * C, words_pol) : 0u;
+  }
+  float v[kFusedBatch];
+  float xv[kFusedBatch][NB];
+#pragma unroll
+  for (int k = 0; k < kFusedBatch; ++k) {
+    uint32_t off;
+    decode_word<ENC, CODEC>(wv[k], a, v[k], off);
+    if (FULL || k < n) {
+      load_row<NB, VEC>(xb + clamp_col(ck + off, mlim) * nb, x_pol, xv[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kFusedBatch; ++k) {
+    if (FULL || k < n) {
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const float p = __fmul_rn(v[k], xv[k][b]);
+        acc[b] = (first && k == 0) ? p : __fadd_rn(acc[b], p);
+      }
+    }
+  }
+}
+
+// K3 for NB right-hand sides of one (group, lane): part[t, b0:b0+NB].
+template <int ENC, int CODEC, int NB, bool VEC>
+__device__ __forceinline__ void spmm_lane(const uint32_t* __restrict__ wp,
+                                          int64_t ck, const float* xb,
+                                          float* o, int wr, int C, int nb,
+                                          int64_t mlim, const DecodeArgs& a) {
+  const uint64_t words_pol = l2_evict_first();
+  const uint64_t x_pol = l2_evict_last();
+  float acc[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) acc[b] = 0.0f;   // wr = 0 writes +0
+  int j = 0;
+  for (; j + kFusedBatch <= wr; j += kFusedBatch) {
+    spmm_batch<ENC, CODEC, NB, VEC, true>(
+        wp + static_cast<int64_t>(j) * C, C, kFusedBatch, j == 0, ck, xb, nb,
+        mlim, a, words_pol, x_pol, acc);
+  }
+  if (j < wr) {
+    spmm_batch<ENC, CODEC, NB, VEC, false>(
+        wp + static_cast<int64_t>(j) * C, C, wr - j, j == 0, ck, xb, nb,
+        mlim, a, words_pol, x_pol, acc);
+  }
+  if constexpr (VEC) {
+#pragma unroll
+    for (int q = 0; q < NB / 4; ++q) {
+      reinterpret_cast<float4*>(o)[q] = make_float4(
+          acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) o[b] = acc[b];
+  }
+}
+
+// One thread per (group, lane); blockIdx.y picks the chunk of up to
+// kMaxRhs right-hand sides, whose width selects the body at compile time
+// (VEC: the wrapper found nb % 4 == 0, so the chunk is 4 or 8 wide).
+template <int ENC, int CODEC, bool VEC>
+__global__ void spmm_fused_kernel(const uint32_t* __restrict__ words,
+                      const int32_t* __restrict__ ckpt,
+                      const float* __restrict__ x, float* __restrict__ part,
+                      int GC, int wr, int C, int nb, int64_t mlim,
+                      DecodeArgs a) {
+  const int t = static_cast<int>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= GC) return;
+  const int g = t / C;
+  const int c = t - g * C;
+  const int b0 = static_cast<int>(blockIdx.y) * kMaxRhs;
+  const int nbc = min(kMaxRhs, nb - b0);
+  const uint32_t* __restrict__ wp =
+      words + static_cast<int64_t>(g) * wr * C + c;
+  const int64_t ck = ckpt[t];
+  const float* xb = x + b0;
+  float* o = part + static_cast<int64_t>(t) * nb + b0;
+#define K3_LANE(NB, V) \
+  spmm_lane<ENC, CODEC, NB, V>(wp, ck, xb, o, wr, C, nb, mlim, a)
+  if constexpr (VEC) {
+    if (nbc == 8) K3_LANE(8, true); else K3_LANE(4, true);
+  } else {
+    switch (nbc) {
+      case 1: K3_LANE(1, false); break;
+      case 2: K3_LANE(2, false); break;
+      case 3: K3_LANE(3, false); break;
+      case 4: K3_LANE(4, false); break;
+      case 5: K3_LANE(5, false); break;
+      case 6: K3_LANE(6, false); break;
+      case 7: K3_LANE(7, false); break;
+      default: K3_LANE(8, false); break;
+    }
+  }
+#undef K3_LANE
 }
 
 constexpr int kThreads = 256;
@@ -103,7 +223,8 @@ struct LaunchArgs {
   int64_t G;
   int wr;
   int C;
-  int nb;  // 0: SpMV (K1); >= 1: SpMM (K3)
+  int nb;    // 0: SpMV (K1); >= 1: SpMM (K3)
+  bool vec;  // K3: 16-byte X loads and part stores
   int64_t mlim;
   DecodeArgs a;
   cudaStream_t stream;
@@ -111,14 +232,21 @@ struct LaunchArgs {
 
 template <int ENC, int CODEC>
 void launch(const LaunchArgs& p) {
-  const int64_t n = p.G * p.C * (p.nb ? p.nb : 1);
+  const int64_t n = p.G * p.C;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   if (p.nb == 0) {
     spmv_fused_kernel<ENC, CODEC><<<blocks, kThreads, 0, p.stream>>>(
         p.words, p.ckpt, p.x, p.part, p.G, p.wr, p.C, p.mlim, p.a);
+    return;
+  }
+  const dim3 grid(blocks, static_cast<unsigned>((p.nb + kMaxRhs - 1) / kMaxRhs));
+  const int gc = static_cast<int>(n);
+  if (p.vec) {
+    spmm_fused_kernel<ENC, CODEC, true><<<grid, kThreads, 0, p.stream>>>(
+        p.words, p.ckpt, p.x, p.part, gc, p.wr, p.C, p.nb, p.mlim, p.a);
   } else {
-    spmm_fused_kernel<ENC, CODEC><<<blocks, kThreads, 0, p.stream>>>(
-        p.words, p.ckpt, p.x, p.part, p.G, p.wr, p.C, p.nb, p.mlim, p.a);
+    spmm_fused_kernel<ENC, CODEC, false><<<grid, kThreads, 0, p.stream>>>(
+        p.words, p.ckpt, p.x, p.part, gc, p.wr, p.C, p.nb, p.mlim, p.a);
   }
 }
 
@@ -146,7 +274,9 @@ int dispatch(int encoding, int codec, const LaunchArgs& p) {
 }  // namespace
 
 // C interface (loaded with ctypes). Each returns cudaGetLastError() after
-// the launch: 0 when the launch was accepted. G * C (* nb) must be > 0.
+// the launch: 0 when the launch was accepted. G * C (* nb) must be > 0; for
+// K3, G * C < 2^31, and vec != 0 only when nb % 4 == 0 and x and part are
+// 16-byte aligned.
 extern "C" int packsell_spmv_fused(const void* words, const void* ckpt,
                                    const void* x, void* part, int64_t G, int wr,
                                    int C, int64_t m, int encoding, int codec,
@@ -154,19 +284,20 @@ extern "C" int packsell_spmv_fused(const void* words, const void* ckpt,
   const LaunchArgs p{static_cast<const uint32_t*>(words),
                      static_cast<const int32_t*>(ckpt),
                      static_cast<const float*>(x), static_cast<float*>(part),
-                     G, wr, C, 0, m - 1, DecodeArgs{D, scale},
+                     G, wr, C, 0, false, m - 1, DecodeArgs{D, scale},
                      static_cast<cudaStream_t>(stream)};
   return dispatch(encoding, codec, p);
 }
 
 extern "C" int packsell_spmm_fused(const void* words, const void* ckpt,
                                    const void* x, void* part, int64_t G, int wr,
-                                   int C, int nb, int64_t m, int encoding,
-                                   int codec, int D, float scale, void* stream) {
+                                   int C, int nb, int vec, int64_t m,
+                                   int encoding, int codec, int D, float scale,
+                                   void* stream) {
   const LaunchArgs p{static_cast<const uint32_t*>(words),
                      static_cast<const int32_t*>(ckpt),
                      static_cast<const float*>(x), static_cast<float*>(part),
-                     G, wr, C, nb, m - 1, DecodeArgs{D, scale},
+                     G, wr, C, nb, vec != 0, m - 1, DecodeArgs{D, scale},
                      static_cast<cudaStream_t>(stream)};
   return dispatch(encoding, codec, p);
 }

@@ -5,20 +5,26 @@ int32 checkpoint per group lane; the plan applies the level-chain tail
 and the inverse-permutation gather):
 
 * K1 ``packsell_spmv_fused`` → group partials ``[G, C]``;
-* K3 ``packsell_spmm_fused`` → ``[G, C, nb]``.
+* K3 ``packsell_spmm_fused`` → ``[G, C, nb]``, each word loaded and
+  decoded once for up to 8 right-hand sides.
 
-Per width bucket (canonical words ``[S, w, C]``, a column cursor per
-stored row; the plan concatenates the buckets):
+Width buckets (canonical words ``[S, w, C]``, a column cursor per stored
+row):
 
-* K4 ``packsell_spmv_bucket`` → ``[S, C]``, the full-x SpMV;
-* K6 ``packsell_spmv_band_bucket``, K4 with x cut to a ``2·hw`` window
-  per block of ``sb`` slices;
-* K5 ``packsell_spmm_bucket`` → ``[S, C, nb]``, the multi-RHS K4.
+* K4 ``packsell_spmv_buckets`` → ``[total_stored]``, the full-x SpMV over
+  all buckets of a ``full`` plan in one launch, through a
+  :class:`BucketTable` built once with the plan;
+* K6 ``packsell_spmv_band_bucket`` → ``[S, C]`` per bucket, the SpMV with
+  x cut to a ``2·hw`` window per block of ``sb`` slices;
+* K5 ``packsell_spmm_bucket`` → ``[S, C, nb]`` per bucket, the multi-RHS
+  SpMV.
 
-The carry body (no checkpoints) walks all ``w`` words from ``d0[s]``; the
-checkpoint body seeds each width block of ``wb`` words from ``ckpt[s, wi,
-c]`` and returns partials ``[nw, S, C(, nb)]`` that
-:func:`sum_width_partials` adds.
+A row's words fall in width blocks of ``wb``; each block's sum starts at
++0 and the blocks are added in wi order (:func:`sum_width_partials`). The
+carry body (no checkpoints) is one block of all ``w`` words from
+``d0[s]``. K4 walks a row's blocks in one thread, its cursor carried from
+``d0``; K5 and K6 seed each block from ``ckpt[s, wi, c]`` and return
+partials ``[nw, S, C(, nb)]`` that the plan adds.
 
 They replace the Pallas kernels of ``repro/kernels/packsell_spmv.py`` of
 the same names (bodies ``_kernel_fused``/``_kernel_fused_mm``,
@@ -37,6 +43,7 @@ kernel launches it made.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -47,8 +54,8 @@ from . import _build
 ENCODINGS = {"f16": 0, "top16": 1, "fixed16": 2, "words": 3}
 
 
-#: kernel kinds of ``csrc/packsell_bucket.cu``
-_BUCKET_KINDS = {"full": 0, "band": 1, "spmm": 2}
+#: per-bucket kernel kinds of ``csrc/packsell_bucket.cu``
+_BUCKET_KINDS = {"band": 0, "spmm": 1}
 
 
 def _codec_id(codec_name: str) -> int:
@@ -189,6 +196,75 @@ def packsell_spmv_bucket_plain(pack: torch.Tensor, d0: torch.Tensor,
     return part if ckpt is not None else part[0]
 
 
+@dataclasses.dataclass(frozen=True)
+class BucketTable:
+    """Where the buckets of one K4 launch lie, built once with a ``full``
+    plan by :func:`bucket_table`. ``rows`` is int64 ``[nbk, 8]`` on the
+    buckets' device, one row per bucket with stored rows: the addresses of
+    its words and d0, ``S``, ``w``, ``wb``, ``nw``, its first output row
+    and its first thread block (the columns ``TableCol`` of
+    ``csrc/packsell_bucket.cu``). ``wbs`` and ``carry`` are what the plain
+    version needs; ``operands`` are the word and d0 addresses and the
+    shape per bucket, which the wrapper holds against the tensors it is
+    given."""
+
+    rows: torch.Tensor
+    wbs: tuple
+    carry: bool
+    operands: tuple
+    total: int
+    blocks: int
+
+
+#: threads per block of the K4 launch (``kThreads`` in packsell_bucket.cu)
+_K4_THREADS = 256
+
+
+def bucket_table(packs, d0s, kckpts, wbs) -> BucketTable:
+    """The :class:`BucketTable` of K4 over ``packs`` (``kckpts`` None: the
+    carry body, one width block of ``w`` words per row; else blocks of
+    ``wbs[b]`` words)."""
+    carry = kckpts is None
+    rows = []
+    out = blk = 0
+    for pack, d0, wb in zip(packs, d0s, wbs):
+        S, w, C = pack.shape
+        bwb, nw = (w, 1) if carry else (int(wb), -(-w // int(wb)))
+        if S * C:
+            rows.append([pack.data_ptr(), d0.data_ptr(), S, w, bwb, nw, out,
+                         blk])
+        out += S * C
+        blk += -(-S * C // _K4_THREADS)
+    dev = packs[0].device if packs else torch.device("cpu")
+    table = torch.tensor(rows, dtype=torch.int64).reshape(-1, 8)
+    return BucketTable(rows=table.to(dev), wbs=tuple(int(w) for w in wbs),
+                       carry=carry, operands=_operands(packs, d0s),
+                       total=out, blocks=blk)
+
+
+def _operands(packs, d0s) -> tuple:
+    return tuple((p.data_ptr(), d.data_ptr(), tuple(p.shape))
+                 for p, d in zip(packs, d0s))
+
+
+def packsell_spmv_buckets_plain(packs, d0s, kckpts, table: BucketTable,
+                                x: torch.Tensor, *, codec_name: str,
+                                D: int) -> torch.Tensor:
+    """K4's plain version: every bucket's plain SpMV, its checkpoint
+    partials added by :func:`sum_width_partials`, concatenated in bucket
+    order: ``[total_stored]``."""
+    parts = []
+    for b, (pack, d0) in enumerate(zip(packs, d0s)):
+        ck = None if kckpts is None else kckpts[b]
+        t = packsell_spmv_bucket_plain(pack, d0, x, codec_name=codec_name,
+                                       D=D, wb=table.wbs[b], ckpt=ck)
+        parts.append((t if ck is None else sum_width_partials(t))
+                     .reshape(-1))
+    if not parts:
+        return torch.zeros((0,), dtype=torch.float32, device=x.device)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 def packsell_spmv_band_bucket_plain(pack: torch.Tensor, d0: torch.Tensor,
                                     win: torch.Tensor, x: torch.Tensor, *,
                                     codec_name: str, D: int, hw: int,
@@ -239,8 +315,8 @@ def _lib() -> ctypes.CDLL:
                                             _I, _I, _I, ctypes.c_float, _P]
         lib.packsell_spmv_fused.restype = _I
         lib.packsell_spmm_fused.argtypes = [_P, _P, _P, _P, _L, _I, _I, _I,
-                                            _L, _I, _I, _I, ctypes.c_float,
-                                            _P]
+                                            _I, _L, _I, _I, _I,
+                                            ctypes.c_float, _P]
         lib.packsell_spmm_fused.restype = _I
         lib._typed = True
     return lib
@@ -305,12 +381,21 @@ def packsell_spmv_fused(words3d: torch.Tensor, ckpt: torch.Tensor,
 packsell_spmv_fused.launches = 0
 
 
+def spmm_vector_loads(x: torch.Tensor) -> bool:
+    """Whether K3 reads x: [m, nb] with 16-byte loads (and writes its
+    output with 16-byte stores): nb % 4 == 0 and x 16-byte aligned; the
+    output is a fresh allocation, so it is aligned."""
+    return x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0
+
+
 def packsell_spmm_fused(words3d: torch.Tensor, ckpt: torch.Tensor,
                         x: torch.Tensor, *, codec_name: str, D: int,
                         encoding: str, scale: float = 0.0) -> torch.Tensor:
-    """K3: multi-RHS group partials [G, C, nb] float32 for x: [m, nb].
-    CPU tensors take :func:`packsell_spmm_fused_plain`; CUDA tensors
-    launch the kernel."""
+    """K3: multi-RHS group partials [G, C, nb] float32 for x: [m, nb], each
+    word decoded once for up to 8 right-hand sides (chunks of 8 on a second
+    grid axis; :func:`spmm_vector_loads` picks the X loads). CPU tensors
+    take :func:`packsell_spmm_fused_plain`; CUDA tensors launch the
+    kernel."""
     if words3d.device.type == "cpu":
         return packsell_spmm_fused_plain(words3d, ckpt, x,
                                          codec_name=codec_name, D=D,
@@ -318,17 +403,21 @@ def packsell_spmm_fused(words3d: torch.Tensor, ckpt: torch.Tensor,
     _check_operands(words3d, ckpt, x, 2, "packsell_spmm_fused")
     G, wr, C = words3d.shape
     nb = x.shape[1]
+    if G * C >= 1 << 31:
+        raise ValueError(f"packsell_spmm_fused: {G * C} group lanes do not "
+                         "fit the kernel's 32-bit thread index")
     part = torch.empty((G, C, nb), dtype=torch.float32,
                        device=words3d.device)
     if G == 0 or nb == 0:
         return part
     xc = _nonempty(x)
+    vec = spmm_vector_loads(xc)
     with torch.cuda.device(words3d.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().packsell_spmm_fused(
             words3d.data_ptr(), ckpt.data_ptr(), xc.data_ptr(),
-            part.data_ptr(), G, wr, C, nb, xc.shape[0], ENCODINGS[encoding],
-            _codec_id(codec_name), D,
+            part.data_ptr(), G, wr, C, nb, int(vec), xc.shape[0],
+            ENCODINGS[encoding], _codec_id(codec_name), D,
             _scale_arg(codec_name, encoding, scale), stream)
     packsell_spmm_fused.launches += 1
     _build.check(rc, "packsell_spmm_fused")
@@ -345,8 +434,60 @@ def _bucket_lib() -> ctypes.CDLL:
                                         _I, _I, _I, _I, _L, _I, _L, _I, _I,
                                         ctypes.c_float, _P]
         lib.packsell_bucket.restype = _I
+        lib.packsell_spmv_buckets.argtypes = [_P, _I, _I, _I, _P, _P, _L, _I,
+                                              _I, ctypes.c_float, _P]
+        lib.packsell_spmv_buckets.restype = _I
         lib._typed = True
     return lib
+
+
+def packsell_spmv_buckets(packs, d0s, kckpts, table: BucketTable,
+                          x: torch.Tensor, *, codec_name: str,
+                          D: int) -> torch.Tensor:
+    """K4: the SpMV of all buckets ``[total_stored]`` float32, in one
+    launch through ``table`` (:func:`bucket_table` of the same tensors).
+    ``kckpts`` (int32 ``[S, nw, C]`` per bucket, or None for the carry
+    body) fixes the width blocks of the sum; the kernel carries each row's
+    cursor from ``d0`` and does not read them. CPU tensors take
+    :func:`packsell_spmv_buckets_plain`; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return packsell_spmv_buckets_plain(packs, d0s, kckpts, table, x,
+                                           codec_name=codec_name, D=D)
+    what = "packsell_spmv_buckets"
+    dev = x.device
+    if dev.type != "cuda" or table.rows.device != dev or any(
+            t.device != dev for t in (*packs, *d0s)):
+        raise ValueError(f"{what}: packs, d0s, table and x must lie on one "
+                         f"CUDA device (x on {dev}, table on "
+                         f"{table.rows.device})")
+    if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
+        raise TypeError(f"{what}: x must be contiguous 1-D float32 (got "
+                        f"{x.dtype}, {tuple(x.shape)})")
+    if _operands(packs, d0s) != table.operands \
+            or (kckpts is None) != table.carry:
+        raise ValueError(f"{what}: the table was built for other buckets "
+                         "(or the other body)")
+    if x.shape[0] >= 1 << 31 or table.total >= 1 << 31:
+        raise ValueError(f"{what}: the kernel's 32-bit cursor and row index "
+                         f"need m < 2^31 and fewer than 2^31 stored rows "
+                         f"(m = {x.shape[0]}, rows = {table.total})")
+    y = torch.empty((table.total,), dtype=torch.float32, device=dev)
+    if table.total == 0:
+        return y
+    xc = _nonempty(x)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bucket_lib().packsell_spmv_buckets(
+            table.rows.data_ptr(), table.rows.shape[0], table.blocks,
+            packs[0].shape[2], xc.data_ptr(), y.data_ptr(), xc.shape[0],
+            _codec_id(codec_name), D, _scale_arg(codec_name, "words", 0.0),
+            stream)
+    packsell_spmv_buckets.launches += 1
+    _build.check(rc, what)
+    return y
+
+
+packsell_spmv_buckets.launches = 0
 
 
 def _launch_bucket(kind: str, pack, d0, ckpt, win, x, *, codec_name: str,
@@ -354,8 +495,7 @@ def _launch_bucket(kind: str, pack, d0, ckpt, win, x, *, codec_name: str,
     """Check the operands, allocate the output ``[nw, S, C(, nb)]`` and
     launch one per-bucket kernel (none when the output is empty), counting
     the launch on its wrapper."""
-    wrapper = {"full": packsell_spmv_bucket,
-               "band": packsell_spmv_band_bucket,
+    wrapper = {"band": packsell_spmv_band_bucket,
                "spmm": packsell_spmm_bucket}[kind]
     what = wrapper.__name__
     dev = pack.device
@@ -403,24 +543,6 @@ def _launch_bucket(kind: str, pack, d0, ckpt, win, x, *, codec_name: str,
     wrapper.launches += 1
     _build.check(rc, what)
     return out
-
-
-def packsell_spmv_bucket(pack: torch.Tensor, d0: torch.Tensor,
-                         x: torch.Tensor, *, codec_name: str, D: int,
-                         wb: int = 32, ckpt=None) -> torch.Tensor:
-    """K4: one bucket's ``[S, C]`` float32 (carry body), or width-block
-    partials ``[nw, S, C]`` with ``ckpt`` int32 ``[S, nw, C]``. CPU tensors
-    take :func:`packsell_spmv_bucket_plain`; CUDA tensors launch the
-    kernel."""
-    if pack.device.type == "cpu":
-        return packsell_spmv_bucket_plain(pack, d0, x, codec_name=codec_name,
-                                          D=D, wb=wb, ckpt=ckpt)
-    out = _launch_bucket("full", pack, d0, ckpt, None, x,
-                         codec_name=codec_name, D=D, wb=wb)
-    return out if ckpt is not None else out[0]
-
-
-packsell_spmv_bucket.launches = 0
 
 
 def packsell_spmv_band_bucket(pack: torch.Tensor, d0: torch.Tensor,

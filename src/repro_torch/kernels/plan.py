@@ -26,10 +26,13 @@ environment variable moves it: the reference's ``REPRO_SPMV_POLICY`` and
   whose stream is infeasible runs ``full``. ``force="jnp"`` asks for the
   plain PyTorch body explicitly.
 * The per-bucket variants get width-block checkpoints ``int32[S, nw, C]``
-  under ``decode_cache='checkpoint'`` (the kernels' checkpoint body, whose
-  partials the plan adds with ``packsell_spmv.sum_width_partials``) and
-  none under ``'full'``/``'0'`` (the carry body). ``plan.spmm`` on them
-  runs K5.
+  under ``decode_cache='checkpoint'`` (the width blocks of the sum; K5 and
+  K6 seed each block from them and the plan adds their partials with
+  ``packsell_spmv.sum_width_partials``) and none under ``'full'``/``'0'``
+  (the carry body). A ``full`` plan's SpMV is one K4 launch over all
+  buckets, through the :class:`~.packsell_spmv.BucketTable` built with
+  the plan (``ktable``); ``plan.spmm`` on either variant runs K5 per
+  bucket.
 * On the CPU the decisions mirror the reference's on a non-TPU backend:
   ``auto`` gives ``jnp`` (the plain body over the fused stream, or the full
   cursor cache when the stream is infeasible), and ``force="fused"`` runs
@@ -531,6 +534,7 @@ class SpMVPlan:
     tiles: tuple = ()                 # per-bucket (sb, wb)
     wins: Optional[tuple] = None      # per-bucket int32 windows (band only)
     kckpts: Optional[tuple] = None    # per-bucket int32 [S, nw, C]
+    ktable: Optional[_pk.BucketTable] = None  # K4's launch table (full only)
 
     # -- σ-permutation helpers (stored-row order <-> original order) -------
     def from_stored(self, t: torch.Tensor) -> torch.Tensor:
@@ -548,7 +552,7 @@ class SpMVPlan:
         return {"cols": self.cols, "inv": self.inv_cat,
                 "inv2": self.inv2_cat, "outrow": self.outrow_cat,
                 "fused": self.fused, "kckpt": self.kckpts,
-                "wins": self.wins}
+                "ktable": self.ktable, "wins": self.wins}
 
     def execute_with(self, mat: PackSELLMatrix, dev: dict, x: torch.Tensor,
                      *, permuted: bool = False,
@@ -581,12 +585,17 @@ class SpMVPlan:
                                  dev["inv2"])
 
     def _bucket_parts(self, mat, dev, xc, multi_rhs: bool):
-        """The per-bucket bodies: the kernels K4/K6 (K5 for SpMM) of the
-        ``full``/``band`` variants, else the plain full cursor cache, or
-        the scan decode when there is no cache (``decode_cache='0'``)."""
+        """The bucket bodies: one K4 launch over all buckets for a ``full``
+        SpMV; per bucket K6 (``band``) or K5 (SpMM of either), else the
+        plain full cursor cache, or the scan decode when there is no cache
+        (``decode_cache='0'``)."""
         tail = tuple(xc.shape[1:])
         xg = pk._nonempty(xc)
         kck = dev.get("kckpt")
+        if self.variant == "full" and not multi_rhs:
+            return _pk.packsell_spmv_buckets(
+                mat.packs, mat.d0s, kck, dev["ktable"], xc,
+                codec_name=mat.codec_name, D=mat.D)
         parts = []
         for b, (pack, d0) in enumerate(zip(mat.packs, mat.d0s)):
             if self.variant in ("full", "band"):
@@ -597,12 +606,10 @@ class SpMVPlan:
                     # a band plan's SpMM runs the full-x K5, as the
                     # reference's does
                     t = _pk.packsell_spmm_bucket(pack, d0, xc, **kw)
-                elif self.variant == "band":
+                else:
                     t = _pk.packsell_spmv_band_bucket(
                         pack, d0, dev["wins"][b], xc, hw=self.hw, sb=sb,
                         **kw)
-                else:
-                    t = _pk.packsell_spmv_bucket(pack, d0, xc, **kw)
                 if ck is not None:
                     t = _pk.sum_width_partials(t)
             elif dev["cols"] is not None:
@@ -708,7 +715,7 @@ def build_plan(mat: PackSELLMatrix, *, sb: int = 8, wb: int = 32,
     if variant in ("full", "band"):
         fused, layout, orders = (None, None, None)
 
-    cols = kckpts = None
+    cols = kckpts = ktable = None
     if variant == "fused":
         if mode != "checkpoint":
             reason += (f"; decode_cache={mode!r} overridden to "
@@ -717,6 +724,9 @@ def build_plan(mat: PackSELLMatrix, *, sb: int = 8, wb: int = 32,
     elif variant in ("full", "band"):
         if mode == "checkpoint":
             kckpts = _build_block_checkpoints(mat, tiles)
+        if variant == "full":
+            ktable = _pk.bucket_table(mat.packs, mat.d0s, kckpts,
+                                      [wb for _, wb in tiles])
     else:
         if mode != "checkpoint":
             fused, layout, orders = (None, None, None)
@@ -756,7 +766,7 @@ def build_plan(mat: PackSELLMatrix, *, sb: int = 8, wb: int = 32,
         fused_trim=fused_trim, hw=hw, tiles=tiles,
         wins=None if wins is None else tuple(
             torch.from_numpy(w).to(mat.device) for w in wins),
-        kckpts=kckpts)
+        kckpts=kckpts, ktable=ktable)
     _quick_validate(plan)
     return plan
 

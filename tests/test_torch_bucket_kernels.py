@@ -1,9 +1,10 @@
 """K4 and K5 of repro_torch against the reference, on the CPU.
 
-The plain versions of the per-bucket SpMV (K4) and its multi-RHS twin
-(K5), in both bodies (the carry body from ``d0`` and the checkpoint body
-whose width-block partials the plan adds), run through plans forced to
-``full`` and are held against the reference plans of the same variant,
+The plain versions of the SpMV over all buckets (K4) and the per-bucket
+multi-RHS SpMV (K5), in both bodies (the carry body from ``d0`` and the
+checkpoint body whose width-block partials are added in wi order), run
+through plans forced to ``full`` and are held against the reference plans
+of the same variant,
 whose Pallas kernels run in interpret mode (computed once per case by a
 module-scoped fixture), bit for bit on integer data (values and x in
 [-8, 8], so every sum is exact) over fp16/bf16 at D = 15 and e8m at
@@ -170,17 +171,18 @@ def test_checkpoint_body_partials_sum_to_carry_body(codec, D):
     for pack, d0, ck in zip(t.packs, t.d0s,
                             tpl._build_block_checkpoints(t, tiles)):
         kw = dict(codec_name=codec, D=D, wb=WB)
-        part = tkp.packsell_spmv_bucket(pack, d0, x, ckpt=ck, **kw)
+        part = tkp.packsell_spmv_bucket_plain(pack, d0, x, ckpt=ck, **kw)
         assert part.shape == (ck.shape[1],) + tuple(pack.shape[::2])
-        carry = tkp.packsell_spmv_bucket(pack, d0, x, **kw)
+        carry = tkp.packsell_spmv_bucket_plain(pack, d0, x, **kw)
         assert torch.equal(tkp.sum_width_partials(part), carry)
         mpart = tkp.packsell_spmm_bucket(pack, d0, X, ckpt=ck, **kw)
         assert torch.equal(tkp.sum_width_partials(mpart),
                            tkp.packsell_spmm_bucket(pack, d0, X, **kw))
-        assert torch.equal(mpart[..., 1], tkp.packsell_spmv_bucket(
+        assert torch.equal(mpart[..., 1], tkp.packsell_spmv_bucket_plain(
             pack, d0, X[:, 1], ckpt=ck, **kw))
     with pytest.raises(ValueError, match="do not fit"):
-        tkp.packsell_spmv_bucket(t.packs[0], t.d0s[0], x, ckpt=ck, **kw)
+        tkp.packsell_spmv_bucket_plain(t.packs[0], t.d0s[0], x, ckpt=ck,
+                                       **kw)
 
 
 def test_sum_width_partials_order_and_empty():
@@ -196,8 +198,9 @@ def test_bucket_wrappers_reject_cpu_operands_for_the_kernel():
     t = tpk.from_csr(SUITE["banded"], C=8, sigma=32, D=8, codec="e8m",
                      device="cpu")
     with pytest.raises(ValueError, match="CUDA device"):
-        tkp._launch_bucket("full", t.packs[0], t.d0s[0], None, None,
-                           torch.ones(t.m), codec_name="e8m", D=8, wb=32)
+        tkp._launch_bucket("spmm", t.packs[0], t.d0s[0], None, None,
+                           torch.ones((t.m, 2)), codec_name="e8m", D=8,
+                           wb=32)
 
 
 # ---------------------------------------------------------------------------

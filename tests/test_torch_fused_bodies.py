@@ -47,7 +47,7 @@ def test_k1_plain_real_values_rtol(klass):
                                want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("nb", [1, 3, 8])
+@pytest.mark.parametrize("nb", [1, 3, 4, 8, 12])
 @pytest.mark.parametrize("klass", ["hpcg_mini", "powerlaw"])
 def test_k3_plain_bit_equal_reference(nb, klass):
     r, t = _pair(INT_SUITE[klass], "fp16", 15)

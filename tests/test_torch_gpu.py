@@ -1,7 +1,9 @@
 """repro_torch's CUDA kernels against their plain PyTorch versions, on the
-card: K1 (fused-stream SpMV) and K3 (its multi-RHS twin) on every stream
-encoding and checkpoint width, K4 (per-bucket SpMV), K5 (its multi-RHS
-twin) and K6 (band-windowed) in both bodies over every codec, K2 (SELL)
+card: K1 (fused-stream SpMV) and K3 (its multi-RHS twin, vector and scalar
+X loads, chunks of 8 right-hand sides) on every stream encoding and
+checkpoint width, K4 (the SpMV over all buckets, one launch), K5
+(per-bucket multi-RHS) and K6 (band-windowed) in both bodies over every
+codec, K2 (SELL)
 on every value type and with a float64 accumulator, bit for bit over the
 tiny suite; a Jacobi-PCG solve through K1 that stops at the plain body's
 iteration, and a mixed-precision solve through K4 and K2-f64 with the
@@ -74,10 +76,17 @@ def test_k1_k3_bit_equal_plain(cuda, klass, codec, D):
     _bits_equal(kpk.packsell_spmv_fused(words, ckpt, x, **kw),
                 kpk.packsell_spmv_fused_plain(words, ckpt, x, **kw))
     assert kpk.packsell_spmv_fused.launches == before + 1
-    for nb in (1, 3, 8):
+    for nb in (1, 3, 4, 8, 12):
         X = _x(mat.m, cuda, nb=nb, seed=nb)
-        _bits_equal(kpk.packsell_spmm_fused(words, ckpt, X, **kw),
-                    kpk.packsell_spmm_fused_plain(words, ckpt, X, **kw))
+        # a contiguous view 4 bytes past a 16-byte boundary: scalar loads
+        Xm = _x(mat.m * nb + 1, cuda, seed=nb)[1:].view(mat.m, nb)
+        assert not kpk.spmm_vector_loads(Xm)
+        assert kpk.spmm_vector_loads(X) == (nb % 4 == 0)
+        for XX in (X, Xm):
+            before = kpk.packsell_spmm_fused.launches
+            _bits_equal(kpk.packsell_spmm_fused(words, ckpt, XX, **kw),
+                        kpk.packsell_spmm_fused_plain(words, ckpt, XX, **kw))
+            assert kpk.packsell_spmm_fused.launches == before + 1
     plain = kplan.build_plan(mat, force="jnp")
     _bits_equal(plan.spmv(mat, x), plain.spmv(mat, x))
     torch.cuda.synchronize()
@@ -188,8 +197,9 @@ def _smallest_hw(mat, sb=8):
 @pytest.mark.parametrize("codec,D", BUCKET_CODECS)
 @pytest.mark.parametrize("wb", [None, 32, 8])
 def test_k4_k5_k6_bit_equal_plain(cuda, klass, codec, D, wb):
-    """Carry body (wb None) and checkpoint body (partials compared before
-    the shared width sum), on uniform buckets so that K6 has windows."""
+    """Carry body (wb None) and checkpoint body: K4 over all buckets in one
+    launch; K5 and K6 per bucket, their partials compared before the
+    shared width sum; on uniform buckets so that K6 has windows."""
     mat = pk.from_csr(SUITE[klass], C=32, sigma=64, D=D, codec=codec,
                       device=cuda, bucket_strategy="uniform")
     tiles = tuple((8, wb or 32) for _ in mat.packs)
@@ -199,13 +209,19 @@ def test_k4_k5_k6_bit_equal_plain(cuda, klass, codec, D, wb):
     wins = [torch.from_numpy(w).to(cuda) for w in kplan.band_plan(mat, 8, hw)]
     x = _x(mat.m, cuda)
     X = _x(mat.m, cuda, nb=11, seed=4)       # two K5 groups of rhs
-    launches = [(k.launches) for k in (kpk.packsell_spmv_bucket,
+    launches = [(k.launches) for k in (kpk.packsell_spmv_buckets,
                                        kpk.packsell_spmv_band_bucket,
                                        kpk.packsell_spmm_bucket)]
+    kck = list(ckpts) if wb else None
+    table = kpk.bucket_table(mat.packs, mat.d0s, kck,
+                             [t[1] for t in tiles])
+    kw4 = dict(codec_name=codec, D=D)
+    _bits_equal(kpk.packsell_spmv_buckets(mat.packs, mat.d0s, kck, table, x,
+                                          **kw4),
+                kpk.packsell_spmv_buckets_plain(mat.packs, mat.d0s, kck,
+                                                table, x, **kw4))
     for pack, d0, ck, win in zip(mat.packs, mat.d0s, ckpts, wins):
         kw = dict(codec_name=codec, D=D, wb=wb or 32, ckpt=ck)
-        _bits_equal(kpk.packsell_spmv_bucket(pack, d0, x, **kw),
-                    kpk.packsell_spmv_bucket_plain(pack, d0, x, **kw))
         _bits_equal(
             kpk.packsell_spmv_band_bucket(pack, d0, win, x, hw=hw, **kw),
             kpk.packsell_spmv_band_bucket_plain(pack, d0, win, x, hw=hw,
@@ -216,10 +232,10 @@ def test_k4_k5_k6_bit_equal_plain(cuda, klass, codec, D, wb):
                         kpk.packsell_spmm_bucket_plain(pack, d0, X[:, :nb],
                                                        **kw))
     nbk = len(mat.packs)
-    assert [k.launches for k in (kpk.packsell_spmv_bucket,
+    assert [k.launches for k in (kpk.packsell_spmv_buckets,
                                  kpk.packsell_spmv_band_bucket,
                                  kpk.packsell_spmm_bucket)] == \
-        [launches[0] + nbk, launches[1] + nbk, launches[2] + 4 * nbk]
+        [launches[0] + 1, launches[1] + nbk, launches[2] + 4 * nbk]
     # the plans: band and full agree bit for bit on finite x, and each
     # equals its plain body's plan output within float32 rounding
     mode = "checkpoint" if wb else "0"
@@ -235,6 +251,40 @@ def test_k4_k5_k6_bit_equal_plain(cuda, klass, codec, D, wb):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("klass", sorted(SUITE))
+@pytest.mark.parametrize("codec,D", BUCKET_CODECS)
+@pytest.mark.parametrize("wb", [None, 32, 8])
+def test_full_plan_spmv_is_one_k4_launch(cuda, klass, codec, D, wb):
+    """pow2 buckets (several per matrix): the ``full`` plan's SpMV is one
+    K4 launch, bit-equal to K4's plain version over the plan's operands,
+    in both output orders; a table of other tensors and CPU x raise."""
+    mat = pk.from_csr(SUITE[klass], C=32, sigma=64, D=D, codec=codec,
+                      device=cuda)
+    mode = "checkpoint" if wb else "0"
+    plan = kplan.build_plan(mat, force="full", decode_cache=mode,
+                            wb=wb or 32)
+    x = _x(mat.m, cuda, seed=9)
+    k4 = kpk.packsell_spmv_buckets
+    kw = dict(codec_name=codec, D=D)
+    want = kpk.packsell_spmv_buckets_plain(mat.packs, mat.d0s, plan.kckpts,
+                                           plan.ktable, x, **kw)
+    before = k4.launches
+    _bits_equal(plan.spmv(mat, x, permuted=True), want)
+    assert k4.launches == before + 1
+    _bits_equal(plan.spmv(mat, x), plan.from_stored(want))
+    assert k4.launches == before + 2
+    if len(mat.packs) > 1:
+        with pytest.raises(ValueError, match="other buckets"):
+            k4(mat.packs[::-1], mat.d0s[::-1], plan.kckpts, plan.ktable, x,
+               **kw)
+    cpu_table = kpk.bucket_table([p.cpu() for p in mat.packs],
+                                 [d.cpu() for d in mat.d0s], plan.kckpts,
+                                 [t[1] for t in plan.tiles])
+    with pytest.raises(ValueError, match="CUDA device"):
+        k4(mat.packs, mat.d0s, plan.kckpts, cpu_table, x, **kw)
+    assert k4.launches == before + 2
+
+
 def test_k4_k6_pad_words_differ_only_past_m(cuda):
     """The σ-padding rows' PAD words have cursors past m - 1: K4 reads
     x[m - 1] (inf, so 0 · inf = NaN) where K6 reads the zero padding."""
@@ -246,12 +296,18 @@ def test_k4_k6_pad_words_differ_only_past_m(cuda):
     mat = pk.from_csr(a, C=8, sigma=8, D=12, codec="e8m", device=cuda)
     x = torch.tensor([1, 2, 3, 4, float("inf")], device=cuda)
     hw, n_differ = 128, 0
-    for pack, d0, win in zip(mat.packs, mat.d0s, kplan.band_plan(mat, 8, hw)):
+    kw = dict(codec_name="e8m", D=12)
+    table = kpk.bucket_table(mat.packs, mat.d0s, None, [32] * len(mat.packs))
+    k4_all = kpk.packsell_spmv_buckets(mat.packs, mat.d0s, None, table, x,
+                                       **kw)
+    _bits_equal(k4_all, kpk.packsell_spmv_buckets_plain(
+        mat.packs, mat.d0s, None, table, x, **kw))
+    k4s = k4_all.split([p.shape[0] * p.shape[2] for p in mat.packs])
+    for pack, d0, win, k4 in zip(mat.packs, mat.d0s,
+                                 kplan.band_plan(mat, 8, hw), k4s):
         win = torch.from_numpy(win).to(cuda)
-        kw = dict(codec_name="e8m", D=12)
-        k4 = kpk.packsell_spmv_bucket(pack, d0, x, **kw)
+        k4 = k4.view(pack.shape[0], pack.shape[2])
         k6 = kpk.packsell_spmv_band_bucket(pack, d0, win, x, hw=hw, **kw)
-        _bits_equal(k4, kpk.packsell_spmv_bucket_plain(pack, d0, x, **kw))
         _bits_equal(k6, kpk.packsell_spmv_band_bucket_plain(pack, d0, win, x,
                                                             hw=hw, **kw))
         differ = ~((k4 == k6) | (torch.isnan(k4) & torch.isnan(k6)))
@@ -284,17 +340,17 @@ def test_adaptive_pcg_through_k4_matches_plain_schedule(cuda):
     M = lambda r: r * (1.0 / diag)                    # noqa: E731
     b = torch.from_numpy(np.random.default_rng(0).standard_normal(
         s.shape[0])).to(cuda)
-    k4 = kpk.packsell_spmv_bucket
+    k4 = kpk.packsell_spmv_buckets
     before = (k4.launches, ksl.sell_spmv_bucket.launches)
     x, info = cg.adaptive_pcg(tiers, b, M=M, matvec_hi=hi, tol=1e-8,
                               maxiter=60, m_in=16)
     ladder = psel.tier_ladder(ops_k.precision_plan(1e-3, n_probes=2))
-    want_k4 = 0
+    want_k4 = 0                 # one launch per packed-tier matvec
     for i, c in enumerate(ladder):
         if c.codec == "e8m":
             mat, plan = ops_k.plan_pair(psel.operator_kind(c))
             if plan.variant == "full":
-                want_k4 += int(info.tier_matvecs[i]) * len(mat.packs)
+                want_k4 += int(info.tier_matvecs[i])
     assert k4.launches - before[0] == want_k4 > 0
     assert ksl.sell_spmv_bucket.launches - before[1] == info.hi_matvecs * len(
         ops_k.stored("fp64").vals) + int(info.tier_matvecs[-1]) * len(
