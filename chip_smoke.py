@@ -4,7 +4,7 @@ the sources in this checkout, holds each against its plain PyTorch
 version, drives the two main paths at HPCG 104^3 -- PackSELL fp16 through
 the fused-stream plan with Jacobi-PCG in stored-row order, a multi-RHS
 product and the SELL baseline; then the mixed-precision adaptive PCG over
-the e8m tier ladder (per-bucket kernels, a float64 SELL outer operator),
+the e8m tier ladder (the bucket kernels, a float64 SELL outer operator),
 a multi-RHS product and a band-windowed plan -- times the kernels, and
 ends with one JSON line.
 
@@ -212,8 +212,8 @@ class Smoke:
                                      kpk.packsell_spmm_fused,
                                      ksl.sell_spmv_bucket)
         self.k4, self.k5, self.k6 = (kpk.packsell_spmv_buckets,
-                                     kpk.packsell_spmm_bucket,
-                                     kpk.packsell_spmv_band_bucket)
+                                     kpk.packsell_spmm_buckets,
+                                     kpk.packsell_spmv_band_buckets)
         ids = ("K1", "K2", "K3", "K4", "K5", "K6", "K2-f64")
         self.err = dict.fromkeys(ids, 0.0)
         self.cases = dict.fromkeys(ids, 0)
@@ -315,11 +315,12 @@ class Smoke:
               f"{len(mat.vals)} bit-equal {k}", flush=True)
 
     def check_bucket(self, label, a, codec, D, strategy="pow2"):
-        """K4 (all buckets, one launch) and K5 in both bodies (carry;
-        checkpoint at wb = 32 and 8, K5's partials compared before the
-        width sum) and, on uniform buckets at the smallest feasible
-        half-window, K6; then the plans against the quantized matrix in
-        float64 on the host."""
+        """K4, K5 (nb = 1, 3, 4, 8, 12, on X 16-byte aligned -- vector loads
+        where nb % 4 == 0 -- and on a view 4 bytes past that) and, on
+        uniform buckets at the smallest feasible half-window, K6, each over
+        all buckets in one launch, in both bodies (carry; checkpoint at wb
+        = 32 and 8); then the plans against the quantized matrix in float64
+        on the host."""
         from repro_torch.core import codecs as cd
         from repro_torch.core import packsell as pk
         from repro_torch.kernels import packsell_spmv as kpk
@@ -328,41 +329,48 @@ class Smoke:
         mat = pk.from_csr(a, C=32, sigma=256, D=D, codec=codec,
                           device=self.dev, bucket_strategy=strategy)
         rng = np.random.default_rng(9)
-        x = torch.from_numpy(rng.standard_normal(mat.m).astype(
+        m = mat.m
+        x = torch.from_numpy(rng.standard_normal(m).astype(
             np.float32)).to(self.dev)
-        Xs = {nb: torch.from_numpy(rng.standard_normal((mat.m, nb)).astype(
-            np.float32)).to(self.dev) for nb in (1, 3, 8)}
+        Xs = []
+        for nb in (1, 3, 4, 8, 12):
+            flat = torch.from_numpy(rng.standard_normal(m * nb + 1).astype(
+                np.float32)).to(self.dev)
+            for X, how in ((flat[:m * nb].view(m, nb), "aligned"),
+                           (flat[1:].view(m, nb), "offset by 4 B")):
+                if kpk.spmm_vector_loads(X) != (how == "aligned"
+                                                and nb % 4 == 0):
+                    fail(f"K5 {label} nb={nb} {how}: wrong X loads")
+                Xs.append((f"nb={nb} {how}", X))
         band = strategy == "uniform"
         hw = smallest_hw(mat) if band else None
         wins = ([torch.from_numpy(w).to(self.dev)
-                 for w in kplan.band_plan(mat, 8, hw)] if band
-                else [None] * len(mat.packs))
+                 for w in kplan.band_plan(mat, 8, hw)] if band else None)
         for wb in (None, 32, 8):
             tiles = tuple((8, wb or 32) for _ in mat.packs)
-            ckpts = (kplan._build_block_checkpoints(mat, tiles) if wb
-                     else (None,) * len(mat.packs))
-            kck = list(ckpts) if wb else None
+            kck = (list(kplan._build_block_checkpoints(mat, tiles)) if wb
+                   else None)
             table = kpk.bucket_table(mat.packs, mat.d0s, kck,
-                                     [t[1] for t in tiles])
-            kw4 = dict(codec_name=codec, D=D)
+                                     [t[1] for t in tiles], wins=wins,
+                                     sbs=[t[0] for t in tiles])
+            args = (mat.packs, mat.d0s, kck, table)
+            kw = dict(codec_name=codec, D=D)
             self.note("K4", same_bits(
-                self.k4(mat.packs, mat.d0s, kck, table, x, **kw4),
-                kpk.packsell_spmv_buckets_plain(mat.packs, mat.d0s, kck,
-                                                table, x, **kw4),
+                self.k4(*args, x, **kw),
+                kpk.packsell_spmv_buckets_plain(*args, x, **kw),
                 f"K4 {label} wb={wb}"))
-            for pack, d0, ck, win in zip(mat.packs, mat.d0s, ckpts, wins):
-                kw = dict(codec_name=codec, D=D, wb=wb or 32, ckpt=ck)
-                for nb, X in Xs.items():
-                    self.note("K5", same_bits(
-                        self.k5(pack, d0, X, **kw),
-                        kpk.packsell_spmm_bucket_plain(pack, d0, X, **kw),
-                        f"K5 {label} wb={wb} nb={nb}"))
-                if band:
-                    self.note("K6", same_bits(
-                        self.k6(pack, d0, win, x, hw=hw, **kw),
-                        kpk.packsell_spmv_band_bucket_plain(
-                            pack, d0, win, x, hw=hw, **kw),
-                        f"K6 {label} wb={wb}"))
+            for how, X in Xs:
+                self.note("K5", same_bits(
+                    self.k5(*args, X, **kw),
+                    kpk.packsell_spmm_buckets_plain(*args, X, **kw),
+                    f"K5 {label} wb={wb} {how}"))
+            if band:
+                self.note("K6", same_bits(
+                    self.k6(mat.packs, mat.d0s, wins, kck, table, x, hw=hw,
+                            **kw),
+                    kpk.packsell_spmv_band_buckets_plain(
+                        mat.packs, mat.d0s, wins, kck, table, x, hw=hw, **kw),
+                    f"K6 {label} wb={wb}"))
         pf = kplan.build_plan(mat, force="full")
         y = pf.spmv(mat, x)
         if band:
@@ -377,9 +385,9 @@ class Smoke:
         if not rel < 1e-5:
             fail(f"{label}: full plan vs host float64 oracle rel {rel:.3e}")
         print(f"  {label:28s} {strategy:7s} buckets={len(mat.packs)} "
-              f"bit-equal K4(one launch),K5(nb=1,3,8)"
-              f"{',K6 hw=' + str(hw) if band else ''}"
-              f" (carry, wb=32, wb=8); vs host f64 oracle rel {rel:.2e}",
+              f"bit-equal K4,K5(nb=1,3,4,8,12; aligned and not)"
+              f"{',K6 hw=' + str(hw) if band else ''}, one launch each "
+              f"(carry, wb=32, wb=8); vs host f64 oracle rel {rel:.2e}",
               flush=True)
 
     def kernels_vs_plain(self):
@@ -523,9 +531,10 @@ class Smoke:
         """``adaptive_pcg`` over the e8m tier ladder of ``OperatorSet.
         adaptive_tiers`` on the sym-scaled matrix ``a_s`` (K4 in every e8m
         tier, K2 with a float64 sum for the outer residual), then
-        ``plan.spmm`` (nb = 8) on the e8m/D8 tier (K5) and the band plan
-        of e8m/D8 on uniform buckets (K6). Then the same solve on the plain
-        bodies, and fp32 Jacobi-PCG through K2 to 1e-8."""
+        ``plan.spmm`` (nb = 8) on the e8m/D8 tier (one K5 launch) and the
+        band plan of e8m/D8 on uniform buckets (one K6 launch). Then the
+        same solve on the plain bodies, and fp32 Jacobi-PCG through K2 to
+        1e-8."""
         from repro_torch.core import packsell as pk
         from repro_torch.kernels import plan as kplan
         from repro_torch.precision import select as psel
@@ -609,15 +618,19 @@ class Smoke:
             fail(f"K2-f64 launches {after_solve['K2-f64']} != hi_matvecs "
                  f"{info.hi_matvecs} x {fp64_buckets} buckets")
 
-        # K5: the multi-RHS product on the e8m/D8 tier's plan
+        # K5: the multi-RHS product on the e8m/D8 tier's plan, one launch
         mat8, plan8 = ops_k.plan_pair("plan_e8m8")
         rng = np.random.default_rng(13)
         X = torch.from_numpy(rng.standard_normal((n, 8)).astype(
             np.float32)).to(self.dev)
+        before = self.k5.launches
         Y = plan8.spmm(mat8, X)
+        if self.k5.launches != before + 1:
+            fail(f"plan.spmm launched K5 {self.k5.launches - before} times, "
+                 "not once")
         y0 = plan8.spmv(mat8, X[:, 0].contiguous())
         if not torch.equal(Y[:, 0], y0):
-            # K5 and K4 add one column in the same order
+            # K5 and K4 walk a row alike and add one column in one order
             fail("plan.spmm column 0 differs from plan.spmv on it")
 
         # K6: e8m/D8 on uniform buckets at the smallest feasible half-window
@@ -635,7 +648,12 @@ class Smoke:
             fail(f"uniform e8m/D8 plan is {band.variant!r}, not 'band'")
         xb = torch.from_numpy(rng.standard_normal(n).astype(
             np.float32)).to(self.dev)
-        same_bits(band.spmv(mat_u, xb), full.spmv(mat_u, xb),
+        before = self.k6.launches
+        yb = band.spmv(mat_u, xb)
+        if self.k6.launches != before + 1:
+            fail(f"the band SpMV launched K6 {self.k6.launches - before} "
+                 "times, not once")
+        same_bits(yb, full.spmv(mat_u, xb),
                   "band plan vs full plan, uniform e8m/D8")
         torch.cuda.synchronize()
         launches = self.counts()
@@ -829,61 +847,53 @@ class Smoke:
 
     def times_bucket(self, mx):
         """K4 (the e8m/D8, D4, D12 and D1 tiers, one launch per matvec; D8
-        and D1 also bucket by bucket), K5 (nb = 8, the e8m/D8 tier), K6
-        (the uniform e8m/D8 band plan), K2-f64 (the fp64 operator) and K2
-        with fp32 values (the fp32 tier) at the mixed path's shapes, each
-        per matvec."""
+        and D1 also bucket by bucket), K5 (the e8m/D8 tier at nb = 8, its
+        row, and at nb = 1, 2, 4), K6 (the uniform e8m/D8 band plan), K2-f64
+        (the fp64 operator) and K2 with fp32 values (the fp32 tier) at the
+        mixed path's shapes, each per matvec (K5: per SpMM)."""
         from repro_torch.core import codecs as cd
         from repro_torch.core import sell as sl
         from repro_torch.kernels import packsell_spmv as kpk
 
         ops_k = mx["ops"]
         s = ops_k.csr
-        m, nb = s.shape[1], 8
+        m = s.shape[1]
         rng = np.random.default_rng(14)
         x = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(
             self.dev)
-        X = torch.from_numpy(rng.standard_normal((m, nb)).astype(
-            np.float32)).to(self.dev)
         x64 = torch.from_numpy(rng.standard_normal(m)).to(self.dev)
         reps, preps = self.reps, max(self.reps // 10, 2)
 
-        def bucket_row(k, mat, plan, kernel, plain, xx):
-            """K5 or K6: every bucket's launch in the plan's body
-            (checkpoint partials, before the width sum)."""
-            kck = plan.kckpts or (None,) * len(mat.packs)
-            calls = []
-            for b, (pack, d0) in enumerate(zip(mat.packs, mat.d0s)):
-                sb, wb = plan.tiles[b]
-                kw = dict(codec_name=mat.codec_name, D=mat.D, wb=wb,
-                          ckpt=kck[b])
-                if kernel is self.k6:
-                    calls.append(((pack, d0, plan.wins[b], xx),
-                                  dict(kw, hw=plan.hw, sb=sb)))
-                else:
-                    calls.append(((pack, d0, xx), kw))
-            outs = []
-            for a, kw in calls:
-                got = kernel(*a, **kw)
-                self.note(k, same_bits(got, plain(*a, **kw),
-                                       f"{k} at HPCG {self.main_side}^3"))
-                outs.append(got)
+        def bucket_row(k, mat, plan, xx, lib):
+            """K5 (xx [m, nb]) or K6 (xx [m]) over all buckets of a plan,
+            one launch through its table, bit-equal to its plain version.
+            The bound counts the words, d0, K6's windows, x or X and the
+            output once each."""
+            args = (mat.packs, mat.d0s, plan.kckpts, plan.ktable, xx)
+            kw = dict(codec_name=mat.codec_name, D=mat.D)
+            if k == "K6":
+                args = (mat.packs, mat.d0s, plan.wins, *args[2:])
+                kw["hw"] = plan.hw
+                kernel, plain = self.k6, kpk.packsell_spmv_band_buckets_plain
+            else:
+                kernel, plain = self.k5, kpk.packsell_spmm_buckets_plain
+            got = kernel(*args, **kw)
+            self.note(k, same_bits(got, plain(*args, **kw),
+                                   f"{k} at HPCG {self.main_side}^3, x "
+                                   f"{tuple(xx.shape)}"))
 
             def run():
-                for a, kw in calls:
-                    kernel(*a, **kw)
+                return kernel(*args, **kw)
 
-            tp = timed(lambda: [plain(*a, **kw) for a, kw in calls], preps)
+            tp = timed(lambda: plain(*args, **kw), preps)
             words = sum(p.numel() for p in mat.packs)
-            seeds = sum((c.numel() if c is not None else d0.numel())
-                        for c, d0 in zip(kck, mat.d0s))
-            nbytes = 4 * (words + seeds + sum(o.numel() for o in outs)
-                          + xx.numel())
-            if kernel is self.k6:
+            nbytes = 4 * (words + sum(d.numel() for d in mat.d0s)
+                          + got.numel() + xx.numel())
+            if k == "K6":
                 nbytes += 4 * sum(w.numel() for w in plan.wins)
             cols = xx.shape[1] if xx.dim() == 2 else 1
-            tb, by = bound_ms(nbytes, 2 * words * cols)
-            return device_ms(run, reps), tp, tb, by, timed(run, reps)
+            return (device_ms(run, reps), tp, timed(lambda: lib @ xx, reps),
+                    *bound_ms(nbytes, 2 * words * cols), timed(run, reps))
 
         rows = {}
         for D, key in ((8, "K4"), (4, "K4 e8m/D4"), (12, "K4 e8m/D12"),
@@ -895,13 +905,14 @@ class Smoke:
                          per_bucket=D in (8, 1))
         mat, plan = ops_k.plan_pair("plan_e8m8")
         a_q8 = sparse_csr(s, cd.quantize_np(s.data, mat.codec, 8), self.dev)
-        t, tp, tb, by, te = bucket_row(
-            "K5", mat, plan, self.k5, kpk.packsell_spmm_bucket_plain, X)
-        rows["K5"] = (t, tp, timed(lambda: a_q8 @ X, reps), tb, by, te)
-        t, tp, tb, by, te = bucket_row(
-            "K6", mx["mat_u"], mx["band"], self.k6,
-            kpk.packsell_spmv_band_bucket_plain, x)
-        rows["K6"] = (t, tp, timed(lambda: a_q8 @ x, reps), tb, by, te)
+        # K5: nb = 8 is the kernel's row; nb = 1, 2, 4 show how its time
+        # grows with the right-hand sides
+        for nb in (8, 1, 2, 4):
+            X = torch.from_numpy(rng.standard_normal((m, nb)).astype(
+                np.float32)).to(self.dev)
+            rows["K5" if nb == 8 else f"K5 nb={nb}"] = bucket_row(
+                "K5", mat, plan, X, a_q8)
+        rows["K6"] = bucket_row("K6", mx["mat_u"], mx["band"], x, a_q8)
 
         def k2_row(k, sell, xx, acc, lib):
             """K2 over every bucket of a SELL operator, per matvec."""
@@ -932,6 +943,10 @@ class Smoke:
         k2_row("K2 fp32 values", ops_k.stored("fp32"), x, torch.float32,
                sparse_csr(s, s.data.astype(np.float32), self.dev))
         print_rows(rows, " per matvec")
+        for nb in (1, 2, 4, 8):
+            t = rows["K5" if nb == 8 else f"K5 nb={nb}"][0]
+            print(f"  K5 nb={nb}: {t / rows['K4'][0]!r} x K4's device time "
+                  f"(e8m/D8), {t / nb!r} ms per right-hand side", flush=True)
         return rows
 
     # -- phase 7: where a solve's time goes --------------------------------
@@ -1025,9 +1040,14 @@ def main() -> int:
     logs = _build.build_all()
     print(f"  nvcc (all sources at once): {time.perf_counter() - t0:.1f} s",
           flush=True)
+    spilled = []
     for src, kernel, regs, st, ld in ptxas_table(logs):
         print(f"  {src}.cu {kernel}: {regs} registers, spill stores {st} B, "
               f"spill loads {ld} B", flush=True)
+        if st or ld:
+            spilled.append(f"{src}.cu {kernel}")
+    if spilled:
+        fail(f"kernels that spill registers: {spilled}")
 
     smoke = Smoke(dev)
     print("== 3. kernels against their plain versions, on the card",
@@ -1054,9 +1074,9 @@ def main() -> int:
                "src/repro/kernels/packsell_spmv.py:620"),
         "K4": ("packsell_spmv_buckets", src + "packsell_bucket.cu",
                "src/repro/kernels/packsell_spmv.py:133"),
-        "K5": ("packsell_spmm_bucket", src + "packsell_bucket.cu",
+        "K5": ("packsell_spmm_buckets", src + "packsell_bucket.cu",
                "src/repro/kernels/packsell_spmv.py:412"),
-        "K6": ("packsell_spmv_band_bucket", src + "packsell_bucket.cu",
+        "K6": ("packsell_spmv_band_buckets", src + "packsell_bucket.cu",
                "src/repro/kernels/packsell_spmv.py:271"),
         "K2-f64": ("sell_spmv_bucket (float64 sum)", src + "sell_spmv.cu",
                    "src/repro/kernels/sell_spmv.py:47"),

@@ -1,5 +1,6 @@
 // Per-bucket PackSELL SpMV (K4), band-windowed SpMV (K6) and multi-RHS
-// SpMM (K5) for Hopper (sm_90a).
+// SpMM (K5) for Hopper (sm_90a), each one launch over all buckets of a
+// plan.
 //
 // Replaces the Pallas kernels of src/repro/kernels/packsell_spmv.py:
 //   K4  packsell_spmv_bucket      (:133; _kernel_full, _kernel_full_ckpt)
@@ -8,17 +9,18 @@
 //
 // What they compute, over width buckets of canonical PackSELL words
 // uint32[S, w, C] (lane axis minor): each stored row (s, c) walks its words
-// with a column cursor, cur += delta(word), and adds v(word) * x[col(cur)].
-// A row's words fall in width blocks of wb (the carry body: one block of
-// all w words). Each block's sum starts at +0 and adds its products in j
-// order; the row's total is block 0, then + block wi for wi = 1, 2, ...
-// (packsell_spmv.sum_width_partials).
+// with a column cursor from d0[s], cur += delta(word), and adds
+// v(word) * x[col(cur)]. A row's words fall in width blocks of wb (the
+// carry body: one block of all w words). Each block's sum starts at +0 and
+// adds its products in j order; the row's total is block 0, then + block
+// wi for wi = 1, 2, ... (packsell_spmv.sum_width_partials). K5 does this
+// per right-hand side of X float32[m, nb] (row-major).
 // col(cur):
 //   K4, K5: clamp(cur, 0, m-1), the jnp scan body's rule. The Pallas kernel
 //     clamps to len(xp)-1 over x zero-padded to a multiple of 128 and so
 //     reads 0 for a column past m.
-//   K6: base = win[s / sb] * hw, local = clamp(cur - base, 0, 2hw-1), and
-//     x[base + local] reads 0 at and past m: the reference's window over x
+//   K6: base = win[s / sb] * hw, g = base + clamp(cur - base, 0, 2hw-1),
+//     and x[g] reads 0 at and past m: the reference's window over x
 //     zero-padded by (-m) % hw + hw, without the padded copy.
 // So K4 and K6 differ only where a PAD word's cursor lies past m - 1 and
 // x[m-1] is not finite. PAD words decode to v = 0 and delta 0 and are not
@@ -26,171 +28,74 @@
 //
 // Bit-exactness: __fmul_rn / __fadd_rn in the order above, the order of
 // the plain PyTorch versions, so nvcc cannot contract them into an FMA.
+// (K3 starts each sum from its first product; these kernels start from +0,
+// which differs from it on a -0 product.)
 //
-// K4: one launch per SpMV over all buckets of a `full` plan. A device
-// table (packsell_spmv.bucket_table, built once with the plan) gives per
-// bucket its word and d0 addresses, S, w, wb, nw, its first output row in
-// the concatenated stored order and its first thread block; the kernel
-// writes y float32[total_stored] with the width sum done in registers.
-// Bound on the H100: bytes -- every word once (4 B), d0 (4 B per slice), x
-// (4.5 MB at HPCG 104^3, gathered through L2) and one float per stored row;
-// no partials and no checkpoints. One launch per bucket with one thread
-// per (slice, width block, lane), checkpoint seeds, a 64-bit index split
-// and one word in flight ran 1.6x K1's time on the same fp16 words on the
-// H100, and the same ~2x its bound at e8m/D1 (two width blocks per row,
-// twice the threads) as at e8m/D8 (one block): the parallel blocks bought
-// nothing (PERF.md). So:
+// One launch per SpMV or SpMM over all buckets: a device table
+// (packsell_spmv.bucket_table, built once with the plan) gives per bucket
+// its word, d0 and window addresses, S, w, wb, nw, sb, its first output row
+// in the concatenated stored order and its first thread block; the kernels
+// write y float32[total_stored] (K5: [total_stored, nb]) with the width sum
+// done in registers.
+// Bound on the H100: bytes -- every word once (4 B), d0 (4 B per slice),
+// x or X (gathered through L2; 4.5 MB at HPCG 104^3, 36 MB for X at
+// nb = 8), K6's windows (4 B per sb slices) and the output once; no
+// partials and no checkpoints. One launch per bucket with one thread per
+// (slice, width block, lane), checkpoint seeds, a 64-bit index split and
+// one word in flight ran 1.6x K1's time on the same fp16 words, and the
+// same ~2x its bound at e8m/D1 (two width blocks per row, twice the
+// threads) as at e8m/D8 (one block): the parallel blocks bought nothing
+// (PERF.md). So:
 //   * one thread per stored row walks all of its row's width blocks; the
 //     cursor it carries equals kckpt[s, wi, c] at each block start, so
 //     the checkpoints are not read (3 % of the bytes) and no partials are
 //     written and read back by a width-sum launch;
-//   * the bucket comes from a search of the table by blockIdx, the row from
-//     one 32-bit division by C; no 64-bit division;
-//   * words are read kBatch j steps at a time into registers before the
-//     decode and the gathers of that batch, so a thread has kBatch word
-//     loads in flight, then kBatch gathers;
+//   * the bucket comes from a search of the table by blockIdx.x, the row
+//     from one 32-bit division by C; no 64-bit division;
+//   * words are read a batch of j steps at a time into registers before
+//     the decode and the gathers of that batch, so a thread has a batch of
+//     word loads in flight, then a batch of gathers (K5: every X row of the
+//     batch is issued before the sums);
 //   * the cursor is 32-bit (every cursor of a valid pack lies in
-//     [0, max(d0, m-1)]; the wrapper raises for m >= 2^31);
-//   * words are loaded read-only with an L2 evict-first policy and x with
-//     evict-last, so the 144 MB of streamed words do not push x out.
-//
-// K5 and K6: one thread per (slice, width block, lane), lanes minor: a
-// warp covers the 32 lanes of one (slice, block), so each j step reads 128
-// contiguous bytes of words. The checkpoint body seeds block wi from
-// ckpt[s, wi, c] and writes partials float32[nw, S, C(, nb)] that the
-// caller adds with sum_width_partials; the carry body walks all w words
-// from d0[s]. K5 keeps the sums of up to 8 right-hand sides in registers
-// and reads each word once for them (a second grid axis takes nb > 8 in
-// groups of 8). K6 reads x straight through L2 with the clip: staging its
-// 2*hw window in shared memory would move more bytes than the words at
-// HPCG 104^3 (ROADMAP.md, open questions).
+//     [0, max(d0, m-1)]; the wrappers raise where that, or K6's window
+//     end, could reach 2^31);
+//   * words are loaded read-only with an L2 evict-first policy and x (X)
+//     with evict-last, so the 144 MB of streamed words do not push x out.
+// K6 is K4's walk with its column rule (a template flag): it reads x
+// straight through L2, since staging its 2*hw window in shared memory
+// would move more bytes than the words at HPCG 104^3 (PERF.md, open
+// questions). K5 keeps the sums of a chunk of up to 8 right-hand sides in
+// registers and reads each word once for them; blockIdx.y picks the chunk.
+// Each chunk width has its own body, so no load waits on a predicate, and
+// for nb <= 8 (one chunk) its own kernel, whose registers are that body's
+// alone: one kernel holding all eight bodies took the nb = 8 body's 88
+// registers and ran nb = 1 at 1.6x its bound (1.29x as its own kernel). X
+// rows are read (and output rows written) with 16-byte vector accesses
+// when the wrapper finds nb % 4 == 0 and X 16-byte aligned. Both kernels
+// carry launch bounds that trade registers for resident threads (below).
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "packsell_decode.cuh"
 
 namespace {
 
-using namespace packsell;  // decode_word, clamp_col, the load helpers
+using namespace packsell;  // decode_word, load_row, the load helpers
 
 constexpr int kThreads = 256;
+constexpr int kBatch = 8;   // K4, K6: word loads in flight per thread
 constexpr int kMaxRhs = 8;  // K5: right-hand sides per thread
-constexpr int kBatch = 8;   // K4: word loads in flight per thread
 
-enum Kind { KIND_BAND = 0, KIND_SPMM = 1 };
-
-struct BucketArgs {
-  const uint32_t* words;  // [S, w, C]
-  const int32_t* d0;      // [S]: carry body seeds
-  const int32_t* ckpt;    // [S, nw, C], or null for the carry body
-  const int32_t* win;     // [ceil(S / sb)]: K6 window ids (half-windows)
-  const float* x;         // [m], or [m, nb] row-major for K5
-  float* out;             // [nw, S, C(, nb)]; nw = 1 for the carry body
-  int64_t S;
-  int w, C;
-  int wb, nw;             // carry body: wb = w, nw = 1
-  int nb;                 // K5: right-hand sides
-  int64_t m;
-  int sb;                 // K6: slices per window
-  int64_t hw;             // K6: half-window (elements)
-  DecodeArgs a;
-};
-
-// One thread's stored row: (slice s, width block wi, lane c), its first
-// cursor and its word range [j0, j1). Thread t is row t of [S, nw, C], so
-// t also indexes the checkpoints.
-struct Row {
-  int64_t s;
-  int wi, c, j0, j1;
-  int64_t cur;
-};
-
-__device__ __forceinline__ bool locate(const BucketArgs& p, Row& r) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t per_slice = static_cast<int64_t>(p.nw) * p.C;
-  if (t >= p.S * per_slice) return false;
-  r.s = t / per_slice;
-  const int rem = static_cast<int>(t - r.s * per_slice);
-  r.wi = rem / p.C;
-  r.c = rem - r.wi * p.C;
-  r.j0 = r.wi * p.wb;
-  r.j1 = min(r.j0 + p.wb, p.w);
-  r.cur = p.ckpt ? p.ckpt[t] : p.d0[r.s];
-  return true;
+// K5's word loads in flight per thread for an NB-wide body: its batch holds
+// NB X floats per word in registers. With spmm_min_blocks these are the
+// fastest of the settings measured on the H100 that spill nothing
+// (PERF.md): 8 words a batch up to NB = 2, 6 up to 4, then 4.
+template <int NB>
+__host__ __device__ constexpr int spmm_batch() {
+  return NB <= 2 ? 8 : (NB <= 4 ? 6 : 4);
 }
-
-// Offset of a row's output in [nw, S, C].
-__device__ __forceinline__ int64_t out_row(const BucketArgs& p, const Row& r) {
-  return (static_cast<int64_t>(r.wi) * p.S + r.s) * p.C + r.c;
-}
-
-template <int CODEC>
-__global__ void band_spmv_kernel(BucketArgs p) {
-  Row r;
-  if (!locate(p, r)) return;
-  const uint32_t* wp = p.words + r.s * p.w * p.C + r.c;
-  const int64_t base = static_cast<int64_t>(p.win[r.s / p.sb]) * p.hw;
-  const int64_t lim = 2 * p.hw - 1;
-  int64_t cur = r.cur;
-  float acc = 0.0f;
-  for (int j = r.j0; j < r.j1; ++j) {
-    float v;
-    uint32_t d;
-    decode_word<ENC_WORDS, CODEC>(wp[static_cast<int64_t>(j) * p.C], p.a, v, d);
-    cur += d;
-    const int64_t g = base + clamp_col(cur - base, lim);
-    const float xv = g < p.m ? __ldg(p.x + g) : 0.0f;
-    acc = __fadd_rn(acc, __fmul_rn(v, xv));
-  }
-  p.out[out_row(p, r)] = acc;
-}
-
-template <int CODEC>
-__global__ void bucket_spmm_kernel(BucketArgs p) {
-  Row r;
-  if (!locate(p, r)) return;
-  const int b0 = static_cast<int>(blockIdx.y) * kMaxRhs;
-  const int nbc = min(kMaxRhs, p.nb - b0);
-  const uint32_t* wp = p.words + r.s * p.w * p.C + r.c;
-  const int64_t mlim = p.m - 1;
-  int64_t cur = r.cur;
-  float acc[kMaxRhs];
-#pragma unroll
-  for (int b = 0; b < kMaxRhs; ++b) acc[b] = 0.0f;
-  for (int j = r.j0; j < r.j1; ++j) {
-    float v;
-    uint32_t d;
-    decode_word<ENC_WORDS, CODEC>(wp[static_cast<int64_t>(j) * p.C], p.a, v, d);
-    cur += d;
-    const float* xr = p.x + clamp_col(cur, mlim) * p.nb + b0;
-#pragma unroll
-    for (int b = 0; b < kMaxRhs; ++b) {
-      if (b < nbc) acc[b] = __fadd_rn(acc[b], __fmul_rn(v, __ldg(xr + b)));
-    }
-  }
-  float* o = p.out + out_row(p, r) * p.nb + b0;
-#pragma unroll
-  for (int b = 0; b < kMaxRhs; ++b) {
-    if (b < nbc) o[b] = acc[b];
-  }
-}
-
-template <int CODEC>
-void launch(int kind, const BucketArgs& p, cudaStream_t stream) {
-  const int64_t n = p.S * p.nw * p.C;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  if (kind == KIND_BAND) {
-    band_spmv_kernel<CODEC><<<blocks, kThreads, 0, stream>>>(p);
-  } else {
-    const dim3 grid(blocks, static_cast<unsigned>((p.nb + kMaxRhs - 1) / kMaxRhs));
-    bucket_spmm_kernel<CODEC><<<grid, kThreads, 0, stream>>>(p);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4: all buckets of a plan in one launch
-// ---------------------------------------------------------------------------
 
 // Columns of one bucket's row of the device table (int64, kTableCols per
 // bucket; packsell_spmv.bucket_table writes it).
@@ -203,8 +108,39 @@ enum TableCol {
   TAB_NW = 5,     // width blocks (1 for the carry body)
   TAB_OUT = 6,    // first output row: rows of the buckets before it
   TAB_BLK = 7,    // first thread block
-  kTableCols = 8
+  TAB_WIN = 8,    // K6: address of win [ceil(S / sb)] (0 for a full plan)
+  TAB_SB = 9,     // K6: slices per window
+  kTableCols = 10
 };
+
+// One thread's stored row: its bucket's table row e, its index t in the
+// bucket's [S, C] rows, slice s and lane c. False past the bucket's rows.
+struct RowOf {
+  const int64_t* e;
+  int t, s, c;
+};
+
+__device__ __forceinline__ bool find_row(const int64_t* __restrict__ tab,
+                                         int nbk, int C, RowOf& r) {
+  int b = 0;
+  while (b + 1 < nbk &&
+         static_cast<int64_t>(blockIdx.x) >=
+             __ldg(tab + (b + 1) * kTableCols + TAB_BLK)) {
+    ++b;
+  }
+  r.e = tab + b * kTableCols;
+  const int S = static_cast<int>(__ldg(r.e + TAB_S));
+  r.t = static_cast<int>(blockIdx.x - __ldg(r.e + TAB_BLK)) * kThreads +
+        static_cast<int>(threadIdx.x);
+  if (r.t >= S * C) return false;
+  r.s = r.t / C;
+  r.c = r.t - r.s * C;
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// K4 and K6: the SpMV
+// ---------------------------------------------------------------------------
 
 // The next n words of one row from wp (stride C), n = kBatch when FULL:
 // the loads first, then the decode and the cursor, then the gathers, then
@@ -217,11 +153,17 @@ struct Walk {
   float acc;
 };
 
-template <int CODEC, bool FULL>
+// The window of a K6 row: x[base + clamp(cur - base, 0, lim2)], 0 past
+// mlim. K4 ignores it.
+struct Window {
+  int base, lim2;
+};
+
+template <int CODEC, bool FULL, bool BAND>
 __device__ __forceinline__ Walk walk_batch(const uint32_t* __restrict__ wp,
                                            int C, int n, Walk st,
                                            const float* __restrict__ x,
-                                           int mlim, DecodeArgs a,
+                                           int mlim, Window win, DecodeArgs a,
                                            uint64_t words_pol,
                                            uint64_t x_pol) {
   int cur = st.cur;
@@ -238,12 +180,17 @@ __device__ __forceinline__ Walk walk_batch(const uint32_t* __restrict__ wp,
     uint32_t d;
     decode_word<ENC_WORDS, CODEC>(wv[k], a, v[k], d);
     cur = static_cast<int>(static_cast<uint32_t>(cur) + d);
-    col[k] = max(0, min(cur, mlim));
+    if constexpr (BAND) {
+      col[k] = win.base + max(0, min(cur - win.base, win.lim2));
+    } else {
+      col[k] = max(0, min(cur, mlim));
+    }
   }
   float xv[kBatch];
 #pragma unroll
   for (int k = 0; k < kBatch; ++k) {
-    xv[k] = (FULL || k < n) ? ld_hint(x + col[k], x_pol) : 0.0f;
+    const bool live = (FULL || k < n) && (!BAND || col[k] <= mlim);
+    xv[k] = live ? ld_hint(x + col[k], x_pol) : 0.0f;
   }
 #pragma unroll
   for (int k = 0; k < kBatch; ++k) {
@@ -252,120 +199,325 @@ __device__ __forceinline__ Walk walk_batch(const uint32_t* __restrict__ wp,
   return Walk{cur, acc};
 }
 
-template <int CODEC>
-__global__ void
-    spmv_buckets_kernel(const int64_t* __restrict__ tab, int nbk, int C,
-                        const float* __restrict__ x, float* __restrict__ y,
-                        int mlim, DecodeArgs a) {
-  int b = 0;
-  while (b + 1 < nbk &&
-         static_cast<int64_t>(blockIdx.x) >=
-             __ldg(tab + (b + 1) * kTableCols + TAB_BLK)) {
-    ++b;
-  }
-  const int64_t* e = tab + b * kTableCols;
-  const int S = static_cast<int>(__ldg(e + TAB_S));
-  const int t = static_cast<int>(blockIdx.x - __ldg(e + TAB_BLK)) * kThreads +
-                static_cast<int>(threadIdx.x);
-  if (t >= S * C) return;
-  const int s = t / C;
-  const int c = t - s * C;
+// One thread's stored row of K4 (BAND false) or K6.
+template <int CODEC, bool BAND>
+__device__ __forceinline__ void spmv_row(const int64_t* __restrict__ tab,
+                                         int nbk, int C,
+                                         const float* __restrict__ x,
+                                         float* __restrict__ y, int mlim,
+                                         int hw, DecodeArgs a) {
+  RowOf r;
+  if (!find_row(tab, nbk, C, r)) return;
+  const int64_t* e = r.e;
   const int w = static_cast<int>(__ldg(e + TAB_W));
   const int wb = static_cast<int>(__ldg(e + TAB_WB));
   const int nw = static_cast<int>(__ldg(e + TAB_NW));
   const uint32_t* __restrict__ wp =
       reinterpret_cast<const uint32_t*>(__ldg(e + TAB_WORDS)) +
-      static_cast<int64_t>(s) * w * C + c;
+      static_cast<int64_t>(r.s) * w * C + r.c;
   const int32_t* d0 = reinterpret_cast<const int32_t*>(__ldg(e + TAB_D0));
+  Window win{0, 0};
+  if constexpr (BAND) {
+    const int32_t* wins =
+        reinterpret_cast<const int32_t*>(__ldg(e + TAB_WIN));
+    const int sb = static_cast<int>(__ldg(e + TAB_SB));
+    win = Window{__ldg(wins + r.s / sb) * hw, 2 * hw - 1};
+  }
   const uint64_t words_pol = l2_evict_first();
   const uint64_t x_pol = l2_evict_last();
-  int cur = __ldg(d0 + s);
+  int cur = __ldg(d0 + r.s);
   float total = 0.0f;
   for (int wi = 0; wi < nw; ++wi) {
     const int j1 = min((wi + 1) * wb, w);
     Walk st{cur, 0.0f};
     int j = wi * wb;
     for (; j + kBatch <= j1; j += kBatch) {
-      st = walk_batch<CODEC, true>(wp + static_cast<int64_t>(j) * C, C,
-                                   kBatch, st, x, mlim, a, words_pol, x_pol);
+      st = walk_batch<CODEC, true, BAND>(wp + static_cast<int64_t>(j) * C, C,
+                                         kBatch, st, x, mlim, win, a,
+                                         words_pol, x_pol);
     }
     if (j < j1) {
-      st = walk_batch<CODEC, false>(wp + static_cast<int64_t>(j) * C, C,
-                                    j1 - j, st, x, mlim, a, words_pol, x_pol);
+      st = walk_batch<CODEC, false, BAND>(wp + static_cast<int64_t>(j) * C,
+                                          C, j1 - j, st, x, mlim, win, a,
+                                          words_pol, x_pol);
     }
     cur = st.cur;
     total = wi == 0 ? st.acc : __fadd_rn(total, st.acc);
   }
-  y[__ldg(e + TAB_OUT) + t] = total;
+  y[__ldg(e + TAB_OUT) + r.t] = total;
 }
 
-struct BucketsLaunch {
-  const int64_t* tab;
-  int nbk, blocks, C;
-  const float* x;
-  float* y;
-  int mlim;
-  DecodeArgs a;
-  cudaStream_t stream;
-};
+template <int CODEC>
+__global__ void
+    spmv_buckets_kernel(const int64_t* __restrict__ tab, int nbk, int C,
+                        const float* __restrict__ x, float* __restrict__ y,
+                        int mlim, DecodeArgs a) {
+  spmv_row<CODEC, false>(tab, nbk, C, x, y, mlim, 0, a);
+}
+
+// K6's resident blocks per SM that ptxas must leave room for: 6 (at most
+// 40 registers a thread). With a minimum of 1 it took 48-64 registers
+// (44-48 with no bound) and ran 7-10 % slower. K4 keeps no bound (34-38
+// registers).
+constexpr int kBandMinBlocks = 6;
 
 template <int CODEC>
-void launch_buckets(const BucketsLaunch& p) {
-  spmv_buckets_kernel<CODEC><<<p.blocks, kThreads, 0, p.stream>>>(
-      p.tab, p.nbk, p.C, p.x, p.y, p.mlim, p.a);
+__global__ void __launch_bounds__(kThreads, kBandMinBlocks)
+    band_buckets_kernel(const int64_t* __restrict__ tab, int nbk, int C,
+                        const float* __restrict__ x, float* __restrict__ y,
+                        int mlim, int hw, DecodeArgs a) {
+  spmv_row<CODEC, true>(tab, nbk, C, x, y, mlim, hw, a);
+}
+
+// ---------------------------------------------------------------------------
+// K5: the SpMM
+// ---------------------------------------------------------------------------
+
+// The next n words of one row (n = spmm_batch<NB>() when FULL): the word
+// loads, the decode and every X row of the batch are issued before the
+// sums, which add each rhs's products in j order to the block sums acc.
+template <int CODEC, int NB, bool VEC, bool FULL>
+__device__ __forceinline__ void spmm_walk(const uint32_t* __restrict__ wp,
+                                          int C, int n, int& cur,
+                                          const float* __restrict__ xb,
+                                          int nb, int mlim,
+                                          const DecodeArgs& a,
+                                          uint64_t words_pol, uint64_t x_pol,
+                                          float (&acc)[NB]) {
+  constexpr int B = spmm_batch<NB>();
+  uint32_t wv[B];
+#pragma unroll
+  for (int k = 0; k < B; ++k) {
+    wv[k] = (FULL || k < n) ? ld_hint(wp + k * C, words_pol) : 0u;
+  }
+  float v[B];
+  float xv[B][NB];
+#pragma unroll
+  for (int k = 0; k < B; ++k) {
+    uint32_t d;
+    decode_word<ENC_WORDS, CODEC>(wv[k], a, v[k], d);
+    cur = static_cast<int>(static_cast<uint32_t>(cur) + d);
+    if (FULL || k < n) {
+      const int col = max(0, min(cur, mlim));
+      load_row<NB, VEC>(xb + static_cast<int64_t>(col) * nb, x_pol, xv[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < B; ++k) {
+    if (FULL || k < n) {
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        acc[b] = __fadd_rn(acc[b], __fmul_rn(v[k], xv[k][b]));
+      }
+    }
+  }
+}
+
+// K5 for NB right-hand sides of one stored row: o[0:NB].
+template <int CODEC, int NB, bool VEC>
+__device__ __forceinline__ void spmm_row(const uint32_t* __restrict__ wp,
+                                         int cur, int w, int wb, int nw,
+                                         int C, const float* xb, float* o,
+                                         int nb, int mlim,
+                                         const DecodeArgs& a) {
+  constexpr int B = spmm_batch<NB>();
+  const uint64_t words_pol = l2_evict_first();
+  const uint64_t x_pol = l2_evict_last();
+  float total[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) total[b] = 0.0f;   // nw = 0 writes +0
+  for (int wi = 0; wi < nw; ++wi) {
+    const int j1 = min((wi + 1) * wb, w);
+    float acc[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) acc[b] = 0.0f;
+    int j = wi * wb;
+    for (; j + B <= j1; j += B) {
+      spmm_walk<CODEC, NB, VEC, true>(wp + static_cast<int64_t>(j) * C, C, B,
+                                      cur, xb, nb, mlim, a, words_pol, x_pol,
+                                      acc);
+    }
+    if (j < j1) {
+      spmm_walk<CODEC, NB, VEC, false>(wp + static_cast<int64_t>(j) * C, C,
+                                       j1 - j, cur, xb, nb, mlim, a,
+                                       words_pol, x_pol, acc);
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      total[b] = wi == 0 ? acc[b] : __fadd_rn(total[b], acc[b]);
+    }
+  }
+  if constexpr (VEC) {
+#pragma unroll
+    for (int q = 0; q < NB / 4; ++q) {
+      reinterpret_cast<float4*>(o)[q] = make_float4(
+          total[4 * q], total[4 * q + 1], total[4 * q + 2], total[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) o[b] = total[b];
+  }
+}
+
+// K5's resident blocks per SM that ptxas must leave room for: 3 (at most
+// 80 registers a thread, 768 threads an SM) for a fixed-width body. Left
+// free, the nb = 8 body took 90 registers, 2 blocks an SM, and ran 1.26x
+// slower. The body that picks its width at run time (NB = 0, nb > 8) gets
+// 2: at 3 it spilled.
+template <int NB>
+__host__ __device__ constexpr int spmm_min_blocks() {
+  return NB == 0 ? 2 : 3;
+}
+
+// One thread per stored row; blockIdx.y picks the chunk of up to kMaxRhs
+// right-hand sides. NB > 0: every chunk is NB wide (nb <= kMaxRhs, one
+// chunk), so the kernel holds that body alone and its registers; NB = 0
+// (nb > kMaxRhs): the chunk's width selects the body at run time. VEC: the
+// wrapper found nb % 4 == 0, so each chunk is 4 or 8 wide.
+template <int CODEC, bool VEC, int NB>
+__global__ void __launch_bounds__(kThreads, spmm_min_blocks<NB>())
+    spmm_buckets_kernel(const int64_t* __restrict__ tab, int nbk, int C,
+                        const float* __restrict__ x, float* __restrict__ y,
+                        int nb, int mlim, DecodeArgs a) {
+  RowOf r;
+  if (!find_row(tab, nbk, C, r)) return;
+  const int64_t* e = r.e;
+  const int w = static_cast<int>(__ldg(e + TAB_W));
+  const int wb = static_cast<int>(__ldg(e + TAB_WB));
+  const int nw = static_cast<int>(__ldg(e + TAB_NW));
+  const uint32_t* __restrict__ wp =
+      reinterpret_cast<const uint32_t*>(__ldg(e + TAB_WORDS)) +
+      static_cast<int64_t>(r.s) * w * C + r.c;
+  const int cur =
+      __ldg(reinterpret_cast<const int32_t*>(__ldg(e + TAB_D0)) + r.s);
+  const int b0 = static_cast<int>(blockIdx.y) * kMaxRhs;
+  const float* xb = x + b0;
+  float* o = y + (__ldg(e + TAB_OUT) + r.t) * nb + b0;
+#define K5_ROW(W, V) \
+  spmm_row<CODEC, W, V>(wp, cur, w, wb, nw, C, xb, o, nb, mlim, a)
+  if constexpr (NB > 0) {
+    K5_ROW(NB, VEC);
+  } else if constexpr (VEC) {
+    if (nb - b0 >= 8) K5_ROW(8, true); else K5_ROW(4, true);
+  } else {
+    switch (min(kMaxRhs, nb - b0)) {
+      case 1: K5_ROW(1, false); break;
+      case 2: K5_ROW(2, false); break;
+      case 3: K5_ROW(3, false); break;
+      case 4: K5_ROW(4, false); break;
+      case 5: K5_ROW(5, false); break;
+      case 6: K5_ROW(6, false); break;
+      case 7: K5_ROW(7, false); break;
+      default: K5_ROW(8, false); break;
+    }
+  }
+#undef K5_ROW
+}
+
+struct SpmmLaunch {
+  dim3 grid;
+  cudaStream_t stream;
+  const int64_t* tab;
+  int nbk, C;
+  const float* x;
+  float* y;
+  int nb, mlim;
+  DecodeArgs a;
+};
+
+template <int CODEC, bool VEC, int NB>
+void launch_spmm(const SpmmLaunch& p) {
+  spmm_buckets_kernel<CODEC, VEC, NB><<<p.grid, kThreads, 0, p.stream>>>(
+      p.tab, p.nbk, p.C, p.x, p.y, p.nb, p.mlim, p.a);
+}
+
+// The kernel for nb right-hand sides: a fixed-width body for one chunk,
+// the run-time choice for several.
+template <int CODEC>
+void launch_spmm_nb(const SpmmLaunch& p, bool vec) {
+  if (p.nb > kMaxRhs) {
+    vec ? launch_spmm<CODEC, true, 0>(p) : launch_spmm<CODEC, false, 0>(p);
+  } else if (vec) {
+    p.nb == 8 ? launch_spmm<CODEC, true, 8>(p)
+              : launch_spmm<CODEC, true, 4>(p);
+  } else {
+    switch (p.nb) {
+      case 1: launch_spmm<CODEC, false, 1>(p); break;
+      case 2: launch_spmm<CODEC, false, 2>(p); break;
+      case 3: launch_spmm<CODEC, false, 3>(p); break;
+      case 4: launch_spmm<CODEC, false, 4>(p); break;
+      case 5: launch_spmm<CODEC, false, 5>(p); break;
+      case 6: launch_spmm<CODEC, false, 6>(p); break;
+      case 7: launch_spmm<CODEC, false, 7>(p); break;
+      default: launch_spmm<CODEC, false, 8>(p); break;
+    }
+  }
+}
+
+// Calls f(std::integral_constant<int, CODEC>) for a codec id, then returns
+// cudaGetLastError() (an unknown id: cudaErrorInvalidValue, no launch).
+template <typename F>
+int by_codec(int codec, F&& f) {
+  switch (codec) {
+    case CODEC_FP16: f(std::integral_constant<int, CODEC_FP16>{}); break;
+    case CODEC_BF16: f(std::integral_constant<int, CODEC_BF16>{}); break;
+    case CODEC_E8M: f(std::integral_constant<int, CODEC_E8M>{}); break;
+    case CODEC_FIXED: f(std::integral_constant<int, CODEC_FIXED>{}); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C interface (loaded with ctypes). kind: 0 K6, 1 K5; codec as in
-// packsell_decode.cuh; ckpt null selects the carry body (then wb = w and
-// nw = 1). Returns cudaGetLastError() after the launch: 0 when the launch
-// was accepted. S * nw * C (and nb for K5) must be > 0 and m >= 1.
-extern "C" int packsell_bucket(int kind, const void* words, const void* d0,
-                               const void* ckpt, const void* win,
-                               const void* x, void* out, int64_t S, int w,
-                               int C, int wb, int nw, int nb, int64_t m,
-                               int sb, int64_t hw, int codec, int D,
-                               float scale, void* stream) {
-  if (kind < KIND_BAND || kind > KIND_SPMM) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const BucketArgs p{static_cast<const uint32_t*>(words),
-                     static_cast<const int32_t*>(d0),
-                     static_cast<const int32_t*>(ckpt),
-                     static_cast<const int32_t*>(win),
-                     static_cast<const float*>(x),
-                     static_cast<float*>(out),
-                     S, w, C, wb, nw, nb, m, sb, hw, DecodeArgs{D, scale}};
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (codec) {
-    case CODEC_FP16: launch<CODEC_FP16>(kind, p, s); break;
-    case CODEC_BF16: launch<CODEC_BF16>(kind, p, s); break;
-    case CODEC_E8M: launch<CODEC_E8M>(kind, p, s); break;
-    case CODEC_FIXED: launch<CODEC_FIXED>(kind, p, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
+// C interface (loaded with ctypes). tab is the device table (nbk rows of
+// kTableCols int64, buckets with rows only) and blocks the sum of their
+// thread blocks; each needs nbk >= 1, blocks >= 1 and m >= 1, and returns
+// cudaGetLastError() after the launch: 0 when the launch was accepted.
 
-// K4 over all buckets of a plan: tab is the device table (nbk rows of
-// kTableCols int64, buckets with rows only), blocks the sum of their thread
-// blocks, y float32[total_stored]. Needs nbk >= 1, blocks >= 1, m >= 1 and
-// m - 1 < 2^31. Returns cudaGetLastError() after the launch.
+// K4: y float32[total_stored]; m - 1 < 2^31.
 extern "C" int packsell_spmv_buckets(const void* tab, int nbk, int blocks,
                                      int C, const void* x, void* y,
                                      int64_t m, int codec, int D, float scale,
                                      void* stream) {
-  const BucketsLaunch p{static_cast<const int64_t*>(tab), nbk, blocks, C,
-                        static_cast<const float*>(x), static_cast<float*>(y),
-                        static_cast<int>(m - 1), DecodeArgs{D, scale},
-                        static_cast<cudaStream_t>(stream)};
-  switch (codec) {
-    case CODEC_FP16: launch_buckets<CODEC_FP16>(p); break;
-    case CODEC_BF16: launch_buckets<CODEC_BF16>(p); break;
-    case CODEC_E8M: launch_buckets<CODEC_E8M>(p); break;
-    case CODEC_FIXED: launch_buckets<CODEC_FIXED>(p); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return by_codec(codec, [&](auto cc) {
+    spmv_buckets_kernel<decltype(cc)::value>
+        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const int64_t*>(tab), nbk, C,
+            static_cast<const float*>(x), static_cast<float*>(y),
+            static_cast<int>(m - 1), DecodeArgs{D, scale});
+  });
+}
+
+// K6: y float32[total_stored] through each bucket's windows (TAB_WIN,
+// TAB_SB) of half-width hw; every window end win * hw + 2 hw - 1 < 2^31.
+extern "C" int packsell_spmv_band_buckets(const void* tab, int nbk,
+                                          int blocks, int C, const void* x,
+                                          void* y, int64_t m, int hw,
+                                          int codec, int D, float scale,
+                                          void* stream) {
+  return by_codec(codec, [&](auto cc) {
+    band_buckets_kernel<decltype(cc)::value>
+        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const int64_t*>(tab), nbk, C,
+            static_cast<const float*>(x), static_cast<float*>(y),
+            static_cast<int>(m - 1), hw, DecodeArgs{D, scale});
+  });
+}
+
+// K5: y float32[total_stored, nb] for x float32[m, nb] (nb >= 1); vec != 0
+// only when nb % 4 == 0 and x and y are 16-byte aligned.
+extern "C" int packsell_spmm_buckets(const void* tab, int nbk, int blocks,
+                                     int C, const void* x, void* y, int nb,
+                                     int vec, int64_t m, int codec, int D,
+                                     float scale, void* stream) {
+  const SpmmLaunch p{
+      dim3(static_cast<unsigned>(blocks),
+           static_cast<unsigned>((nb + kMaxRhs - 1) / kMaxRhs)),
+      static_cast<cudaStream_t>(stream), static_cast<const int64_t*>(tab),
+      nbk, C, static_cast<const float*>(x), static_cast<float*>(y), nb,
+      static_cast<int>(m - 1), DecodeArgs{D, scale}};
+  return by_codec(codec, [&](auto cc) {
+    launch_spmm_nb<decltype(cc)::value>(p, vec != 0);
+  });
 }

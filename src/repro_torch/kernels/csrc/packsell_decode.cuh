@@ -64,9 +64,9 @@ __device__ __forceinline__ int64_t clamp_col(int64_t col, int64_t mlim) {
   return col < 0 ? 0 : (col > mlim ? mlim : col);
 }
 
-// L2 eviction policies (PTX createpolicy) for the redesigned K3 and K4:
-// the streamed words are read once and leave L2 first; x (K4) and X (K3)
-// are gathered again and again and stay. The loads are read-only (.nc)
+// L2 eviction policies (PTX createpolicy) for K3 to K6: the streamed
+// words are read once and leave L2 first; x (K4, K6) and X (K3, K5) are
+// gathered again and again and stay. The loads are read-only (.nc)
 // and plain asm (not volatile), so the compiler may schedule them.
 __device__ __forceinline__ uint64_t l2_evict_first() {
   uint64_t p;
@@ -100,6 +100,24 @@ __device__ __forceinline__ float4 ld_hint4(const float* p, uint64_t pol) {
   asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
       : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p), "l"(pol));
   return v;
+}
+
+// One X row's NB floats for the multi-RHS kernels (K3, K5), with the
+// policy pol (VEC: NB / 4 16-byte loads from a 16-byte aligned row).
+template <int NB, bool VEC>
+__device__ __forceinline__ void load_row(const float* __restrict__ xr,
+                                         uint64_t pol, float (&xv)[NB]) {
+  if constexpr (VEC) {
+#pragma unroll
+    for (int q = 0; q < NB / 4; ++q) {
+      const float4 f = ld_hint4(xr + 4 * q, pol);
+      xv[4 * q] = f.x; xv[4 * q + 1] = f.y;
+      xv[4 * q + 2] = f.z; xv[4 * q + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) xv[b] = ld_hint(xr + b, pol);
+  }
 }
 
 }  // namespace packsell

@@ -58,7 +58,7 @@
 
 namespace {
 
-using namespace packsell;  // decode_word, clamp_col, the enumerators
+using namespace packsell;  // decode_word, clamp_col, load_row, the enumerators
 
 template <int ENC, int CODEC>
 __global__ void spmv_fused_kernel(const uint32_t* __restrict__ words,
@@ -85,23 +85,6 @@ __global__ void spmv_fused_kernel(const uint32_t* __restrict__ words,
 
 constexpr int kMaxRhs = 8;      // K3: right-hand sides per thread
 constexpr int kFusedBatch = 4;  // K3: word loads in flight per thread
-
-// One X row's NB floats (VEC: NB / 4 16-byte loads).
-template <int NB, bool VEC>
-__device__ __forceinline__ void load_row(const float* __restrict__ xr,
-                                         uint64_t pol, float (&xv)[NB]) {
-  if constexpr (VEC) {
-#pragma unroll
-    for (int q = 0; q < NB / 4; ++q) {
-      const float4 f = ld_hint4(xr + 4 * q, pol);
-      xv[4 * q] = f.x; xv[4 * q + 1] = f.y;
-      xv[4 * q + 2] = f.z; xv[4 * q + 3] = f.w;
-    }
-  } else {
-#pragma unroll
-    for (int b = 0; b < NB; ++b) xv[b] = ld_hint(xr + b, pol);
-  }
-}
 
 // The next n words of one (group, lane), n = kFusedBatch when FULL: the
 // word loads, the decode and every X row of the batch are issued before

@@ -9,22 +9,24 @@ and the inverse-permutation gather):
   decoded once for up to 8 right-hand sides.
 
 Width buckets (canonical words ``[S, w, C]``, a column cursor per stored
-row):
+row), each one launch over all buckets of a plan through a
+:class:`BucketTable` built once with the plan:
 
-* K4 ``packsell_spmv_buckets`` → ``[total_stored]``, the full-x SpMV over
-  all buckets of a ``full`` plan in one launch, through a
-  :class:`BucketTable` built once with the plan;
-* K6 ``packsell_spmv_band_bucket`` → ``[S, C]`` per bucket, the SpMV with
+* K4 ``packsell_spmv_buckets`` → ``[total_stored]``, the full-x SpMV;
+* K6 ``packsell_spmv_band_buckets`` → ``[total_stored]``, the SpMV with
   x cut to a ``2·hw`` window per block of ``sb`` slices;
-* K5 ``packsell_spmm_bucket`` → ``[S, C, nb]`` per bucket, the multi-RHS
-  SpMV.
+* K5 ``packsell_spmm_buckets`` → ``[total_stored, nb]``, the multi-RHS
+  SpMV, each word loaded and decoded once for up to 8 right-hand sides.
 
 A row's words fall in width blocks of ``wb``; each block's sum starts at
 +0 and the blocks are added in wi order (:func:`sum_width_partials`). The
 carry body (no checkpoints) is one block of all ``w`` words from
-``d0[s]``. K4 walks a row's blocks in one thread, its cursor carried from
-``d0``; K5 and K6 seed each block from ``ckpt[s, wi, c]`` and return
-partials ``[nw, S, C(, nb)]`` that the plan adds.
+``d0[s]``. The kernels walk a row's blocks in one thread, its cursor
+carried from ``d0``. The per-bucket plain versions
+(``packsell_spmv_bucket_plain``, ``packsell_spmv_band_bucket_plain``,
+``packsell_spmm_bucket_plain``) seed each block from ``ckpt[s, wi, c]``
+and return partials ``[nw, S, C(, nb)]``; the all-bucket plain versions
+add them and concatenate the buckets.
 
 They replace the Pallas kernels of ``repro/kernels/packsell_spmv.py`` of
 the same names (bodies ``_kernel_fused``/``_kernel_fused_mm``,
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -52,10 +55,6 @@ from ..core.packsell import _nonempty
 from . import _build
 
 ENCODINGS = {"f16": 0, "top16": 1, "fixed16": 2, "words": 3}
-
-
-#: per-bucket kernel kinds of ``csrc/packsell_bucket.cu``
-_BUCKET_KINDS = {"band": 0, "spmm": 1}
 
 
 def _codec_id(codec_name: str) -> int:
@@ -198,53 +197,91 @@ def packsell_spmv_bucket_plain(pack: torch.Tensor, d0: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class BucketTable:
-    """Where the buckets of one K4 launch lie, built once with a ``full``
-    plan by :func:`bucket_table`. ``rows`` is int64 ``[nbk, 8]`` on the
-    buckets' device, one row per bucket with stored rows: the addresses of
-    its words and d0, ``S``, ``w``, ``wb``, ``nw``, its first output row
-    and its first thread block (the columns ``TableCol`` of
-    ``csrc/packsell_bucket.cu``). ``wbs`` and ``carry`` are what the plain
-    version needs; ``operands`` are the word and d0 addresses and the
-    shape per bucket, which the wrapper holds against the tensors it is
+    """Where the buckets of one K4, K5 or K6 launch lie, built once with a
+    ``full`` or ``band`` plan by :func:`bucket_table`. ``rows`` is int64
+    ``[nbk, 10]`` on the buckets' device, one row per bucket with stored
+    rows: the addresses of its words and d0, ``S``, ``w``, ``wb``, ``nw``,
+    its first output row, its first thread block, the address of its band
+    windows (0 without them) and ``sb`` (the columns ``TableCol`` of
+    ``csrc/packsell_bucket.cu``). ``wbs``, ``sbs`` and ``carry`` are what
+    the plain versions need; ``operands`` are the word and d0 addresses and
+    the shape per bucket, and ``win_ptrs`` the window addresses (None
+    without windows), which the wrappers hold against the tensors they are
     given."""
 
     rows: torch.Tensor
     wbs: tuple
+    sbs: tuple
     carry: bool
     operands: tuple
+    win_ptrs: Optional[tuple]
     total: int
     blocks: int
 
 
-#: threads per block of the K4 launch (``kThreads`` in packsell_bucket.cu)
-_K4_THREADS = 256
+#: threads per block of the bucket kernels (``kThreads`` in
+#: packsell_bucket.cu)
+_BUCKET_THREADS = 256
+#: int64 columns per bucket of the device table (``kTableCols``)
+_TABLE_COLS = 10
 
 
-def bucket_table(packs, d0s, kckpts, wbs) -> BucketTable:
-    """The :class:`BucketTable` of K4 over ``packs`` (``kckpts`` None: the
-    carry body, one width block of ``w`` words per row; else blocks of
-    ``wbs[b]`` words)."""
+def bucket_table(packs, d0s, kckpts, wbs, wins=None, sbs=None
+                 ) -> BucketTable:
+    """The :class:`BucketTable` of the bucket kernels over ``packs``
+    (``kckpts`` None: the carry body, one width block of ``w`` words per
+    row; else blocks of ``wbs[b]`` words). ``wins`` (int32 per bucket, from
+    ``plan.band_plan``) and ``sbs`` (slices per window, default 8) give K6
+    its windows."""
     carry = kckpts is None
+    sbs = tuple(int(v) for v in (sbs or (8,) * len(packs)))
     rows = []
     out = blk = 0
-    for pack, d0, wb in zip(packs, d0s, wbs):
+    for b, (pack, d0, wb) in enumerate(zip(packs, d0s, wbs)):
         S, w, C = pack.shape
         bwb, nw = (w, 1) if carry else (int(wb), -(-w // int(wb)))
         if S * C:
+            win = 0
+            if wins is not None:
+                if wins[b].dtype != torch.int32 \
+                        or wins[b].numel() < -(-S // sbs[b]):
+                    raise ValueError(
+                        f"bucket_table: bucket {b} needs int32 windows for "
+                        f"{S} slices at sb={sbs[b]} (got {wins[b].numel()} "
+                        f"{wins[b].dtype})")
+                win = wins[b].data_ptr()
             rows.append([pack.data_ptr(), d0.data_ptr(), S, w, bwb, nw, out,
-                         blk])
+                         blk, win, sbs[b]])
         out += S * C
-        blk += -(-S * C // _K4_THREADS)
+        blk += -(-S * C // _BUCKET_THREADS)
     dev = packs[0].device if packs else torch.device("cpu")
-    table = torch.tensor(rows, dtype=torch.int64).reshape(-1, 8)
+    table = torch.tensor(rows, dtype=torch.int64).reshape(-1, _TABLE_COLS)
     return BucketTable(rows=table.to(dev), wbs=tuple(int(w) for w in wbs),
-                       carry=carry, operands=_operands(packs, d0s),
+                       sbs=sbs, carry=carry, operands=_operands(packs, d0s),
+                       win_ptrs=None if wins is None else _win_ptrs(wins),
                        total=out, blocks=blk)
 
 
 def _operands(packs, d0s) -> tuple:
     return tuple((p.data_ptr(), d.data_ptr(), tuple(p.shape))
                  for p, d in zip(packs, d0s))
+
+
+def _win_ptrs(wins) -> tuple:
+    return tuple((w.data_ptr(), w.numel()) for w in wins)
+
+
+def _bucket_cat(parts, x: torch.Tensor) -> torch.Tensor:
+    """Per-bucket outputs ``[S, C(, nb)]`` → ``[total_stored(, nb)]``."""
+    tail = tuple(x.shape[1:])
+    parts = [t.reshape((-1,) + tail) for t in parts]
+    if not parts:
+        return torch.zeros((0,) + tail, dtype=torch.float32, device=x.device)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _summed(t: torch.Tensor, ck) -> torch.Tensor:
+    return t if ck is None else sum_width_partials(t)
 
 
 def packsell_spmv_buckets_plain(packs, d0s, kckpts, table: BucketTable,
@@ -256,13 +293,10 @@ def packsell_spmv_buckets_plain(packs, d0s, kckpts, table: BucketTable,
     parts = []
     for b, (pack, d0) in enumerate(zip(packs, d0s)):
         ck = None if kckpts is None else kckpts[b]
-        t = packsell_spmv_bucket_plain(pack, d0, x, codec_name=codec_name,
-                                       D=D, wb=table.wbs[b], ckpt=ck)
-        parts.append((t if ck is None else sum_width_partials(t))
-                     .reshape(-1))
-    if not parts:
-        return torch.zeros((0,), dtype=torch.float32, device=x.device)
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+        parts.append(_summed(packsell_spmv_bucket_plain(
+            pack, d0, x, codec_name=codec_name, D=D, wb=table.wbs[b],
+            ckpt=ck), ck))
+    return _bucket_cat(parts, x)
 
 
 def packsell_spmv_band_bucket_plain(pack: torch.Tensor, d0: torch.Tensor,
@@ -286,6 +320,22 @@ def packsell_spmv_band_bucket_plain(pack: torch.Tensor, d0: torch.Tensor,
     return part if ckpt is not None else part[0]
 
 
+def packsell_spmv_band_buckets_plain(packs, d0s, wins, kckpts,
+                                     table: BucketTable, x: torch.Tensor, *,
+                                     codec_name: str, D: int,
+                                     hw: int) -> torch.Tensor:
+    """K6's plain version: every bucket's plain band SpMV, its checkpoint
+    partials added by :func:`sum_width_partials`, concatenated in bucket
+    order: ``[total_stored]``."""
+    parts = []
+    for b, (pack, d0) in enumerate(zip(packs, d0s)):
+        ck = None if kckpts is None else kckpts[b]
+        parts.append(_summed(packsell_spmv_band_bucket_plain(
+            pack, d0, wins[b], x, codec_name=codec_name, D=D, hw=hw,
+            sb=table.sbs[b], wb=table.wbs[b], ckpt=ck), ck))
+    return _bucket_cat(parts, x)
+
+
 def packsell_spmm_bucket_plain(pack: torch.Tensor, d0: torch.Tensor,
                                x: torch.Tensor, *, codec_name: str, D: int,
                                wb: int = 32, ckpt=None) -> torch.Tensor:
@@ -296,6 +346,21 @@ def packsell_spmm_bucket_plain(pack: torch.Tensor, d0: torch.Tensor,
     part = _block_sums(v[..., None] * xc[cur.clamp(0, xc.shape[0] - 1)],
                        wb, nw)
     return part if ckpt is not None else part[0]
+
+
+def packsell_spmm_buckets_plain(packs, d0s, kckpts, table: BucketTable,
+                                x: torch.Tensor, *, codec_name: str,
+                                D: int) -> torch.Tensor:
+    """K5's plain version for x: [m, nb]: every bucket's plain SpMM, its
+    checkpoint partials added by :func:`sum_width_partials`, concatenated
+    in bucket order: ``[total_stored, nb]``."""
+    parts = []
+    for b, (pack, d0) in enumerate(zip(packs, d0s)):
+        ck = None if kckpts is None else kckpts[b]
+        parts.append(_summed(packsell_spmm_bucket_plain(
+            pack, d0, x, codec_name=codec_name, D=D, wb=table.wbs[b],
+            ckpt=ck), ck))
+    return _bucket_cat(parts, x)
 
 
 # ---------------------------------------------------------------------------
@@ -430,15 +495,63 @@ packsell_spmm_fused.launches = 0
 def _bucket_lib() -> ctypes.CDLL:
     lib = _build.load("packsell_bucket")
     if not getattr(lib, "_typed", False):
-        lib.packsell_bucket.argtypes = [_I, _P, _P, _P, _P, _P, _P, _L, _I,
-                                        _I, _I, _I, _I, _L, _I, _L, _I, _I,
-                                        ctypes.c_float, _P]
-        lib.packsell_bucket.restype = _I
         lib.packsell_spmv_buckets.argtypes = [_P, _I, _I, _I, _P, _P, _L, _I,
                                               _I, ctypes.c_float, _P]
         lib.packsell_spmv_buckets.restype = _I
+        lib.packsell_spmv_band_buckets.argtypes = [
+            _P, _I, _I, _I, _P, _P, _L, _I, _I, _I, ctypes.c_float, _P]
+        lib.packsell_spmv_band_buckets.restype = _I
+        lib.packsell_spmm_buckets.argtypes = [_P, _I, _I, _I, _P, _P, _I, _I,
+                                              _L, _I, _I, ctypes.c_float, _P]
+        lib.packsell_spmm_buckets.restype = _I
         lib._typed = True
     return lib
+
+
+def _check_table(what: str, packs, d0s, kckpts, table: BucketTable,
+                 wins=None) -> None:
+    """Raise unless ``table`` was built for these tensors (and ``wins``)
+    and this body; both the kernel and the plain version read it."""
+    if _operands(packs, d0s) != table.operands \
+            or (kckpts is None) != table.carry:
+        raise ValueError(f"{what}: the table was built for other buckets "
+                         "(or the other body)")
+    if wins is not None and (table.win_ptrs is None
+                             or _win_ptrs(wins) != table.win_ptrs):
+        raise ValueError(f"{what}: the table was built for other windows")
+
+
+def _check_buckets(what: str, packs, d0s, kckpts, table: BucketTable,
+                   x: torch.Tensor, xdim: int, wins=None, hw: int = 0
+                   ) -> None:
+    """Raise unless the operands and ``table`` lie on x's CUDA device,
+    the table was built for them (:func:`_check_table`) and x fits the
+    kernels' 32-bit cursor, window and row index."""
+    dev = x.device
+    if dev.type != "cuda" or table.rows.device != dev or any(
+            t.device != dev for t in (*packs, *d0s, *(wins or ()))):
+        raise ValueError(f"{what}: packs, d0s, table and x must lie on one "
+                         f"CUDA device (x on {dev}, table on "
+                         f"{table.rows.device})")
+    if x.dtype != torch.float32 or x.dim() != xdim or not x.is_contiguous():
+        raise TypeError(f"{what}: x must be contiguous {xdim}-D float32 (got "
+                        f"{x.dtype}, {tuple(x.shape)})")
+    _check_table(what, packs, d0s, kckpts, table, wins)
+    reach = max(x.shape[0], table.total) + 2 * hw
+    if reach >= 1 << 31:
+        raise ValueError(f"{what}: the kernel's 32-bit cursor, window and row "
+                         f"index need max(m, stored rows) + 2·hw < 2^31 (m = "
+                         f"{x.shape[0]}, rows = {table.total}, hw = {hw})")
+
+
+def _launch(what: str, fn, table: BucketTable, x: torch.Tensor, *args):
+    """Launch ``fn(table, nbk, blocks, C, x, *args, stream)`` on x's device
+    and raise on a CUDA error."""
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(table.rows.data_ptr(), table.rows.shape[0], table.blocks,
+                table.operands[0][2][2], x.data_ptr(), *args, stream)
+    _build.check(rc, what)
 
 
 def packsell_spmv_buckets(packs, d0s, kckpts, table: BucketTable,
@@ -450,134 +563,81 @@ def packsell_spmv_buckets(packs, d0s, kckpts, table: BucketTable,
     body) fixes the width blocks of the sum; the kernel carries each row's
     cursor from ``d0`` and does not read them. CPU tensors take
     :func:`packsell_spmv_buckets_plain`; CUDA tensors launch the kernel."""
+    what = "packsell_spmv_buckets"
     if x.device.type == "cpu":
+        _check_table(what, packs, d0s, kckpts, table)
         return packsell_spmv_buckets_plain(packs, d0s, kckpts, table, x,
                                            codec_name=codec_name, D=D)
-    what = "packsell_spmv_buckets"
-    dev = x.device
-    if dev.type != "cuda" or table.rows.device != dev or any(
-            t.device != dev for t in (*packs, *d0s)):
-        raise ValueError(f"{what}: packs, d0s, table and x must lie on one "
-                         f"CUDA device (x on {dev}, table on "
-                         f"{table.rows.device})")
-    if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
-        raise TypeError(f"{what}: x must be contiguous 1-D float32 (got "
-                        f"{x.dtype}, {tuple(x.shape)})")
-    if _operands(packs, d0s) != table.operands \
-            or (kckpts is None) != table.carry:
-        raise ValueError(f"{what}: the table was built for other buckets "
-                         "(or the other body)")
-    if x.shape[0] >= 1 << 31 or table.total >= 1 << 31:
-        raise ValueError(f"{what}: the kernel's 32-bit cursor and row index "
-                         f"need m < 2^31 and fewer than 2^31 stored rows "
-                         f"(m = {x.shape[0]}, rows = {table.total})")
-    y = torch.empty((table.total,), dtype=torch.float32, device=dev)
+    _check_buckets(what, packs, d0s, kckpts, table, x, 1)
+    y = torch.empty((table.total,), dtype=torch.float32, device=x.device)
     if table.total == 0:
         return y
     xc = _nonempty(x)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _bucket_lib().packsell_spmv_buckets(
-            table.rows.data_ptr(), table.rows.shape[0], table.blocks,
-            packs[0].shape[2], xc.data_ptr(), y.data_ptr(), xc.shape[0],
-            _codec_id(codec_name), D, _scale_arg(codec_name, "words", 0.0),
-            stream)
     packsell_spmv_buckets.launches += 1
-    _build.check(rc, what)
+    _launch(what, _bucket_lib().packsell_spmv_buckets, table, xc,
+            y.data_ptr(), xc.shape[0], _codec_id(codec_name), D,
+            _scale_arg(codec_name, "words", 0.0))
     return y
 
 
 packsell_spmv_buckets.launches = 0
 
 
-def _launch_bucket(kind: str, pack, d0, ckpt, win, x, *, codec_name: str,
-                   D: int, wb: int, sb: int = 1, hw: int = 0):
-    """Check the operands, allocate the output ``[nw, S, C(, nb)]`` and
-    launch one per-bucket kernel (none when the output is empty), counting
-    the launch on its wrapper."""
-    wrapper = {"band": packsell_spmv_band_bucket,
-               "spmm": packsell_spmm_bucket}[kind]
-    what = wrapper.__name__
-    dev = pack.device
-    ops = [t for t in (pack, d0, ckpt, win, x) if t is not None]
-    if dev.type != "cuda" or any(t.device != dev for t in ops):
-        raise ValueError(f"{what}: operands must lie on one CUDA device (got "
-                         f"{[str(t.device) for t in ops]})")
-    if any(t.dtype != torch.int32 for t in ops[:-1]):
-        raise TypeError(f"{what}: pack, d0, ckpt and win must be int32 (got "
-                        f"{[t.dtype for t in ops[:-1]]})")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{what}: x must be float32 (got {x.dtype})")
-    if not all(t.is_contiguous() for t in ops):
-        raise ValueError(f"{what}: operands must be contiguous")
-    S, w, C = pack.shape
-    xdim = 2 if kind == "spmm" else 1
-    if tuple(d0.shape) != (S,) or x.dim() != xdim:
-        raise ValueError(f"{what}: shapes pack {tuple(pack.shape)}, d0 "
-                         f"{tuple(d0.shape)}, x {tuple(x.shape)} do not fit")
-    if ckpt is None:
-        wb, nw = w, 1
-    else:
-        nw = -(-w // wb)
-        if tuple(ckpt.shape) != (S, nw, C):
-            raise ValueError(f"{what}: checkpoints {tuple(ckpt.shape)} do "
-                             f"not fit pack {tuple(pack.shape)} at wb={wb}")
-    if win is not None and win.numel() < -(-S // sb):
-        raise ValueError(f"{what}: {win.numel()} windows for {S} slices at "
-                         f"sb={sb}")
-    nb = x.shape[1] if kind == "spmm" else 0
-    shape = (nw, S, C) + ((nb,) if kind == "spmm" else ())
-    if S * nw * C == 0 or w == 0 or (kind == "spmm" and nb == 0):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
-    out = torch.empty(shape, dtype=torch.float32, device=dev)   # all written
+def packsell_spmv_band_buckets(packs, d0s, wins, kckpts, table: BucketTable,
+                               x: torch.Tensor, *, codec_name: str, D: int,
+                               hw: int) -> torch.Tensor:
+    """K6: the band SpMV of all buckets ``[total_stored]`` float32, in one
+    launch through ``table`` (:func:`bucket_table` of the same tensors and
+    ``wins``): slice ``s`` of bucket ``b`` reads x through the ``2·hw``
+    window that starts at ``wins[b][s // sb] · hw``, and 0 at and past m.
+    CPU tensors take :func:`packsell_spmv_band_buckets_plain`; CUDA tensors
+    launch the kernel."""
+    what = "packsell_spmv_band_buckets"
+    if x.device.type == "cpu":
+        _check_table(what, packs, d0s, kckpts, table, wins)
+        return packsell_spmv_band_buckets_plain(
+            packs, d0s, wins, kckpts, table, x, codec_name=codec_name, D=D,
+            hw=hw)
+    _check_buckets(what, packs, d0s, kckpts, table, x, 1, wins, hw)
+    y = torch.empty((table.total,), dtype=torch.float32, device=x.device)
+    if table.total == 0:
+        return y
     xc = _nonempty(x)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _bucket_lib().packsell_bucket(
-            _BUCKET_KINDS[kind], pack.data_ptr(), d0.data_ptr(),
-            None if ckpt is None else ckpt.data_ptr(),
-            None if win is None else win.data_ptr(), xc.data_ptr(),
-            out.data_ptr(), S, w, C, wb, nw, nb, xc.shape[0], sb, hw,
-            _codec_id(codec_name), D, _scale_arg(codec_name, "words", 0.0),
-            stream)
-    wrapper.launches += 1
-    _build.check(rc, what)
-    return out
+    packsell_spmv_band_buckets.launches += 1
+    _launch(what, _bucket_lib().packsell_spmv_band_buckets, table, xc,
+            y.data_ptr(), xc.shape[0], hw, _codec_id(codec_name), D,
+            _scale_arg(codec_name, "words", 0.0))
+    return y
 
 
-def packsell_spmv_band_bucket(pack: torch.Tensor, d0: torch.Tensor,
-                              win: torch.Tensor, x: torch.Tensor, *,
-                              codec_name: str, D: int, hw: int, sb: int = 8,
-                              wb: int = 32, ckpt=None) -> torch.Tensor:
-    """K6: K4 with slice ``s`` reading x through the ``2·hw`` window that
-    starts at ``win[s // sb] · hw`` (``win`` int32 from
-    ``plan.band_plan``). CPU tensors take
-    :func:`packsell_spmv_band_bucket_plain`; CUDA tensors launch the
-    kernel."""
-    if pack.device.type == "cpu":
-        return packsell_spmv_band_bucket_plain(
-            pack, d0, win, x, codec_name=codec_name, D=D, hw=hw, sb=sb,
-            wb=wb, ckpt=ckpt)
-    out = _launch_bucket("band", pack, d0, ckpt, win, x,
-                         codec_name=codec_name, D=D, wb=wb, sb=sb, hw=hw)
-    return out if ckpt is not None else out[0]
+packsell_spmv_band_buckets.launches = 0
 
 
-packsell_spmv_band_bucket.launches = 0
+def packsell_spmm_buckets(packs, d0s, kckpts, table: BucketTable,
+                          x: torch.Tensor, *, codec_name: str,
+                          D: int) -> torch.Tensor:
+    """K5: the SpMM of all buckets ``[total_stored, nb]`` float32 for x:
+    [m, nb], in one launch through ``table`` (:func:`bucket_table` of the
+    same tensors), each word decoded once for up to 8 right-hand sides
+    (chunks of 8 on a second grid axis; :func:`spmm_vector_loads` picks the
+    X loads). CPU tensors take :func:`packsell_spmm_buckets_plain`; CUDA
+    tensors launch the kernel."""
+    what = "packsell_spmm_buckets"
+    if x.device.type == "cpu":
+        _check_table(what, packs, d0s, kckpts, table)
+        return packsell_spmm_buckets_plain(packs, d0s, kckpts, table, x,
+                                           codec_name=codec_name, D=D)
+    _check_buckets(what, packs, d0s, kckpts, table, x, 2)
+    nb = x.shape[1]
+    y = torch.empty((table.total, nb), dtype=torch.float32, device=x.device)
+    if table.total == 0 or nb == 0:
+        return y
+    xc = _nonempty(x)
+    packsell_spmm_buckets.launches += 1
+    _launch(what, _bucket_lib().packsell_spmm_buckets, table, xc,
+            y.data_ptr(), nb, int(spmm_vector_loads(xc)), xc.shape[0],
+            _codec_id(codec_name), D, _scale_arg(codec_name, "words", 0.0))
+    return y
 
 
-def packsell_spmm_bucket(pack: torch.Tensor, d0: torch.Tensor,
-                         x: torch.Tensor, *, codec_name: str, D: int,
-                         wb: int = 32, ckpt=None) -> torch.Tensor:
-    """K5: multi-RHS K4 for x: [m, nb]: ``[S, C, nb]`` float32 (carry body)
-    or partials ``[nw, S, C, nb]``. CPU tensors take
-    :func:`packsell_spmm_bucket_plain`; CUDA tensors launch the kernel."""
-    if pack.device.type == "cpu":
-        return packsell_spmm_bucket_plain(pack, d0, x, codec_name=codec_name,
-                                          D=D, wb=wb, ckpt=ckpt)
-    out = _launch_bucket("spmm", pack, d0, ckpt, None, x,
-                         codec_name=codec_name, D=D, wb=wb)
-    return out if ckpt is not None else out[0]
-
-
-packsell_spmm_bucket.launches = 0
+packsell_spmm_buckets.launches = 0

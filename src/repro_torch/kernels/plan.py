@@ -26,13 +26,15 @@ environment variable moves it: the reference's ``REPRO_SPMV_POLICY`` and
   whose stream is infeasible runs ``full``. ``force="jnp"`` asks for the
   plain PyTorch body explicitly.
 * The per-bucket variants get width-block checkpoints ``int32[S, nw, C]``
-  under ``decode_cache='checkpoint'`` (the width blocks of the sum; K5 and
-  K6 seed each block from them and the plan adds their partials with
+  under ``decode_cache='checkpoint'`` (the width blocks of the sum, which
+  the kernels' rows walk from ``d0``; the per-bucket plain versions seed
+  each block from them and add the partials with
   ``packsell_spmv.sum_width_partials``) and none under ``'full'``/``'0'``
-  (the carry body). A ``full`` plan's SpMV is one K4 launch over all
-  buckets, through the :class:`~.packsell_spmv.BucketTable` built with
-  the plan (``ktable``); ``plan.spmm`` on either variant runs K5 per
-  bucket.
+  (the carry body). Every bucket kernel is one launch over all buckets,
+  through the :class:`~.packsell_spmv.BucketTable` built with the plan
+  (``ktable``, with the band windows on a ``band`` plan): a ``full``
+  plan's SpMV runs K4, a ``band`` plan's K6, and ``plan.spmm`` on either
+  runs K5.
 * On the CPU the decisions mirror the reference's on a non-TPU backend:
   ``auto`` gives ``jnp`` (the plain body over the fused stream, or the full
   cursor cache when the stream is infeasible), and ``force="fused"`` runs
@@ -534,7 +536,7 @@ class SpMVPlan:
     tiles: tuple = ()                 # per-bucket (sb, wb)
     wins: Optional[tuple] = None      # per-bucket int32 windows (band only)
     kckpts: Optional[tuple] = None    # per-bucket int32 [S, nw, C]
-    ktable: Optional[_pk.BucketTable] = None  # K4's launch table (full only)
+    ktable: Optional[_pk.BucketTable] = None  # K4/K5/K6 launch table
 
     # -- σ-permutation helpers (stored-row order <-> original order) -------
     def from_stored(self, t: torch.Tensor) -> torch.Tensor:
@@ -585,34 +587,26 @@ class SpMVPlan:
                                  dev["inv2"])
 
     def _bucket_parts(self, mat, dev, xc, multi_rhs: bool):
-        """The bucket bodies: one K4 launch over all buckets for a ``full``
-        SpMV; per bucket K6 (``band``) or K5 (SpMM of either), else the
-        plain full cursor cache, or the scan decode when there is no cache
-        (``decode_cache='0'``)."""
+        """The bucket bodies: one launch over all buckets of a ``full`` or
+        ``band`` plan (K4 or K6 for the SpMV; K5 for the SpMM of either,
+        as the reference's band plan runs the full-x SpMM), else per bucket
+        the plain full cursor cache, or the scan decode when there is no
+        cache (``decode_cache='0'``)."""
         tail = tuple(xc.shape[1:])
-        xg = pk._nonempty(xc)
         kck = dev.get("kckpt")
-        if self.variant == "full" and not multi_rhs:
-            return _pk.packsell_spmv_buckets(
-                mat.packs, mat.d0s, kck, dev["ktable"], xc,
-                codec_name=mat.codec_name, D=mat.D)
+        kw = dict(codec_name=mat.codec_name, D=mat.D)
+        if self.variant in ("full", "band"):
+            args = (mat.packs, mat.d0s, kck, dev["ktable"], xc)
+            if multi_rhs:
+                return _pk.packsell_spmm_buckets(*args, **kw)
+            if self.variant == "full":
+                return _pk.packsell_spmv_buckets(*args, **kw)
+            return _pk.packsell_spmv_band_buckets(
+                mat.packs, mat.d0s, dev["wins"], *args[2:], hw=self.hw, **kw)
+        xg = pk._nonempty(xc)
         parts = []
         for b, (pack, d0) in enumerate(zip(mat.packs, mat.d0s)):
-            if self.variant in ("full", "band"):
-                sb, wb = self.tiles[b]
-                ck = None if kck is None else kck[b]
-                kw = dict(codec_name=mat.codec_name, D=mat.D, wb=wb, ckpt=ck)
-                if multi_rhs:
-                    # a band plan's SpMM runs the full-x K5, as the
-                    # reference's does
-                    t = _pk.packsell_spmm_bucket(pack, d0, xc, **kw)
-                else:
-                    t = _pk.packsell_spmv_band_bucket(
-                        pack, d0, dev["wins"][b], xc, hw=self.hw, sb=sb,
-                        **kw)
-                if ck is not None:
-                    t = _pk.sum_width_partials(t)
-            elif dev["cols"] is not None:
+            if dev["cols"] is not None:
                 t = _cursor_spmv(pack, dev["cols"][b], xg, mat.codec, mat.D)
             else:
                 t = pk._bucket_spmv_scan(pack, d0, xg, mat.codec, mat.D,
@@ -716,6 +710,8 @@ def build_plan(mat: PackSELLMatrix, *, sb: int = 8, wb: int = 32,
         fused, layout, orders = (None, None, None)
 
     cols = kckpts = ktable = None
+    dev_wins = None if wins is None else tuple(
+        torch.from_numpy(w).to(mat.device) for w in wins)
     if variant == "fused":
         if mode != "checkpoint":
             reason += (f"; decode_cache={mode!r} overridden to "
@@ -724,9 +720,9 @@ def build_plan(mat: PackSELLMatrix, *, sb: int = 8, wb: int = 32,
     elif variant in ("full", "band"):
         if mode == "checkpoint":
             kckpts = _build_block_checkpoints(mat, tiles)
-        if variant == "full":
-            ktable = _pk.bucket_table(mat.packs, mat.d0s, kckpts,
-                                      [wb for _, wb in tiles])
+        ktable = _pk.bucket_table(mat.packs, mat.d0s, kckpts,
+                                  [wb for _, wb in tiles], wins=dev_wins,
+                                  sbs=[sb for sb, _ in tiles])
     else:
         if mode != "checkpoint":
             fused, layout, orders = (None, None, None)
@@ -764,9 +760,7 @@ def build_plan(mat: PackSELLMatrix, *, sb: int = 8, wb: int = 32,
         cache_mode=mode, fused=fused, fused_layout=layout,
         total_words=sum(int(np.prod(p.shape)) for p in mat.packs),
         fused_trim=fused_trim, hw=hw, tiles=tiles,
-        wins=None if wins is None else tuple(
-            torch.from_numpy(w).to(mat.device) for w in wins),
-        kckpts=kckpts, ktable=ktable)
+        wins=dev_wins, kckpts=kckpts, ktable=ktable)
     _quick_validate(plan)
     return plan
 

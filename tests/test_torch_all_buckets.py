@@ -49,31 +49,47 @@ def _args(mat, wb):
             tkp.bucket_table(mat.packs, mat.d0s, kck, wbs))
 
 
-def _kernel_model(packs, d0s, table, x, codec_name, D):
-    """The kernel's walk in numpy float32: per stored row the cursor runs
-    from d0 through all words; each width block's sum starts at +0 and the
-    row total is block 0, then + block wi. Words decode with the
-    reference's unpack."""
+def _kernel_model(packs, d0s, table, x, codec_name, D, window=None):
+    """The bucket kernels' walk in numpy float32: per stored row the cursor
+    runs from d0 through all words; each width block's sum starts at +0
+    and the row total is block 0, then + block wi. Words decode with the
+    reference's unpack. ``x`` [m] (K4, K6) or [m, nb] (K5: each rhs its own
+    sums). Columns clamp to [0, m-1]; with ``window = (wins, hw)`` (K6)
+    slice s of bucket b reads x[base + clip(cur - base, 0, 2hw-1)], base =
+    wins[b][s // sb] * hw, and 0 at and past m."""
     codec = rcd.make_codec(codec_name)
-    xs = x if len(x) else np.zeros(1, np.float32)
+    xs = x if len(x) else np.zeros((1,) + x.shape[1:], np.float32)
+    m, tail = len(xs), xs.shape[1:]
     outs = []
-    for pack, d0, row in zip(packs, d0s, table.rows.numpy()):
+    for b, (pack, d0, row) in enumerate(zip(packs, d0s, table.rows.numpy())):
         S, w, C = pack.shape
-        _, _, _, _, wb, nw, _, _ = row
+        wb, nw, sb = row[4], row[5], row[9]
         v, d, _ = rcd.unpack_words_np(tcd.words_to_numpy(pack).reshape(-1),
                                       codec, D)
-        v = np.asarray(v, np.float32).reshape(S, w, C)
+        v = np.asarray(v, np.float32).reshape((S, w, C) + (1,) * len(tail))
         d = d.astype(np.int64).reshape(S, w, C)
         cur = np.repeat(d0.numpy().astype(np.int64)[:, None], C, axis=1)
-        total = np.zeros((S, C), np.float32)
+        if window is not None:
+            wins, hw = window
+            base = (np.asarray(wins[b]).astype(np.int64)[np.arange(S) // sb]
+                    * hw)[:, None]
+        total = np.zeros((S, C) + tail, np.float32)
         for wi in range(nw):
-            blk = np.zeros((S, C), np.float32)
+            blk = np.zeros((S, C) + tail, np.float32)
             for j in range(wi * wb, min((wi + 1) * wb, w)):
                 cur = cur + d[:, j]
-                blk = blk + v[:, j] * xs[np.clip(cur, 0, len(xs) - 1)]
+                if window is None:
+                    xv = xs[np.clip(cur, 0, m - 1)]
+                else:
+                    g = base + np.clip(cur - base, 0, 2 * hw - 1)
+                    live = (g < m).reshape((S, C) + (1,) * len(tail))
+                    xv = np.where(live, xs[np.minimum(g, m - 1)],
+                                  np.float32(0))
+                blk = blk + v[:, j] * xv
             total = blk if wi == 0 else total + blk
-        outs.append(total.reshape(-1))
-    return np.concatenate(outs) if outs else np.zeros(0, np.float32)
+        outs.append(total.reshape((-1,) + tail))
+    return (np.concatenate(outs) if outs
+            else np.zeros((0,) + tail, np.float32))
 
 
 @pytest.mark.parametrize("klass", sorted(SUITE))
@@ -137,8 +153,9 @@ def test_full_plan_spmv_matches_reference_per_bucket_path(klass, mode):
 
 def test_bucket_table_layout_and_empty_buckets():
     """One row per bucket with stored rows, in bucket order: addresses, S,
-    w, wb, nw, the first output row and the first thread block; an empty
-    bucket has no row and moves no offset, a w = 0 bucket outputs +0."""
+    w, wb, nw, the first output row, the first thread block, the window
+    address (0 without windows) and sb; an empty bucket has no row and
+    moves no offset, a w = 0 bucket outputs +0."""
     mat = _mat(SUITE["powerlaw"], "e8m", 8)
     C = mat.C
     empty = torch.zeros((0, 4, C), dtype=torch.int32)
@@ -154,14 +171,15 @@ def test_bucket_table_layout_and_empty_buckets():
     for kck in (None, ckpts):
         table = tkp.bucket_table(packs, d0s, kck, wbs)
         rows = table.rows.numpy()
-        assert rows.shape == (len(packs) - 1, 8)
+        assert rows.shape == (len(packs) - 1, 10)
+        assert table.win_ptrs is None and (rows[:, 8:] == [0, 8]).all()
         assert table.total == sum(p.shape[0] * C for p in packs)
         out = blk = 0
         kept = [p for p in packs if p.shape[0]]
         for row, pack in zip(rows, kept):
             S, w, _ = pack.shape
             wb, nw = (w, 1) if kck is None else (8, -(-w // 8))
-            assert tuple(row[2:]) == (S, w, wb, nw, out, blk)
+            assert tuple(row[2:8]) == (S, w, wb, nw, out, blk)
             assert row[0] == pack.data_ptr()
             out += S * C
             blk += -(-S * C // 256)

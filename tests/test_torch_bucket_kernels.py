@@ -1,16 +1,17 @@
 """K4 and K5 of repro_torch against the reference, on the CPU.
 
-The plain versions of the SpMV over all buckets (K4) and the per-bucket
-multi-RHS SpMV (K5), in both bodies (the carry body from ``d0`` and the
-checkpoint body whose width-block partials are added in wi order), run
-through plans forced to ``full`` and are held against the reference plans
-of the same variant,
-whose Pallas kernels run in interpret mode (computed once per case by a
-module-scoped fixture), bit for bit on integer data (values and x in
-[-8, 8], so every sum is exact) over fp16/bf16 at D = 15 and e8m at
+The plain versions of the SpMV (K4) and the multi-RHS SpMV (K5) over all
+buckets, in both bodies (the carry body from ``d0`` and the checkpoint
+body whose width-block partials are added in wi order), run through plans
+forced to ``full`` and are held against the reference plans of the same
+variant, whose Pallas kernels run in interpret mode (computed once per
+case by a module-scoped fixture), bit for bit on integer data (values and
+x in [-8, 8], so every sum is exact) over fp16/bf16 at D = 15 and e8m at
 D = 12, 8, 4, 1. Also byte for byte: the width-block checkpoints and the
-band windows; and the CUDA policy's decisions (``plan.choose_variant``).
-K6, real data and the PAD-word trap are in ``test_torch_band_kernels.py``.
+band windows; the CUDA policy's decisions (``plan.choose_variant``); and
+the bucket wrappers' operand checks. K6, real data and the PAD-word trap
+are in ``test_torch_band_kernels.py``; the all-bucket K5 and K6 against
+their per-bucket plain versions in ``test_torch_band_spmm_buckets.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -175,9 +176,9 @@ def test_checkpoint_body_partials_sum_to_carry_body(codec, D):
         assert part.shape == (ck.shape[1],) + tuple(pack.shape[::2])
         carry = tkp.packsell_spmv_bucket_plain(pack, d0, x, **kw)
         assert torch.equal(tkp.sum_width_partials(part), carry)
-        mpart = tkp.packsell_spmm_bucket(pack, d0, X, ckpt=ck, **kw)
+        mpart = tkp.packsell_spmm_bucket_plain(pack, d0, X, ckpt=ck, **kw)
         assert torch.equal(tkp.sum_width_partials(mpart),
-                           tkp.packsell_spmm_bucket(pack, d0, X, **kw))
+                           tkp.packsell_spmm_bucket_plain(pack, d0, X, **kw))
         assert torch.equal(mpart[..., 1], tkp.packsell_spmv_bucket_plain(
             pack, d0, X[:, 1], ckpt=ck, **kw))
     with pytest.raises(ValueError, match="do not fit"):
@@ -194,13 +195,44 @@ def test_sum_width_partials_order_and_empty():
                        torch.zeros((3, 4)))
 
 
-def test_bucket_wrappers_reject_cpu_operands_for_the_kernel():
-    t = tpk.from_csr(SUITE["banded"], C=8, sigma=32, D=8, codec="e8m",
-                     device="cpu")
-    with pytest.raises(ValueError, match="CUDA device"):
-        tkp._launch_bucket("spmm", t.packs[0], t.d0s[0], None, None,
-                           torch.ones((t.m, 2)), codec_name="e8m", D=8,
-                           wb=32)
+@pytest.mark.parametrize("kernel,fault", [
+    ("K4", "cpu"), ("K4", "buckets"), ("K4", "body"),
+    ("K5", "cpu"), ("K5", "buckets"), ("K5", "body"),
+    ("K6", "cpu"), ("K6", "buckets"), ("K6", "body"), ("K6", "windows"),
+    ("K6", "no windows")])
+def test_bucket_wrappers_reject_cpu_operands_for_the_kernel(kernel, fault):
+    """The kernels' operand checks: CPU operands never reach a kernel, and
+    a table built for other buckets, the other body or other windows (or
+    none) raises, for the plain version too (it reads the table's width and
+    slice blocks)."""
+    _, t = _pair(SUITE["banded"], "e8m", 8, "uniform")
+    hw = _smallest_hw(t)
+    p = tpl.build_plan(t, force="band", hw=hw)
+    x = torch.ones((t.m, 2)) if kernel == "K5" else torch.ones(t.m)
+    packs, d0s, kck, wins = list(t.packs), list(t.d0s), p.kckpts, p.wins
+    table = p.ktable
+    if fault == "buckets":
+        packs = [q.clone() for q in packs]
+    elif fault == "body":
+        kck = None
+    elif fault == "windows":
+        wins = [w.clone() for w in wins]
+    elif fault == "no windows":
+        table = tkp.bucket_table(packs, d0s, kck, [32] * len(packs))
+    want = {"cpu": "CUDA device", "buckets": "other buckets",
+            "body": "other body"}.get(fault, "other windows")
+    kw = dict(codec_name="e8m", D=8)
+    with pytest.raises(ValueError, match=want):
+        if fault == "cpu":
+            tkp._check_buckets("k", packs, d0s, kck, table, x, x.dim(),
+                               wins if kernel == "K6" else None, hw)
+        elif kernel == "K4":
+            tkp.packsell_spmv_buckets(packs, d0s, kck, table, x, **kw)
+        elif kernel == "K5":
+            tkp.packsell_spmm_buckets(packs, d0s, kck, table, x, **kw)
+        else:
+            tkp.packsell_spmv_band_buckets(packs, d0s, wins, kck, table, x,
+                                           hw=hw, **kw)
 
 
 # ---------------------------------------------------------------------------

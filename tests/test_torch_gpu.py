@@ -1,9 +1,9 @@
 """repro_torch's CUDA kernels against their plain PyTorch versions, on the
 card: K1 (fused-stream SpMV) and K3 (its multi-RHS twin, vector and scalar
 X loads, chunks of 8 right-hand sides) on every stream encoding and
-checkpoint width, K4 (the SpMV over all buckets, one launch), K5
-(per-bucket multi-RHS) and K6 (band-windowed) in both bodies over every
-codec, K2 (SELL)
+checkpoint width, K4 (the SpMV), K5 (multi-RHS, vector and scalar X
+loads) and K6 (band-windowed), each over all buckets in one launch, in
+both bodies over every codec, K2 (SELL)
 on every value type and with a float64 accumulator, bit for bit over the
 tiny suite; a Jacobi-PCG solve through K1 that stops at the plain body's
 iteration, and a mixed-precision solve through K4 and K2-f64 with the
@@ -197,45 +197,41 @@ def _smallest_hw(mat, sb=8):
 @pytest.mark.parametrize("codec,D", BUCKET_CODECS)
 @pytest.mark.parametrize("wb", [None, 32, 8])
 def test_k4_k5_k6_bit_equal_plain(cuda, klass, codec, D, wb):
-    """Carry body (wb None) and checkpoint body: K4 over all buckets in one
-    launch; K5 and K6 per bucket, their partials compared before the
-    shared width sum; on uniform buckets so that K6 has windows."""
+    """Carry body (wb None) and checkpoint body, on uniform buckets so that
+    K6 has windows: K4, K6 and K5 (nb = 1, 3, 4, 8, 11, 12 on a 16-byte
+    aligned X and on a view 4 bytes past it) each over all buckets in one
+    launch, bit-equal to their plain versions."""
     mat = pk.from_csr(SUITE[klass], C=32, sigma=64, D=D, codec=codec,
                       device=cuda, bucket_strategy="uniform")
     tiles = tuple((8, wb or 32) for _ in mat.packs)
-    ckpts = (kplan._build_block_checkpoints(mat, tiles) if wb
-             else (None,) * len(mat.packs))
+    kck = kplan._build_block_checkpoints(mat, tiles) if wb else None
     hw = _smallest_hw(mat)
     wins = [torch.from_numpy(w).to(cuda) for w in kplan.band_plan(mat, 8, hw)]
+    table = kpk.bucket_table(mat.packs, mat.d0s, kck, [t[1] for t in tiles],
+                             wins=wins, sbs=[t[0] for t in tiles])
     x = _x(mat.m, cuda)
-    X = _x(mat.m, cuda, nb=11, seed=4)       # two K5 groups of rhs
-    launches = [(k.launches) for k in (kpk.packsell_spmv_buckets,
-                                       kpk.packsell_spmv_band_bucket,
-                                       kpk.packsell_spmm_bucket)]
-    kck = list(ckpts) if wb else None
-    table = kpk.bucket_table(mat.packs, mat.d0s, kck,
-                             [t[1] for t in tiles])
-    kw4 = dict(codec_name=codec, D=D)
-    _bits_equal(kpk.packsell_spmv_buckets(mat.packs, mat.d0s, kck, table, x,
-                                          **kw4),
-                kpk.packsell_spmv_buckets_plain(mat.packs, mat.d0s, kck,
-                                                table, x, **kw4))
-    for pack, d0, ck, win in zip(mat.packs, mat.d0s, ckpts, wins):
-        kw = dict(codec_name=codec, D=D, wb=wb or 32, ckpt=ck)
-        _bits_equal(
-            kpk.packsell_spmv_band_bucket(pack, d0, win, x, hw=hw, **kw),
-            kpk.packsell_spmv_band_bucket_plain(pack, d0, win, x, hw=hw,
-                                                **kw))
-        for nb in (1, 3, 8, 11):
-            _bits_equal(kpk.packsell_spmm_bucket(pack, d0, X[:, :nb]
-                                                 .contiguous(), **kw),
-                        kpk.packsell_spmm_bucket_plain(pack, d0, X[:, :nb],
-                                                       **kw))
-    nbk = len(mat.packs)
-    assert [k.launches for k in (kpk.packsell_spmv_buckets,
-                                 kpk.packsell_spmv_band_bucket,
-                                 kpk.packsell_spmm_bucket)] == \
-        [launches[0] + 1, launches[1] + nbk, launches[2] + 4 * nbk]
+    kernels = (kpk.packsell_spmv_buckets, kpk.packsell_spmv_band_buckets,
+               kpk.packsell_spmm_buckets)
+    launches = [k.launches for k in kernels]
+    kw = dict(codec_name=codec, D=D)
+    args = (mat.packs, mat.d0s, kck, table)
+    _bits_equal(kpk.packsell_spmv_buckets(*args, x, **kw),
+                kpk.packsell_spmv_buckets_plain(*args, x, **kw))
+    _bits_equal(
+        kpk.packsell_spmv_band_buckets(mat.packs, mat.d0s, wins, kck, table,
+                                       x, hw=hw, **kw),
+        kpk.packsell_spmv_band_buckets_plain(mat.packs, mat.d0s, wins, kck,
+                                             table, x, hw=hw, **kw))
+    nbs = (1, 3, 4, 8, 11, 12)
+    for nb in nbs:
+        X = _x(mat.m, cuda, nb=nb, seed=nb)
+        Xm = _x(mat.m * nb + 1, cuda, seed=nb)[1:].view(mat.m, nb)
+        assert not kpk.spmm_vector_loads(Xm)
+        for XX in (X, Xm):
+            _bits_equal(kpk.packsell_spmm_buckets(*args, XX, **kw),
+                        kpk.packsell_spmm_buckets_plain(*args, XX, **kw))
+    assert [k.launches for k in kernels] == \
+        [launches[0] + 1, launches[1] + 1, launches[2] + 2 * len(nbs)]
     # the plans: band and full agree bit for bit on finite x, and each
     # equals its plain body's plan output within float32 rounding
     mode = "checkpoint" if wb else "0"
@@ -243,11 +239,55 @@ def test_k4_k5_k6_bit_equal_plain(cuda, klass, codec, D, wb):
                           wb=wb or 32)
     pf = kplan.build_plan(mat, force="full", decode_cache=mode, wb=wb or 32)
     assert (pb.variant, pf.variant) == ("band", "full")
+    X = _x(mat.m, cuda, nb=11, seed=4)
     _bits_equal(pb.spmv(mat, x), pf.spmv(mat, x))
     _bits_equal(pb.spmm(mat, X), pf.spmm(mat, X))
     pj = kplan.build_plan(mat, force="jnp")
     torch.testing.assert_close(pf.spmv(mat, x), pj.spmv(mat, x), rtol=1e-5,
                                atol=1e-5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("klass", sorted(SUITE))
+@pytest.mark.parametrize("codec,D", BUCKET_CODECS)
+@pytest.mark.parametrize("wb", [None, 32, 8])
+def test_plan_spmm_is_one_k5_launch_and_band_spmv_one_k6(cuda, klass, codec,
+                                                         D, wb):
+    """pow2 buckets (several per matrix) for K5, uniform ones for K6: a
+    ``full`` plan's ``spmm`` is one K5 launch and a ``band`` plan's ``spmv``
+    one K6 launch, bit-equal to the plain versions over the plans'
+    operands; column 0 of the SpMM equals the SpMV on it (K5 and K4 walk a
+    row alike)."""
+    mode = "checkpoint" if wb else "0"
+    mat = pk.from_csr(SUITE[klass], C=32, sigma=64, D=D, codec=codec,
+                      device=cuda)
+    plan = kplan.build_plan(mat, force="full", decode_cache=mode,
+                            wb=wb or 32)
+    X = _x(mat.m, cuda, nb=8, seed=5)
+    kw = dict(codec_name=codec, D=D)
+    k5, k6 = kpk.packsell_spmm_buckets, kpk.packsell_spmv_band_buckets
+    before = k5.launches
+    Y = plan.spmm(mat, X, permuted=True)
+    assert k5.launches == before + 1
+    _bits_equal(Y, kpk.packsell_spmm_buckets_plain(
+        mat.packs, mat.d0s, plan.kckpts, plan.ktable, X, **kw))
+    _bits_equal(plan.spmm(mat, X)[:, 0],
+                plan.spmv(mat, X[:, 0].contiguous()))
+    mu = pk.from_csr(SUITE[klass], C=32, sigma=64, D=D, codec=codec,
+                     device=cuda, bucket_strategy="uniform")
+    hw = _smallest_hw(mu)
+    band = kplan.build_plan(mu, force="band", hw=hw, decode_cache=mode,
+                            wb=wb or 32)
+    x = _x(mu.m, cuda, seed=6)
+    before = k6.launches
+    y = band.spmv(mu, x, permuted=True)
+    assert k6.launches == before + 1
+    _bits_equal(y, kpk.packsell_spmv_band_buckets_plain(
+        mu.packs, mu.d0s, band.wins, band.kckpts, band.ktable, x, hw=hw,
+        **kw))
+    before = k5.launches
+    band.spmm(mu, X[:mu.m])
+    assert k5.launches == before + 1
     torch.cuda.synchronize()
 
 
@@ -295,25 +335,21 @@ def test_k4_k6_pad_words_differ_only_past_m(cuda):
                       shape=(40, 5))
     mat = pk.from_csr(a, C=8, sigma=8, D=12, codec="e8m", device=cuda)
     x = torch.tensor([1, 2, 3, 4, float("inf")], device=cuda)
-    hw, n_differ = 128, 0
+    hw = 128
     kw = dict(codec_name="e8m", D=12)
-    table = kpk.bucket_table(mat.packs, mat.d0s, None, [32] * len(mat.packs))
-    k4_all = kpk.packsell_spmv_buckets(mat.packs, mat.d0s, None, table, x,
-                                       **kw)
-    _bits_equal(k4_all, kpk.packsell_spmv_buckets_plain(
+    wins = [torch.from_numpy(w).to(cuda) for w in kplan.band_plan(mat, 8, hw)]
+    table = kpk.bucket_table(mat.packs, mat.d0s, None, [32] * len(mat.packs),
+                             wins=wins)
+    k4 = kpk.packsell_spmv_buckets(mat.packs, mat.d0s, None, table, x, **kw)
+    _bits_equal(k4, kpk.packsell_spmv_buckets_plain(
         mat.packs, mat.d0s, None, table, x, **kw))
-    k4s = k4_all.split([p.shape[0] * p.shape[2] for p in mat.packs])
-    for pack, d0, win, k4 in zip(mat.packs, mat.d0s,
-                                 kplan.band_plan(mat, 8, hw), k4s):
-        win = torch.from_numpy(win).to(cuda)
-        k4 = k4.view(pack.shape[0], pack.shape[2])
-        k6 = kpk.packsell_spmv_band_bucket(pack, d0, win, x, hw=hw, **kw)
-        _bits_equal(k6, kpk.packsell_spmv_band_bucket_plain(pack, d0, win, x,
-                                                            hw=hw, **kw))
-        differ = ~((k4 == k6) | (torch.isnan(k4) & torch.isnan(k6)))
-        assert torch.isnan(k4[differ]).all() and (k6[differ] == 0).all()
-        n_differ += int(differ.sum())
-    assert n_differ > 0
+    k6 = kpk.packsell_spmv_band_buckets(mat.packs, mat.d0s, wins, None, table,
+                                        x, hw=hw, **kw)
+    _bits_equal(k6, kpk.packsell_spmv_band_buckets_plain(
+        mat.packs, mat.d0s, wins, None, table, x, hw=hw, **kw))
+    differ = ~((k4 == k6) | (torch.isnan(k4) & torch.isnan(k6)))
+    assert torch.isnan(k4[differ]).all() and (k6[differ] == 0).all()
+    assert int(differ.sum()) > 0
 
 
 @pytest.mark.parametrize("klass", sorted(SUITE))
