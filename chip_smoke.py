@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of repro_torch on one NVIDIA GPU: builds the CUDA kernels from
 the sources in this checkout, holds each against its plain PyTorch
-version, drives the two main paths at HPCG 104^3 -- PackSELL fp16 through
+version, drives the main paths at HPCG 104^3 -- PackSELL fp16 through
 the fused-stream plan with Jacobi-PCG in stored-row order, a multi-RHS
 product and the SELL baseline; then the mixed-precision adaptive PCG over
 the e8m tier ladder (the bucket kernels, a float64 SELL outer operator),
-a multi-RHS product and a band-windowed plan -- times the kernels, and
-ends with one JSON line.
+a multi-RHS product and a band-windowed plan; then the paper's solvers
+(IO-CG against fp64 PCG, F3R, the PackSELL triangular solve) -- times the
+kernels, and ends with one JSON line.
 
     python3 chip_smoke.py
 
@@ -15,6 +16,8 @@ nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import re
 import subprocess
@@ -32,6 +35,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 #: sheet, at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+#: the kernel a plan variant's SpMV launches
+PLAN_KERNEL = {"fused": "K1", "full": "K4", "band": "K6"}
 
 
 def card_line() -> str:
@@ -187,6 +192,81 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
     to = ops / PEAK_F32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def profiled(fn):
+    """``(wall, kernels)`` of one call of ``fn`` under ``torch.profiler``:
+    its wall in ms between CUDA events recorded around it (host gaps
+    included), and the device time by kernel, ``(ms, count, name)``,
+    largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+    kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    return start.elapsed_time(stop), kern
+
+
+@contextlib.contextmanager
+def sync_debug(mode: str):
+    """``torch.cuda.set_sync_debug_mode(mode)`` inside the block: "error"
+    raises on any device synchronisation, "warn" warns on each."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+class CountedOps:
+    """An ``OperatorSet`` whose matvecs count their calls by kind: what
+    ``iocg.solve`` and ``f3r.solve`` read of it (``matvec``, ``diag``,
+    ``device``), passed through."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.calls = collections.Counter()
+
+    @property
+    def device(self):
+        return self.ops.device
+
+    def diag(self):
+        return self.ops.diag()
+
+    def matvec(self, kind: str):
+        fn = self.ops.matvec(kind)
+
+        def counted(x):
+            self.calls[kind] += 1
+            return fn(x)
+
+        return counted
+
+
+def f3r_layer_spmvs(cfg, cycles: int) -> dict:
+    """SpMVs per F3R layer for ``cycles`` L1 cycles: L1 one for the
+    initial residual and 1 + m_outer per cycle; each L2 application (one
+    per L1 Arnoldi step) 1 + m_mid; each L3 application 1 + m_inner; each
+    L4 application (ainv_terms - 1) + iters · ainv_terms."""
+    l2 = cycles * cfg.m_outer
+    l3 = l2 * cfg.m_mid
+    l4 = l3 * cfg.m_inner
+    return {"L1": 1 + cycles * (1 + cfg.m_outer), "L2": l2 * (1 + cfg.m_mid),
+            "L3": l3 * (1 + cfg.m_inner),
+            "L4": l4 * (cfg.ainv_terms - 1
+                        + cfg.richardson_iters * cfg.ainv_terms)}
 
 
 class Smoke:
@@ -702,8 +782,8 @@ class Smoke:
               f"{info32.iters}, recurrence relres {float(info32.relres)!r}, "
               f"solve wall {fp32_s!r} s, true relres {true_rel(x32)!r}",
               flush=True)
-        return dict(ops=ops_k, ladder=ladder, mat_u=mat_u, band=band,
-                    launches=launches, info=info)
+        return dict(ops=ops_k, ops_p=ops_p, ladder=ladder, mat_u=mat_u,
+                    band=band, launches=launches, info=info)
 
     # -- phase 6: times at the main path's shapes --------------------------
     def times(self, mp):
@@ -961,9 +1041,6 @@ class Smoke:
         traced."""
         from statistics import median
 
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
         from repro_torch.solvers import cg
 
         mat, plan, s = mp["mat"], mp["plan"], mp["a"]
@@ -982,17 +1059,6 @@ class Smoke:
             torch.cuda.synchronize()
             return start.elapsed_time(stop)
 
-        def profiled(k: int):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA],
-                         acc_events=True) as prof:
-                wall = solve(k)
-            kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                           for e in prof.key_averages()
-                           if e.device_type == DeviceType.CUDA
-                           and e.self_device_time_total > 0), reverse=True)
-            return wall, kern
-
         solve(iters)
         set_up = median(solve(0) for _ in range(reps))
         whole = median(solve(iters) for _ in range(reps))
@@ -1002,8 +1068,10 @@ class Smoke:
         print(f"  solve walls (CUDA events, median of {reps}): set-up "
               f"(maxiter=0) {set_up!r} ms, {iters} iterations {whole!r} ms; "
               f"per iteration {per_iter!r} ms", flush=True)
-        wall0, kern0 = profiled(0)
-        wall, kern = profiled(iters)
+        wall0, kern0 = profiled(lambda: cg.jacobi_pcg_stored(
+            mat, plan, diag, b, tol=0.0, maxiter=0))
+        wall, kern = profiled(lambda: cg.jacobi_pcg_stored(
+            mat, plan, diag, b, tol=0.0, maxiter=iters))
         if not kern:
             print("  device time by kernel: not measured (the profiler saw "
                   "no device events)", flush=True)
@@ -1017,6 +1085,307 @@ class Smoke:
               f"by kernel:", flush=True)
         for ms, count, key in kern[:12]:
             print(f"    {ms:10.4f} ms  {count:5d}x  {key[:90]}", flush=True)
+
+
+    # -- phase 8: the paper's solvers --------------------------------------
+    def solvers_path(self, a_s, ops_k, ops_p, m_in: int = 50):
+        """The paper's solver experiments on the sym-scaled matrix ``a_s``
+        with b = ones: IO-CG (``m_in`` inner PCG iterations; variants fp64,
+        fp32, fp16, e8m8, e8m12) and its baseline ``pcg_reference`` (fp64
+        PCG, the same Neumann preconditioner), F3R (presets fp64, fp16,
+        packsell), the e8m8 IO-CG on the plain bodies, the fixed-iteration
+        solvers under ``set_sync_debug_mode("error")``, and the PackSELL
+        triangular solve of ``tril(a_s)`` with RCM's bandwidths. ``ops_k``
+        is phase 5's operator set (its fp64 and fp32 SELL operators are
+        reused), ``ops_p`` its plain twin (``force="jnp"``)."""
+        from repro_torch.kernels import ops as kops
+        from repro_torch.solvers import f3r, iocg
+
+        n = a_s.shape[0]
+        b_h = np.ones(n)
+        b = torch.ones(n, dtype=torch.float64, device=self.dev)
+
+        def true_rel(x):
+            x_h = x.cpu().numpy().astype(np.float64)
+            if not np.isfinite(x_h).all():
+                fail("non-finite solution in the solver phase")
+            return float(np.linalg.norm(b_h - a_s @ x_h)
+                         / np.linalg.norm(b_h))
+
+        def run(fn):
+            """fn's result and its wall: host clock, ending in
+            synchronize()."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        kinds = ("fp64", "fp32", "fp16", "packsell_e8m8", "packsell_e8m12",
+                 "packsell_fp16")
+        t0 = time.perf_counter()
+        for kind in kinds:
+            ops_k.matvec(kind)
+        ops_k.diag()
+        print(f"  operators and the diagonal built in "
+              f"{time.perf_counter() - t0:.1f} s (host; fp64 and fp32 are "
+              f"phase 5's); each solve's wall below includes its "
+              f"preconditioner's set-up from that diagonal", flush=True)
+        variants = {}
+        for kind in kinds[3:]:
+            mat = ops_k.stored(kind)
+            plan = kops.percall_plan(mat, ops_k.force)
+            variants[kind] = plan.variant
+            print(f"  {kind}: buckets {len(mat.packs)}, words "
+                  f"{mat.words_bucketed}, plan: {plan.policy}", flush=True)
+        buckets = {k: len(ops_k.stored(k).vals) for k in kinds[:3]}
+
+        def launches_of(calls):
+            """The launches matvecs ``calls`` (by kind) make: one K2 per
+            SELL bucket (with a float64 sum for fp64), one K1, K4 or K6 per
+            packsell_ matvec by its plan."""
+            want = dict.fromkeys(self.counts(), 0)
+            for kind, c in calls.items():
+                if kind in buckets:
+                    want["K2"] += c * buckets[kind]
+                    want["K2-f64"] += c * buckets[kind] * (kind == "fp64")
+                else:
+                    want[PLAN_KERNEL[variants[kind]]] += c
+            return want
+
+        def check(label, calls, want_calls, before):
+            launched = {k: v - before[k] for k, v in self.counts().items()}
+            if dict(calls) != {k: v for k, v in want_calls.items() if v}:
+                fail(f"{label}: matvecs {dict(calls)}, want "
+                     f"{dict(want_calls)}")
+            if launched != launches_of(calls):
+                fail(f"{label}: launches {launched}, want "
+                     f"{launches_of(calls)}")
+            return launched
+
+        self.zero_counts()
+        cops = CountedOps(ops_k)
+        k_ainv = iocg.IOCGConfig().ainv_terms
+        (x, info), ref_s = run(lambda: iocg.pcg_reference(cops, b))
+        rel = true_rel(x)
+        launched = check("pcg_reference", cops.calls,
+                         {"fp64": 2 + 2 * info.iters}, dict.fromkeys(
+                             self.counts(), 0))
+        print(f"  pcg_reference (fp64 PCG, Neumann {k_ainv} terms, tol "
+              f"1e-9): iterations {info.iters}, true relres {rel!r}, wall "
+              f"{ref_s!r} s, matvecs {dict(cops.calls)}, launches "
+              f"{launched}", flush=True)
+        if not rel <= 5e-9:
+            fail(f"pcg_reference true relres {rel} > 5e-9")
+        xs, iters = {}, {}
+        for name in ("fp64", "fp32", "fp16", "e8m8", "e8m12"):
+            cfg = iocg.variant(name, m_in=m_in)
+            cops.calls.clear()
+            before = self.counts()
+            (x, info), wall = run(lambda: iocg.solve(cops, b, cfg))
+            rel = true_rel(x)
+            xs[name], iters[name] = x, info.iters
+            # each inner application: M once, then m_in × (A, M)
+            per = (cfg.ainv_terms - 1) + m_in * cfg.ainv_terms
+            want = collections.Counter({"fp64": 1 + info.iters})
+            want[cfg.inner_spmv] += (info.iters + 1) * per
+            launched = check(f"IO-CG {name}", cops.calls, want, before)
+            print(f"  IO-CG {name:5s} (m_in {m_in}, inner "
+                  f"{cfg.inner_spmv}, "
+                  f"{variants.get(cfg.inner_spmv, 'SELL, K2')}): outer "
+                  f"iterations {info.iters}, true relres {rel!r}, wall "
+                  f"{wall!r} s, matvecs {dict(cops.calls)}, launches "
+                  f"{launched}; pcg_reference wall / this wall "
+                  f"{ref_s / wall!r}", flush=True)
+            bound = 1e-6 if name == "fp16" else 5e-9
+            if not rel <= bound:
+                fail(f"IO-CG {name}: true relres {rel} > {bound}")
+
+        # the e8m8 IO-CG again on the plain bodies, on the card
+        ops_p.matvec("packsell_e8m8")
+        ops_p.diag()
+        plain = CountedOps(ops_p)
+        before = self.counts()
+        (xp, info_p), plain_s = run(lambda: iocg.solve(
+            plain, b, iocg.variant("e8m8", m_in=m_in)))
+        dx = float(torch.linalg.vector_norm(xs["e8m8"] - xp)
+                   / torch.linalg.vector_norm(xs["e8m8"]))
+        print(f"  IO-CG e8m8 on the plain bodies (force='jnp'): outer "
+              f"iterations {info_p.iters}, wall {plain_s!r} s, "
+              f"||x - x_plain|| / ||x|| {dx!r}, true relres "
+              f"{true_rel(xp)!r}", flush=True)
+        if self.counts() != before:
+            fail("the plain IO-CG launched a kernel")
+        if info_p.iters != iters["e8m8"]:
+            fail(f"plain IO-CG e8m8 took {info_p.iters} outer iterations, "
+                 f"the kernels {iters['e8m8']}")
+
+        cycles, x3 = {}, {}
+        for name in ("fp64", "fp16", "packsell"):
+            cfg = f3r.presets(name)
+            cops.calls.clear()
+            before = self.counts()
+            (x, info), wall = run(lambda: f3r.solve(cops, b, cfg))
+            rel = true_rel(x)
+            cycles[name], x3[name] = info.iters, x
+            layers = f3r_layer_spmvs(cfg, info.iters)
+            want = collections.Counter()
+            for layer, kind in (("L1", cfg.spmv_outer), ("L2", cfg.spmv_mid),
+                                ("L3", cfg.spmv_inner),
+                                ("L4", cfg.spmv_inner)):
+                want[kind] += layers[layer]
+            launched = check(f"F3R {name}", cops.calls, want, before)
+            inner = (layers["L3"] + layers["L4"]) / sum(layers.values())
+            print(f"  F3R {name:8s} ({cfg.spmv_outer}/{cfg.spmv_mid}/"
+                  f"{cfg.spmv_inner}): cycles {info.iters}, relres history "
+                  f"{info.history[:info.iters + 1].tolist()}, true relres "
+                  f"{rel!r}, wall {wall!r} s, SpMVs per layer {layers} "
+                  f"(L3 + L4 share {inner!r}), launches {launched}; "
+                  f"pcg_reference wall / this wall {ref_s / wall!r}",
+                  flush=True)
+            if not rel <= 5e-9:
+                fail(f"F3R {name}: true relres {rel} > 5e-9")
+        dx = float(torch.linalg.vector_norm(x3["fp16"] - x3["packsell"])
+                   / torch.linalg.vector_norm(x3["fp16"]))
+        print(f"  FP16-F3R and PackSELL-F3R: cycles {cycles['fp16']} and "
+              f"{cycles['packsell']}, ||x_fp16 - x_packsell|| / ||x_fp16|| "
+              f"{dx!r}", flush=True)
+        if cycles["fp16"] != cycles["packsell"]:
+            fail(f"FP16-F3R took {cycles['fp16']} cycles, PackSELL-F3R "
+                 f"{cycles['packsell']}")
+        self.sync_free(a_s, ops_k, m_in)
+        self.tri_solve(a_s)
+        launches = self.counts()
+        print(f"  launches in this run: {launches}", flush=True)
+        path = {"K2", "K2-f64", *(PLAN_KERNEL[v] for v in variants.values())}
+        for k in sorted(path):
+            if launches[k] < 1:
+                fail(f"{k} never launched in the solver phase")
+        return launches
+
+    def sync_free(self, a_s, ops_k, m_in):
+        """The fp16, fp32 and fp64 matvecs, ``neumann_ainv`` and the
+        fixed-iteration solvers applied once each under
+        ``set_sync_debug_mode("error")``; then the host syncs of one F3R L3
+        application (``set_sync_debug_mode("warn")``, counted), and the
+        device's busy share of one IO-CG inner application and one F3R L2
+        application (the profiler, phase 7's method)."""
+        from repro_torch.solvers import precond
+        from repro_torch.solvers.cg import pcg_fixed_iters
+        from repro_torch.solvers.gmres import fgmres_fixed_cycles
+        from repro_torch.solvers.richardson import richardson_fixed_iters
+
+        diag = a_s.diagonal()
+        r = torch.from_numpy(np.random.default_rng(17).standard_normal(
+            a_s.shape[0])).to(self.dev)
+        A = {k: ops_k.matvec(k) for k in ("fp64", "fp32", "fp16",
+                                          "packsell_e8m8", "packsell_fp16")}
+        M = {k: precond.neumann_ainv(diag, A[k], device=self.dev)
+             for k in ("fp32", "packsell_e8m8", "packsell_fp16", "fp16")}
+        apply = {
+            "fp16 matvec": A["fp16"], "fp32 matvec": A["fp32"],
+            "fp64 matvec": A["fp64"],
+            "neumann_ainv packsell_e8m8": M["packsell_e8m8"],
+            f"pcg_fixed_iters fp32, m_in {m_in}": pcg_fixed_iters(
+                A["fp32"], M["fp32"], m_in),
+            f"pcg_fixed_iters packsell_e8m8, m_in {m_in}": pcg_fixed_iters(
+                A["packsell_e8m8"], M["packsell_e8m8"], m_in),
+            "richardson_fixed_iters packsell_fp16, 4 iterations":
+                richardson_fixed_iters(A["packsell_fp16"],
+                                       M["packsell_fp16"], 4)}
+        for what, fn in apply.items():
+            try:
+                with sync_debug("error"):
+                    y = fn(r)
+            except RuntimeError as e:
+                fail(f"{what} synchronised the host: {e}")
+            if not bool(torch.isfinite(y).all()):
+                fail(f"{what}: non-finite output")
+            print(f"  {what}: no host sync under set_sync_debug_mode"
+                  f"('error')", flush=True)
+        l4 = richardson_fixed_iters(A["fp16"], M["fp16"], 4)
+        l3 = fgmres_fixed_cycles(A["fp16"], l4, m=5)
+        l3(r)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with sync_debug("warn"):
+                l3(r)
+        syncs = [str(w.message).splitlines()[0] for w in caught
+                 if "synchroniz" in str(w.message)]
+        print(f"  one F3R L3 application (fgmres_fixed_cycles m 5 over L4, "
+              f"fp16): {len(syncs)} host syncs under set_sync_debug_mode"
+              f"('warn') {sorted(set(syncs))}", flush=True)
+        l2 = fgmres_fixed_cycles(A["fp32"], l3, m=10)
+        for what, fn in ((f"one IO-CG inner application (pcg_fixed_iters "
+                          f"fp32, m_in {m_in})", apply[
+                              f"pcg_fixed_iters fp32, m_in {m_in}"]),
+                         ("one F3R L2 application (fp16 preset)", l2)):
+            fn(r)
+            wall, kern = profiled(lambda: fn(r))
+            busy = sum(k[0] for k in kern)
+            if not kern:
+                print(f"  {what}: device time not measured (the profiler "
+                      f"saw no device events)", flush=True)
+                continue
+            print(f"  {what}: device busy {busy!r} ms of a {wall!r} ms "
+                  f"event wall (idle share {1 - busy / wall!r}), "
+                  f"{sum(k[1] for k in kern)} kernels; largest: "
+                  f"{[(round(k[0], 4), k[1], k[2][:40]) for k in kern[:4]]}",
+                  flush=True)
+
+    def tri_solve(self, a_s):
+        """The PackSELL triangular solve of ``tril(a_s)`` (e8m, D = 1, as
+        the reference) against scipy's ``spsolve_triangular`` in float64,
+        and RCM's bandwidths of ``a_s``."""
+        import scipy.sparse as sp
+        from scipy.sparse.linalg import spsolve_triangular
+
+        from repro_torch.core import reorder, trisolve
+
+        t0 = time.perf_counter()
+        lo = sp.tril(a_s).tocsr()
+        lo.sort_indices()
+        solver = trisolve.PackSELLTriSolver(lo, lower=True, C=32, sigma=256,
+                                            D=1, codec="e8m", device=self.dev,
+                                            force=self.force_mixed)
+        built = time.perf_counter() - t0
+        mat = solver.mat
+        print(f"  tril: nnz {lo.nnz}; PackSELL e8m/D1 strict factor built "
+              f"in {built:.1f} s (host, n_levels included): buckets "
+              f"{len(mat.packs)}, words {mat.words_bucketed}, dummies "
+              f"{mat.n_dummy}; n_levels {solver.levels}; plan: "
+              f"{solver.plan.policy}", flush=True)
+        b_h = np.random.default_rng(19).standard_normal(a_s.shape[0])
+        b = torch.from_numpy(b_h).to(self.dev)
+        before = self.counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = solver.solve(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in self.counts().items()}
+        t0 = time.perf_counter()
+        want = spsolve_triangular(lo, b_h, lower=True)
+        ref_s = time.perf_counter() - t0
+        x_h = x.cpu().numpy().astype(np.float64)
+        err = float(np.linalg.norm(x_h - want) / np.linalg.norm(want))
+        print(f"  solve: {solver.levels} Jacobi steps in {wall!r} s "
+              f"(host clock, ends in synchronize), launches {launched}; "
+              f"||x - x_scipy|| / ||x_scipy|| {err!r} (scipy "
+              f"spsolve_triangular, float64, {ref_s:.1f} s on the host)",
+              flush=True)
+        want = dict.fromkeys(launched, 0)
+        want[PLAN_KERNEL[solver.plan.variant]] = solver.levels
+        if launched != want:
+            fail(f"the triangular solve's {solver.levels} SpMVs launched "
+                 f"{launched} ({solver.plan.variant} plan), want {want}")
+        if not err <= 1e-5:
+            fail(f"triangular solve relative error {err} > 1e-5")
+        t0 = time.perf_counter()
+        ar, _ = reorder.rcm_reorder(a_s)
+        print(f"  RCM: bandwidth {reorder.bandwidth(a_s)} before, "
+              f"{reorder.bandwidth(ar)} after ({time.perf_counter() - t0:.1f}"
+              f" s on the host)", flush=True)
 
 
 def main() -> int:
@@ -1050,19 +1419,30 @@ def main() -> int:
         fail(f"kernels that spill registers: {spilled}")
 
     smoke = Smoke(dev)
-    print("== 3. kernels against their plain versions, on the card",
-          flush=True)
-    smoke.kernels_vs_plain()
-    print("== 4. main path: HPCG 104^3, plan_fp16, Jacobi-PCG", flush=True)
-    mp = smoke.main_path()
-    print("== 5. mixed-precision PCG, HPCG 104^3: adaptive_pcg over the e8m "
-          "tier ladder", flush=True)
-    mx = smoke.mixed_path(mp["a"])
-    print("== 6. times at the main paths' shapes (CUDA events)", flush=True)
-    rows = smoke.times(mp)
-    rows.update(smoke.times_bucket(mx))
-    print("== 7. where a solve's time goes (torch.profiler)", flush=True)
-    smoke.breakdown(mp)
+    phase_s = {}
+
+    def phase(num: int, title: str, fn):
+        print(f"== {num}. {title}", flush=True)
+        t0 = time.perf_counter()
+        out = fn()
+        phase_s[num] = time.perf_counter() - t0
+        print(f"  phase {num}: {phase_s[num]:.1f} s", flush=True)
+        return out
+
+    phase(3, "kernels against their plain versions, on the card",
+          smoke.kernels_vs_plain)
+    mp = phase(4, "main path: HPCG 104^3, plan_fp16, Jacobi-PCG",
+               smoke.main_path)
+    mx = phase(5, "mixed-precision PCG, HPCG 104^3: adaptive_pcg over the "
+               "e8m tier ladder", lambda: smoke.mixed_path(mp["a"]))
+    rows = phase(6, "times at the main paths' shapes (CUDA events)",
+                 lambda: {**smoke.times(mp), **smoke.times_bucket(mx)})
+    phase(7, "where a solve's time goes (torch.profiler)",
+          lambda: smoke.breakdown(mp))
+    sv = phase(8, "the paper's solvers, HPCG 104^3: IO-CG against fp64 PCG, "
+               "F3R, the fixed-iteration solvers without host syncs, the "
+               "PackSELL triangular solve",
+               lambda: smoke.solvers_path(mp["a"], mx["ops"], mx["ops_p"]))
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -1081,7 +1461,10 @@ def main() -> int:
         "K2-f64": ("sell_spmv_bucket (float64 sum)", src + "sell_spmv.cu",
                    "src/repro/kernels/sell_spmv.py:47"),
     }
-    launches = {**mx["launches"], **mp["launches"]}
+    # each path ran with the counts set to 0 just before it
+    launches = {k: sum(run.get(k, 0) for run in (mp["launches"],
+                                                 mx["launches"], sv))
+                for k in meta}
     kernels = []
     for k, (kname, source, replaces) in meta.items():
         t, tp, tl, tb, by, te = rows[k]
@@ -1092,7 +1475,8 @@ def main() -> int:
                         "plain_ms": tp, "bound_ms": tb, "bound_by": by,
                         "library_ms": tl, "eager_ms": te,
                         "checked_cases": smoke.cases[k]})
-    print(f"== 8. done in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"== 9. done in {time.perf_counter() - t_start:.1f} s (phases "
+          f"3-8: {phase_s})", flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

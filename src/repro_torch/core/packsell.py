@@ -27,6 +27,9 @@ PAD_WORD = np.uint32(0)  # flag=0, delta=0: contributes v=0, cursor unchanged
 
 #: width chunk of the scan decode (bounds the [S, chunk, C] intermediates)
 _SCAN_CHUNK = 128
+#: XLA's CPU compiler splits a reduction longer than this into windows of
+#: this many elements (its tree-reduction rewrite), each summed from 0
+_XLA_BLOCK = 32
 
 
 def _ceil_to(x: int, q: int) -> int:
@@ -104,7 +107,10 @@ class PackSELLMatrix:
 def _bucket_spmv_scan(pack, d0, xc, codec, D, mlim):
     """One bucket's stored-row outputs [S, C] (or [S, C, nb] for a 2-D
     ``xc``): per width chunk, one prefix sum of the deltas, one gather and
-    one reduction over the width axis."""
+    one reduction over the width axis. The reduction adds in the order of
+    the reference's ``jnp.sum`` over that axis on the CPU, so the two agree
+    bit for bit: blocks of :data:`_XLA_BLOCK` products, each added in j
+    order from 0, then the block sums in order from 0."""
     S, w, C = pack.shape
     tail = tuple(xc.shape[1:])
     carry = d0.to(torch.int64)[:, None].expand(S, C)
@@ -115,7 +121,14 @@ def _bucket_spmv_scan(pack, d0, xc, codec, D, mlim):
         cols = carry[:, None, :] + torch.cumsum(d, dim=1)
         xv = xc[cols.clamp(0, mlim).reshape(-1)].reshape(cols.shape + tail)
         v = v.to(torch.float32).reshape(v.shape + (1,) * len(tail))
-        t = t + (v * xv).sum(dim=1)
+        prod = v * xv
+        part = torch.zeros_like(t)
+        for b0 in range(0, prod.shape[1], _XLA_BLOCK):
+            blk = torch.zeros_like(t)
+            for j in range(b0, min(b0 + _XLA_BLOCK, prod.shape[1])):
+                blk = blk + prod[:, j]
+            part = part + blk
+        t = t + part
         carry = cols[:, -1, :]
     return t
 

@@ -13,8 +13,7 @@ import scipy.sparse as sp
 import torch
 
 from .. import _device
-from .packsell import (_bucket_slices, _cumsum0, _nonempty, _scatter_rows,
-                       _sigma_sort)
+from .packsell import _bucket_slices, _cumsum0, _nonempty, _sigma_sort
 
 #: value dtypes the format stores (names as in the reference)
 VALUE_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
@@ -27,6 +26,7 @@ class SELLMatrix:
     cols: tuple       # tuple of int32[S_b, w_b, C]   (padding -> col 0, val 0)
     outrows: tuple    # tuple of int32[S_b * C]
     perm: torch.Tensor
+    slot: torch.Tensor  # int32[n]: the stored row of each row, in cat order
 
     n: int
     m: int
@@ -68,10 +68,24 @@ def sell_bucket_spmv(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
     S, w, C = val.shape
     xc = _nonempty(x.to(compute_dtype))
     col = col.long().clamp(0, xc.shape[0] - 1)
+    prod = val.to(compute_dtype) * xc[col]       # every product at once
     t = torch.zeros((S, C), dtype=compute_dtype, device=x.device)
     for j in range(w):
-        t = t + val[:, j, :].to(compute_dtype) * xc[col[:, j, :]]
+        t = t + prod[:, j, :]
     return t
+
+
+def gather_rows(mat: SELLMatrix, parts, dtype) -> torch.Tensor:
+    """y[r] = the stored row of r among the buckets' outputs ``parts``
+    (each ``[S_b, C]``), by the precomputed ``mat.slot``: one ``cat`` and
+    one gather, with no mask and no host sync. Every row is stored exactly
+    once, so this equals the scatter by ``outrows``; σ-padding rows are
+    never read."""
+    if not parts:
+        return torch.zeros((mat.n,), dtype=dtype, device=mat.device)
+    flat = [t.reshape(-1) for t in parts]
+    t_cat = flat[0] if len(flat) == 1 else torch.cat(flat)
+    return torch.index_select(t_cat, 0, mat.slot)
 
 
 def sell_spmv(mat: SELLMatrix, x: torch.Tensor,
@@ -81,8 +95,23 @@ def sell_spmv(mat: SELLMatrix, x: torch.Tensor,
     ``repro_torch.kernels.ops.sell_spmv`` runs the kernel instead."""
     parts = [sell_bucket_spmv(v, c, x, compute_dtype)
              for v, c in zip(mat.vals, mat.cols)]
-    return _scatter_rows(mat.n, parts, mat.outrows, (), x.device,
-                         compute_dtype)
+    return gather_rows(mat, parts, compute_dtype)
+
+
+def _row_slots(outrows, n: int) -> torch.Tensor:
+    """int32[n]: the position of row r in the concatenated ``outrows``
+    (sentinel rows, >= n, are skipped). Raises unless every row is stored
+    exactly once."""
+    cat = (np.concatenate([np.asarray(o, np.int64).reshape(-1)
+                           for o in outrows]) if len(outrows)
+           else np.zeros((0,), np.int64))
+    real = np.nonzero(cat < n)[0]
+    if len(real) != n or np.bincount(cat[real], minlength=n).max(
+            initial=1) != 1:
+        raise ValueError("SELL outrows must store every row exactly once")
+    slot = np.zeros(n, np.int32)
+    slot[cat[real]] = real.astype(np.int32)
+    return torch.from_numpy(slot)
 
 
 def _values_to_torch(v: np.ndarray, value_dtype: str) -> torch.Tensor:
@@ -148,6 +177,7 @@ def from_csr(a: sp.csr_matrix, *, C: int = 128, sigma: int = 256,
         cols=tuple(torch.from_numpy(c).to(dev) for c in cols),
         outrows=tuple(torch.from_numpy(o).to(dev) for o in outrows),
         perm=torch.from_numpy(perm).to(dev),
+        slot=_row_slots(outrows, n).to(dev),
         n=n, m=m, C=C, sigma=sigma, value_dtype=value_dtype, nnz=int(a.nnz),
         words_sell_padded=words_sell_padded, words_bucketed=int(words_bucketed),
     )
@@ -176,4 +206,5 @@ def from_arrays(leaves, meta: dict, *, device=None) -> SELLMatrix:
         outrows=tuple(torch.from_numpy(np.array(o, np.int32)).to(dev)
                       for o in outrows),
         perm=torch.from_numpy(np.array(perm)).to(dev),
+        slot=_row_slots(outrows, meta["n"]).to(dev),
         **{k: meta[k] for k in SELLMatrix.STATIC})

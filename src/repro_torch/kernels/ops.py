@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from ..core.packsell import PackSELLMatrix
-from ..core.sell import SELLMatrix
+from ..core.packsell import PackSELLMatrix, packsell_spmv_torch
+from ..core.sell import SELLMatrix, gather_rows
 from . import plan as _plan
 from . import sell_spmv as _sk
 
@@ -26,6 +26,29 @@ def packsell_spmv(mat: PackSELLMatrix, x: torch.Tensor, *, sb: int = 8,
     plan = _plan.get_plan(mat, sb=sb, wb=wb, hw=hw, force=force,
                           decode_cache=decode_cache)
     return plan.spmv(mat, x, permuted=permuted)
+
+
+def percall_plan(mat: PackSELLMatrix, force: str = "auto"):
+    """The plan :func:`packsell_spmv_percall` runs for ``mat``, built (and
+    cached) now; ``None`` where it runs the scan body: a CPU matrix under
+    ``force="auto"``."""
+    if mat.device.type == "cpu" and force == "auto":
+        return None
+    return _plan.get_plan(mat, force=force)
+
+
+def packsell_spmv_percall(mat: PackSELLMatrix, x: torch.Tensor, *,
+                          force: str = "auto") -> torch.Tensor:
+    """The reference's per-call PackSELL SpMV (``packsell_spmv_jnp``), as
+    the ``packsell_<codec>`` operator kinds and the triangular solve run
+    it: for a CPU matrix under ``force="auto"`` the scan body
+    (``core.packsell.packsell_spmv_torch``), bit-equal to the reference's;
+    otherwise the plan of ``force`` (:func:`packsell_spmv`), which on the
+    card runs the plan's kernel, or its plain body under ``force="jnp"``."""
+    plan = percall_plan(mat, force)
+    if plan is None:
+        return packsell_spmv_torch(mat, x)
+    return plan.spmv(mat, x)
 
 
 def packsell_spmm(mat: PackSELLMatrix, x: torch.Tensor, *, sb: int = 8,
@@ -46,17 +69,10 @@ def packsell_spmm(mat: PackSELLMatrix, x: torch.Tensor, *, sb: int = 8,
 def sell_spmv(mat: SELLMatrix, x: torch.Tensor,
               compute_dtype=torch.float32) -> torch.Tensor:
     """y = A @ x over SELL in ``compute_dtype`` (float32, or float64 for
-    the fp64 operator): the K2 kernel per width bucket, then one scatter
-    of the concatenated stored rows by ``outrows`` (sentinel rows, >= n,
-    dropped)."""
+    the fp64 operator): the K2 kernel per width bucket, then one ``cat``
+    of the stored rows and one gather by the matrix's row → stored-row
+    map (``core.sell.gather_rows``), so no host sync runs."""
     xc = x.to(compute_dtype).contiguous()
-    y = torch.zeros((mat.n,), dtype=compute_dtype, device=x.device)
-    parts = [_sk.sell_spmv_bucket(val, col, xc, compute_dtype).reshape(-1)
+    parts = [_sk.sell_spmv_bucket(val, col, xc, compute_dtype)
              for val, col in zip(mat.vals, mat.cols)]
-    if not parts:
-        return y
-    t_cat = torch.cat(parts)
-    outrow = torch.cat([o.reshape(-1) for o in mat.outrows]).long()
-    keep = outrow < mat.n
-    y[outrow[keep]] = t_cat[keep]
-    return y
+    return gather_rows(mat, parts, compute_dtype)

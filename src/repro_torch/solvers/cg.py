@@ -1,5 +1,6 @@
-"""Preconditioned CG, Jacobi-PCG in stored-row order, and the
-residual-adaptive mixed-precision PCG.
+"""Preconditioned CG, Jacobi-PCG in stored-row order, the
+residual-adaptive mixed-precision PCG, flexible CG and fixed-iteration
+PCG (the outer and inner loops of IO-CG).
 
 The convergence criterion is the paper's eq. (6), ``||b - A x||_2 /
 ||b||_2 < tol``, tracked through the CG recurrence residual. The loop is
@@ -8,8 +9,11 @@ update order, the same ``done`` test after each residual update, so a
 solve stops at the same iteration. Outer vectors keep ``b``'s dtype
 (float64 when ``b`` is float64); the SpMV runs in float32 and its output
 is cast up. Each iteration reads ``done`` on the host, one device
-synchronisation per iteration. :func:`adaptive_pcg` syncs once per outer
-step: its ``m_in`` inner iterations have a fixed count.
+synchronisation per iteration, and so does :func:`fcg`.
+:func:`adaptive_pcg` syncs once per outer step: its ``m_in`` inner
+iterations have a fixed count. :func:`pcg_fixed_iters` has no
+data-dependent control flow and reads nothing on the host, so it adds no
+synchronisation of its own.
 """
 from __future__ import annotations
 
@@ -82,6 +86,69 @@ def pcg(matvec: Matvec, b: torch.Tensor, *, M: Matvec | None = None,
     return x, SolveInfo(k, norm(r) / bnorm, hist)
 
 
+def fcg(matvec: Matvec, b: torch.Tensor, *, M: Matvec, tol: float = 1e-9,
+        maxiter: int = 1000, x0=None,
+        dtype=None) -> tuple[torch.Tensor, SolveInfo]:
+    """Flexible CG (Notay 2000), FCG(1): tolerates a varying
+    preconditioner, such as an inner Krylov solve (the IO-CG outer
+    iteration, paper §5.2.2). The reference's loop on the host, one sync
+    per step for the stopping test."""
+    dot, norm = torch.dot, torch.linalg.vector_norm
+    dtype = dtype or b.dtype
+    b = b.to(dtype)
+    x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
+    bnorm = _nonzero(norm(b))
+
+    r = b - matvec(x).to(dtype)
+    p = M(r).to(dtype)
+    hist = torch.full((maxiter + 1,), -1.0, device=b.device,
+                      dtype=torch.float64 if dtype == torch.float64
+                      else torch.float32)
+    hist[0] = norm(r) / bnorm
+    k, done = 0, False
+    while k < maxiter and not done:
+        Ap = matvec(p).to(dtype)
+        pAp = _nonzero(dot(p, Ap))
+        alpha = dot(p, r) / pAp
+        x = x + alpha * p
+        r = r - alpha * Ap
+        relres = norm(r) / bnorm
+        hist[k + 1] = relres
+        done = bool(relres < tol)
+        z = M(r).to(dtype)
+        # one-step A-orthogonalization against the previous direction
+        p = z - (dot(z, Ap) / pAp) * p
+        k += 1
+    return x, SolveInfo(k, norm(r) / bnorm, hist)
+
+
+def pcg_fixed_iters(matvec: Matvec, M: Matvec, m_in: int,
+                    dtype=torch.float32) -> Matvec:
+    """``m_in`` PCG iterations from x0 = 0, packaged as a preconditioner:
+    the inner solver of IO-CG (paper §5.2.2). It reads nothing on the
+    host, so it adds no device synchronisation to its matvecs'."""
+    dot = torch.dot
+
+    def apply(rhs: torch.Tensor) -> torch.Tensor:
+        r = rhs.to(dtype)
+        x = torch.zeros_like(r)
+        z = M(r).to(dtype)
+        p = z
+        rz = dot(r, z)
+        for _ in range(m_in):
+            Ap = matvec(p).to(dtype)
+            alpha = rz / _nonzero(dot(p, Ap))
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = M(r).to(dtype)
+            rz_new = dot(r, z)
+            p = z + (rz_new / _nonzero(rz)) * p
+            rz = rz_new
+        return x
+
+    return apply
+
+
 def jacobi_pcg_stored(mat, plan, diag, b: torch.Tensor, *,
                       tol: float = 1e-9, maxiter: int = 1000,
                       dtype=None) -> tuple[torch.Tensor, SolveInfo]:
@@ -137,7 +204,7 @@ def adaptive_pcg(tiers, b: torch.Tensor, *, M: Matvec | None = None,
     """
     if not tiers:
         raise ValueError("need at least one tier")
-    dot, norm = torch.dot, torch.linalg.vector_norm
+    norm = torch.linalg.vector_norm
     n_tiers = len(tiers)
     dtype = dtype or b.dtype
     b = b.to(dtype)
@@ -150,23 +217,8 @@ def adaptive_pcg(tiers, b: torch.Tensor, *, M: Matvec | None = None,
     hdt = torch.float64 if dtype == torch.float64 else torch.float32
     as_h = (np.float64 if hdt == torch.float64 else np.float32)
 
-    def inner_solve(tier: int, rhs: torch.Tensor) -> torch.Tensor:
-        """m_in PCG iterations on A_tier d = rhs from d = 0: no host sync."""
-        d = torch.zeros_like(rhs)
-        r = rhs
-        z = M(r).to(dtype)
-        p = z
-        rz = dot(r, z)
-        for _ in range(m_in):
-            Ap = tiers[tier](p).to(dtype)
-            alpha = rz / _nonzero(dot(p, Ap))
-            d = d + alpha * p
-            r = r - alpha * Ap
-            z = M(r).to(dtype)
-            rz_new = dot(r, z)
-            p = z + (rz_new / _nonzero(rz)) * p
-            rz = rz_new
-        return d
+    # m_in PCG iterations on A_tier d = r from d = 0: no host sync
+    inner_solve = [pcg_fixed_iters(t, M, m_in, dtype) for t in tiers]
 
     r = b - hi(x).to(dtype)
     rel_t = norm(r) / bnorm
@@ -178,7 +230,7 @@ def adaptive_pcg(tiers, b: torch.Tensor, *, M: Matvec | None = None,
     tol_h, stag_h = as_h(tol), as_h(stag_factor)
     k, tier, nprom, hic = 0, min(start_tier, n_tiers - 1), 0, 1
     while k < maxiter and relres >= tol_h:
-        x = x + inner_solve(tier, r)
+        x = x + inner_solve[tier](r)
         r = b - hi(x).to(dtype)
         rel_t = norm(r) / bnorm
         mvc[tier] += m_in

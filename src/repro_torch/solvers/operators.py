@@ -3,9 +3,11 @@
 ``OperatorSet`` builds the requested variants of one matrix once, on one
 device, and hands out matvec callables. The port carries the dense SELL
 kinds (``fp64`` with a float64 sum, ``fp32``, ``fp16``, ``bf16``; kernel
-K2), the ``plan_<codec>`` kinds (the cached plan engine) with
-``plan_pair`` for ``cg.jacobi_pcg_stored``, the budget-driven ``auto:``
-kind, and the ``cg.adaptive_pcg`` inputs (:meth:`OperatorSet.precision_plan`,
+K2), the ``packsell_<codec>`` kinds (the reference's per-call scan body
+on the CPU, the matrix's plan kernels on the card), the ``plan_<codec>``
+kinds (the cached plan engine) with ``plan_pair`` for
+``cg.jacobi_pcg_stored``, the budget-driven ``auto:`` kind, and the
+``cg.adaptive_pcg`` inputs (:meth:`OperatorSet.precision_plan`,
 :meth:`OperatorSet.adaptive_tiers`). The other kind families of the
 reference parse but raise ``NotImplementedError`` naming the ROADMAP item
 that ports them.
@@ -13,6 +15,7 @@ that ports them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -63,7 +66,6 @@ KIND_MENU = (
 #: where each family not ported yet is tracked
 _NOT_PORTED = {
     "csr64": "ROADMAP.md queue 1, M4 (CSR operator kind)",
-    "packsell": "ROADMAP.md queue 1, M4 (per-call packsell_ kinds)",
     "dist": "ROADMAP.md queue 1, M9 (distribution)",
     "mixed": "ROADMAP.md queue 1, M5 (MixedPackSELL and the composite)",
     "dist_auto": "ROADMAP.md queue 1, M5 and M9",
@@ -155,8 +157,9 @@ _STORE = "ROADMAP.md queue 1, M5 (PrecisionStore)"
 class OperatorSet:
     """The operator variants of one (scaled) matrix, built lazily on
     ``device`` (``None`` means the GPU). ``force`` is the plan variant of
-    every ``plan_<codec>`` kind (``kernels.plan.build_plan``); ``"jnp"``
-    also gives the dense kinds the plain SELL body instead of K2."""
+    every ``plan_<codec>`` and ``packsell_<codec>`` kind
+    (``kernels.plan.build_plan``); ``"jnp"`` also gives the dense kinds
+    the plain SELL body instead of K2."""
 
     csr: sp.csr_matrix
     C: int = 32
@@ -173,7 +176,12 @@ class OperatorSet:
         return self.csr.shape[0]
 
     def diag(self) -> np.ndarray:
-        return self.csr.diagonal()
+        """The matrix diagonal (host numpy), read from the CSR once:
+        scipy walks every stored entry for it, which each solver's set-up
+        would otherwise pay again."""
+        if ("diag",) not in self._cache:
+            self._cache[("diag",)] = self.csr.diagonal()
+        return self._cache[("diag",)]
 
     # -- adaptive precision (repro_torch.precision) ------------------------
     def precision_plan(self, error_budget: float, *, mode: str = "global",
@@ -202,9 +210,16 @@ class OperatorSet:
 
     def matvec(self, kind: str) -> Matvec:
         """The matvec of a dense SELL kind (K2; ``fp64`` sums in float64),
-        a ``plan_<codec>`` kind (the matrix's cached SpMVPlan) or an
-        ``auto:<budget>`` kind (the selected codec's ``plan_`` kind, or
-        ``fp32``)."""
+        a ``packsell_<codec>`` kind, a ``plan_<codec>`` kind (the
+        matrix's cached SpMVPlan) or an ``auto:<budget>`` kind (the
+        selected codec's ``plan_`` kind, or ``fp32``).
+
+        ``packsell_<codec>`` is the reference's per-call path
+        (``kernels.ops.packsell_spmv_percall``): on the CPU with
+        ``force="auto"`` the scan body, so CPU results equal the
+        reference's bit for bit; on the card the plan's kernel (K1, K4 or
+        K6 by ``plan.choose_variant``), or with ``force="jnp"`` the plan's
+        plain body."""
         if kind in self._cache:
             return self._cache[kind][0]
         spec = parse_kind(kind)
@@ -216,6 +231,12 @@ class OperatorSet:
             comp = torch.float64 if spec.codec == "fp64" else torch.float32
             body = sl.sell_spmv if self.force == "jnp" else kops.sell_spmv
             fn = lambda x, mat=mat, comp=comp: body(mat, x, comp)  # noqa: E731
+        elif spec.family == "packsell":
+            mat = pk.from_csr(self.csr, C=self.C, sigma=self.sigma, D=spec.D,
+                              codec=spec.codec, device=self.device)
+            kops.percall_plan(mat, self.force)     # build the plan now
+            fn = functools.partial(kops.packsell_spmv_percall, mat,
+                                   force=self.force)
         elif spec.family == "plan":
             mat = pk.from_csr(self.csr, C=self.C, sigma=self.sigma, D=spec.D,
                               codec=spec.codec, device=self.device)

@@ -7,7 +7,12 @@ both bodies over every codec, K2 (SELL)
 on every value type and with a float64 accumulator, bit for bit over the
 tiny suite; a Jacobi-PCG solve through K1 that stops at the plain body's
 iteration, and a mixed-precision solve through K4 and K2-f64 with the
-plain bodies' schedule.
+plain bodies' schedule. The solver layer: the fp16, fp32 and fp64
+matvecs and the fixed-iteration solvers (``neumann_ainv``,
+``pcg_fixed_iters``, ``richardson_fixed_iters``) run under
+``torch.cuda.set_sync_debug_mode("error")`` without raising; a
+``packsell_<codec>`` matvec launches its plan's kernel and equals the
+plan's plain body bit for bit; IO-CG and F3R take the CPU's counts.
 
 Run on a machine with a CUDA device:
 
@@ -402,3 +407,108 @@ def test_adaptive_pcg_through_k4_matches_plain_schedule(cuda):
     assert torch.equal(info_p.tier_history, info.tier_history)
     assert torch.equal(info_p.tier_matvecs, info.tier_matvecs)
     assert info_p.hi_matvecs == info.hi_matvecs
+
+
+# ---------------------------------------------------------------------------
+# The solver layer on the card: no host sync where none is needed, the
+# packsell_ kinds through the plan's kernels, and the CPU's counts
+# ---------------------------------------------------------------------------
+
+
+def _spd_system():
+    """The reference tests' n = 576 SPD system, sym-scaled."""
+    a = testmats.stencil_3d(8, 8, 9, neighbours=27)
+    s, _ = sym_scale(a.tocsr())
+    return s, np.random.default_rng(0).random(a.shape[0])
+
+
+class _NoSync:
+    """Raise on any device synchronisation inside the block."""
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_dense_matvecs_are_sync_free(cuda):
+    s, b = _spd_system()
+    ops_k = OperatorSet(s, C=8, sigma=32, device=cuda)
+    mvs = {k: ops_k.matvec(k) for k in ("fp16", "fp32", "fp64")}
+    x = torch.from_numpy(b).to(cuda)
+    with _NoSync():
+        ys = {k: mv(x) for k, mv in mvs.items()}
+    for k, y in ys.items():
+        mat = ops_k.stored(k)
+        comp = torch.float64 if k == "fp64" else torch.float32
+        assert torch.equal(y, sl.sell_spmv(mat, x, comp))
+
+
+def test_fixed_iteration_solvers_are_sync_free(cuda):
+    from repro_torch.solvers import precond
+    from repro_torch.solvers.cg import pcg_fixed_iters
+    from repro_torch.solvers.richardson import richardson_fixed_iters
+
+    s, b = _spd_system()
+    ops_k = OperatorSet(s, C=8, sigma=32, device=cuda)
+    fns = []
+    for kind in ("fp32", "packsell_e8m8", "fp16"):
+        A = ops_k.matvec(kind)
+        M = precond.neumann_ainv(ops_k.diag(), A, device=cuda)
+        fns += [M, pcg_fixed_iters(A, M, 20), richardson_fixed_iters(A, M, 4)]
+    r = torch.from_numpy(b).to(cuda)
+    with _NoSync():
+        outs = [f(r) for f in fns]
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+
+
+@pytest.mark.parametrize("codec", ["fp16", "bf16", "e8m8", "e8m12", "e8m1"])
+def test_packsell_kind_equals_its_plain_plan_body(cuda, codec):
+    s, b = _spd_system()
+    kind = f"packsell_{codec}"
+    ops_k = OperatorSet(s, C=8, sigma=32, device=cuda)
+    ops_p = OperatorSet(s, C=8, sigma=32, device=cuda, force="jnp")
+    x = torch.from_numpy(b.astype(np.float32)).to(cuda)
+    k1, k4 = kpk.packsell_spmv_fused, kpk.packsell_spmv_buckets
+    before = (k1.launches, k4.launches)
+    y = ops_k.matvec(kind)(x)
+    mat = ops_k.stored(kind)
+    plan = kplan.get_plan(mat)
+    y_plain = ops_p.matvec(kind)(x)
+    if plan.variant == "fused":
+        # the plain plan keeps the stream: the fused plain body
+        assert (k1.launches - before[0], k4.launches - before[1]) == (1, 0)
+        _bits_equal(y, y_plain)
+    else:
+        # e8m1: the stream is infeasible, the plan is full (K4) and the
+        # plain plan the cursor cache, which sums in another order
+        assert plan.variant == "full" and codec == "e8m1"
+        assert (k1.launches - before[0], k4.launches - before[1]) == (0, 1)
+        _bits_equal(y, plan.from_stored(kpk.packsell_spmv_buckets_plain(
+            mat.packs, mat.d0s, plan.kckpts, plan.ktable, x,
+            codec_name=mat.codec_name, D=mat.D)))
+        np.testing.assert_allclose(y.cpu().numpy(), y_plain.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    # and within float32 rounding of the CPU's scan body
+    ops_c = OperatorSet(s, C=8, sigma=32, device="cpu")
+    np.testing.assert_allclose(y.cpu().numpy(), ops_c.matvec(kind)(
+        x.cpu()).numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_iocg_and_f3r_take_the_cpu_counts(cuda):
+    from repro_torch.solvers import f3r, iocg
+
+    s, b = _spd_system()
+    counts = {}
+    for dev in ("cpu", cuda):
+        ops_d = OperatorSet(s, C=8, sigma=32, device=dev)
+        bd = torch.from_numpy(b).to(dev)
+        x1, i1 = iocg.solve(ops_d, bd, iocg.variant("e8m8", m_in=20))
+        x2, i2 = f3r.solve(ops_d, bd, f3r.presets("packsell"))
+        counts[str(dev)] = (i1.iters, i2.iters)
+        for x in (x1, x2):
+            x = x.cpu().numpy()
+            assert np.linalg.norm(b - s @ x) / np.linalg.norm(b) < 5e-9
+    assert counts["cpu"] == counts[str(cuda)]

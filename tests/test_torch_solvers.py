@@ -59,9 +59,9 @@ def test_parse_kind_matches_reference(kind):
     assert top.KIND_MENU == rop.KIND_MENU
 
 
-@pytest.mark.parametrize("kind", ["csr64", "packsell_fp16", "dist_fp16",
-                                  "mixed:1e-3", "dist_auto:1e-3",
-                                  "dist_mixed:1e-3", "guarded:plan_fp16"])
+@pytest.mark.parametrize("kind", ["csr64", "dist_fp16", "mixed:1e-3",
+                                  "dist_auto:1e-3", "dist_mixed:1e-3",
+                                  "guarded:plan_fp16"])
 def test_operator_families_outside_the_slice_raise(kind):
     ops = top.OperatorSet(SUITE["hpcg_mini"], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
