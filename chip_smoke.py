@@ -7,7 +7,10 @@ product and the SELL baseline; then the mixed-precision adaptive PCG over
 the e8m tier ladder (the bucket kernels, a float64 SELL outer operator),
 a multi-RHS product and a band-windowed plan; then the paper's solvers
 (IO-CG against fp64 PCG, F3R, the PackSELL triangular solve) -- times the
-kernels, and ends with one JSON line.
+kernels, and ends with one JSON line. Every solve runs as the port runs
+it, through CUDA-graph replays (``repro_torch.solvers.graphs``), and in
+turns with its eager loop (eager, captured, captured, eager), which it
+must equal bit for bit.
 
     python3 chip_smoke.py
 
@@ -51,6 +54,35 @@ def fail(msg: str):
     raise RuntimeError(msg)
 
 
+def wall(fn):
+    """``(fn(), seconds)``: the host clock around the call, ending in
+    ``synchronize()``, Python's garbage collector on (its pauses are the
+    user's too)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+#: the four turns of every solve, in order: the eager loop, the graphs'
+#: first solve (warm-up and capture), later ones (replays only), eager
+TURNS = ("eager", "capture", "replay", "eager again")
+
+
+def turn_walls(out: dict) -> str:
+    walls = [f"{t} {out[t][2]!r} s" for t in TURNS if t in out]
+    if len(out.get("replays", ())) > 1:
+        walls[2] += f" (median of {out['replays']!r})"
+    return ", ".join(walls)
+
+
+def chunk_steps(iters: int, chunk: int) -> int:
+    """Steps a solve in chunks runs: whole chunks, and the steps of the
+    chunk it stopped in again, up to the stop."""
+    return -(-iters // chunk) * chunk + iters % chunk
+
+
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.shape != b.shape:
         fail(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
@@ -60,15 +92,16 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
-    """Kernel vs plain version: equal bit for bit (NaNs included); returns
-    the max |difference|, which is then 0."""
+    """Equal bit for bit (NaNs included), as a kernel and its plain
+    version or a captured solve and its eager loop are; returns the max
+    |difference|, which is then 0."""
     if a.shape != b.shape or a.dtype != b.dtype:
         fail(f"{what}: {tuple(a.shape)}/{a.dtype} vs {tuple(b.shape)}/"
              f"{b.dtype}")
     bits = torch.int64 if a.dtype == torch.float64 else torch.int32
     if not torch.equal(a.view(bits), b.view(bits)):
-        fail(f"{what}: kernel differs from its plain version "
-             f"(max |diff| {max_abs(a, b)})")
+        fail(f"{what}: not equal bit for bit (max |diff| "
+             f"{max_abs(a, b)})")
     return max_abs(a, b)
 
 
@@ -229,14 +262,66 @@ def sync_debug(mode: str):
         torch.cuda.set_sync_debug_mode("default")
 
 
+def plain_twin(ops, kinds):
+    """An ``OperatorSet`` over ``ops``' matrices whose ``kinds`` run the
+    plain bodies, as ``force="jnp"`` builds them (the plain SELL body; the
+    matrix's ``force="jnp"`` plan, built now), without encoding the
+    matrices again."""
+    import functools
+
+    from repro_torch.core import sell as sl
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import plan as kplan
+    from repro_torch.solvers.operators import OperatorSet, parse_kind
+
+    twin = OperatorSet(ops.csr, C=ops.C, sigma=ops.sigma, device=ops.device,
+                       force="jnp")
+    twin._cache[("diag",)] = ops.diag()
+    for kind in kinds:
+        mat, family = ops.stored(kind), parse_kind(kind).family
+        if family == "dense":
+            comp = torch.float64 if kind == "fp64" else torch.float32
+            fn = functools.partial(sl.sell_spmv, mat, compute_dtype=comp)
+        elif family == "plan":
+            fn = functools.partial(kplan.get_plan(mat, force="jnp").spmv, mat)
+        else:
+            kops.percall_plan(mat, "jnp")
+            fn = functools.partial(kops.packsell_spmv_percall, mat,
+                                   force="jnp")
+        twin._cache[kind] = (fn, mat)
+    return twin
+
+
 class CountedOps:
     """An ``OperatorSet`` whose matvecs count their calls by kind: what
     ``iocg.solve`` and ``f3r.solve`` read of it (``matvec``, ``diag``,
-    ``device``), passed through."""
+    ``device``, ``csr``), passed through, with a graph cache of its own
+    (the graphs hold its counting matvecs). :meth:`ran` adds the calls
+    that graph replays ran since :meth:`reset` (``graphs.LEDGER``, which
+    watches :attr:`calls` while :meth:`watch` is open)."""
 
     def __init__(self, ops):
+        from repro_torch.solvers import graphs
+
         self.ops = ops
+        self.csr = ops.csr
         self.calls = collections.Counter()
+        self.graphs = {}
+        self.kinds = set()
+        self.ledger = graphs.LEDGER
+        self.net0 = collections.Counter()
+
+    def watch(self):
+        return self.ledger.watch(lambda: self.calls)
+
+    def reset(self) -> None:
+        self.calls.clear()
+        self.net0 = collections.Counter(self.ledger.net)
+
+    def ran(self) -> dict:
+        out = {k: self.calls[k] + self.ledger.net[k] - self.net0[k]
+               for k in self.kinds}
+        return {k: v for k, v in out.items() if v}
 
     @property
     def device(self):
@@ -247,9 +332,11 @@ class CountedOps:
 
     def matvec(self, kind: str):
         fn = self.ops.matvec(kind)
+        self.kinds.add(kind)
+        calls = self.calls      # not self: the graphs hold this closure
 
         def counted(x):
-            self.calls[kind] += 1
+            calls[kind] += 1
             return fn(x)
 
         return counted
@@ -298,17 +385,70 @@ class Smoke:
         self.err = dict.fromkeys(ids, 0.0)
         self.cases = dict.fromkeys(ids, 0)
 
-    def counts(self) -> dict:
-        """Every wrapper's launch count (K2-f64: K2's float64 launches)."""
+    def raw_counts(self) -> dict:
+        """Every wrapper's launch count (K2-f64: K2's float64 launches):
+        its Python calls, eager and in captures."""
         return {"K1": self.k1.launches, "K2": self.k2.launches,
                 "K3": self.k3.launches, "K4": self.k4.launches,
                 "K5": self.k5.launches, "K6": self.k6.launches,
                 "K2-f64": self.k2.launches_f64}
 
+    def counts(self) -> dict:
+        """The launches that ran on the device: the wrappers' counts less
+        the calls captures recorded, plus those graph replays ran
+        (``graphs.LEDGER``, which watches :meth:`raw_counts`)."""
+        from repro_torch.solvers import graphs
+
+        return graphs.LEDGER.ran(self.raw_counts())
+
     def zero_counts(self) -> None:
+        from repro_torch.solvers import graphs
+
         for k in (self.k1, self.k2, self.k3, self.k4, self.k5, self.k6):
             k.launches = 0
         self.k2.launches_f64 = 0
+        for k in self.raw_counts():
+            graphs.LEDGER.net[k] = 0
+
+    def in_turns(self, fn, label: str, each=None, start=None,
+                 turns=TURNS, replays: int = 3) -> dict:
+        """``fn() -> (x, info)`` run in ``turns`` (``graphs.eager()`` for
+        the eager ones; the replay turn ``replays`` times), each run timed
+        by :func:`wall`. ``start(turn)`` runs before a run, ``each(turn, x,
+        info, launched)`` checks it after (``launched``: the device
+        launches of the run by kernel). Fails unless every run has the
+        first's iterations (where there is an info) and x bit for bit.
+        Returns ``{turn: (x, info, seconds, launched)}`` (the replay turn:
+        its median wall, and ``"replays"``: every replay's wall)."""
+        from repro_torch.solvers import graphs
+
+        out, x0, info0 = {"replays": []}, None, None
+        for turn in turns:
+            for _ in range(replays if turn == "replay" else 1):
+                if start is not None:
+                    start(turn)
+                before = self.counts()
+                with (graphs.eager() if turn.startswith("eager")
+                      else contextlib.nullcontext()):
+                    (x, info), sec = wall(fn)
+                launched = {k: v - before[k]
+                            for k, v in self.counts().items()}
+                if each is not None:
+                    each(turn, x, info, launched)
+                if x0 is None:
+                    x0, info0 = x, info
+                if info0 is not None and info.iters != info0.iters:
+                    fail(f"{label}: the {turn} run took {info.iters} "
+                         f"iterations, the eager loop {info0.iters}")
+                same_bits(x, x0, f"{label}: x of the {turn} run vs the "
+                          "eager loop")
+                out[turn] = (x, info, sec, launched)
+                if turn == "replay":
+                    out["replays"].append(sec)
+        if out["replays"]:
+            out["replay"] = out["replay"][:2] + (
+                float(np.median(out["replays"])), out["replay"][3])
+        return out
 
     def note(self, k: str, e: float) -> None:
         self.err[k] = max(self.err[k], e)
@@ -539,14 +679,22 @@ class Smoke:
         X = rng.standard_normal((mat.m, 8)).astype(np.float32)
 
         diag = s.diagonal()
-        self.zero_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x, info = cg.jacobi_pcg_stored(mat, plan, diag, b, tol=1e-8,
-                                       maxiter=2000)
-        torch.cuda.synchronize()
-        solve_s = time.perf_counter() - t0
-        k1_solve = self.k1.launches
+
+        def each(turn, x, info, launched):
+            steps = info.iters if turn.startswith("eager") else \
+                chunk_steps(info.iters, cg.PCG_CHUNK)
+            if launched["K1"] != steps + 1:
+                fail(f"Jacobi-PCG {turn}: K1 launches {launched['K1']} != "
+                     f"steps + 1 ({steps + 1})")
+
+        # the main path's run is the captured solve: the counts are set to
+        # 0 just before it
+        runs = self.in_turns(
+            lambda: cg.jacobi_pcg_stored(mat, plan, diag, b, tol=1e-8,
+                                         maxiter=2000), "Jacobi-PCG", each,
+            start=lambda turn: turn == "capture" and self.zero_counts())
+        x, info, solve_s, launched = runs["capture"]
+        k1_solve = launched["K1"]
         # the multi-RHS product (K3) over the solution and 7 seeded vectors,
         # and the SELL baseline (K2) on the solution
         X[:, 0] = x.float().cpu().numpy()
@@ -566,9 +714,15 @@ class Smoke:
         sp_rel = float(np.abs(y_h[:, 0] - y_sell.cpu().numpy()).max()
                        / np.abs(y_h[:, 0]).max())
         q_rel = float(np.linalg.norm(1.0 - y_h[:, 0]) / np.sqrt(n))
+        steps = chunk_steps(info.iters, cg.PCG_CHUNK)
         print(f"  Jacobi-PCG (tol 1e-8): iterations {info.iters}, "
-              f"recurrence relres {relres!r}, solve wall {solve_s!r} s "
-              "(host clock, ends in synchronize)", flush=True)
+              f"recurrence relres {relres!r}; the same x bit for bit in "
+              f"every run; solve walls (host clock, ends in synchronize): "
+              f"{turn_walls(runs)}; graphs: chunks of {cg.PCG_CHUNK} steps, "
+              f"{steps} steps run, {steps - info.iters} more than the eager "
+              f"loop (the stopping chunk past the stop, then its steps up "
+              f"to the stop again)",
+              flush=True)
         print(f"  true relres vs unquantized s (host scipy float64): "
               f"{true_rel!r}", flush=True)
         print(f"  spmm nb=8: ||1 - A_q x|| / ||1|| on column 0 {q_rel!r}; "
@@ -576,9 +730,6 @@ class Smoke:
         print(f"  launches in this run: {launches}", flush=True)
         if not relres < 1e-8:
             fail(f"recurrence relres {relres} not < 1e-8")
-        if launches["K1"] != info.iters + 1:
-            fail(f"K1 launches {launches['K1']} != iterations + 1 "
-                 f"({info.iters + 1})")
         if min(launches.values()) < 1:
             fail(f"a kernel of the main path never launched: {launches}")
         if not sp_rel < 1e-3:
@@ -586,14 +737,10 @@ class Smoke:
 
         # the same solve on the plain body, on the card
         pj = kplan.get_plan(mat, force="jnp")
-        before = self.k1.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        xj, info_j = cg.jacobi_pcg_stored(mat, pj, diag, b, tol=1e-8,
-                                          maxiter=2000)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        if self.k1.launches != before:
+        before = self.counts()
+        (xj, info_j), plain_s = wall(lambda: cg.jacobi_pcg_stored(
+            mat, pj, diag, b, tol=1e-8, maxiter=2000))
+        if self.counts()["K1"] != before["K1"]:
             fail("the plain solve launched K1")
         dx = float(torch.linalg.vector_norm(x - xj)
                    / torch.linalg.vector_norm(x))
@@ -660,13 +807,30 @@ class Smoke:
             return float(np.linalg.norm(b_h - a_s @ x_h)
                          / np.linalg.norm(b_h))
 
-        self.zero_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x, info = cg.adaptive_pcg(tiers, b, matvec_hi=hi, **kw)
-        torch.cuda.synchronize()
-        solve_s = time.perf_counter() - t0
-        after_solve = self.counts()
+        fp64_buckets = len(ops_k.stored("fp64").vals)
+        full = [c.codec != "fp32" and ops_k.plan_pair(
+            psel.operator_kind(c))[1].variant == "full" for c in ladder]
+
+        def each(turn, x, info, launched):
+            # one K4 launch per matvec of a full plan, one K2-f64 per fp64
+            # bucket and matvec: one outer step per replay, none masked
+            want_k4 = sum(c for c, f in zip(info.tier_matvecs.tolist(),
+                                            full) if f)
+            if launched["K4"] != want_k4:
+                fail(f"adaptive_pcg {turn}: K4 launches {launched['K4']} != "
+                     f"{want_k4}")
+            if launched["K2-f64"] != info.hi_matvecs * fp64_buckets:
+                fail(f"adaptive_pcg {turn}: K2-f64 launches "
+                     f"{launched['K2-f64']} != hi_matvecs {info.hi_matvecs} "
+                     f"x {fp64_buckets} buckets")
+
+        cache = {}
+        runs = self.in_turns(
+            lambda: cg.adaptive_pcg(tiers, b, matvec_hi=hi, jit_cache=cache,
+                                    jit_key="ladder", **kw),
+            "adaptive_pcg", each,
+            start=lambda turn: turn == "capture" and self.zero_counts())
+        x, info, solve_s, after_solve = runs["capture"]
         counts = info.tier_matvecs.tolist()
         share = sum(c for c, s32 in zip(counts, sub32) if s32) / (
             sum(counts) + info.hi_matvecs)
@@ -676,27 +840,15 @@ class Smoke:
               f"{info.tier_history[:info.iters].tolist()}, tier_matvecs "
               f"{counts}, hi_matvecs {info.hi_matvecs}, sub-32-bit share "
               f"{share!r}", flush=True)
-        print(f"  solve wall {solve_s!r} s (host clock, ends in synchronize; "
-              f"set-up outside); true relres vs s (host scipy float64) "
+        print(f"  solve walls (host clock, ends in synchronize; set-up "
+              f"outside; the same x bit for bit in every run): "
+              f"{turn_walls(runs)}; true relres vs s (host scipy float64) "
               f"{rel!r}", flush=True)
-        want_k4 = 0             # one launch per matvec of a full plan
-        for i, c in enumerate(ladder):
-            if c.codec != "fp32":
-                mat, plan = ops_k.plan_pair(psel.operator_kind(c))
-                if plan.variant == "full":
-                    want_k4 += counts[i]
-        fp64_buckets = len(ops_k.stored("fp64").vals)
-        print(f"  launches in the solve: {after_solve}; want K4 "
-              f"{want_k4} (one per packed-tier matvec of the full plans), "
-              f"K2-f64 {info.hi_matvecs * fp64_buckets} "
-              f"(hi_matvecs x {fp64_buckets} buckets)", flush=True)
+        print(f"  launches in the captured solve: {after_solve} (K4 one per "
+              f"packed-tier matvec of the full plans, K2-f64 hi_matvecs x "
+              f"{fp64_buckets} buckets)", flush=True)
         if not rel <= 1e-8:
             fail(f"true relres {rel} > 1e-8")
-        if after_solve["K4"] != want_k4:
-            fail(f"K4 launches {after_solve['K4']} != {want_k4}")
-        if after_solve["K2-f64"] != info.hi_matvecs * fp64_buckets:
-            fail(f"K2-f64 launches {after_solve['K2-f64']} != hi_matvecs "
-                 f"{info.hi_matvecs} x {fp64_buckets} buckets")
 
         # K5: the multi-RHS product on the e8m/D8 tier's plan, one launch
         mat8, plan8 = ops_k.plan_pair("plan_e8m8")
@@ -744,16 +896,13 @@ class Smoke:
                 fail(f"{k} never launched on the mixed-precision path")
 
         # the same solve on the plain bodies, on the card: same schedule
-        ops_p = OperatorSet(a_s, C=32, sigma=256, device=self.dev,
-                            force="jnp")
+        ops_p = plain_twin(ops_k, [psel.operator_kind(c) for c in ladder]
+                           + ["fp64"])
         tiers_p, _, _ = psel.build_tier_matvecs(ops_p, ladder)
         hi_p = ops_p.matvec("fp64")
         before = self.counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        xp, info_p = cg.adaptive_pcg(tiers_p, b, matvec_hi=hi_p, **kw)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
+        (xp, info_p), plain_s = wall(lambda: cg.adaptive_pcg(
+            tiers_p, b, matvec_hi=hi_p, **kw))
         dx = float(torch.linalg.vector_norm(x - xp)
                    / torch.linalg.vector_norm(x))
         print(f"  plain bodies (force='jnp') on the card: outer steps "
@@ -773,16 +922,16 @@ class Smoke:
 
         # the paper's comparison: fp32 Jacobi-PCG through K2 to 1e-8
         mv32 = ops_k.matvec("fp32")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x32, info32 = cg.pcg(mv32, b, M=M, tol=1e-8, maxiter=5000)
-        torch.cuda.synchronize()
-        fp32_s = time.perf_counter() - t0
+        cache32 = {}
+        r32 = self.in_turns(lambda: cg.pcg(
+            mv32, b, M=M, tol=1e-8, maxiter=5000, jit_cache=cache32,
+            jit_key="fp32"), "fp32 Jacobi-PCG")
+        x32, info32 = r32["capture"][:2]
         print(f"  fp32 Jacobi-PCG through K2 (tol 1e-8): iterations "
               f"{info32.iters}, recurrence relres {float(info32.relres)!r}, "
-              f"solve wall {fp32_s!r} s, true relres {true_rel(x32)!r}",
-              flush=True)
-        return dict(ops=ops_k, ops_p=ops_p, ladder=ladder, mat_u=mat_u,
+              f"solve walls {turn_walls(r32)}, true relres "
+              f"{true_rel(x32)!r}", flush=True)
+        return dict(ops=ops_k, ladder=ladder, mat_u=mat_u,
                     band=band, launches=launches, info=info)
 
     # -- phase 6: times at the main path's shapes --------------------------
@@ -1030,18 +1179,19 @@ class Smoke:
         return rows
 
     # -- phase 7: where a solve's time goes --------------------------------
-    def breakdown(self, mp, iters: int = 20, reps: int = 3):
+    def breakdown(self, mp, iters: int = 24, reps: int = 3):
         """A solve's cost split into set-up and iterations, and the device's
-        busy share of the same run. Each solve is timed by CUDA events
-        recorded around the call: its wall on the device's clock, host gaps
-        included. ``maxiter=0`` is the set-up (the stored-order permutes,
-        the first residual's matvec, the final gather); ``iters`` more
-        iterations give the cost per iteration. The profiler's device time
-        by kernel is divided by the event wall of the one solve it
-        traced."""
+        busy share of the same run, for the eager loop and for the graphs
+        (``iters`` a whole number of chunks, so no step runs again). Each
+        solve is timed by CUDA events recorded around the call: its wall on
+        the device's clock, host gaps included. ``maxiter=0`` is the
+        set-up (the stored-order permutes, the first residual's matvec,
+        the final gather); ``iters`` more iterations give the cost per
+        iteration. The profiler's device time by kernel is divided by the
+        event wall of the one solve it traced."""
         from statistics import median
 
-        from repro_torch.solvers import cg
+        from repro_torch.solvers import cg, graphs
 
         mat, plan, s = mp["mat"], mp["plan"], mp["a"]
         b = torch.ones(s.shape[0], dtype=torch.float64, device=self.dev)
@@ -1049,6 +1199,10 @@ class Smoke:
         diag = torch.as_tensor(s.diagonal(), device=self.dev)
         torch.cuda.synchronize()
         diag_ms = (time.perf_counter() - t0) * 1e3
+        print(f"  host: the diagonal from scipy and its copy to the card "
+              f"{diag_ms!r} ms, once, outside the solves", flush=True)
+        if iters % cg.PCG_CHUNK:
+            fail(f"breakdown: {iters} iterations are not whole chunks")
 
         def solve(k: int) -> float:    # tol 0: exactly k iterations
             start = torch.cuda.Event(enable_timing=True)
@@ -1059,47 +1213,60 @@ class Smoke:
             torch.cuda.synchronize()
             return start.elapsed_time(stop)
 
-        solve(iters)
-        set_up = median(solve(0) for _ in range(reps))
-        whole = median(solve(iters) for _ in range(reps))
-        per_iter = (whole - set_up) / iters
-        print(f"  host: the diagonal from scipy and its copy to the card "
-              f"{diag_ms!r} ms, once, outside the solves", flush=True)
-        print(f"  solve walls (CUDA events, median of {reps}): set-up "
-              f"(maxiter=0) {set_up!r} ms, {iters} iterations {whole!r} ms; "
-              f"per iteration {per_iter!r} ms", flush=True)
-        wall0, kern0 = profiled(lambda: cg.jacobi_pcg_stored(
-            mat, plan, diag, b, tol=0.0, maxiter=0))
-        wall, kern = profiled(lambda: cg.jacobi_pcg_stored(
-            mat, plan, diag, b, tol=0.0, maxiter=iters))
-        if not kern:
-            print("  device time by kernel: not measured (the profiler saw "
-                  "no device events)", flush=True)
-            return
-        busy0, busy = sum(k[0] for k in kern0), sum(k[0] for k in kern)
-        print(f"  profiled set-up: device busy {busy0!r} ms of a {wall0!r} ms "
-              f"event wall", flush=True)
-        print(f"  profiled {iters} iterations: device busy {busy!r} ms of a "
-              f"{wall!r} ms event wall (idle share {1 - busy / wall!r}); "
-              f"device time per iteration {(busy - busy0) / iters!r} ms; "
-              f"by kernel:", flush=True)
-        for ms, count, key in kern[:12]:
-            print(f"    {ms:10.4f} ms  {count:5d}x  {key[:90]}", flush=True)
-
+        for mode in ("eager", "graphs"):
+            with (graphs.eager() if mode == "eager"
+                  else contextlib.nullcontext()):
+                solve(iters)
+                solve(0)
+                set_up = median(solve(0) for _ in range(reps))
+                whole = median(solve(iters) for _ in range(reps))
+                per_iter = (whole - set_up) / iters
+                print(f"  {mode}: solve walls (CUDA events, median of "
+                      f"{reps}): set-up (maxiter=0) {set_up!r} ms, {iters} "
+                      f"iterations {whole!r} ms; per iteration "
+                      f"{per_iter!r} ms", flush=True)
+                wall0, kern0 = profiled(lambda: cg.jacobi_pcg_stored(
+                    mat, plan, diag, b, tol=0.0, maxiter=0))
+                wall, kern = profiled(lambda: cg.jacobi_pcg_stored(
+                    mat, plan, diag, b, tol=0.0, maxiter=iters))
+            if not kern:
+                print(f"  {mode}: device time by kernel: not measured (the "
+                      f"profiler saw no device events)", flush=True)
+                continue
+            busy0, busy = sum(k[0] for k in kern0), sum(k[0] for k in kern)
+            print(f"  {mode}: profiled set-up: device busy {busy0!r} ms of a "
+                  f"{wall0!r} ms event wall", flush=True)
+            dev_iter = (busy - busy0) / iters
+            print(f"  {mode}: profiled {iters} iterations: device busy "
+                  f"{busy!r} ms of a {wall!r} ms event wall (idle share "
+                  f"{1 - busy / wall!r}); device time per iteration "
+                  f"{dev_iter!r} ms, so an idle share per iteration of "
+                  f"{1 - dev_iter / per_iter!r} against the unprofiled "
+                  f"wall per iteration; {sum(k[1] for k in kern)} kernels; "
+                  f"by kernel:", flush=True)
+            for ms, count, key in kern[:12]:
+                print(f"    {ms:10.4f} ms  {count:5d}x  {key[:90]}",
+                      flush=True)
 
     # -- phase 8: the paper's solvers --------------------------------------
-    def solvers_path(self, a_s, ops_k, ops_p, m_in: int = 50):
+    def solvers_path(self, a_s, ops_k, m_in: int = 50):
         """The paper's solver experiments on the sym-scaled matrix ``a_s``
-        with b = ones: IO-CG (``m_in`` inner PCG iterations; variants fp64,
-        fp32, fp16, e8m8, e8m12) and its baseline ``pcg_reference`` (fp64
-        PCG, the same Neumann preconditioner), F3R (presets fp64, fp16,
-        packsell), the e8m8 IO-CG on the plain bodies, the fixed-iteration
-        solvers under ``set_sync_debug_mode("error")``, and the PackSELL
-        triangular solve of ``tril(a_s)`` with RCM's bandwidths. ``ops_k``
-        is phase 5's operator set (its fp64 and fp32 SELL operators are
-        reused), ``ops_p`` its plain twin (``force="jnp"``)."""
+        with b = ones, each in :data:`TURNS` (eager, captured, captured,
+        eager; x bit for bit): IO-CG (``m_in`` inner PCG iterations;
+        variants fp64, fp32, fp16, e8m8, e8m12) and its baseline
+        ``pcg_reference`` (fp64 PCG, the same Neumann preconditioner), F3R
+        (presets fp64, fp16, packsell); then ``pcg_reference`` / IO-CG at
+        m_in 20, 50 and 80 (fp32, e8m8, fp16), the e8m8 IO-CG on the plain
+        bodies (:func:`plain_twin`), the fixed-iteration solvers under
+        ``set_sync_debug_mode("error")``, and the PackSELL triangular
+        solve of ``tril(a_s)`` with RCM's bandwidths. ``ops_k`` is phase
+        5's operator set (its fp64 and fp32 SELL operators are reused).
+        Each run's matvecs by kind and its launches must be what the
+        solve's structure needs: in chunks (``pcg_reference``), the steps
+        run. F3R's captured runs must make no Python call of an L3 or L4
+        SpMV past the capture of L3's one graph (L4 inline in it)."""
         from repro_torch.kernels import ops as kops
-        from repro_torch.solvers import f3r, iocg
+        from repro_torch.solvers import cg, f3r, graphs, iocg
 
         n = a_s.shape[0]
         b_h = np.ones(n)
@@ -1112,15 +1279,6 @@ class Smoke:
             return float(np.linalg.norm(b_h - a_s @ x_h)
                          / np.linalg.norm(b_h))
 
-        def run(fn):
-            """fn's result and its wall: host clock, ending in
-            synchronize()."""
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            return out, time.perf_counter() - t0
-
         kinds = ("fp64", "fp32", "fp16", "packsell_e8m8", "packsell_e8m12",
                  "packsell_fp16")
         t0 = time.perf_counter()
@@ -1130,7 +1288,8 @@ class Smoke:
         print(f"  operators and the diagonal built in "
               f"{time.perf_counter() - t0:.1f} s (host; fp64 and fp32 are "
               f"phase 5's); each solve's wall below includes its "
-              f"preconditioner's set-up from that diagonal", flush=True)
+              f"preconditioner's set-up from that diagonal; walls in the "
+              f"order {', '.join(TURNS)}", flush=True)
         variants = {}
         for kind in kinds[3:]:
             mat = ops_k.stored(kind)
@@ -1153,65 +1312,186 @@ class Smoke:
                     want[PLAN_KERNEL[variants[kind]]] += c
             return want
 
-        def check(label, calls, want_calls, before):
-            launched = {k: v - before[k] for k, v in self.counts().items()}
-            if dict(calls) != {k: v for k, v in want_calls.items() if v}:
-                fail(f"{label}: matvecs {dict(calls)}, want "
-                     f"{dict(want_calls)}")
-            if launched != launches_of(calls):
-                fail(f"{label}: launches {launched}, want "
-                     f"{launches_of(calls)}")
-            return launched
+        cops = CountedOps(ops_k)
+
+        def checked(label, want_calls):
+            """An ``each`` for :meth:`in_turns`: the run's matvecs (the
+            calls and the replays' calls) must be ``want_calls(turn,
+            info)``, its launches theirs."""
+            def each(turn, x, info, launched):
+                ran, want = cops.ran(), want_calls(turn, info)
+                if ran != {k: v for k, v in want.items() if v}:
+                    fail(f"{label} {turn}: matvecs {ran}, want {dict(want)}")
+                if launched != launches_of(ran):
+                    fail(f"{label} {turn}: launches {launched}, want "
+                         f"{launches_of(ran)}")
+                self.seen[label] = (ran, launched)
+            return each
+
+        def start(turn):
+            cops.reset()
 
         self.zero_counts()
-        cops = CountedOps(ops_k)
-        k_ainv = iocg.IOCGConfig().ainv_terms
-        (x, info), ref_s = run(lambda: iocg.pcg_reference(cops, b))
-        rel = true_rel(x)
-        launched = check("pcg_reference", cops.calls,
-                         {"fp64": 2 + 2 * info.iters}, dict.fromkeys(
-                             self.counts(), 0))
-        print(f"  pcg_reference (fp64 PCG, Neumann {k_ainv} terms, tol "
-              f"1e-9): iterations {info.iters}, true relres {rel!r}, wall "
-              f"{ref_s!r} s, matvecs {dict(cops.calls)}, launches "
-              f"{launched}", flush=True)
-        if not rel <= 5e-9:
-            fail(f"pcg_reference true relres {rel} > 5e-9")
-        xs, iters = {}, {}
-        for name in ("fp64", "fp32", "fp16", "e8m8", "e8m12"):
-            cfg = iocg.variant(name, m_in=m_in)
-            cops.calls.clear()
-            before = self.counts()
-            (x, info), wall = run(lambda: iocg.solve(cops, b, cfg))
+        self.seen = {}
+        k_ain = iocg.IOCGConfig().ainv_terms
+        with cops.watch():
+            ref = self.in_turns(
+                lambda: iocg.pcg_reference(cops, b), "pcg_reference",
+                checked("pcg_reference", lambda turn, info: {
+                    "fp64": 2 + 2 * (info.iters if turn.startswith("eager")
+                                     else chunk_steps(info.iters,
+                                                       cg.PCG_CHUNK))}),
+                start)
+            x, info = ref["eager"][:2]
             rel = true_rel(x)
-            xs[name], iters[name] = x, info.iters
-            # each inner application: M once, then m_in × (A, M)
-            per = (cfg.ainv_terms - 1) + m_in * cfg.ainv_terms
-            want = collections.Counter({"fp64": 1 + info.iters})
-            want[cfg.inner_spmv] += (info.iters + 1) * per
-            launched = check(f"IO-CG {name}", cops.calls, want, before)
-            print(f"  IO-CG {name:5s} (m_in {m_in}, inner "
-                  f"{cfg.inner_spmv}, "
-                  f"{variants.get(cfg.inner_spmv, 'SELL, K2')}): outer "
-                  f"iterations {info.iters}, true relres {rel!r}, wall "
-                  f"{wall!r} s, matvecs {dict(cops.calls)}, launches "
-                  f"{launched}; pcg_reference wall / this wall "
-                  f"{ref_s / wall!r}", flush=True)
-            bound = 1e-6 if name == "fp16" else 5e-9
-            if not rel <= bound:
-                fail(f"IO-CG {name}: true relres {rel} > {bound}")
+            steps = chunk_steps(info.iters, cg.PCG_CHUNK)
+            print(f"  pcg_reference (fp64 PCG, Neumann {k_ain} terms, tol "
+                  f"1e-9): iterations {info.iters} (captured: {steps} steps "
+                  f"run, {steps - info.iters} more than the eager loop), "
+                  f"true relres "
+                  f"{rel!r}, "
+                  f"walls {turn_walls(ref)}; captured run: matvecs, "
+                  f"launches {self.seen['pcg_reference']}", flush=True)
+            if not rel <= 5e-9:
+                fail(f"pcg_reference true relres {rel} > 5e-9")
+            iocg_walls = {}
+
+            def iocg_turns(name, m, turns=TURNS, replays=3):
+                cfg = iocg.variant(name, m_in=m)
+                # each inner application: M once, then m × (A, M); one
+                # application per outer step (chunks of 1: no step runs again)
+                per = (cfg.ainv_terms - 1) + m * cfg.ainv_terms
+
+                def want(turn, info):
+                    w = collections.Counter({"fp64": 1 + info.iters})
+                    w[cfg.inner_spmv] += (info.iters + 1) * per
+                    return w
+
+                label = f"IO-CG {name} m_in {m}"
+                return cfg, self.in_turns(
+                    lambda: iocg.solve(cops, b, cfg), label,
+                    checked(label, want), start, turns, replays)
+
+            xs, iters = {}, {}
+            for name in ("fp64", "fp32", "fp16", "e8m8", "e8m12"):
+                cfg, runs = iocg_turns(name, m_in)
+                x, info = runs["eager"][:2]
+                rel = true_rel(x)
+                xs[name], iters[name] = x, info.iters
+                iocg_walls[name, m_in] = runs
+                print(f"  IO-CG {name:5s} (m_in {m_in}, inner "
+                      f"{cfg.inner_spmv}, "
+                      f"{variants.get(cfg.inner_spmv, 'SELL, K2')}): outer "
+                      f"iterations {info.iters}, true relres {rel!r}, walls "
+                      f"{turn_walls(runs)}; pcg_reference / IO-CG walls: "
+                      f"eager {ref['eager'][2] / runs['eager'][2]!r}, "
+                      f"replay {ref['replay'][2] / runs['replay'][2]!r}; "
+                      f"captured run: matvecs, launches "
+                      f"{self.seen[f'IO-CG {name} m_in {m_in}']}",
+                      flush=True)
+                bound = 1e-6 if name == "fp16" else 5e-9
+                if not rel <= bound:
+                    fail(f"IO-CG {name}: true relres {rel} > {bound}")
+
+            cycles, x3, f3r_walls = {}, {}, {}
+            for name in ("fp64", "fp16", "packsell"):
+                cfg = f3r.presets(name)
+                layers = {}
+
+                def want(turn, info, cfg=cfg, layers=layers):
+                    layers.update(f3r_layer_spmvs(cfg, info.iters))
+                    w = collections.Counter()
+                    for layer, kind in (("L1", cfg.spmv_outer),
+                                        ("L2", cfg.spmv_mid),
+                                        ("L3", cfg.spmv_inner),
+                                        ("L4", cfg.spmv_inner)):
+                        w[kind] += layers[layer]
+                    return w
+
+                counted = checked(f"F3R {name}", want)
+
+                def each(turn, x, info, launched, cfg=cfg, layers=layers,
+                         counted=counted, name=name):
+                    counted(turn, x, info, launched)
+                    self.seen[f"F3R {name} {turn} calls"] = dict(+cops.calls)
+                    if turn.startswith("eager") or self.dev.type != "cuda":
+                        return          # (a CPU graph runs its body again)
+                    # eager: L1's and L2's SpMVs; L3's graph: its warm-up
+                    # and capture (one L3 application each, L4 inline), then
+                    # replays only
+                    py = collections.Counter({cfg.spmv_outer: layers["L1"]})
+                    py[cfg.spmv_mid] += layers["L2"]
+                    if turn == "capture":
+                        apps = info.iters * cfg.m_outer * cfg.m_mid
+                        py[cfg.spmv_inner] += 2 * (
+                            layers["L3"] + layers["L4"]) // apps
+                    if +cops.calls != +py:
+                        fail(f"F3R {name} {turn}: Python calls of SpMVs "
+                             f"{dict(cops.calls)}, want {dict(py)} (L3 not "
+                             f"replayed)")
+
+                runs = self.in_turns(lambda: f3r.solve(cops, b, cfg),
+                                     f"F3R {name}", each, start, replays=1)
+                x, info = runs["eager"][:2]
+                rel = true_rel(x)
+                cycles[name], x3[name], f3r_walls[name] = info.iters, x, runs
+                inner = (layers["L3"] + layers["L4"]) / sum(layers.values())
+                print(f"  F3R {name:8s} ({cfg.spmv_outer}/{cfg.spmv_mid}/"
+                      f"{cfg.spmv_inner}): cycles {info.iters}, relres "
+                      f"history {info.history[:info.iters + 1].tolist()}, "
+                      f"true relres {rel!r}, walls {turn_walls(runs)}, SpMVs "
+                      f"per layer {layers} (L3 + L4 share {inner!r}); "
+                      f"captured runs: each L3 application (L4 inside) one "
+                      f"graph replay and the host's least-squares solve, "
+                      f"L2 and L1 eager around them (their preconditioner "
+                      f"reads the host): Python calls of SpMVs in the "
+                      f"capture run {self.seen[f'F3R {name} capture calls']}"
+                      f", in the replay run "
+                      f"{self.seen[f'F3R {name} replay calls']}; captured "
+                      f"run's launches {self.seen[f'F3R {name}'][1]}",
+                      flush=True)
+                if not rel <= 5e-9:
+                    fail(f"F3R {name}: true relres {rel} > 5e-9")
+            dx = float(torch.linalg.vector_norm(x3["fp16"] - x3["packsell"])
+                       / torch.linalg.vector_norm(x3["fp16"]))
+            ratios = ", ".join(
+                f"{t} {f3r_walls['fp16'][t][2] / f3r_walls['packsell'][t][2]!r}"
+                for t in TURNS)
+            print(f"  FP16-F3R and PackSELL-F3R: cycles {cycles['fp16']} "
+                  f"and {cycles['packsell']}, ||x_fp16 - x_packsell|| / "
+                  f"||x_fp16|| {dx!r}; FP16-F3R / PackSELL-F3R walls: "
+                  f"{ratios}", flush=True)
+            if cycles["fp16"] != cycles["packsell"]:
+                fail(f"FP16-F3R took {cycles['fp16']} cycles, PackSELL-F3R "
+                     f"{cycles['packsell']}")
+
+            # the paper's settings of m_in: eager, then the graphs' capture
+            # and replay-only solves
+            for m in (20, 50, 80):
+                for name in ("fp32", "e8m8", "fp16"):
+                    if (name, m) not in iocg_walls:
+                        iocg_walls[name, m] = iocg_turns(
+                            name, m, ("eager", "capture", "replay"),
+                            replays=1)[1]
+                    runs = iocg_walls[name, m]
+                    print(f"  m_in {m:2d}, IO-CG {name:4s}: outer iterations "
+                          f"{runs['eager'][1].iters}, walls eager "
+                          f"{runs['eager'][2]!r} s, capture "
+                          f"{runs['capture'][2]!r} s, replay "
+                          f"{runs['replay'][2]!r} s; pcg_reference / IO-CG: "
+                          f"eager {ref['eager'][2] / runs['eager'][2]!r}, "
+                          f"replay {ref['replay'][2] / runs['replay'][2]!r}",
+                          flush=True)
 
         # the e8m8 IO-CG again on the plain bodies, on the card
-        ops_p.matvec("packsell_e8m8")
-        ops_p.diag()
-        plain = CountedOps(ops_p)
+        plain = CountedOps(plain_twin(ops_k, ["fp64", "packsell_e8m8"]))
         before = self.counts()
-        (xp, info_p), plain_s = run(lambda: iocg.solve(
+        (xp, info_p), plain_s = wall(lambda: iocg.solve(
             plain, b, iocg.variant("e8m8", m_in=m_in)))
         dx = float(torch.linalg.vector_norm(xs["e8m8"] - xp)
                    / torch.linalg.vector_norm(xs["e8m8"]))
-        print(f"  IO-CG e8m8 on the plain bodies (force='jnp'): outer "
-              f"iterations {info_p.iters}, wall {plain_s!r} s, "
+        print(f"  IO-CG e8m8 on the plain bodies (force='jnp'), captured: "
+              f"outer iterations {info_p.iters}, wall {plain_s!r} s, "
               f"||x - x_plain|| / ||x|| {dx!r}, true relres "
               f"{true_rel(xp)!r}", flush=True)
         if self.counts() != before:
@@ -1219,40 +1499,6 @@ class Smoke:
         if info_p.iters != iters["e8m8"]:
             fail(f"plain IO-CG e8m8 took {info_p.iters} outer iterations, "
                  f"the kernels {iters['e8m8']}")
-
-        cycles, x3 = {}, {}
-        for name in ("fp64", "fp16", "packsell"):
-            cfg = f3r.presets(name)
-            cops.calls.clear()
-            before = self.counts()
-            (x, info), wall = run(lambda: f3r.solve(cops, b, cfg))
-            rel = true_rel(x)
-            cycles[name], x3[name] = info.iters, x
-            layers = f3r_layer_spmvs(cfg, info.iters)
-            want = collections.Counter()
-            for layer, kind in (("L1", cfg.spmv_outer), ("L2", cfg.spmv_mid),
-                                ("L3", cfg.spmv_inner),
-                                ("L4", cfg.spmv_inner)):
-                want[kind] += layers[layer]
-            launched = check(f"F3R {name}", cops.calls, want, before)
-            inner = (layers["L3"] + layers["L4"]) / sum(layers.values())
-            print(f"  F3R {name:8s} ({cfg.spmv_outer}/{cfg.spmv_mid}/"
-                  f"{cfg.spmv_inner}): cycles {info.iters}, relres history "
-                  f"{info.history[:info.iters + 1].tolist()}, true relres "
-                  f"{rel!r}, wall {wall!r} s, SpMVs per layer {layers} "
-                  f"(L3 + L4 share {inner!r}), launches {launched}; "
-                  f"pcg_reference wall / this wall {ref_s / wall!r}",
-                  flush=True)
-            if not rel <= 5e-9:
-                fail(f"F3R {name}: true relres {rel} > 5e-9")
-        dx = float(torch.linalg.vector_norm(x3["fp16"] - x3["packsell"])
-                   / torch.linalg.vector_norm(x3["fp16"]))
-        print(f"  FP16-F3R and PackSELL-F3R: cycles {cycles['fp16']} and "
-              f"{cycles['packsell']}, ||x_fp16 - x_packsell|| / ||x_fp16|| "
-              f"{dx!r}", flush=True)
-        if cycles["fp16"] != cycles["packsell"]:
-            fail(f"FP16-F3R took {cycles['fp16']} cycles, PackSELL-F3R "
-                 f"{cycles['packsell']}")
         self.sync_free(a_s, ops_k, m_in)
         self.tri_solve(a_s)
         launches = self.counts()
@@ -1265,12 +1511,14 @@ class Smoke:
 
     def sync_free(self, a_s, ops_k, m_in):
         """The fp16, fp32 and fp64 matvecs, ``neumann_ainv`` and the
-        fixed-iteration solvers applied once each under
-        ``set_sync_debug_mode("error")``; then the host syncs of one F3R L3
-        application (``set_sync_debug_mode("warn")``, counted), and the
-        device's busy share of one IO-CG inner application and one F3R L2
-        application (the profiler, phase 7's method)."""
-        from repro_torch.solvers import precond
+        fixed-iteration solvers applied under
+        ``set_sync_debug_mode("error")``: the eager bodies, then (after a
+        first application that captures them) their graph replays. Then
+        the host syncs of one F3R L3 application
+        (``set_sync_debug_mode("warn")``, counted), and the device's busy
+        share of one IO-CG inner application and one F3R L2 application,
+        eager and through the graphs (the profiler, phase 7's method)."""
+        from repro_torch.solvers import graphs, precond
         from repro_torch.solvers.cg import pcg_fixed_iters
         from repro_torch.solvers.gmres import fgmres_fixed_cycles
         from repro_torch.solvers.richardson import richardson_fixed_iters
@@ -1294,15 +1542,20 @@ class Smoke:
                 richardson_fixed_iters(A["packsell_fp16"],
                                        M["packsell_fp16"], 4)}
         for what, fn in apply.items():
-            try:
-                with sync_debug("error"):
-                    y = fn(r)
-            except RuntimeError as e:
-                fail(f"{what} synchronised the host: {e}")
-            if not bool(torch.isfinite(y).all()):
-                fail(f"{what}: non-finite output")
+            for mode in ("eager", "graph replays"):
+                ctx = graphs.eager() if mode == "eager" \
+                    else contextlib.nullcontext()
+                if mode != "eager":
+                    fn(r)                   # warm-up and capture
+                try:
+                    with ctx, sync_debug("error"):
+                        y = fn(r)
+                except RuntimeError as e:
+                    fail(f"{what} ({mode}) synchronised the host: {e}")
+                if not bool(torch.isfinite(y).all()):
+                    fail(f"{what} ({mode}): non-finite output")
             print(f"  {what}: no host sync under set_sync_debug_mode"
-                  f"('error')", flush=True)
+                  f"('error'), eager and in graph replays", flush=True)
         l4 = richardson_fixed_iters(A["fp16"], M["fp16"], 4)
         l3 = fgmres_fixed_cycles(A["fp16"], l4, m=5)
         l3(r)
@@ -1313,30 +1566,40 @@ class Smoke:
         syncs = [str(w.message).splitlines()[0] for w in caught
                  if "synchroniz" in str(w.message)]
         print(f"  one F3R L3 application (fgmres_fixed_cycles m 5 over L4, "
-              f"fp16): {len(syncs)} host syncs under set_sync_debug_mode"
-              f"('warn') {sorted(set(syncs))}", flush=True)
+              f"fp16; a graph replay and the least-squares solve): "
+              f"{len(syncs)} host syncs under set_sync_debug_mode('warn') "
+              f"{sorted(set(syncs))}", flush=True)
         l2 = fgmres_fixed_cycles(A["fp32"], l3, m=10)
+        l2p = fgmres_fixed_cycles(A["fp32"], fgmres_fixed_cycles(
+            A["packsell_fp16"], richardson_fixed_iters(
+                A["packsell_fp16"], M["packsell_fp16"], 4), m=5), m=10)
         for what, fn in ((f"one IO-CG inner application (pcg_fixed_iters "
                           f"fp32, m_in {m_in})", apply[
                               f"pcg_fixed_iters fp32, m_in {m_in}"]),
-                         ("one F3R L2 application (fp16 preset)", l2)):
-            fn(r)
-            wall, kern = profiled(lambda: fn(r))
-            busy = sum(k[0] for k in kern)
-            if not kern:
-                print(f"  {what}: device time not measured (the profiler "
-                      f"saw no device events)", flush=True)
-                continue
-            print(f"  {what}: device busy {busy!r} ms of a {wall!r} ms "
-                  f"event wall (idle share {1 - busy / wall!r}), "
-                  f"{sum(k[1] for k in kern)} kernels; largest: "
-                  f"{[(round(k[0], 4), k[1], k[2][:40]) for k in kern[:4]]}",
-                  flush=True)
+                         ("one F3R L2 application (fp16 preset)", l2),
+                         ("one F3R L2 application (packsell preset)", l2p)):
+            for mode in ("eager", "graphs"):
+                with (graphs.eager() if mode == "eager"
+                      else contextlib.nullcontext()):
+                    fn(r)
+                    wall_ms, kern = profiled(lambda: fn(r))
+                busy = sum(k[0] for k in kern)
+                if not kern:
+                    print(f"  {what}, {mode}: device time not measured (the "
+                          f"profiler saw no device events)", flush=True)
+                    continue
+                print(f"  {what}, {mode}: device busy {busy!r} ms of a "
+                      f"{wall_ms!r} ms event wall (idle share "
+                      f"{1 - busy / wall_ms!r}), {sum(k[1] for k in kern)} "
+                      f"kernels; largest: "
+                      f"{[(round(k[0], 4), k[1], k[2][:60]) for k in kern[:6]]}",
+                      flush=True)
 
     def tri_solve(self, a_s):
         """The PackSELL triangular solve of ``tril(a_s)`` (e8m, D = 1, as
-        the reference) against scipy's ``spsolve_triangular`` in float64,
-        and RCM's bandwidths of ``a_s``."""
+        the reference) in :data:`TURNS` against scipy's
+        ``spsolve_triangular`` in float64, and RCM's bandwidths of
+        ``a_s``."""
         import scipy.sparse as sp
         from scipy.sparse.linalg import spsolve_triangular
 
@@ -1357,28 +1620,28 @@ class Smoke:
               f"{solver.plan.policy}", flush=True)
         b_h = np.random.default_rng(19).standard_normal(a_s.shape[0])
         b = torch.from_numpy(b_h).to(self.dev)
-        before = self.counts()
-        torch.cuda.synchronize()
+        want = dict.fromkeys(self.counts(), 0)
+        want[PLAN_KERNEL[solver.plan.variant]] = solver.levels
+
+        def each(turn, x, info, launched):
+            if launched != want:
+                fail(f"the triangular solve's {solver.levels} SpMVs "
+                     f"launched {launched} in the {turn} run "
+                     f"({solver.plan.variant} plan), want {want}")
+
+        runs = self.in_turns(lambda: (solver.solve(b), None),
+                             "the triangular solve", each)
+        x = runs["eager"][0]
         t0 = time.perf_counter()
-        x = solver.solve(b)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launched = {k: v - before[k] for k, v in self.counts().items()}
-        t0 = time.perf_counter()
-        want = spsolve_triangular(lo, b_h, lower=True)
+        ref = spsolve_triangular(lo, b_h, lower=True)
         ref_s = time.perf_counter() - t0
         x_h = x.cpu().numpy().astype(np.float64)
-        err = float(np.linalg.norm(x_h - want) / np.linalg.norm(want))
-        print(f"  solve: {solver.levels} Jacobi steps in {wall!r} s "
-              f"(host clock, ends in synchronize), launches {launched}; "
+        err = float(np.linalg.norm(x_h - ref) / np.linalg.norm(ref))
+        print(f"  solve: {solver.levels} Jacobi steps (one graph), walls "
+              f"{turn_walls(runs)}, launches per run {want}; "
               f"||x - x_scipy|| / ||x_scipy|| {err!r} (scipy "
               f"spsolve_triangular, float64, {ref_s:.1f} s on the host)",
               flush=True)
-        want = dict.fromkeys(launched, 0)
-        want[PLAN_KERNEL[solver.plan.variant]] = solver.levels
-        if launched != want:
-            fail(f"the triangular solve's {solver.levels} SpMVs launched "
-                 f"{launched} ({solver.plan.variant} plan), want {want}")
         if not err <= 1e-5:
             fail(f"triangular solve relative error {err} > 1e-5")
         t0 = time.perf_counter()
@@ -1394,6 +1657,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    from repro_torch.solvers import graphs
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1429,20 +1693,23 @@ def main() -> int:
         print(f"  phase {num}: {phase_s[num]:.1f} s", flush=True)
         return out
 
-    phase(3, "kernels against their plain versions, on the card",
-          smoke.kernels_vs_plain)
-    mp = phase(4, "main path: HPCG 104^3, plan_fp16, Jacobi-PCG",
-               smoke.main_path)
-    mx = phase(5, "mixed-precision PCG, HPCG 104^3: adaptive_pcg over the "
-               "e8m tier ladder", lambda: smoke.mixed_path(mp["a"]))
-    rows = phase(6, "times at the main paths' shapes (CUDA events)",
-                 lambda: {**smoke.times(mp), **smoke.times_bucket(mx)})
-    phase(7, "where a solve's time goes (torch.profiler)",
-          lambda: smoke.breakdown(mp))
-    sv = phase(8, "the paper's solvers, HPCG 104^3: IO-CG against fp64 PCG, "
-               "F3R, the fixed-iteration solvers without host syncs, the "
-               "PackSELL triangular solve",
-               lambda: smoke.solvers_path(mp["a"], mx["ops"], mx["ops_p"]))
+    # graph replays make no Python call: the ledger counts their launches
+    with graphs.LEDGER.watch(smoke.raw_counts):
+        phase(3, "kernels against their plain versions, on the card",
+              smoke.kernels_vs_plain)
+        mp = phase(4, "main path: HPCG 104^3, plan_fp16, Jacobi-PCG, eager "
+                   "and through CUDA graphs", smoke.main_path)
+        mx = phase(5, "mixed-precision PCG, HPCG 104^3: adaptive_pcg over "
+                   "the e8m tier ladder", lambda: smoke.mixed_path(mp["a"]))
+        rows = phase(6, "times at the main paths' shapes (CUDA events)",
+                     lambda: {**smoke.times(mp), **smoke.times_bucket(mx)})
+        phase(7, "where a solve's time goes (torch.profiler), eager and "
+              "through CUDA graphs", lambda: smoke.breakdown(mp))
+        sv = phase(8, "the paper's solvers, HPCG 104^3, eager and through "
+                   "CUDA graphs: IO-CG against fp64 PCG, F3R, the "
+                   "fixed-iteration solvers without host syncs, the "
+                   "PackSELL triangular solve",
+                   lambda: smoke.solvers_path(mp["a"], mx["ops"]))
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {

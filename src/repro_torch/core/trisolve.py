@@ -79,19 +79,30 @@ class PackSELLTriSolver:
         self.plan = kops.percall_plan(self.mat, force)   # built now
         self._spmv = functools.partial(kops.packsell_spmv_percall, self.mat,
                                        force=force)
+        self._graphs: dict = {}
 
     def memory_stats(self) -> dict:
         return self.mat.memory_stats()
 
-    def solve(self, b: torch.Tensor, iters: int | None = None
-              ) -> torch.Tensor:
-        """Exact after ``self.levels`` iterations (nilpotent Jacobi)."""
-        iters = self.levels if iters is None else iters
-        b = b.to(torch.float32)
+    def _jacobi(self, b: torch.Tensor, iters: int) -> torch.Tensor:
+        """``iters`` Jacobi steps from ``D^{-1} b``, eagerly."""
         x = self.dinv * b
         for _ in range(iters):
             x = self.dinv * (b - self._spmv(x))
         return x
+
+    def solve(self, b: torch.Tensor, iters: int | None = None
+              ) -> torch.Tensor:
+        """Exact after ``self.levels`` iterations (nilpotent Jacobi). The
+        reference's ``fori_loop`` over the steps: one CUDA graph per step
+        count, kept on the solver, so a second solve only replays."""
+        from ..solvers import graphs   # the solvers import ``core``
+
+        iters = self.levels if iters is None else iters
+        if iters not in self._graphs:
+            self._graphs[iters] = graphs.Applied(
+                functools.partial(graphs.method(self._jacobi), iters=iters))
+        return self._graphs[iters](b.to(torch.float32))
 
 
 def trisolve(t: sp.csr_matrix, b, *, lower: bool = True, device=None,

@@ -537,6 +537,9 @@ class SpMVPlan:
     wins: Optional[tuple] = None      # per-bucket int32 windows (band only)
     kckpts: Optional[tuple] = None    # per-bucket int32 [S, nw, C]
     ktable: Optional[_pk.BucketTable] = None  # K4/K5/K6 launch table
+    #: the solvers' cached graphs on this plan (``cg.jacobi_pcg_stored``)
+    _fns: dict = dataclasses.field(default_factory=dict, repr=False,
+                                   compare=False)
 
     # -- σ-permutation helpers (stored-row order <-> original order) -------
     def from_stored(self, t: torch.Tensor) -> torch.Tensor:

@@ -52,16 +52,26 @@ def presets(variant: str) -> F3RConfig:
 
 def solve(ops: OperatorSet, b: torch.Tensor,
           config: F3RConfig) -> tuple[torch.Tensor, SolveInfo]:
-    """The four layers over ``ops``' kinds; ``b`` on the set's device."""
-    A64 = ops.matvec(config.spmv_outer)
-    A32 = ops.matvec(config.spmv_mid)
-    A16 = ops.matvec(config.spmv_inner)
-
-    ainv = precond.neumann_ainv(ops.diag(), A16, k=config.ainv_terms,
-                                dtype=torch.float32, device=ops.device)
-    l4 = richardson_fixed_iters(A16, ainv, config.richardson_iters,
-                                dtype=torch.float32)
-    l3 = fgmres_fixed_cycles(A16, l4, m=config.m_inner, dtype=torch.float32)
-    l2 = fgmres_fixed_cycles(A32, l3, m=config.m_mid, dtype=torch.float32)
-    return fgmres(A64, b, M=l2, m=config.m_outer, tol=config.tol,
-                  max_cycles=config.max_cycles, dtype=b.dtype)
+    """The four layers over ``ops``' kinds; ``b`` on the set's device. An
+    L3 application (L4 inside it) is one graph replay and the host's
+    least-squares solve; L2 and L1 call a preconditioner that reads the
+    host, so they run eagerly around those replays. The layers are kept
+    in ``ops.graphs``, so a second solve on the same operators only
+    replays."""
+    key = ("f3r", config.spmv_mid, config.spmv_inner, config.m_mid,
+           config.m_inner, config.richardson_iters, config.ainv_terms)
+    l2 = ops.graphs.get(key)
+    if l2 is None:
+        A16 = ops.matvec(config.spmv_inner)
+        ainv = precond.neumann_ainv(ops.diag(), A16, k=config.ainv_terms,
+                                    dtype=torch.float32, device=ops.device)
+        l4 = richardson_fixed_iters(A16, ainv, config.richardson_iters,
+                                    dtype=torch.float32)
+        l3 = fgmres_fixed_cycles(A16, l4, m=config.m_inner,
+                                 dtype=torch.float32)
+        l2 = ops.graphs[key] = fgmres_fixed_cycles(
+            ops.matvec(config.spmv_mid), l3, m=config.m_mid,
+            dtype=torch.float32)
+    return fgmres(ops.matvec(config.spmv_outer), b, M=l2, m=config.m_outer,
+                  tol=config.tol, max_cycles=config.max_cycles,
+                  dtype=b.dtype)

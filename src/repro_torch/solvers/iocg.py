@@ -37,24 +37,35 @@ def solve(ops: OperatorSet, b: torch.Tensor,
           config: IOCGConfig) -> tuple[torch.Tensor, SolveInfo]:
     """FCG on the fp64 operator, each step preconditioned by
     :func:`~.cg.pcg_fixed_iters` on ``config.inner_spmv`` with the Neumann
-    approximate inverse; ``b`` on the set's device."""
-    A_out = ops.matvec("fp64")
-    A_in = ops.matvec(config.inner_spmv)
-    inner_dtype = (torch.float64 if config.inner_spmv == "fp64"
-                   else torch.float32)
-    M_in = precond.neumann_ainv(ops.diag(), A_in, k=config.ainv_terms,
-                                dtype=inner_dtype, device=ops.device)
-    M = pcg_fixed_iters(A_in, M_in, config.m_in, dtype=inner_dtype)
-    return fcg(A_out, b, M=M, tol=config.tol, maxiter=config.maxiter,
-               dtype=b.dtype)
+    approximate inverse; ``b`` on the set's device. The preconditioner
+    and the step graphs are kept in ``ops.graphs``, so a second solve on
+    the same operators only replays."""
+    key = ("iocg", config.inner_spmv, config.m_in, config.ainv_terms)
+    M = ops.graphs.get(key)
+    if M is None:
+        A_in = ops.matvec(config.inner_spmv)
+        inner_dtype = (torch.float64 if config.inner_spmv == "fp64"
+                       else torch.float32)
+        M_in = precond.neumann_ainv(ops.diag(), A_in, k=config.ainv_terms,
+                                    dtype=inner_dtype, device=ops.device)
+        M = ops.graphs[key] = pcg_fixed_iters(A_in, M_in, config.m_in,
+                                              dtype=inner_dtype)
+    return fcg(ops.matvec("fp64"), b, M=M, tol=config.tol,
+               maxiter=config.maxiter, dtype=b.dtype, jit_cache=ops.graphs,
+               jit_key=key)
 
 
 def pcg_reference(ops: OperatorSet, b: torch.Tensor, *, tol: float = 1e-9,
                   maxiter: int = 20000,
                   ainv_terms: int = 2) -> tuple[torch.Tensor, SolveInfo]:
     """The paper's baseline: standard full-precision PCG with the same
-    approximate-inverse preconditioner."""
-    A = ops.matvec("fp64")
-    M = precond.neumann_ainv(ops.diag(), A, k=ainv_terms,
-                             dtype=torch.float64, device=ops.device)
-    return pcg(A, b, M=M, tol=tol, maxiter=maxiter, dtype=b.dtype)
+    approximate-inverse preconditioner (its graphs kept in
+    ``ops.graphs``)."""
+    key = ("pcg_reference", ainv_terms)
+    M = ops.graphs.get(key)
+    if M is None:
+        M = ops.graphs[key] = precond.neumann_ainv(
+            ops.diag(), ops.matvec("fp64"), k=ainv_terms,
+            dtype=torch.float64, device=ops.device)
+    return pcg(ops.matvec("fp64"), b, M=M, tol=tol, maxiter=maxiter,
+               dtype=b.dtype, jit_cache=ops.graphs, jit_key=key)

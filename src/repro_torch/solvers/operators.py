@@ -167,6 +167,10 @@ class OperatorSet:
     device: object = None
     force: str = "auto"
     _cache: dict = dataclasses.field(default_factory=dict)
+    #: the solvers' graphs and static buffers (``iocg``, ``f3r``), kept
+    #: per solver, kinds, inner iterations and shape
+    graphs: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
 
     def __post_init__(self):
         self.device = _device.resolve_device(self.device)

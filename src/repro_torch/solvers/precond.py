@@ -9,7 +9,7 @@ scaled Neumann series,
 
 evaluated by the Jacobi-style recurrence ``z <- D^{-1} r + (I - D^{-1}A)
 z``: every application is K-1 SpMVs in whatever precision the supplied
-matvec uses.
+matvec uses, and one CUDA graph (:class:`.graphs.Applied`).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import _device
+from . import graphs
 
 Matvec = Callable[[torch.Tensor], torch.Tensor]
 
@@ -38,9 +39,10 @@ def jacobi(diag: np.ndarray, dtype=torch.float32, device=None) -> Matvec:
 
 
 def neumann_ainv(diag: np.ndarray, matvec: Matvec, k: int = 2,
-                 dtype=torch.float32, device=None) -> Matvec:
+                 dtype=torch.float32, device=None) -> graphs.Applied:
     """Truncated Neumann approximate inverse (SD-AINV role), K terms: K-1
-    matvecs per application, none of which reads a value on the host."""
+    matvecs per application, none of which reads a value on the host;
+    one application is one graph (the eager body is ``.fn``)."""
     dinv = _dinv(diag, dtype, device)
 
     def apply(r: torch.Tensor) -> torch.Tensor:
@@ -50,4 +52,4 @@ def neumann_ainv(diag: np.ndarray, matvec: Matvec, k: int = 2,
             z = z + dinv * (r - matvec(z).to(dtype))
         return z
 
-    return apply
+    return graphs.Applied(apply)

@@ -5,13 +5,16 @@ from typing import Callable
 
 import torch
 
+from . import graphs
+
 Matvec = Callable[[torch.Tensor], torch.Tensor]
 
 
 def richardson_fixed_iters(matvec: Matvec, M: Matvec, iters: int,
-                           dtype=torch.float32) -> Matvec:
+                           dtype=torch.float32) -> graphs.Applied:
     """x_{k+1} = x_k + M (b - A x_k), x_0 = M b, a fixed iteration count;
-    it reads nothing on the host."""
+    it reads nothing on the host. One application, ``M``'s included, is
+    one graph (the eager body is ``.fn``)."""
 
     def apply(rhs: torch.Tensor) -> torch.Tensor:
         b = rhs.to(dtype)
@@ -20,4 +23,4 @@ def richardson_fixed_iters(matvec: Matvec, M: Matvec, iters: int,
             x = x + M(b - matvec(x).to(dtype)).to(dtype)
         return x
 
-    return apply
+    return graphs.Applied(apply)

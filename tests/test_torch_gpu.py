@@ -33,7 +33,7 @@ from repro_torch.kernels import packsell_spmv as kpk
 from repro_torch.kernels import plan as kplan
 from repro_torch.kernels import sell_spmv as ksl
 from repro_torch.precision import select as psel
-from repro_torch.solvers import cg
+from repro_torch.solvers import cg, graphs
 from repro_torch.solvers.operators import OperatorSet, sym_scale
 
 pytestmark = pytest.mark.gpu
@@ -169,15 +169,24 @@ def test_wrappers_reject_bad_operands(cuda):
             (3, mat.m), device=cuda).t(), **kw)
 
 
+def _k1_launches():
+    return {"K1": kpk.packsell_spmv_fused.launches}
+
+
 def test_jacobi_pcg_through_k1_matches_plain_iterations(cuda):
     s, _ = sym_scale(testmats.hpcg(12, 12, 12))
     mat, plan = OperatorSet(s, device=cuda).plan_pair("plan_fp16")
     assert plan.variant == "fused"
     b = torch.ones(s.shape[0], dtype=torch.float64, device=cuda)
-    before = kpk.packsell_spmv_fused.launches
-    x, info = cg.jacobi_pcg_stored(mat, plan, s.diagonal(), b, tol=1e-8,
-                                   maxiter=500)
-    assert kpk.packsell_spmv_fused.launches - before == info.iters + 1
+    with graphs.LEDGER.watch(_k1_launches):
+        before = graphs.LEDGER.ran(_k1_launches())["K1"]
+        x, info = cg.jacobi_pcg_stored(mat, plan, s.diagonal(), b, tol=1e-8,
+                                       maxiter=500)
+        ran = graphs.LEDGER.ran(_k1_launches())["K1"] - before
+    # the first residual, then whole chunks of steps, and the steps of
+    # the chunk the loop stopped in again, up to the stop
+    chunks = -(-info.iters // cg.PCG_CHUNK)
+    assert ran == 1 + chunks * cg.PCG_CHUNK + info.iters % cg.PCG_CHUNK
     assert float(info.relres) < 1e-8
     xp, info_p = cg.jacobi_pcg_stored(mat, kplan.get_plan(mat, force="jnp"),
                                       s.diagonal(), b, tol=1e-8, maxiter=500)
@@ -382,9 +391,15 @@ def test_adaptive_pcg_through_k4_matches_plain_schedule(cuda):
     b = torch.from_numpy(np.random.default_rng(0).standard_normal(
         s.shape[0])).to(cuda)
     k4 = kpk.packsell_spmv_buckets
-    before = (k4.launches, ksl.sell_spmv_bucket.launches)
-    x, info = cg.adaptive_pcg(tiers, b, M=M, matvec_hi=hi, tol=1e-8,
-                              maxiter=60, m_in=16)
+
+    def launches():
+        return {"K4": k4.launches, "K2": ksl.sell_spmv_bucket.launches}
+
+    with graphs.LEDGER.watch(launches):
+        before = graphs.LEDGER.ran(launches())
+        x, info = cg.adaptive_pcg(tiers, b, M=M, matvec_hi=hi, tol=1e-8,
+                                  maxiter=60, m_in=16)
+        ran = graphs.LEDGER.ran(launches())
     ladder = psel.tier_ladder(ops_k.precision_plan(1e-3, n_probes=2))
     want_k4 = 0                 # one launch per packed-tier matvec
     for i, c in enumerate(ladder):
@@ -392,8 +407,9 @@ def test_adaptive_pcg_through_k4_matches_plain_schedule(cuda):
             mat, plan = ops_k.plan_pair(psel.operator_kind(c))
             if plan.variant == "full":
                 want_k4 += int(info.tier_matvecs[i])
-    assert k4.launches - before[0] == want_k4 > 0
-    assert ksl.sell_spmv_bucket.launches - before[1] == info.hi_matvecs * len(
+    # one outer step per replay: no step is masked
+    assert ran["K4"] - before["K4"] == want_k4 > 0
+    assert ran["K2"] - before["K2"] == info.hi_matvecs * len(
         ops_k.stored("fp64").vals) + int(info.tier_matvecs[-1]) * len(
         ops_k.stored("fp32").vals)
     assert float(info.relres) <= 1e-8
@@ -459,9 +475,15 @@ def test_fixed_iteration_solvers_are_sync_free(cuda):
         M = precond.neumann_ainv(ops_k.diag(), A, device=cuda)
         fns += [M, pcg_fixed_iters(A, M, 20), richardson_fixed_iters(A, M, 4)]
     r = torch.from_numpy(b).to(cuda)
-    with _NoSync():
-        outs = [f(r) for f in fns]
+    with _NoSync(), graphs.eager():
+        outs = [f(r) for f in fns]          # the eager bodies
     assert all(bool(torch.isfinite(o).all()) for o in outs)
+    for f in fns:                           # warm-up and capture
+        f(r)
+    with _NoSync():
+        replays = [f(r) for f in fns]
+    for o, p in zip(outs, replays):
+        assert torch.equal(o, p)
 
 
 @pytest.mark.parametrize("codec", ["fp16", "bf16", "e8m8", "e8m12", "e8m1"])
@@ -512,3 +534,174 @@ def test_iocg_and_f3r_take_the_cpu_counts(cuda):
             x = x.cpu().numpy()
             assert np.linalg.norm(b - s @ x) / np.linalg.norm(b) < 5e-9
     assert counts["cpu"] == counts[str(cuda)]
+
+
+# ---------------------------------------------------------------------------
+# The solver loops as CUDA graphs: each captured solve against the eager
+# loop on the card, replays without a host sync, a cached solve that
+# captures nothing new, and the calls a replay runs
+# ---------------------------------------------------------------------------
+
+
+def _same_bits(a, b):
+    view = torch.int64 if a.dtype == torch.float64 else torch.int32
+    assert a.shape == b.shape and a.dtype == b.dtype
+    assert torch.equal(a.view(view), b.view(view))
+
+
+def _graph_runs(ops_k, b, name):
+    """A callable running the solve ``name`` of items 2-11 on ``ops_k``'s
+    operators: ``() -> (x, iters or None)``."""
+    import scipy.sparse as sp
+
+    from repro_torch.core import trisolve
+    from repro_torch.solvers import f3r, gmres, iocg, precond
+    from repro_torch.solvers.richardson import richardson_fixed_iters
+
+    s = ops_k.csr
+    A16, A32 = ops_k.matvec("packsell_fp16"), ops_k.matvec("fp32")
+    if name == "neumann_ainv":
+        f = precond.neumann_ainv(ops_k.diag(), A32, device=b.device)
+        return lambda: (f(b), None)
+    if name == "richardson_fixed_iters":
+        f = richardson_fixed_iters(A16, precond.neumann_ainv(
+            ops_k.diag(), A16, device=b.device), 4)
+        return lambda: (f(b), None)
+    if name == "pcg_fixed_iters":
+        f = cg.pcg_fixed_iters(A32, precond.neumann_ainv(
+            ops_k.diag(), A32, device=b.device), 20)
+        return lambda: (f(b), None)
+    if name == "pcg":
+        return lambda: iocg.pcg_reference(ops_k, b)
+    if name == "jacobi_pcg_stored":
+        mat, plan = ops_k.plan_pair("plan_fp16")
+        return lambda: cg.jacobi_pcg_stored(mat, plan, s.diagonal(), b,
+                                            tol=1e-8, maxiter=500)
+    if name == "fcg":
+        return lambda: iocg.solve(ops_k, b, iocg.variant("e8m8", m_in=20))
+    if name == "adaptive_pcg":
+        tiers, _, _, hi = ops_k.adaptive_tiers(1e-3, n_probes=2)
+        dinv = 1.0 / torch.as_tensor(s.diagonal(), device=b.device)
+        cache = {}
+        return lambda: cg.adaptive_pcg(
+            tiers, b, M=lambda r: r * dinv, matvec_hi=hi, tol=1e-8,
+            maxiter=60, m_in=16, jit_cache=cache, jit_key="ladder")
+    if name == "fgmres":
+        l4 = richardson_fixed_iters(A16, precond.neumann_ainv(
+            ops_k.diag(), A16, device=b.device), 4)
+        l3 = gmres.fgmres_fixed_cycles(A16, l4, m=5)
+        return lambda: (l3(b.float()), None)
+    if name == "f3r":
+        return lambda: f3r.solve(ops_k, b, f3r.presets("packsell"))
+    assert name == "trisolve"
+    lo = sp.tril(s).tocsr()
+    lo.sort_indices()
+    solver = trisolve.PackSELLTriSolver(lo, C=8, sigma=32, D=1, codec="e8m",
+                                        device=b.device)
+    return lambda: (solver.solve(b), None)
+
+
+GRAPH_SOLVES = ("neumann_ainv", "richardson_fixed_iters", "pcg_fixed_iters",
+                "pcg", "jacobi_pcg_stored", "fcg", "adaptive_pcg", "fgmres",
+                "f3r", "trisolve")
+
+
+@pytest.mark.parametrize("name", GRAPH_SOLVES)
+def test_captured_solve_equals_the_eager_loop(cuda, name):
+    """Eager, captured (the capture), captured (replays only), eager: the
+    same iterations and x bit for bit; the second captured solve captures
+    nothing new."""
+    from repro_torch.solvers import gmres
+
+    s, b = _spd_system()
+    ops_k = OperatorSet(s, C=8, sigma=32, device=cuda)
+    captures, arnoldis = [], []
+    capture = graphs.Graph._warm_up_and_capture
+    arnoldi_init = gmres._Arnoldi.__init__
+
+    def counted(self):
+        captures.append(self)
+        return capture(self)
+
+    def made(self, *args, **kwargs):
+        arnoldi_init(self, *args, **kwargs)
+        arnoldis.append(self)
+
+    gmres._Arnoldi.__init__ = made
+    try:
+        run = _graph_runs(ops_k, torch.from_numpy(b).to(cuda), name)
+        with graphs.eager():
+            want = run()
+        graphs.Graph._warm_up_and_capture = counted
+        try:
+            first = run()
+            n_first = len(captures)
+            second = run()
+        finally:
+            graphs.Graph._warm_up_and_capture = capture
+        with graphs.eager():
+            again = run()
+    finally:
+        gmres._Arnoldi.__init__ = arnoldi_init
+    assert n_first >= 1
+    assert len(captures) == n_first
+    # F3R's L3 (and FGMRES's Arnoldi loop) replays after an eager first run
+    if name in ("fgmres", "f3r"):
+        assert arnoldis
+        assert all(g.replays > 0 for a in arnoldis for g in a.graphs)
+    for got in (first, second, again):
+        x, info = got
+        _same_bits(x, want[0])
+        if info is not None:
+            assert info.iters == want[1].iters
+            _same_bits(info.history, want[1].history)
+
+
+def test_replays_do_not_sync(cuda):
+    from repro_torch.solvers import iocg
+
+    s, b = _spd_system()
+    ops_k = OperatorSet(s, C=8, sigma=32, device=cuda)
+    bd = torch.from_numpy(b).to(cuda)
+    iocg.pcg_reference(ops_k, bd)
+    iocg.solve(ops_k, bd, iocg.variant("fp32", m_in=20))
+    loops = [v for v in ops_k.graphs.values() if hasattr(v, "graph")]
+    applied = [v for v in ops_k.graphs.values() if hasattr(v, "fn")]
+    assert loops and applied
+    with _NoSync():
+        for loop in loops:
+            loop.graph()                    # a chunk of steps
+        outs = [f(bd) for f in applied]     # copy in, replay, clone out
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+
+
+def test_graph_calls_times_replays_equal_eager_matvecs(cuda):
+    """A counted matvec inside ``pcg_fixed_iters``: the calls a capture
+    records, times the replays, plus the warm-up's, equal the eager
+    loop's calls."""
+    from repro_torch.solvers import precond
+
+    s, b = _spd_system()
+    ops_k = OperatorSet(s, C=8, sigma=32, device=cuda)
+    A = ops_k.matvec("fp32")
+    calls = {"A": 0}
+
+    def counted(v):
+        calls["A"] += 1
+        return A(v)
+
+    f = cg.pcg_fixed_iters(counted, precond.neumann_ainv(
+        ops_k.diag(), counted, device=cuda), 10)
+    r = torch.from_numpy(b).to(cuda)
+    with graphs.eager():
+        f(r)
+    eager = calls["A"]
+    calls["A"] = 0
+    with graphs.LEDGER.watch(lambda: calls):
+        net0 = graphs.LEDGER.net["A"]
+        for _ in range(4):
+            f(r)
+        (_, graph), = f.graphs.values()
+        ran = calls["A"] + graphs.LEDGER.net["A"] - net0
+    assert graph.replays == 3 and graph.calls["A"] == eager
+    assert ran == 4 * eager
