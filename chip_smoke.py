@@ -6,8 +6,11 @@ the fused-stream plan with Jacobi-PCG in stored-row order, a multi-RHS
 product and the SELL baseline; then the mixed-precision adaptive PCG over
 the e8m tier ladder (the bucket kernels, a float64 SELL outer operator),
 a multi-RHS product and a band-windowed plan; then the paper's solvers
-(IO-CG against fp64 PCG, F3R, the PackSELL triangular solve) -- times the
-kernels, and ends with one JSON line. Every solve runs as the port runs
+(IO-CG against fp64 PCG, F3R, the PackSELL triangular solve); then the
+composite (three row classes through K1, K4 and K2, the mixed: kind and
+the precision store) and the guards (guarded SpMV, every fault injector,
+the self-healing guarded_solve) -- times the kernels, and ends with one
+JSON line. Every solve runs as the port runs
 it, through CUDA-graph replays (``repro_torch.solvers.graphs``), and in
 turns with its eager loop (eager, captured, captured, eager), which it
 must equal bit for bit.
@@ -248,6 +251,36 @@ def profiled(fn):
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
     return start.elapsed_time(stop), kern
+
+
+def aten_ops(fn) -> list:
+    """The names of the aten ops one call of ``fn`` dispatches that compute
+    on the device: ops that return a tensor on the card, allocations and
+    views left out (host-side ops such as ``promote_types`` return none).
+    With the kernel wrappers' launches, they are the device operations the
+    call issues (counted on the host, whatever the profiler records)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    skip = ("empty", "empty_strided", "empty_like", "view", "reshape",
+            "_reshape_alias", "_unsafe_view", "as_strided", "slice", "select",
+            "expand", "alias", "detach", "t", "transpose", "unsqueeze",
+            "squeeze", "permute", "lift_fresh")
+    names = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name not in skip and any(
+                    torch.is_tensor(t) and t.is_cuda
+                    for t in tree_leaves(out)):
+                names.append(name)
+            return out
+
+    with Record():
+        fn()
+    return names
 
 
 @contextlib.contextmanager
@@ -750,8 +783,8 @@ class Smoke:
         if info_j.iters != info.iters:
             fail(f"plain solve took {info_j.iters} iterations, kernel "
                  f"{info.iters}")
-        return dict(a=s, mat=mat, plan=plan, sell=sell, launches=launches,
-                    iters=info.iters)
+        return dict(a=s, ops=ops_set, mat=mat, plan=plan, sell=sell,
+                    launches=launches, iters=info.iters)
 
     # -- phase 5: the mixed-precision path ----------------------------------
     def mixed_path(self, a_s):
@@ -1430,8 +1463,12 @@ class Smoke:
                              f"{dict(cops.calls)}, want {dict(py)} (L3 not "
                              f"replayed)")
 
+                # fp64 in two turns: the cut that makes room for phases
+                # 9 and 10 (its capture still holds the graphs to eager)
                 runs = self.in_turns(lambda: f3r.solve(cops, b, cfg),
-                                     f"F3R {name}", each, start, replays=1)
+                                     f"F3R {name}", each, start,
+                                     turns=TURNS[:2] if name == "fp64"
+                                     else TURNS, replays=1)
                 x, info = runs["eager"][:2]
                 rel = true_rel(x)
                 cycles[name], x3[name], f3r_walls[name] = info.iters, x, runs
@@ -1447,7 +1484,7 @@ class Smoke:
                       f"reads the host): Python calls of SpMVs in the "
                       f"capture run {self.seen[f'F3R {name} capture calls']}"
                       f", in the replay run "
-                      f"{self.seen[f'F3R {name} replay calls']}; captured "
+                      f"{self.seen.get(f'F3R {name} replay calls')}; captured "
                       f"run's launches {self.seen[f'F3R {name}'][1]}",
                       flush=True)
                 if not rel <= 5e-9:
@@ -1650,6 +1687,466 @@ class Smoke:
               f"{reorder.bandwidth(ar)} after ({time.perf_counter() - t0:.1f}"
               f" s on the host)", flush=True)
 
+    # -- phase 9: the composite ----------------------------------------------
+    def composite_path(self, a_s):
+        """``MixedPackSELL`` over a hand-made three-class split of ``a_s``
+        (its rows in contiguous thirds: fp16/D15 through K1, e8m/D8 through
+        K4, fp32 through K2): one matvec and one SpMM (nb = 8) against the plain
+        twin (every member's kernel's plain version, the same gather),
+        their launches and device ops, Jacobi-PCG on it through
+        ``cg.pcg``'s graphs in :data:`TURNS` and on the plain twin, and its
+        device time against its members' kernels and its byte bound. Then
+        the ``mixed:1e-3`` kind on a row-scaled scattered matrix through a
+        precision store: a miss, a hit, and retile winners under
+        ``@cuda``."""
+        import os
+        import tempfile
+
+        from repro_torch.core import testmats
+        from repro_torch.kernels import ref as kref
+        from repro_torch.precision import PrecisionClass, PrecisionPlan
+        from repro_torch.precision.mixed import MixedPackSELL
+        from repro_torch.precision.store import (PrecisionStore,
+                                                 matrix_fingerprint)
+        from repro_torch.solvers import cg
+        from repro_torch.solvers.operators import OperatorSet, row_scale
+
+        n = a_s.shape[0]
+        rows = np.arange(n)
+        t0 = time.perf_counter()
+        # by hand: the selector gives HPCG one class (e8m/D8 at 1e-3). In
+        # thirds, not by row % 3: a class of every third row has columns
+        # that run 3x faster than its rows, and at 104^3 its fused stream's
+        # offsets overflow every compact encoding, so fp16/D15 would run
+        # K4, not K1. The first third keeps the matrix's own band.
+        thirds = np.array_split(rows, 3)
+        pplan = PrecisionPlan(mode="rows", classes=tuple(
+            PrecisionClass(c, D, tuple(r.tolist())) for r, (c, D) in zip(
+                thirds, (("fp16", 15), ("e8m", 8), ("fp32", 0)))),
+            error_budget=1e-3, rationale={"classes": "thirds, by hand"})
+        mixed = MixedPackSELL(a_s, pplan, C=32, sigma=256, device=self.dev,
+                              force=["fused", "full", "auto"])
+        built = time.perf_counter() - t0
+        m16, m8, m32 = mixed.blocks
+        variants = [m16.plan.variant, m8.plan.variant, m32.fmt]
+        buckets = len(m32.mat.vals)
+        print(f"  three classes (contiguous thirds of the rows) of HPCG "
+              f"{self.main_side}^3 built in "
+              f"{built:.1f} s (host): {[b.label for b in mixed.blocks]}, "
+              f"plans {variants}, SELL buckets {buckets}; memory "
+              f"{mixed.memory_stats()['bytes_per_nnz']!r} B/nnz", flush=True)
+        if variants != ["fused", "full", "sell"]:
+            fail(f"composite member variants {variants}")
+        rng = np.random.default_rng(21)
+        x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+            self.dev)
+        X = torch.from_numpy(rng.standard_normal((n, 8)).astype(
+            np.float32)).to(self.dev)
+
+        self.zero_counts()
+        per = {"spmv": ({"K1": 1, "K4": 1, "K2": buckets}, lambda: mixed.spmv(x),
+                        lambda: kref.composite_plain(mixed.cplan, x)),
+               "spmm nb=8": ({"K3": 1, "K5": 1, "K2": 8 * buckets},
+                             lambda: mixed.spmm(X),
+                             lambda: kref.composite_plain(
+                                 mixed.cplan, X, multi_rhs=True))}
+        for what, (want, run, plain) in per.items():
+            before = self.counts()
+            out = run()
+            got = {k: v - before[k] for k, v in self.counts().items()
+                   if v != before[k]}
+            if got != want:
+                fail(f"composite {what} launched {got}, want {want}")
+            before = self.counts()
+            self.note("K1" if what == "spmv" else "K3",
+                      same_bits(out, plain(), f"composite {what} vs its "
+                                "plain twin"))
+            if self.counts() != before:
+                fail(f"the plain twin of the composite {what} launched a "
+                     "kernel")
+            print(f"  composite {what}: launches {got}, bit-equal to the "
+                  "plain twin (each member's kernel's plain version, the "
+                  "same gather)", flush=True)
+        with sync_debug("error"):
+            mixed.spmv(x)
+            mixed.spmm(X)
+        print("  composite spmv and spmm under set_sync_debug_mode('error'): "
+              "no host sync", flush=True)
+
+        # Jacobi-PCG on the composite, eager and through cg.pcg's graphs
+        b = torch.ones(n, dtype=torch.float64, device=self.dev)
+        dinv = 1.0 / torch.from_numpy(a_s.diagonal()).to(self.dev)
+        M = lambda r: r * dinv                              # noqa: E731
+        per_mv = {"K1": 1, "K4": 1, "K2": buckets}
+
+        def each(turn, xs, info, launched):
+            steps = info.iters if turn.startswith("eager") else \
+                chunk_steps(info.iters, cg.PCG_CHUNK)
+            want = {k: v * (steps + 1) for k, v in per_mv.items()}
+            got = {k: launched[k] for k in per_mv}
+            if got != want:
+                fail(f"composite Jacobi-PCG {turn}: launches {got}, want "
+                     f"{want}")
+
+        cache = {}
+        runs = self.in_turns(lambda: cg.pcg(
+            mixed.spmv, b, M=M, tol=1e-8, maxiter=500, jit_cache=cache,
+            jit_key="composite"), "composite Jacobi-PCG", each)
+        xk, info = runs["capture"][:2]
+        launches = self.counts()
+        (xp, info_p), plain_s = wall(lambda: cg.pcg(
+            lambda v: kref.composite_plain(mixed.cplan, v), b, M=M,
+            tol=1e-8, maxiter=500))
+        true_rel = float(np.linalg.norm(1.0 - a_s @ xk.cpu().numpy())
+                         / np.sqrt(n))
+        print(f"  Jacobi-PCG on the composite (tol 1e-8, maxiter 500): "
+              f"iterations {info.iters}, recurrence relres "
+              f"{float(info.relres)!r}, true relres vs s {true_rel!r} (the "
+              f"rows at three precisions make the operator slightly "
+              f"nonsymmetric: 1e-8 is reported, not required); walls "
+              f"{turn_walls(runs)}; plain twin {info_p.iters} iterations, "
+              f"relres {float(info_p.relres)!r}, wall {plain_s!r} s",
+              flush=True)
+        if (info_p.iters, float(info_p.relres)) != (info.iters,
+                                                    float(info.relres)):
+            fail("the composite's Jacobi-PCG and its plain twin's differ")
+        same_bits(xp, xk, "composite Jacobi-PCG vs its plain twin")
+        print(f"  launches in this run: {launches}", flush=True)
+
+        # its device time against its members' kernels and its bound
+        reps = self.reps
+        t_all = device_ms(lambda: mixed.spmv(x), reps)
+        w16, ck16 = m16.plan.fused
+        lay = m16.plan.fused_layout
+        kw16 = dict(codec_name="fp16", D=15, encoding=lay.encoding,
+                    scale=lay.scale)
+        p8 = m8.plan
+        parts = {
+            "K1": device_ms(lambda: self.k1(w16, ck16, x, **kw16), reps),
+            "K4": device_ms(lambda: self.k4(
+                m8.mat.packs, m8.mat.d0s, p8.kckpts, p8.ktable, x,
+                codec_name="e8m", D=8), reps),
+            "K2": device_ms(lambda: [self.k2(v, c, x) for v, c in zip(
+                m32.mat.vals, m32.mat.cols)], reps)}
+        ent32 = sum(v.numel() for v in m32.mat.vals)
+        words = w16.numel() + sum(p.numel() for p in m8.mat.packs)
+        nbytes = (4 * (w16.numel() + ck16.numel())
+                  + 4 * sum(p.numel() + d.numel() for p, d in
+                            zip(m8.mat.packs, m8.mat.d0s))
+                  + 8 * ent32 + 4 * n + 4 * n + 4 * n)
+        tb, by = bound_ms(nbytes, 2 * (words + ent32))
+        before = self.raw_counts()
+        ops_aten = aten_ops(lambda: mixed.spmv(x))
+        ours = {k: v - before[k] for k, v in self.raw_counts().items()
+                if v != before[k]}
+        n_ops = sum(ours.values()) + len(ops_aten)
+        _, kern = profiled(lambda: mixed.spmv(x))
+        print(f"  one composite matvec: {t_all!r} ms on the device (a CUDA "
+              f"graph of {reps} calls), its members' kernels alone "
+              f"{parts} (sum {sum(parts.values())!r} ms), bound "
+              f"{tb!r} ms by {by} ({nbytes} B: the members' operands, x, "
+              f"the inverse and y once); {t_all / tb!r} x the bound; on "
+              f"{card_line()}", flush=True)
+        print(f"  its device ops (one matvec, counted on the host): {n_ops}: "
+              f"the kernels {ours} and the aten ops {ops_aten}; "
+              f"torch.profiler saw {sum(c for _, c, _ in kern)} kernels "
+              f"{[(c, nm[:60]) for _, c, nm in kern]}", flush=True)
+
+        # the mixed: kind through a precision store, on a scattered matrix
+        t0 = time.perf_counter()
+        sc, _ = row_scale(testmats.scattered(1_048_576, nnz_per_row=17))
+        sc = sc.tocsr()
+        gen_s = time.perf_counter() - t0
+        x2 = torch.from_numpy(rng.standard_normal(sc.shape[1]).astype(
+            np.float32)).to(self.dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "store.json")
+            (p_miss, hit), miss_s = wall(lambda: PrecisionStore(
+                path).lookup_or_select(sc, 1e-3, mode="rows", sigma=256))
+            if hit:
+                fail("an empty store hit")
+            (p_hit, hit), hit_s = wall(lambda: PrecisionStore(
+                path).lookup_or_select(sc, 1e-3, mode="rows", sigma=256))
+            if not hit or p_hit.to_dict() != p_miss.to_dict():
+                fail("the store did not hit its own selection")
+            ops2 = OperatorSet(sc, C=32, sigma=256, device=self.dev,
+                               store=path)
+            mv, build_s = wall(lambda: ops2.matvec("mixed:1e-3"))
+            mix2 = ops2.stored("mixed:1e-3")
+            classes = [(c.codec, c.D, c.n_rows()) for c in p_hit.classes]
+            plans = [None if m.plan is None else m.plan.variant
+                     for m in mix2.blocks]
+            print(f"  mixed:1e-3 on row-scaled scattered(1048576, 17): "
+                  f"n={sc.shape[0]} nnz={sc.nnz} (generated in {gen_s:.1f} "
+                  f"s); classes {classes}, plans {plans}; store miss (the "
+                  f"selection) {miss_s!r} s, hit {hit_s!r} s, operator "
+                  f"built from the hit in {build_s!r} s (host)", flush=True)
+            y2 = mv(x2)
+            same_bits(y2, kref.composite_plain(mix2.cplan, x2),
+                      "mixed:1e-3 vs its plain twin")
+            # retile winners under @cuda, applied to one member's plan
+            i = next((i for i, m in enumerate(mix2.blocks)
+                      if m.plan is not None and m.plan.variant in
+                      ("full", "band")), 0)
+            mem = mix2.blocks[i]
+            tiles = [(4, 16)] * len(mem.plan.tiles)
+            if mem.plan.variant not in ("full", "band"):
+                wr = 16 if mem.plan.fused_layout.wr != 16 else 32
+                tiles = [(8, 32, wr)] * len(mem.plan.tiles)
+            fp = matrix_fingerprint(sc)
+            store = PrecisionStore(path)
+            store.put_retile(fp, f"mixed:1e-3/{i}", tiles,
+                             backend=mem.plan.device)
+            if not PrecisionStore(path).apply_retile(fp, f"mixed:1e-3/{i}",
+                                                     mem.plan):
+                fail("apply_retile did not apply the winners stored under "
+                     f"@{mem.plan.device.type}")
+            keys = sorted(PrecisionStore(path)._entries[fp]["retile"])
+            y3 = mv(x2)
+            same_bits(y3, kref.composite_plain(mix2.cplan, x2),
+                      "the retiled mixed:1e-3 vs its plain twin")
+            print(f"  retile under {keys}: member {i} ({mem.label}, "
+                  f"{mem.plan.variant}) now {mem.plan.tiles[0]}"
+                  f"{'' if mem.plan.fused_layout is None else ', wr ' + str(mem.plan.fused_layout.wr)}; "
+                  f"y bit-equal to its plain twin; |y - y_before| max "
+                  f"{max_abs(y3, y2)!r}", flush=True)
+        # the suite's scattered_like, where the selector splits the rows
+        sl_, _ = row_scale(testmats.suite("small")["scattered_like"])
+        ops3 = OperatorSet(sl_.tocsr(), C=32, sigma=256, device=self.dev)
+        mv3 = ops3.matvec("mixed:1e-3")
+        mix3 = ops3.stored("mixed:1e-3")
+        x3 = torch.from_numpy(rng.standard_normal(sl_.shape[1]).astype(
+            np.float32)).to(self.dev)
+        same_bits(mv3(x3), kref.composite_plain(mix3.cplan, x3),
+                  "mixed:1e-3 on scattered_like vs its plain twin")
+        print(f"  mixed:1e-3 on row-scaled scattered_like (n={sl_.shape[0]}): "
+              f"classes {[(b.label, len(b.rows)) for b in mix3.blocks]}, "
+              f"plans {[b.plan.variant for b in mix3.blocks]}; y bit-equal "
+              "to its plain twin", flush=True)
+        if len(mix3.blocks) < 2:
+            fail("mixed:1e-3 on scattered_like gave one class")
+        return dict(mixed=mixed, launches=launches, x=x)
+
+    # -- phase 10: the guards ------------------------------------------------
+    def guard_path(self, mp, mx, cp):
+        """The ABFT guard on ``plan_fp16`` (K1) and ``plan_e8m8`` (K4): its
+        build wall, full and light device time against ``plan.spmv``;
+        every ported injector over 5 seeds (the composite's on phase 9's
+        composite); an injection reaching a Jacobi-PCG graph captured
+        before it; ``guarded_solve`` clean and with a fault at outer step
+        2."""
+        from repro_torch.robust import guard as gd
+        from repro_torch.robust import inject
+        from repro_torch.robust import recover
+        from repro_torch.solvers import cg
+
+        s = mp["a"]
+        n = s.shape[0]
+        pairs = {"plan_fp16": (mp["mat"], mp["plan"]),
+                 "plan_e8m8": mx["ops"].plan_pair("plan_e8m8")}
+        rng = np.random.default_rng(23)
+        x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+            self.dev)
+        self.zero_counts()
+        guards, clean = {}, {}
+        for kind, (mat, plan) in pairs.items():
+            gs, build_s = wall(lambda: gd.build_guard(mat, plan))
+            guards[kind] = gs
+            y, ok, rel = gd.guarded_spmv(mat, plan, gs, x, full=True)
+            _, ok_l, _ = gd.guarded_spmv(mat, plan, gs, x, full=False)
+            if not (bool(ok) and bool(ok_l)):
+                fail(f"the guard tripped on a clean {kind} matvec")
+            same_bits(y, plan.spmv(mat, x), f"guarded {kind} y vs plan.spmv")
+            clean[kind] = y
+            print(f"  {kind} ({PLAN_KERNEL[plan.variant]}): build_guard "
+                  f"{build_s!r} s (host: column sums and the operand "
+                  f"checksum over {sum(t.numel() for t in gd.guard_arrays(mat, plan))} "
+                  f"words); clean calls pass, full and light; analytic "
+                  f"rel_err {float(rel)!r}", flush=True)
+
+        # every ported injector, 5 seeds each
+        fused, full = pairs["plan_fp16"], pairs["plan_e8m8"]
+        cases = [("flip_fused_word", fused, "plan_fp16"),
+                 ("corrupt_fused_checkpoint", fused, "plan_fp16"),
+                 ("corrupt_permutation", fused, "plan_fp16"),
+                 ("flip_pack_word", full, "plan_e8m8"),
+                 ("corrupt_permutation", full, "plan_e8m8")]
+        tally = {}
+        for name, (mat, plan), kind in cases:
+            gs = guards[kind]
+            t = tally[f"{name} on {kind}"] = collections.Counter()
+            for seed in range(5):
+                inj = getattr(inject, name)(mat, plan, seed)
+                y, ok, _ = gd.guarded_spmv(mat, plan, gs, x, full=True)
+                tripped = not bool(ok)
+                changed = not torch.equal(y, clean[kind])
+                t["neutral" if inj.value_neutral else "affecting"] += 1
+                t["tripped"] += tripped
+                t["y changed"] += changed
+                if not inj.value_neutral and not tripped:
+                    fail(f"{name} seed {seed} on {kind}: value-affecting "
+                         f"({inj.detail}) and the guard passed")
+                if inj.value_neutral and changed:
+                    fail(f"{name} seed {seed} on {kind}: value-neutral and y "
+                         "changed")
+                inj.undo()
+                y, ok, _ = gd.guarded_spmv(mat, plan, gs, x, full=True)
+                if not bool(ok):
+                    fail(f"{name} seed {seed}: the guard trips after undo()")
+                same_bits(y, clean[kind], f"{name} seed {seed}: y after "
+                          "undo()")
+        for kind, (mat, plan) in pairs.items():
+            t = tally[f"poison_x on {kind}"] = collections.Counter()
+            for seed in range(5):
+                for mode in ("nan", "inf"):
+                    xp, _ = inject.poison_x(x, seed, mode)
+                    t["affecting"] += 1
+                    for full_ in (True, False):
+                        _, ok, _ = gd.guarded_spmv(mat, plan, guards[kind],
+                                                   xp, full=full_)
+                        if bool(ok):
+                            fail(f"poison_x {mode} seed {seed}: the "
+                                 f"{'full' if full_ else 'light'} guard "
+                                 f"passed on {kind}")
+                    t["tripped"] += 1
+        mixed = cp["mixed"]
+        y0 = mixed.spmv(cp["x"])
+        for member in (0, 1):
+            mem = mixed.cplan.members[member]
+            ref = [int(v) for v in gd._checksum_torch(
+                gd.guard_arrays(mem.mat, mem.plan))]
+            t = tally[f"corrupt_composite_word, member {member} "
+                      f"({mem.label}, {mem.plan.variant})"] = \
+                collections.Counter()
+            for seed in range(5):
+                inj = inject.corrupt_composite_word(mixed.cplan, member, seed)
+                got = [int(v) for v in gd._checksum_torch(
+                    gd.guard_arrays(mem.mat, mem.plan))]
+                y = mixed.spmv(cp["x"])
+                t["neutral" if inj.value_neutral else "affecting"] += 1
+                t["tripped"] += got != ref
+                t["y changed"] += not torch.equal(y, y0)
+                if got == ref:
+                    fail(f"composite member {member} seed {seed}: the "
+                         "checksum missed the injection")
+                if inj.value_neutral and not torch.equal(y, y0):
+                    fail(f"composite member {member} seed {seed}: "
+                         "value-neutral and y changed")
+                inj.undo()
+                same_bits(mixed.spmv(cp["x"]), y0, f"composite member "
+                          f"{member} seed {seed}: y after undo()")
+        for what, t in tally.items():
+            print(f"  {what}: {dict(t)}", flush=True)
+        print("  (the exact operand checksum sees every operand change, "
+              "value-neutral ones included, as the reference's does; "
+              "value-neutral ones leave y bit-equal)", flush=True)
+
+        # an injection reaches a Jacobi-PCG graph captured before it
+        mat, plan = fused
+        diag = s.diagonal()
+        b = torch.ones(n, dtype=torch.float64, device=self.dev)
+        x_clean, i_clean = cg.jacobi_pcg_stored(mat, plan, diag, b, tol=1e-8,
+                                                maxiter=2000)
+        loop = next(v for ent in plan._fns.values() for v in ent[2].values()
+                    if (v.tol, v.maxiter) == (1e-8, 2000))
+        replays, captured = loop.graph.replays, loop.graph.graph
+        inj = next(i for i in (inject.flip_fused_word(mat, plan, sd, bit=27)
+                               for sd in range(100))
+                   if not i.value_neutral or i.undo())
+        x_bad, i_bad = cg.jacobi_pcg_stored(mat, plan, diag, b, tol=1e-8,
+                                            maxiter=2000)
+        inj.undo()
+        x_again, i_again = cg.jacobi_pcg_stored(mat, plan, diag, b, tol=1e-8,
+                                                maxiter=2000)
+        if loop.graph.graph is not captured or loop.graph.replays <= replays:
+            fail("the Jacobi-PCG graph was captured again")
+        if torch.equal(x_bad, x_clean):
+            fail("an in-place injection did not reach the captured graph")
+        same_bits(x_again, x_clean, "Jacobi-PCG replay after undo()")
+        print(f"  Jacobi-PCG graph captured in phase 4, replayed "
+              f"{loop.graph.replays - replays} times here: clean "
+              f"{i_clean.iters} iterations; with {inj.detail} in place "
+              f"{i_bad.iters} iterations, ||x - x_clean|| / ||x_clean|| "
+              f"{float(torch.linalg.vector_norm(x_bad - x_clean) / torch.linalg.vector_norm(x_clean))!r}; "
+              "after undo() the clean x bit for bit", flush=True)
+
+        # guarded_solve, clean and with a fault at outer step 2, on phase 5's
+        # operators (its e8m/D8 tier is the promotion's, already built)
+        ops4 = mx["ops"]
+        b_h = np.ones(n)
+
+        def true_rel(xs):
+            return float(np.linalg.norm(b_h - s @ xs) / np.linalg.norm(b_h))
+
+        # m_in 50, not the default 16: at 16 inner iterations each outer
+        # step cuts the true residual of this system by only about 0.74, so
+        # the default 60 steps end near 1e-8; at 50, about 14 steps reach
+        # 1e-9 (the history printed below shows the rate)
+        kw = dict(tol=1e-9, m_in=50)
+        (xs, info), clean_s = wall(lambda: recover.guarded_solve(
+            ops4, "guarded:plan_fp16", b_h, **kw))
+        rel = true_rel(xs)
+        rates = info.history[1:] / info.history[:-1]
+        print(f"  guarded_solve (b = ones, tol 1e-9, m_in 50) clean: "
+              f"{info.iters} outer steps, trips "
+              f"{info.trips}, final_kind {info.final_kind}, true relres "
+              f"{rel!r}, wall {clean_s!r} s; true relres per step "
+              f"{info.history.tolist()}, its ratio per step: median "
+              f"{float(np.median(rates))!r}", flush=True)
+        if info.trips or not rel <= 1e-9:
+            fail("the clean guarded_solve tripped or missed 1e-9")
+        fired = []
+
+        def sabotage(step, ctx):
+            if step == 2 and not fired:
+                flip = (inject.flip_fused_word if ctx["plan"].fused is not None
+                        else inject.flip_pack_word)
+                fired.append(next(
+                    i for i in (flip(ctx["mat"], ctx["plan"], sd, bit=27)
+                                for sd in range(100))
+                    if not i.value_neutral or i.undo()))
+
+        try:
+            (xs, info), fault_s = wall(lambda: recover.guarded_solve(
+                ops4, "guarded:plan_fp16", b_h, on_step=sabotage, **kw))
+        finally:
+            for i in fired:
+                i.undo()
+            for k in ("plan_fp16", "plan_e8m8"):
+                ops4.plan_pair(k)[1]._unhealthy = None
+        rel = true_rel(xs)
+        events = [(e["event"], e["action"]) for e in info.log]
+        print(f"  guarded_solve, {fired[0].detail} flipped in place at "
+              f"outer step 2: {info.iters} accepted steps, trips "
+              f"{info.trips}, final_kind {info.final_kind}, true relres "
+              f"{rel!r}, wall {fault_s!r} s; log {info.log}", flush=True)
+        if events != [("guard_trip", "retry"), ("guard_trip", "promote")]:
+            fail(f"guarded_solve's log {events}, want the reference policy's "
+                 "retry then promote")
+        if not rel <= 1e-9:
+            fail(f"guarded_solve after the fault: true relres {rel}")
+        launches = self.counts()
+        print(f"  launches in this run: {launches}", flush=True)
+
+        # the guard's cost per matvec, on the device
+        rows = {}
+        for kind, (mat, plan) in pairs.items():
+            gs, reps = guards[kind], self.reps
+            rows[kind] = {
+                "plan.spmv": device_ms(lambda: plan.spmv(mat, x), reps),
+                "guarded full": device_ms(lambda: gd.guarded_spmv(
+                    mat, plan, gs, x, full=True), reps),
+                "guarded light": device_ms(lambda: gd.guarded_spmv(
+                    mat, plan, gs, x, full=False), reps),
+                "checksum alone": device_ms(lambda: gd._checksum_torch(
+                    gd.guard_arrays(mat, plan)), reps)}
+            r = rows[kind]
+            print(f"  {kind}: device ms per call {r}; full guard "
+                  f"{r['guarded full'] / r['plan.spmv']!r} x the matvec, "
+                  f"light {r['guarded light'] / r['plan.spmv']!r} x; on "
+                  f"{card_line()}", flush=True)
+        return dict(launches=launches, rows=rows)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1710,6 +2207,13 @@ def main() -> int:
                    "fixed-iteration solvers without host syncs, the "
                    "PackSELL triangular solve",
                    lambda: smoke.solvers_path(mp["a"], mx["ops"]))
+        cp = phase(9, "the composite, HPCG 104^3: three row classes through "
+                   "K1, K4 and K2, Jacobi-PCG through CUDA graphs; the "
+                   "mixed: kind and the precision store",
+                   lambda: smoke.composite_path(mp["a"]))
+        gp = phase(10, "the guards, HPCG 104^3: guarded SpMV, every "
+                   "injector, an injection into a captured graph, "
+                   "guarded_solve", lambda: smoke.guard_path(mp, mx, cp))
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -1729,8 +2233,8 @@ def main() -> int:
                    "src/repro/kernels/sell_spmv.py:47"),
     }
     # each path ran with the counts set to 0 just before it
-    launches = {k: sum(run.get(k, 0) for run in (mp["launches"],
-                                                 mx["launches"], sv))
+    launches = {k: sum(run.get(k, 0) for run in (
+        mp["launches"], mx["launches"], sv, cp["launches"], gp["launches"]))
                 for k in meta}
     kernels = []
     for k, (kname, source, replaces) in meta.items():
@@ -1742,8 +2246,8 @@ def main() -> int:
                         "plain_ms": tp, "bound_ms": tb, "bound_by": by,
                         "library_ms": tl, "eager_ms": te,
                         "checked_cases": smoke.cases[k]})
-    print(f"== 9. done in {time.perf_counter() - t_start:.1f} s (phases "
-          f"3-8: {phase_s})", flush=True)
+    print(f"== 11. done in {time.perf_counter() - t_start:.1f} s (phases "
+          f"3-10: {phase_s})", flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -98,6 +98,15 @@ class PackSELLMatrix:
             words_bucketed=self.words_bucketed,
         )
 
+    def validate(self, *, raise_: bool = True) -> list:
+        """Structural integrity check (``robust.guard.validate_matrix``):
+        offset/outrow lengths and ranges, finite packed values, decoded
+        column bounds, outrow bijectivity. Returns the list of problem
+        strings (empty when clean); raises ``IntegrityError`` instead when
+        ``raise_`` is set."""
+        from ..robust import guard as _guard
+        return _guard.validate_matrix(self, raise_=raise_)
+
 
 # ---------------------------------------------------------------------------
 # Plain SpMV / SpMM bodies (scan decode)
@@ -328,6 +337,21 @@ def from_arrays(leaves, meta: dict, *, device=None) -> PackSELLMatrix:
         maxcols=tuple(i32(mc) for mc in maxcols),
         perm=torch.from_numpy(np.array(perm)).to(dev),
         **{k: meta[k] for k in PackSELLMatrix.STATIC})
+
+
+def from_dense(a: np.ndarray, **kw) -> PackSELLMatrix:
+    """A PackSELL matrix from a dense 2-D array (its nonzeros), with the
+    words of :func:`from_csr`."""
+    a = np.asarray(a)
+    if a.ndim != 2:
+        raise ValueError(f"from_dense: expected a 2-D array, got shape "
+                         f"{a.shape}")
+    if not np.all(np.isfinite(a)):
+        bad = int(np.count_nonzero(~np.isfinite(a)))
+        raise ValueError(
+            f"from_dense: input has {bad} non-finite (NaN/Inf) values; "
+            "packed codecs cannot represent them")
+    return from_csr(sp.csr_matrix(a), **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -183,6 +183,11 @@ def from_csr(a: sp.csr_matrix, *, C: int = 128, sigma: int = 256,
     )
 
 
+def from_dense(a: np.ndarray, **kw) -> SELLMatrix:
+    """A SELL matrix from a dense 2-D array (its nonzeros)."""
+    return from_csr(sp.csr_matrix(np.asarray(a)), **kw)
+
+
 def from_arrays(leaves, meta: dict, *, device=None) -> SELLMatrix:
     """A SELL matrix from host arrays: ``leaves = (vals, cols, outrows,
     perm)`` as numpy and ``meta`` the static fields by name: the leaves of

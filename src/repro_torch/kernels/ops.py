@@ -7,8 +7,13 @@ fused-stream kernel (K1), the band kernel (K6) or the per-bucket kernel
 (``auto|fused|full|band|jnp``), ``sb``/``wb``/``hw`` are the per-bucket
 kernels' tiles and band half-window, and ``permuted=True`` returns y in
 stored-row order.
+
+``REPRO_DEBUG_FINITE=1`` makes :func:`packsell_spmv` reject NaN/Inf in x
+before it enters the kernels (:func:`_debug_check_finite`).
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -18,11 +23,29 @@ from . import plan as _plan
 from . import sell_spmv as _sk
 
 
+def _debug_check_finite(x: torch.Tensor) -> None:
+    """Opt-in input screen (``REPRO_DEBUG_FINITE=1``): reject NaN/Inf in x
+    BEFORE it enters the packed kernels, where a poisoned entry smears
+    into every output row touching its column. It reads the device from
+    the host, so it is skipped while a CUDA graph is being captured (there
+    the guard layer owns detection)."""
+    if os.environ.get("REPRO_DEBUG_FINITE", "0") != "1":
+        return
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    bad = int((~torch.isfinite(x)).sum())
+    if bad:
+        raise FloatingPointError(
+            f"packsell_spmv: input x has {bad} non-finite (NaN/Inf) "
+            "entries (REPRO_DEBUG_FINITE=1)")
+
+
 def packsell_spmv(mat: PackSELLMatrix, x: torch.Tensor, *, sb: int = 8,
                   wb: int = 32, hw: int = _plan._DEF_HW, force: str = "auto",
                   decode_cache: str = "checkpoint",
                   permuted: bool = False) -> torch.Tensor:
     """y = A @ x via the plan engine."""
+    _debug_check_finite(x)
     plan = _plan.get_plan(mat, sb=sb, wb=wb, hw=hw, force=force,
                           decode_cache=decode_cache)
     return plan.spmv(mat, x, permuted=permuted)

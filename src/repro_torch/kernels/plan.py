@@ -53,6 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import _generations
 from ..core import codecs as cd
 from ..core import packsell as pk
 from ..core.packsell import PackSELLMatrix
@@ -540,6 +541,17 @@ class SpMVPlan:
     #: the solvers' cached graphs on this plan (``cg.jacobi_pcg_stored``)
     _fns: dict = dataclasses.field(default_factory=dict, repr=False,
                                    compare=False)
+    #: the matrix the plan was built for (weakly: the cache holds the plan)
+    _matref: Optional[weakref.ref] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    #: why a guard tripped on this plan, or None while it is healthy
+    #: (``robust.guard.mark_unhealthy``)
+    _unhealthy: Optional[str] = dataclasses.field(default=None, repr=False,
+                                                  compare=False)
+    #: raised by each :meth:`retile`: a graph captured over the plan's
+    #: earlier buffers captures again (``repro_torch._generations``)
+    generation: int = dataclasses.field(default=0, repr=False,
+                                        compare=False)
 
     # -- σ-permutation helpers (stored-row order <-> original order) -------
     def from_stored(self, t: torch.Tensor) -> torch.Tensor:
@@ -564,6 +576,7 @@ class SpMVPlan:
                      multi_rhs: bool = False) -> torch.Tensor:
         """Run the plan's execution body on the given operands (``dev`` as
         :meth:`device_operands` returns it)."""
+        _generations.read(self)
         xc = x.to(torch.float32).contiguous()
         fused = dev.get("fused")
         if fused is not None:
@@ -634,6 +647,25 @@ class SpMVPlan:
         return self.execute_with(mat, self.device_operands(), x,
                                  permuted=permuted, multi_rhs=True)
 
+    def as_composite(self, mat: PackSELLMatrix):
+        """This plan as the single-member case of the block-composition
+        engine (:class:`~repro_torch.kernels.composite.CompositePlan`)."""
+        from . import composite
+        return composite.CompositePlan.single(mat, self)
+
+    def validate(self, mat: PackSELLMatrix | None = None, *,
+                 raise_: bool = True) -> list:
+        """Full structural validation of the plan's derived operands
+        (``robust.guard.validate_plan``): the issue list (``raise_=False``)
+        or ``IntegrityError``."""
+        from ..robust import guard as _guard
+
+        if mat is None:
+            mat = self._matref() if self._matref is not None else None
+        if mat is None:
+            raise ValueError("cannot validate: matrix is gone; pass mat=")
+        return _guard.validate_plan(mat, self, raise_=raise_)
+
     def describe(self) -> dict:
         return {"variant": self.variant, "policy": self.policy,
                 "tiles": [list(t) for t in self.tiles], "hw": self.hw,
@@ -646,6 +678,82 @@ class SpMVPlan:
                              else self.fused_layout.encoding),
                 "ckpt_width": (None if self.fused_layout is None
                                else self.fused_layout.wr)}
+
+    # -- autotune hook -----------------------------------------------------
+    def retile(self, tiles) -> None:
+        """Install per-bucket ``(sb, wb)`` (or ``(sb, wb, wr)``) winners:
+        the band windows and width-block checkpoints are recomputed for
+        the new tiles, and a third element pins the fused stream's
+        checkpoint width ``wr`` (plan-global: all triples must agree),
+        rebuilding the stream and both σ-permutation maps when it changes.
+
+        The bucket kernels' table is rebuilt over the new checkpoints and
+        windows. The plan's own graphs (``_fns``) are dropped, and its
+        :attr:`generation` goes up, so every graph that
+        ``solvers.graphs`` captured over the old buffers elsewhere (a
+        caller's ``jit_cache``, ``OperatorSet.graphs``) captures again at
+        its next call instead of replaying: the old buffers are freed. A
+        graph captured by other means must be captured again by its
+        owner."""
+        tiles = tuple(tuple(int(v) for v in t) for t in tiles)
+        if len(tiles) != len(self.tiles):
+            raise ValueError(f"need {len(self.tiles)} (sb, wb[, wr]) "
+                             "tuples")
+        if any(len(t) not in (2, 3) for t in tiles):
+            raise ValueError("tiles must be (sb, wb) or (sb, wb, wr)")
+        wrs = {t[2] for t in tiles if len(t) == 3}
+        if len(wrs) > 1:
+            raise ValueError("the fused checkpoint width wr is plan-"
+                             f"global; got conflicting values {sorted(wrs)}")
+        new_wr = wrs.pop() if wrs else None
+        tiles = tuple(t[:2] for t in tiles)
+        mat = self._matref() if self._matref is not None else None
+        # before any buffer is replaced, so that a retile that raises half
+        # way leaves no graph over the buffers it did replace
+        self._fns.clear()
+        self.generation += 1
+        if self.variant == "band":
+            if mat is None:
+                raise ValueError("cannot retile a band plan: matrix is gone")
+            wins = []
+            for (sb, _), d0, maxcol in zip(tiles, mat.d0s, mat.maxcols):
+                win = bucket_band_windows(d0.cpu().numpy(),
+                                          maxcol.cpu().numpy(), sb, self.hw)
+                if win is None:
+                    raise ValueError(
+                        f"band kernel infeasible at sb={sb}, hw={self.hw}")
+                wins.append(torch.from_numpy(win).to(self.device))
+            self.wins = tuple(wins)
+        if self.kckpts is not None:
+            if mat is None:
+                raise ValueError("cannot retile checkpoints: matrix is gone")
+            self.kckpts = _build_block_checkpoints(mat, tiles)
+        if self.ktable is not None:
+            if mat is None:
+                raise ValueError("cannot retile the bucket table: matrix is "
+                                 "gone")
+            self.ktable = _pk.bucket_table(
+                mat.packs, mat.d0s, self.kckpts, [wb for _, wb in tiles],
+                wins=self.wins, sbs=[sb for sb, _ in tiles])
+        if (new_wr is not None and self.fused is not None
+                and self.fused_layout is not None
+                and new_wr != self.fused_layout.wr):
+            if mat is None:
+                raise ValueError(
+                    "cannot re-width the fused stream: matrix is gone")
+            fused, layout, orders = _build_fused_stream(
+                mat, trim=self.fused_trim, wr=new_wr)
+            if fused is None:
+                raise ValueError(
+                    f"wr={new_wr}: fused stream infeasible (group column "
+                    "span overflows every compact offset encoding)")
+            self.fused, self.fused_layout = fused, layout
+            # the slice sort depends on runs-per-slice = f(wr): re-bake the
+            # stored order and both inverse-permutation forms
+            self.outrow_cat, self.inv_cat, self.inv2_cat = _stored_maps(
+                mat, orders, True)
+            _quick_validate(self)
+        self.tiles = tiles
 
     def decode_cache_stats(self) -> dict:
         """Decode-cache device memory, priced against the full cursor
@@ -738,22 +846,7 @@ def build_plan(mat: PackSELLMatrix, *, sb: int = 8, wb: int = 32,
                            "span overflow), fell back to full cursor cache")
         if mode == "full":
             cols = _build_cursor_cache(mat)
-    if orders is not None:
-        # bake the fused layout's per-bucket slice sort into the stored order
-        outs = [o.cpu().numpy().reshape(len(ordr), -1)[ordr].reshape(-1)
-                for o, ordr in zip(mat.outrows, orders)]
-    else:
-        outs = [o.cpu().numpy().reshape(-1) for o in mat.outrows]
-    outrow_cat = torch.from_numpy(
-        np.concatenate(outs) if outs else np.zeros((0,), np.int32)
-    ).to(mat.device)
-    inv = _build_inverse_perm(mat, outrow_cat)
-    inv2 = None
-    if fused is not None:
-        inv_np = inv.cpu().numpy()
-        inv2 = torch.from_numpy(np.stack(
-            [inv_np // mat.C, inv_np % mat.C], axis=1).astype(np.int32)
-        ).to(mat.device)
+    outrow_cat, inv, inv2 = _stored_maps(mat, orders, fused is not None)
     plan = SpMVPlan(
         variant=variant, policy=f"{variant} ({reason})",
         outrow_cat=outrow_cat, n=mat.n, m=mat.m,
@@ -763,9 +856,33 @@ def build_plan(mat: PackSELLMatrix, *, sb: int = 8, wb: int = 32,
         cache_mode=mode, fused=fused, fused_layout=layout,
         total_words=sum(int(np.prod(p.shape)) for p in mat.packs),
         fused_trim=fused_trim, hw=hw, tiles=tiles,
-        wins=dev_wins, kckpts=kckpts, ktable=ktable)
+        wins=dev_wins, kckpts=kckpts, ktable=ktable,
+        _matref=weakref.ref(mat))
     _quick_validate(plan)
     return plan
+
+
+def _stored_maps(mat: PackSELLMatrix, orders, with_inv2: bool):
+    """``(outrow_cat, inv_cat, inv2_cat)``: the stored order, with the
+    fused layout's per-bucket slice sort ``orders`` baked in (None: the
+    buckets' own order), its inverse, and (``with_inv2``) the inverse's
+    (slice, lane) form."""
+    if orders is not None:
+        outs = [o.cpu().numpy().reshape(len(ordr), -1)[ordr].reshape(-1)
+                for o, ordr in zip(mat.outrows, orders)]
+    else:
+        outs = [o.cpu().numpy().reshape(-1) for o in mat.outrows]
+    outrow_cat = torch.from_numpy(
+        np.concatenate(outs) if outs else np.zeros((0,), np.int32)
+    ).to(mat.device)
+    inv = _build_inverse_perm(mat, outrow_cat)
+    inv2 = None
+    if with_inv2:
+        inv_np = inv.cpu().numpy()
+        inv2 = torch.from_numpy(np.stack(
+            [inv_np // mat.C, inv_np % mat.C], axis=1).astype(np.int32)
+        ).to(mat.device)
+    return outrow_cat, inv, inv2
 
 
 def _quick_validate(plan: SpMVPlan) -> None:

@@ -38,6 +38,10 @@ free it at any moment, another capture included: an object that owns
 its graphs hands them its methods through :func:`method`, and the
 collector is off while a graph is captured.
 
+A graph captured over buffers that their owner has replaced since (a
+plan's ``retile``: :mod:`repro_torch._generations`) is captured again at
+its next call instead of replayed.
+
 A replay makes no Python call, so counters of calls (the kernel
 wrappers' launches, a test's matvec counts) see only the warm-up and the
 capture. :data:`LEDGER` keeps the difference: each capture records the
@@ -54,6 +58,8 @@ import weakref
 from typing import Callable, Mapping
 
 import torch
+
+from .. import _generations
 
 
 class Ledger:
@@ -177,6 +183,7 @@ class Graph:
         self._single = False
         self.calls = collections.Counter()  # watched calls per replay
         self.replays = 0
+        self.reads: dict = {}    # the buffer owners the capture read
 
     def _run(self):
         """One run of the body: the warm-up, the capture, or a CPU run."""
@@ -197,7 +204,8 @@ class Graph:
             return self.body()
         if self.device.type != "cuda":
             return self._cpu_call()
-        if self.graph is None:
+        if self.graph is None or _generations.stale(self.reads):
+            self.graph = None
             return self._warm_up_and_capture()
         self.graph.replay()
         self.replays += 1
@@ -230,7 +238,8 @@ class Graph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.device(self.device), torch.cuda.stream(side):
+            with torch.cuda.device(self.device), torch.cuda.stream(side), \
+                    _generations.recording() as reads:
                 graph.capture_begin(pool=self.pool.handle())
                 try:
                     for o, r in zip(self.out, _flat(self._run())):
@@ -246,7 +255,7 @@ class Graph:
         cur.wait_stream(side)
         self.calls = LEDGER.snapshot() - before
         LEDGER.net.subtract(self.calls)
-        self.graph = graph
+        self.graph, self.reads = graph, reads
         return res
 
 

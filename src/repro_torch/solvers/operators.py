@@ -3,13 +3,17 @@
 ``OperatorSet`` builds the requested variants of one matrix once, on one
 device, and hands out matvec callables. The port carries the dense SELL
 kinds (``fp64`` with a float64 sum, ``fp32``, ``fp16``, ``bf16``; kernel
-K2), the ``packsell_<codec>`` kinds (the reference's per-call scan body
-on the CPU, the matrix's plan kernels on the card), the ``plan_<codec>``
-kinds (the cached plan engine) with ``plan_pair`` for
-``cg.jacobi_pcg_stored``, the budget-driven ``auto:`` kind, and the
+K2), ``csr64`` (float64 CSR: cuSPARSE on the card), the
+``packsell_<codec>`` kinds (the reference's per-call scan body on the CPU,
+the matrix's plan kernels on the card), the ``plan_<codec>`` kinds (the
+cached plan engine) with ``plan_pair`` for ``cg.jacobi_pcg_stored``, their
+``guarded:plan_<codec>`` form (the ABFT guard on every call outside a
+graph capture), the budget-driven ``auto:`` and ``mixed:`` kinds (one
+codec, or a ``MixedPackSELL`` composite of row classes), and the
 ``cg.adaptive_pcg`` inputs (:meth:`OperatorSet.precision_plan`,
-:meth:`OperatorSet.adaptive_tiers`). The other kind families of the
-reference parse but raise ``NotImplementedError`` naming the ROADMAP item
+:meth:`OperatorSet.adaptive_tiers`), with an optional
+:class:`~repro_torch.precision.store.PrecisionStore`. The distributed
+families parse but raise ``NotImplementedError`` naming the ROADMAP item
 that ports them.
 """
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from .. import _device
 from ..core import packsell as pk
 from ..core import sell as sl
+from ..core import sparse as sps
 from ..kernels import ops as kops
 from ..kernels import plan as kplan
 from ..precision import select as psel
@@ -65,12 +70,9 @@ KIND_MENU = (
 
 #: where each family not ported yet is tracked
 _NOT_PORTED = {
-    "csr64": "ROADMAP.md queue 1, M4 (CSR operator kind)",
     "dist": "ROADMAP.md queue 1, M9 (distribution)",
-    "mixed": "ROADMAP.md queue 1, M5 (MixedPackSELL and the composite)",
-    "dist_auto": "ROADMAP.md queue 1, M5 and M9",
-    "dist_mixed": "ROADMAP.md queue 1, M5 and M9",
-    "guarded": "ROADMAP.md queue 1, M6 (guards)",
+    "dist_auto": "ROADMAP.md queue 1, M9 (distribution)",
+    "dist_mixed": "ROADMAP.md queue 1, M9 (distribution)",
 }
 
 
@@ -150,22 +152,22 @@ def parse_kind(kind: str) -> KindSpec:
         f"unknown operator kind {kind!r}; valid kinds: {KIND_MENU}")
 
 
-_STORE = "ROADMAP.md queue 1, M5 (PrecisionStore)"
-
-
 @dataclasses.dataclass
 class OperatorSet:
     """The operator variants of one (scaled) matrix, built lazily on
     ``device`` (``None`` means the GPU). ``force`` is the plan variant of
-    every ``plan_<codec>`` and ``packsell_<codec>`` kind
+    every ``plan_<codec>``, ``packsell_<codec>`` and ``mixed:`` kind
     (``kernels.plan.build_plan``); ``"jnp"`` also gives the dense kinds
-    the plain SELL body instead of K2."""
+    the plain SELL body instead of K2. ``store`` — an optional
+    :class:`~repro_torch.precision.store.PrecisionStore` (or a path to
+    one) that every budget-driven kind consults."""
 
     csr: sp.csr_matrix
     C: int = 32
     sigma: int = 256
     device: object = None
     force: str = "auto"
+    store: object = None
     _cache: dict = dataclasses.field(default_factory=dict)
     #: the solvers' graphs and static buffers (``iocg``, ``f3r``), kept
     #: per solver, kinds, inner iterations and shape
@@ -191,15 +193,25 @@ class OperatorSet:
     def precision_plan(self, error_budget: float, *, mode: str = "global",
                        store=None, **select_kw):
         """Budget → :class:`~repro_torch.precision.select.PrecisionPlan`
-        for this matrix (cached per budget, mode and selection
-        arguments)."""
-        if store is not None:
-            raise NotImplementedError(f"store= is not ported yet: {_STORE}")
-        key = ("pplan", error_budget, mode, tuple(sorted(select_kw.items())))
+        for this matrix (cached per budget, mode, store and selection
+        arguments). ``store`` (or the set's own) skips the analysis when
+        the matrix's fingerprint hits."""
+        from ..precision.store import PrecisionStore
+
+        store = store if store is not None else self.store
+        key = ("pplan", error_budget, mode,
+               None if store is None else getattr(store, "path", store),
+               tuple(sorted(select_kw.items())))
         if key not in self._cache:
-            self._cache[key] = psel.select_codec(
-                self.csr, error_budget, mode=mode, sigma=self.sigma,
-                **select_kw)
+            if store is not None:
+                self._cache[key], _ = PrecisionStore.coerce(
+                    store).lookup_or_select(self.csr, error_budget,
+                                            mode=mode, sigma=self.sigma,
+                                            **select_kw)
+            else:
+                self._cache[key] = psel.select_codec(
+                    self.csr, error_budget, mode=mode, sigma=self.sigma,
+                    **select_kw)
         return self._cache[key]
 
     def adaptive_tiers(self, error_budget: float, *, store=None,
@@ -214,16 +226,26 @@ class OperatorSet:
 
     def matvec(self, kind: str) -> Matvec:
         """The matvec of a dense SELL kind (K2; ``fp64`` sums in float64),
-        a ``packsell_<codec>`` kind, a ``plan_<codec>`` kind (the
-        matrix's cached SpMVPlan) or an ``auto:<budget>`` kind (the
-        selected codec's ``plan_`` kind, or ``fp32``).
+        ``csr64``, a ``packsell_<codec>`` kind, a ``plan_<codec>`` kind
+        (the matrix's cached SpMVPlan), its ``guarded:`` form, an
+        ``auto:<budget>`` kind (the selected codec's ``plan_`` kind, or
+        ``fp32``) or a ``mixed:<budget>`` kind (a ``MixedPackSELL`` of the
+        per-row-class selection).
 
         ``packsell_<codec>`` is the reference's per-call path
         (``kernels.ops.packsell_spmv_percall``): on the CPU with
         ``force="auto"`` the scan body, so CPU results equal the
         reference's bit for bit; on the card the plan's kernel (K1, K4 or
         K6 by ``plan.choose_variant``), or with ``force="jnp"`` the plan's
-        plain body."""
+        plain body.
+
+        ``guarded:plan_<codec>`` runs ``robust.guard.guarded_spmv`` and
+        reads its ``ok`` on the host, counting trips in ``fn.trips()`` and
+        marking a tripped plan unhealthy; ``fn.guard`` and ``fn.pair`` are
+        the guard state and ``(mat, plan)``. While the current CUDA stream
+        is capturing a graph it runs ``plan.spmv`` unguarded: reading
+        ``ok`` would be a host sync inside the capture (the reference
+        passes tracers through unguarded the same way)."""
         if kind in self._cache:
             return self._cache[kind][0]
         spec = parse_kind(kind)
@@ -246,16 +268,48 @@ class OperatorSet:
                               codec=spec.codec, device=self.device)
             p = kplan.get_plan(mat, force=self.force)
             fn = lambda x, mat=mat, p=p: p.spmv(mat, x)  # noqa: E731
+        elif spec.family == "csr64":
+            mat = sps.csr_from_scipy(self.csr, "float64", device=self.device)
+            fn = functools.partial(mat.spmv, compute_dtype=torch.float64)
+        elif spec.family == "guarded":
+            fn, mat = self._guarded(spec)
         elif spec.family == "auto":
             sub = psel.operator_kind(self.precision_plan(spec.budget).primary)
             fn = self.matvec(sub)
             mat = self._cache[sub][1]
+        elif spec.family == "mixed":
+            from ..precision.mixed import MixedPackSELL
+            mat = MixedPackSELL(self.csr, self.precision_plan(
+                spec.budget, mode="rows"), C=self.C, sigma=self.sigma,
+                device=self.device, force=self.force)
+            fn = mat.spmv
         else:
             raise NotImplementedError(
                 f"operator kind {kind!r} (family {spec.family!r}) is not "
                 f"ported yet: {_NOT_PORTED[spec.family]}")
         self._cache[kind] = (fn, mat)
         return fn
+
+    def _guarded(self, spec: KindSpec):
+        from ..robust import guard as gd
+
+        mat, p = self.plan_pair(spec.inner.raw)
+        gs = gd.build_guard(mat, p)
+        state = {"trips": 0}
+
+        def fn(x, mat=mat, p=p, gs=gs, state=state):
+            if x.is_cuda and torch.cuda.is_current_stream_capturing():
+                return p.spmv(mat, x)
+            y, ok, _ = gd.guarded_spmv(mat, p, gs, x)
+            if not bool(ok):
+                state["trips"] += 1
+                gd.mark_unhealthy(p, "guard_trip")
+            return y
+
+        fn.guard = gs
+        fn.pair = (mat, p)
+        fn.trips = lambda state=state: state["trips"]
+        return fn, mat
 
     def stored(self, kind: str):
         """The underlying format object (for memory stats)."""

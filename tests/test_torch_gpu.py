@@ -31,6 +31,7 @@ from repro_torch.core import testmats
 from repro_torch.kernels import ops
 from repro_torch.kernels import packsell_spmv as kpk
 from repro_torch.kernels import plan as kplan
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels import sell_spmv as ksl
 from repro_torch.precision import select as psel
 from repro_torch.solvers import cg, graphs
@@ -705,3 +706,238 @@ def test_graph_calls_times_replays_equal_eager_matvecs(cuda):
         ran = calls["A"] + graphs.LEDGER.net["A"] - net0
     assert graph.replays == 3 and graph.calls["A"] == eager
     assert ran == 4 * eager
+
+
+# ---------------------------------------------------------------------------
+# the composite and the guards on the card
+# ---------------------------------------------------------------------------
+
+
+def _three_class_composite(s, dev):
+    from repro_torch.kernels import composite
+
+    rows = np.arange(s.shape[0])
+    return composite.CompositePlan.from_classes(
+        s, [("fp16", 15, rows[rows % 4 == 0]), ("e8m", 8, rows[rows % 4 == 1]),
+            ("fp32", 0, rows[rows % 4 == 2]), ("fp64", 0, rows[rows % 4 == 3])],
+        C=8, sigma=32, device=dev, force=["fused", "full", "auto", "auto"])
+
+
+def test_composite_bit_equal_plain_one_launch_each_and_sync_free(cuda):
+    s, b = _spd_system()
+    cp = _three_class_composite(s, cuda)
+    assert [m.plan.variant for m in cp.members[:2]] == ["fused", "full"]
+    x = torch.from_numpy(b.astype(np.float32)).to(cuda)
+    X = torch.stack([x, 2 * x, -x, x * x, x, x, x, 3 * x], dim=1)
+    cp.warmup(nb=8)
+    before = {k: f.launches for k, f in (
+        ("K1", kpk.packsell_spmv_fused), ("K4", kpk.packsell_spmv_buckets),
+        ("K3", kpk.packsell_spmm_fused), ("K5", kpk.packsell_spmm_buckets))}
+    with _NoSync():
+        y = cp.spmv(x)
+        Y = cp.spmm(X)
+    assert kpk.packsell_spmv_fused.launches - before["K1"] == 1
+    assert kpk.packsell_spmv_buckets.launches - before["K4"] == 1
+    assert kpk.packsell_spmm_fused.launches - before["K3"] == 1
+    assert kpk.packsell_spmm_buckets.launches - before["K5"] == 1
+    _same_bits(y, kref.composite_plain(cp, x))
+    _same_bits(Y, kref.composite_plain(cp, X, multi_rhs=True))
+    for j in range(8):
+        _same_bits(Y[:, j], cp.spmv(X[:, j].contiguous()))
+
+
+def test_composite_jacobi_pcg_captured_equals_eager(cuda):
+    s, b = _spd_system()
+    cp = _three_class_composite(s, cuda)
+    bd = torch.from_numpy(b).to(cuda)
+    dinv = 1.0 / torch.from_numpy(s.diagonal()).to(cuda)
+    M = lambda r: r * dinv                                    # noqa: E731
+    with graphs.eager():
+        xe, ie = cg.pcg(cp.spmv, bd, M=M, tol=1e-8, maxiter=500)
+    cache = {}
+    for _ in range(2):                      # the capture, then replays
+        xg, ig = cg.pcg(cp.spmv, bd, M=M, tol=1e-8, maxiter=500,
+                        jit_cache=cache, jit_key="composite")
+        assert ig.iters == ie.iters
+        _same_bits(xg, xe)
+
+
+def test_guarded_kind_under_capture_runs_unguarded(cuda):
+    from repro_torch.solvers.operators import OperatorSet as Ops
+
+    s, b = _spd_system()
+    ops_k = Ops(s, C=8, sigma=32, device=cuda)
+    fn, plain = ops_k.matvec("guarded:plan_fp16"), ops_k.matvec("plan_fp16")
+    bd = torch.from_numpy(b).to(cuda)
+    dinv = 1.0 / torch.from_numpy(s.diagonal()).to(cuda)
+    M = lambda r: r * dinv                                    # noqa: E731
+    xp, ip = cg.pcg(plain, bd, M=M, tol=1e-8, maxiter=500, jit_cache={},
+                    jit_key="plain")
+    cache = {}
+    xg, ig = cg.pcg(fn, bd, M=M, tol=1e-8, maxiter=500, jit_cache=cache,
+                    jit_key="guarded")
+    calls = fn.guard.calls          # the eager first residual and warm-ups
+    xg2, ig2 = cg.pcg(fn, bd, M=M, tol=1e-8, maxiter=500, jit_cache=cache,
+                      jit_key="guarded")
+    assert ig.iters == ig2.iters == ip.iters
+    _same_bits(xg, xp)
+    _same_bits(xg2, xp)
+    assert fn.guard.calls == calls + 1      # the replays ran no guard
+    assert fn.trips() == 0
+
+
+def test_in_place_injection_reaches_a_captured_graph(cuda):
+    from repro_torch.robust import inject
+
+    s, b = _spd_system()
+    mat = pk.from_csr(s, C=8, sigma=32, D=15, codec="fp16", device=cuda)
+    plan = kplan.get_plan(mat)
+    bd = torch.from_numpy(b).to(cuda)
+    x0, i0 = cg.jacobi_pcg_stored(mat, plan, s.diagonal(), bd, tol=1e-8)
+    g = next(iter(plan._fns.values()))[2]
+    loop = next(iter(g.values()))
+    assert loop.graph.graph is not None     # captured before the fault
+    inj = next(i for i in (inject.flip_fused_word(mat, plan, sd, bit=27)
+                           for sd in range(40))
+               if not i.value_neutral or i.undo())
+    replays = loop.graph.replays
+    x1, _ = cg.jacobi_pcg_stored(mat, plan, s.diagonal(), bd, tol=1e-8)
+    assert loop.graph.replays > replays
+    assert not torch.equal(x1, x0)
+    inj.undo()
+    x2, i2 = cg.jacobi_pcg_stored(mat, plan, s.diagonal(), bd, tol=1e-8)
+    assert i2.iters == i0.iters
+    _same_bits(x2, x0)
+
+
+@pytest.mark.parametrize("force", ["full", "band"])
+def test_retile_rebuilds_the_table_and_drops_graphs(cuda, force):
+    s, b = _spd_system()
+    mat = pk.from_csr(s, C=8, sigma=32, D=8, codec="e8m", device=cuda,
+                      bucket_strategy="uniform")
+    plan = kplan.build_plan(mat, force=force, hw=256)
+    bd = torch.from_numpy(b).to(cuda)
+    cg.jacobi_pcg_stored(mat, plan, s.diagonal(), bd, tol=1e-8)
+    assert plan._fns
+    # a graph captured outside the plan, before the retile
+    dinv = 1.0 / torch.from_numpy(s.diagonal()).to(cuda)
+    mv = lambda v: plan.spmv(mat, v)                          # noqa: E731
+    M = lambda r: r * dinv                                    # noqa: E731
+    ext = {}
+    cg.pcg(mv, bd, M=M, tol=1e-8, jit_cache=ext, jit_key="ext")
+    loop = next(iter(ext.values()))
+    captured = loop.graph.graph
+    stale, stale_wins = plan.ktable, plan.wins
+    plan.retile([(4, 16)] * len(plan.tiles))
+    assert plan._fns == {} and plan.ktable is not stale
+    # it captures again over the new table: the retiled plan's result
+    xr, ir = cg.pcg(mv, bd, M=M, tol=1e-8, jit_cache=ext, jit_key="ext")
+    assert loop.graph.graph is not captured
+    with graphs.eager():
+        xe, ie = cg.pcg(mv, bd, M=M, tol=1e-8)
+    assert ir.iters == ie.iters
+    _same_bits(xr, xe)
+    x = _x(mat.m, cuda)
+    y = plan.spmv(mat, x)
+    _bits_equal(y, kref.plan_plain(plan, mat, x))
+    if force == "band":
+        with pytest.raises(ValueError, match="other windows"):
+            kpk.packsell_spmv_band_buckets(
+                mat.packs, mat.d0s, plan.wins, plan.kckpts, stale, x,
+                codec_name="e8m", D=8, hw=plan.hw)
+        assert stale_wins is not plan.wins
+    xs, info = cg.jacobi_pcg_stored(mat, plan, s.diagonal(), bd, tol=1e-8)
+    with graphs.eager():
+        xe, ie = cg.jacobi_pcg_stored(mat, plan, s.diagonal(), bd, tol=1e-8)
+    assert info.iters == ie.iters
+    _same_bits(xs, xe)
+
+
+def test_outside_graph_captures_again_after_a_wr_change(cuda):
+    """A graph captured outside the plan over its fused stream: a retile to
+    another checkpoint width frees the old stream, and the graph captures
+    again over the new one instead of replaying over freed memory."""
+    import gc
+    import weakref
+
+    s, b = _spd_system()
+    mat = pk.from_csr(s, C=8, sigma=32, D=15, codec="fp16", device=cuda)
+    plan = kplan.build_plan(mat)
+    assert plan.variant == "fused"
+    bd = torch.from_numpy(b).to(cuda)
+    dinv = 1.0 / torch.from_numpy(s.diagonal()).to(cuda)
+    mv = lambda v: plan.spmv(mat, v)                          # noqa: E731
+    M = lambda r: r * dinv                                    # noqa: E731
+    ext = {}
+    for _ in range(2):                      # the capture, then replays
+        cg.pcg(mv, bd, M=M, tol=1e-8, jit_cache=ext, jit_key="ext")
+    loop = next(iter(ext.values()))
+    captured, old = loop.graph.graph, weakref.ref(plan.fused[0])
+    wr = 8 if plan.fused_layout.wr != 8 else 16
+    plan.retile([(8, 32, wr)] * len(plan.tiles))
+    gc.collect()
+    assert old() is None and plan.fused_layout.wr == wr
+    with graphs.eager():
+        xe, ie = cg.pcg(mv, bd, M=M, tol=1e-8)
+    xr, ir = cg.pcg(mv, bd, M=M, tol=1e-8, jit_cache=ext, jit_key="ext")
+    assert loop.graph.graph is not captured
+    assert ir.iters == ie.iters
+    _same_bits(xr, xe)
+    replays = loop.graph.replays
+    xr2, _ = cg.pcg(mv, bd, M=M, tol=1e-8, jit_cache=ext, jit_key="ext")
+    assert loop.graph.replays > replays
+    _same_bits(xr2, xe)
+
+
+def test_guarded_solve_old_graphs_die_after_promote_and_rebuild(cuda):
+    import gc
+    import weakref
+
+    from repro_torch.robust import inject, recover
+    from repro_torch.solvers.operators import OperatorSet as Ops
+
+    s, b = _spd_system()
+    ops_k = Ops(s, C=8, sigma=32, device=cuda)
+    made = []
+    Binding = recover._Binding
+
+    class Watched(Binding):
+        def __init__(self, *args):
+            super().__init__(*args)
+            made.append(weakref.ref(self))
+
+    def always(step, ctx):
+        if ctx["plan"] is not None:
+            flip = (inject.flip_fused_word if ctx["plan"].fused is not None
+                    else inject.flip_pack_word)
+            flip(ctx["mat"], ctx["plan"], seed=step, bit=30)
+
+    recover._Binding = Watched
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        x, info = recover.guarded_solve(ops_k, "plan_fp16", b, tol=1e-8,
+                                        on_step=always)
+        actions = [e["action"] for e in info.log]
+        assert actions[:2] == ["retry", "promote"]
+        assert "rebuild" in actions and info.final_kind == "fp32"
+        assert np.linalg.norm(b - s @ x) / np.linalg.norm(b) <= 1e-8
+        assert all(r() is None for r in made)
+    finally:
+        recover._Binding = Binding
+        if collecting:
+            gc.enable()
+
+
+@pytest.mark.parametrize("kind", ["csr64", "mixed:1e-3", "guarded:plan_fp16",
+                                  "guarded:plan_e8m8"])
+def test_new_kinds_run_on_the_card(cuda, kind):
+    s, b = _spd_system()
+    x = torch.from_numpy(b.astype(np.float32))
+    want = OperatorSet(s, C=8, sigma=32, device="cpu").matvec(kind)(x)
+    fn = OperatorSet(s, C=8, sigma=32, device=cuda).matvec(kind)
+    got = fn(x.to(cuda))
+    assert got.device.type == "cuda" and got.dtype == want.dtype
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    if kind.startswith("guarded:"):
+        assert fn.trips() == 0

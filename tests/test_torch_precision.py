@@ -161,13 +161,25 @@ def test_operator_families_now_ported_match_reference(kind):
 
 
 def test_mixed_kind_and_store_raise_naming_roadmap(tmp_path):
-    ops = top.OperatorSet(MATRICES["scattered"](), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*M5"):
-        ops.matvec("mixed:1e-3")
-    for call in (lambda: ops.precision_plan(1e-3, store=tmp_path),
-                 lambda: ops.adaptive_tiers(1e-3, store=tmp_path)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*M5"):
-            call()
+    """``mixed:`` and ``store=`` are ported (M5): they build and agree
+    with the reference; only the distributed ``dist_mixed:`` still raises,
+    naming ROADMAP's M9."""
+    a = MATRICES["scattered"]()
+    ops = top.OperatorSet(a, device="cpu")
+    ref = rop.OperatorSet(a)
+    x = np.random.default_rng(4).standard_normal(a.shape[1]).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        ops.matvec("mixed:1e-3")(torch.from_numpy(x)).numpy(),
+        np.asarray(ref.matvec("mixed:1e-3")(jnp.asarray(x))),
+        rtol=1e-6, atol=1e-6)
+    store = str(tmp_path / "store.json")
+    assert ops.precision_plan(1e-3, store=store).to_dict() == \
+        ref.precision_plan(1e-3, store=str(tmp_path / "ref.json")).to_dict()
+    assert ops.adaptive_tiers(1e-3, store=store)[1] == \
+        ref.adaptive_tiers(1e-3)[1]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*M9"):
+        ops.matvec("dist_mixed:1e-3")
 
 
 def test_adaptive_tiers_match_reference():
