@@ -9,13 +9,16 @@ a multi-RHS product and a band-windowed plan; then the paper's solvers
 (IO-CG against fp64 PCG, F3R, the PackSELL triangular solve); then the
 composite (three row classes through K1, K4 and K2, the mixed: kind and
 the precision store) and the guards (guarded SpMV, every fault injector,
-the self-healing guarded_solve) -- times the kernels, and ends with one
-JSON line. Every solve runs as the port runs
+the self-healing guarded_solve); then the flight recorder (bit-neutral,
+sync-free, its host cost, span attribution, the exporters) and the
+serving front end (coalesced slots through K3 and K5, the fp32 tier
+through K2, solve requests, overload and a fault that opens and heals a
+breaker) -- times the kernels, and ends with one JSON line. Every solve runs as the port runs
 it, through CUDA-graph replays (``repro_torch.solvers.graphs``), and in
 turns with its eager loop (eager, captured, captured, eager), which it
 must equal bit for bit.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 It needs one CUDA device and exits non-zero without one; it imports
 nothing of JAX or of the ``repro`` package.
@@ -171,6 +174,12 @@ def smallest_hw(mat, sb: int = 8) -> int:
         if kplan.band_plan(mat, sb, hw) is not None:
             return hw
     fail("no half-window makes the band plan feasible")
+
+
+def l2_share(m: int, nb: int) -> str:
+    """The fp32 ``[m, nb]`` x block's size against the card's L2."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    return f"{4 * m * nb} B = {4 * m * nb / l2!r} x L2 ({l2} B)"
 
 
 def print_rows(rows: dict, per: str) -> None:
@@ -1035,8 +1044,9 @@ class Smoke:
                       *bound_ms(nbytes, 2 * ent), timed(k2_all, reps))
 
         # K3: nb = 8 is the kernel's row; nb = 1, 2, 4 show how its time
-        # grows with the right-hand sides
-        for nb in (8, 1, 2, 4):
+        # grows with the right-hand sides, nb = 12 and 16 whether it moves
+        # when the [m, nb] x block outgrows L2 (no admission limit's rule)
+        for nb in (8, 1, 2, 4, 12, 16):
             X = torch.from_numpy(rng.standard_normal((m, nb)).astype(
                 np.float32)).to(self.dev)
 
@@ -1059,10 +1069,11 @@ class Smoke:
               f"{[G, wr, C]})", flush=True)
         self.k4_rows(rows, "K4 fp16/D15", mat, pk4, x, a_q, per_bucket=True)
         print_rows(rows, "")
-        for nb in (1, 2, 4, 8):
+        for nb in (1, 2, 4, 8, 12, 16):
             t = rows["K3" if nb == 8 else f"K3 nb={nb}"][0]
             print(f"  K3 nb={nb}: {t / rows['K1'][0]!r} x K1's device time, "
-                  f"{t / nb!r} ms per right-hand side", flush=True)
+                  f"{t / nb!r} ms per right-hand side; x block "
+                  f"{l2_share(m, nb)}", flush=True)
         return rows
 
     def k4_rows(self, rows, key, mat, plan, x, a_q, per_bucket=False):
@@ -1168,8 +1179,8 @@ class Smoke:
         mat, plan = ops_k.plan_pair("plan_e8m8")
         a_q8 = sparse_csr(s, cd.quantize_np(s.data, mat.codec, 8), self.dev)
         # K5: nb = 8 is the kernel's row; nb = 1, 2, 4 show how its time
-        # grows with the right-hand sides
-        for nb in (8, 1, 2, 4):
+        # grows with the right-hand sides, nb = 12 and 16 past the L2 line
+        for nb in (8, 1, 2, 4, 12, 16):
             X = torch.from_numpy(rng.standard_normal((m, nb)).astype(
                 np.float32)).to(self.dev)
             rows["K5" if nb == 8 else f"K5 nb={nb}"] = bucket_row(
@@ -1205,10 +1216,11 @@ class Smoke:
         k2_row("K2 fp32 values", ops_k.stored("fp32"), x, torch.float32,
                sparse_csr(s, s.data.astype(np.float32), self.dev))
         print_rows(rows, " per matvec")
-        for nb in (1, 2, 4, 8):
+        for nb in (1, 2, 4, 8, 12, 16):
             t = rows["K5" if nb == 8 else f"K5 nb={nb}"][0]
             print(f"  K5 nb={nb}: {t / rows['K4'][0]!r} x K4's device time "
-                  f"(e8m/D8), {t / nb!r} ms per right-hand side", flush=True)
+                  f"(e8m/D8), {t / nb!r} ms per right-hand side; x block "
+                  f"{l2_share(m, nb)}", flush=True)
         return rows
 
     # -- phase 7: where a solve's time goes --------------------------------
@@ -1463,12 +1475,13 @@ class Smoke:
                              f"{dict(cops.calls)}, want {dict(py)} (L3 not "
                              f"replayed)")
 
-                # fp64 in two turns: the cut that makes room for phases
-                # 9 and 10 (its capture still holds the graphs to eager)
+                # fp64 in two turns and the others in three (no eager
+                # again): the cuts that make room for phases 9-12 (each
+                # capture still holds the graphs to eager)
                 runs = self.in_turns(lambda: f3r.solve(cops, b, cfg),
                                      f"F3R {name}", each, start,
                                      turns=TURNS[:2] if name == "fp64"
-                                     else TURNS, replays=1)
+                                     else TURNS[:3], replays=1)
                 x, info = runs["eager"][:2]
                 rel = true_rel(x)
                 cycles[name], x3[name], f3r_walls[name] = info.iters, x, runs
@@ -1493,7 +1506,7 @@ class Smoke:
                        / torch.linalg.vector_norm(x3["fp16"]))
             ratios = ", ".join(
                 f"{t} {f3r_walls['fp16'][t][2] / f3r_walls['packsell'][t][2]!r}"
-                for t in TURNS)
+                for t in TURNS[:3])
             print(f"  FP16-F3R and PackSELL-F3R: cycles {cycles['fp16']} "
                   f"and {cycles['packsell']}, ||x_fp16 - x_packsell|| / "
                   f"||x_fp16|| {dx!r}; FP16-F3R / PackSELL-F3R walls: "
@@ -2047,7 +2060,8 @@ class Smoke:
         b = torch.ones(n, dtype=torch.float64, device=self.dev)
         x_clean, i_clean = cg.jacobi_pcg_stored(mat, plan, diag, b, tol=1e-8,
                                                 maxiter=2000)
-        loop = next(v for ent in plan._fns.values() for v in ent[2].values()
+        loop = next(v for ent in plan._fns.values()
+                    if isinstance(ent, tuple) for v in ent[2].values()
                     if (v.tol, v.maxiter) == (1e-8, 2000))
         replays, captured = loop.graph.replays, loop.graph.graph
         inj = next(i for i in (inject.flip_fused_word(mat, plan, sd, bit=27)
@@ -2148,7 +2162,568 @@ class Smoke:
         return dict(launches=launches, rows=rows)
 
 
-def main() -> int:
+    # -- phase 11: the recorder on the card ----------------------------------
+    def recorder_path(self, mp, mx, k1_ms):
+        """The flight recorder on phase 4's and phase 5's operators: the
+        graph-run fp16 Jacobi-PCG and ``adaptive_pcg`` with ``REPRO_OBS``
+        off and on (the same bits, the solve counters against ``info`` and
+        the launches ``graphs.LEDGER`` counted), an eager ``plan.spmv`` and
+        a graph replay under ``set_sync_debug_mode("error")`` off and on,
+        the host µs the recorder adds per eager ``plan.spmv``,
+        ``profile_dispatch`` of ``plan.spmv`` (K1 must land in
+        ``packsell.fused_kernel``), and the Prometheus text and one JSONL
+        flush written under ``build/obs/`` and read back."""
+        from statistics import median
+
+        from repro_torch import observe
+        from repro_torch.observe import export, profile
+        from repro_torch.solvers import cg, graphs
+
+        mat, plan, s = mp["mat"], mp["plan"], mp["a"]
+        n = s.shape[0]
+        diag = s.diagonal()
+        b = torch.ones(n, dtype=torch.float64, device=self.dev)
+        self.zero_counts()
+        prev = observe.enable(False)
+        try:
+            def run(label, fn, on):
+                observe.enable(on)
+                observe.reset()
+                before, rep0 = self.counts(), graphs.LEDGER.replays
+                (x, info), sec = wall(fn)
+                launched = {k: v - before[k]
+                            for k, v in self.counts().items()}
+                snap = observe.report()
+                if snap["graphs"]["replays"] != graphs.LEDGER.replays:
+                    fail("report() does not carry the ledger's replays")
+                print(f"  {label}, recorder {'on' if on else 'off'}: "
+                      f"{info.iters} iterations, wall {sec!r} s, launches "
+                      f"{ {k: v for k, v in launched.items() if v} }, graph "
+                      f"replays {graphs.LEDGER.replays - rep0}", flush=True)
+                return x, info, launched, snap
+
+            def solve_counters(snap, name, path, info):
+                c = snap["counters"]
+                key = f"{{path={path},solver={name}}}"
+                got = (c.get("solver.solves" + key),
+                       c.get("solver.iters" + key))
+                if got != (1, info.iters):
+                    fail(f"{name}: solver.solves/iters {got}, want "
+                         f"(1, {info.iters})")
+                disp = {k: v for k, v in c.items()
+                        if k.startswith("spmv.dispatch")}
+                if disp:
+                    fail(f"{name}: a cached solve is one dispatch, yet "
+                         f"spmv.dispatch recorded {disp}")
+
+            jp = lambda: cg.jacobi_pcg_stored(                # noqa: E731
+                mat, plan, diag, b, tol=1e-8, maxiter=2000)
+            out = [run("fp16 Jacobi-PCG (graphs)", jp, on)
+                   for on in (False, True, False)]
+            for x, info, launched, _ in out:
+                same_bits(x, out[0][0], "Jacobi-PCG x, recorder on vs off")
+                steps = chunk_steps(info.iters, cg.PCG_CHUNK)
+                if info.iters != out[0][1].iters or \
+                        launched["K1"] != steps + 1:
+                    fail(f"Jacobi-PCG: {info.iters} iterations, K1 "
+                         f"{launched['K1']} (want steps + 1 = {steps + 1})")
+            solve_counters(out[1][3], "jacobi_pcg_stored", "fused",
+                           out[1][1])
+
+            ops_k = mx["ops"]
+            tiers, _, _, hi = ops_k.adaptive_tiers(1e-3, n_probes=2)
+            dg = torch.as_tensor(diag, device=self.dev)
+            dinv = torch.where(dg == 0, torch.ones_like(dg), 1.0 / dg)
+            rng = np.random.default_rng(0)
+            bb = torch.from_numpy(rng.standard_normal(n)).to(self.dev)
+            cache = {}
+            ap = lambda: cg.adaptive_pcg(                     # noqa: E731
+                tiers, bb, M=lambda r: r * dinv, matvec_hi=hi, tol=1e-8,
+                maxiter=60, m_in=16, jit_cache=cache, jit_key="p11")
+            aout = [run("adaptive_pcg (graphs; the first run captures)", ap,
+                        on) for on in (False, True, False)]
+            for x, info, _, _ in aout:
+                same_bits(x, aout[0][0], "adaptive_pcg x, recorder on vs off")
+                if info.iters != aout[0][1].iters or not torch.equal(
+                        info.tier_history, aout[0][1].tier_history):
+                    fail("adaptive_pcg: the schedule moved with the recorder")
+            solve_counters(aout[1][3], "adaptive_pcg", "jit_cache",
+                           aout[1][1])
+            print(f"  recorder on: solver.solves and solver.iters equal "
+                  f"info (1 solve, {out[1][1].iters} and {aout[1][1].iters} "
+                  f"iterations); no spmv.dispatch inside a cached solve, "
+                  f"which ran {out[1][2]['K1']} K1 and "
+                  f"{aout[1][2]['K4']} K4 launches by the ledger", flush=True)
+
+            # no sync, recorder off and on: an eager spmv and a replay
+            x32 = b.float()
+            sc = {}
+            cg.pcg(lambda v: plan.spmv(mat, v), b, tol=1e-8, maxiter=64,
+                   jit_cache=sc, jit_key="p11-sync")
+            loop = next(iter(sc.values()))
+            for on in (False, True):
+                observe.enable(on)
+                observe.reset()
+                plan.spmv(mat, x32)            # the record is built once
+                with sync_debug("error"):
+                    plan.spmv(mat, x32)
+                    loop.graph()
+                disp = sum(v for k, v in observe.snapshot()["counters"]
+                           .items() if k.startswith("spmv.dispatch"))
+                if disp != (2 if on else 0):
+                    fail(f"spmv.dispatch {disp} after 2 eager calls, "
+                         f"recorder {'on' if on else 'off'}")
+            print("  set_sync_debug_mode('error'): an eager plan.spmv and a "
+                  "graph replay make no sync, recorder off and on",
+                  flush=True)
+
+            # the host µs the recorder adds per eager plan.spmv: 100 calls
+            # enqueued after a sync (the device does not hold the host
+            # back), median of 15 rounds, in turns off, on, on, off
+            def host_us(on) -> float:
+                observe.enable(on)
+                per = []
+                for _ in range(15):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(100):
+                        plan.spmv(mat, x32)
+                    per.append((time.perf_counter() - t0) / 100 * 1e6)
+                torch.cuda.synchronize()
+                return median(per)
+
+            us = [(on, host_us(on)) for on in (False, True, True, False) * 3]
+            off_us = median(u for on, u in us if not on)
+            on_us = median(u for on, u in us if on)
+            print(f"  host µs per eager plan.spmv (enqueue, median of 15 x "
+                  f"100 calls), turns (off/on/on/off) x 3: "
+                  f"{[round(u, 3) for _, u in us]}; the recorder adds "
+                  f"{on_us - off_us!r} µs ({on_us!r} against {off_us!r})",
+                  flush=True)
+
+            # span attribution
+            prof = profile.profile_dispatch(lambda v: plan.spmv(mat, v), x32,
+                                            repeats=10, device=self.dev)
+            if prof.profiler_unavailable:
+                fail("profile_dispatch: profiler unavailable on the card")
+            if any("fused_kernel" in u["op"] for u in prof.unattributed):
+                fail(f"K1 landed in unattributed: {prof.unattributed}")
+            if prof.spans.get("packsell.fused_kernel", {}).get(
+                    "device_s", 0) <= 0:
+                fail(f"no device time in packsell.fused_kernel: "
+                     f"{prof.spans}")
+            for name, sp in prof.spans.items():
+                print(f"  profile_dispatch(plan.spmv): {name}: device "
+                      f"{sp['device_s'] * 1e3!r} ms per call, host "
+                      f"{sp['host_s'] * 1e3!r} ms, {sp['ops']} kernels",
+                      flush=True)
+            print(f"  unattributed (top by device time): "
+                  f"{[(u['op'][:60], u['device_s'] * 1e3) for u in prof.unattributed]}; "
+                  f"device total {prof.device_total_s * 1e3!r} ms, wall "
+                  f"{prof.wall_s * 1e3!r} ms, attributed share "
+                  f"{prof.attributed_frac!r}; phase 6's K1 (CUDA graph of "
+                  f"50 calls): {k1_ms!r} ms; on {card_line()}", flush=True)
+
+            # the exporters, written under build/obs and read back
+            observe.enable(True)
+            odir = Path(__file__).resolve().parent / "build" / "obs"
+            odir.mkdir(parents=True, exist_ok=True)
+            prom, jsonl = odir / "phase11.prom", odir / "phase11.jsonl"
+            for p in (prom, jsonl):
+                p.unlink(missing_ok=True)
+            raw = observe.raw_snapshot()
+            prom.write_text(export.prometheus_text(raw))
+            back = export.parse_prometheus_text(prom.read_text())
+            hist_f = ("p50", "p95", "p99", "count", "sum", "min", "max",
+                      "last")
+            if back["counters"] != raw["counters"] or \
+                    back["gauges"] != raw["gauges"] or \
+                    back["histograms"] != {k: {f: h[f] for f in hist_f}
+                                           for k, h in
+                                           raw["histograms"].items()}:
+                fail("the Prometheus text does not parse back equal")
+            export.JsonlSink(str(jsonl)).flush()
+            recs = export.JsonlSink.read(str(jsonl))
+            want = {k: v for k, v in observe.snapshot()["counters"].items()
+                    if v}
+            if recs[0]["kind"] != "meta" \
+                    or recs[0]["backend"] != self.dev.type \
+                    or recs[1]["counters"] != want:
+                fail(f"the JSONL flush does not read back: {recs[:2]}")
+            print(f"  {prom.relative_to(odir.parents[1])} "
+                  f"({len(raw['counters'])} counters, "
+                  f"{len(raw['gauges'])} gauges, {len(raw['histograms'])} "
+                  f"histograms) and one {jsonl.name} flush (meta: "
+                  f"{recs[0]['device']}, torch {recs[0]['torch_version']}) "
+                  f"read back equal", flush=True)
+        finally:
+            observe.enable(prev)
+            observe.reset()
+        launches = self.counts()
+        print(f"  launches in this run: {launches}", flush=True)
+        return dict(launches=launches)
+
+    # -- phase 12: the serving front end on the card -------------------------
+    def serving_path(self, mp, seed: int = 0):
+        """``ServingFrontend`` at the reference's defaults (4 slots, the
+        default ladder and classes, the background worker, C = 32, σ = 64,
+        the full guard on every slot) on phase 4's HPCG 104³ matrix: the
+        warmup; steady traffic (96 spmv requests, a third per class, in
+        bursts of 12, then one solve); an overload burst under
+        ``AdmissionPolicy(max_queue=32)``; a flipped word in
+        ``plan_fp16``'s stream while interactive traffic flows. Every ok
+        response is held to its tier's error budget against the fp64 host
+        product, 8 per tier to the tier's single matvec bit for bit, the
+        solve to ``guarded_solve`` called directly, and each slot to one
+        K3 (fused tiers) or K5 (``plan_e8m4``) launch."""
+        import dataclasses
+        from statistics import median
+
+        from repro_torch import observe
+        from repro_torch.robust import guard as gd
+        from repro_torch.robust import inject, recover
+        from repro_torch.serving import frontend as fe
+        from repro_torch.serving import policy as pol
+
+        s = mp["a"]
+        n, m = s.shape
+        s64 = s.astype(np.float64).tocsr()
+        anorm = float(np.abs(s64).sum(axis=1).max())
+        rng = np.random.default_rng(seed)
+        classes = ("interactive", "standard", "batch")
+        self.zero_counts()
+        prev = observe.enable(True)
+        observe.reset()
+        cfg = fe.FrontendConfig(device=self.dev)
+        print(f"  FrontendConfig: slots {cfg.slots}, ladder {cfg.ladder}, "
+              f"classes {[(c.name, c.tier, c.deadline_s) for c in cfg.classes]}, "
+              f"background {cfg.background}, C {cfg.C}, sigma {cfg.sigma}, "
+              f"guard_every {cfg.guard_every}, admission limit "
+              f"{cfg.admission._limit()} words (None: no limit; (m + n) x "
+              f"slots = {(m + n) * cfg.slots})", flush=True)
+
+        def budget_ok(reqs):
+            """The chaos harness's contract: every ok spmv response within
+            its tier's budget (safety 16) of the fp64 host product."""
+            ok = [r for r in reqs if r.ok and r.op == "spmv"]
+            if not ok:
+                return 0
+            X = np.stack([np.asarray(r.x, np.float64) for r in ok], 1)
+            exact = s64 @ X
+            for j, r in enumerate(ok):
+                kind = ("fp32" if r.tier_kind == "fp32_fallback"
+                        else r.tier_kind)
+                bud = pol.tier_error_budget(kind, safety=16.0)
+                err = float(np.abs(r.y - exact[:, j]).max())
+                if not err <= bud * anorm * float(np.abs(X[:, j]).max()):
+                    fail(f"request {r.uid} ({r.tier_kind}) out of budget: "
+                         f"{err}")
+            return len(ok)
+
+        def drop_payloads(reqs):
+            for r in reqs:
+                r.x = r.y = None
+
+        def tiers_of(reqs):
+            return dict(collections.Counter(r.tier_kind for r in reqs
+                                            if r.ok))
+
+        with fe.ServingFrontend(cfg) as f:
+            # warmup: the ladder kinds of the classes, built on the worker
+            t0 = time.perf_counter()
+            fp = f.register(s)
+            f.drain_background(timeout=900)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            entry = f._entry(fp)
+            print(f"  register + warmup until drain_background returns: "
+                  f"{warm_s!r} s (host clock); warmed {sorted(entry.warmed)}",
+                  flush=True)
+            for kind in ("plan_fp16", "plan_e8m4"):
+                pl = entry.ops.plan_pair(kind)[1]
+                print(f"  {kind}: {PLAN_KERNEL[pl.variant]} for spmv, "
+                      f"{'K3' if pl.variant == 'fused' else 'K5'} for a "
+                      f"slot: {pl.policy}", flush=True)
+            if entry.ops.plan_pair("plan_fp16")[1].variant != "fused":
+                fail("plan_fp16 is not a fused plan at 104^3")
+            sell32 = entry.ops.stored("fp32")
+            k2_per_slot = cfg.slots * len(sell32.vals)
+
+            def vectors(k):
+                """``k`` request vectors, made before the clock starts."""
+                return [rng.standard_normal(m).astype(np.float32)
+                        for _ in range(k)]
+
+            # steady traffic: bursts of 12, a third per class
+            xs = vectors(96)
+            before = self.counts()
+            steady = []
+            t0 = time.perf_counter()
+            for k in range(8):
+                for i in range(12):
+                    steady.append(f.submit(fp, xs[12 * k + i],
+                                           klass=classes[i % 3]))
+                f.run_until_drained()
+            torch.cuda.synchronize()
+            steady_s = time.perf_counter() - t0
+            launched = {k: v - before[k] for k, v in self.counts().items()}
+            slots = collections.Counter()
+            for k, v in observe.snapshot()["counters"].items():
+                if k.startswith("frontend.matvec{"):
+                    slots[k.split("tier=")[1].rstrip("}")] += v
+            want = {"K3": slots["plan_fp16"] + slots["plan_bf16"],
+                    "K5": slots["plan_e8m4"],
+                    "K2": slots["fp32"] * k2_per_slot}
+            got = {k: launched[k] for k in want}
+            print(f"  steady: 96 requests in {steady_s!r} s, "
+                  f"{96 / steady_s!r} requests/s; slots by tier "
+                  f"{dict(slots)}; launches {got} (want {want}: one K3 per "
+                  f"fused slot, one K5 per plan_e8m4 slot, K2 once per "
+                  f"column and fp32 bucket)", flush=True)
+            if got != want:
+                fail(f"slot launches {got} != {want}")
+            if not all(r.ok for r in steady):
+                fail(f"steady requests not ok: "
+                     f"{collections.Counter(r.status for r in steady)}")
+            for klass in classes:
+                lat = sorted(r.latency for r in steady
+                             if r.klass.name == klass)
+                print(f"  {klass}: latency p50 "
+                      f"{lat[int(0.5 * (len(lat) - 1))] * 1e3!r} ms, p99 "
+                      f"{lat[int(0.99 * (len(lat) - 1))] * 1e3!r} ms "
+                      f"({len(lat)} requests, host clock)", flush=True)
+            # y against each tier's single matvec, 8 responses per tier
+            for kind in ("plan_fp16", "plan_e8m4", "fp32"):
+                picked = [r for r in steady if r.tier_kind == kind][:8]
+                if len(picked) < 8:
+                    fail(f"fewer than 8 {kind} responses")
+                for r in picked:
+                    xd = torch.from_numpy(r.x).to(self.dev)
+                    if kind == "fp32":
+                        y1 = entry.ops.matvec("fp32")(xd)
+                    else:
+                        mat_k, plan_k, _ = entry.bind(kind)
+                        y1 = plan_k.spmv(mat_k, xd)
+                    same_bits(torch.from_numpy(r.y), y1.cpu(),
+                              f"{kind} slot column vs its single matvec")
+            print("  8 responses per tier equal the tier's single matvec "
+                  "bit for bit (K3 column vs K1, K5 column vs K4, fp32 "
+                  "column vs the SELL matvec)", flush=True)
+            nb_ok = budget_ok(steady)
+
+            # one slot's wall, its copies (rows of the [slots, m] staging
+            # block each way) and its full guard
+            xs = vectors(5 * cfg.slots)
+            slot_walls = []
+            for k in range(5):
+                for i in range(cfg.slots):
+                    f.submit(fp, xs[cfg.slots * k + i], klass="interactive")
+                slot_walls.append(wall(f.step)[1])
+            slot_s = median(slot_walls)
+            Xh = np.stack(xs[:cfg.slots])
+            Xr = torch.from_numpy(Xh).to(self.dev)
+            Xd = Xr.t()
+            h2d = median(wall(lambda: torch.from_numpy(Xh).to(self.dev))[1]
+                         for _ in range(5))
+            d2h = median(wall(lambda: Xr.cpu().numpy())[1]
+                         for _ in range(5))
+            mat16, plan16, gs16 = entry.bind("plan_fp16")
+            spmm_ms = device_ms(lambda: plan16.spmm(mat16, Xd), self.reps)
+            full_ms = device_ms(lambda: gd.guarded_spmm(
+                mat16, plan16, gs16, Xd, full=True), self.reps)
+            print(f"  one plan_fp16 slot (4 requests, f.step, host clock, "
+                  f"median of 5): {slot_s * 1e3!r} ms; H2D of the [4, m] "
+                  f"rows {h2d * 1e3!r} ms + D2H of [4, n] {d2h * 1e3!r} ms: "
+                  f"copies {(h2d + d2h) / slot_s!r} of the slot; device: "
+                  f"plan.spmm (K3 + epilogue) {spmm_ms!r} ms, full guarded "
+                  f"spmm {full_ms!r} ms, so the guard "
+                  f"{(full_ms - spmm_ms) * 1e-3 / slot_s!r} of the slot; on "
+                  f"{card_line()}", flush=True)
+
+            # device busy share over one burst of 12 (the profiler)
+            xs = vectors(12)
+
+            def burst():
+                for i in range(12):
+                    f.submit(fp, xs[i], klass=classes[i % 3])
+                f.run_until_drained()
+
+            bwall, kern = profiled(burst)
+            # the recorder is on: its spans show as device rows too
+            # (gpu_user_annotation), which would count their kernels twice
+            from repro_torch.observe import profile as oprof
+            kern = [k for k in kern if k[2] not in oprof.SPAN_NAMES]
+            if kern:
+                busy = sum(k[0] for k in kern)
+                print(f"  one burst of 12 under the profiler: device busy "
+                      f"{busy!r} ms of a {bwall!r} ms event wall, busy share "
+                      f"{busy / bwall!r}; top kernels "
+                      f"{[(round(k[0], 4), k[1], k[2][:40]) for k in kern[:6]]}",
+                      flush=True)
+            else:
+                print("  device busy share: not measured (the profiler saw "
+                      "no device events)", flush=True)
+            drop_payloads(steady)
+
+            # one solve request, standard class, b = ones
+            b = np.ones(n)
+            rs = f.submit(fp, b, klass="standard", op="solve")
+            _, solve_s = wall(f.run_until_drained)
+            if not rs.ok:
+                fail(f"the solve request ended {rs.status}: {rs.reason}")
+            info = rs.solve_info
+            true_rel = float(np.linalg.norm(b - s64 @ rs.y)
+                             / np.linalg.norm(b))
+            start = "plan_e8m4"        # the standard class's tier
+            xd, infod = recover.guarded_solve(entry.ops, start, b,
+                                              tol=cfg.solve_tol,
+                                              maxiter=cfg.solve_maxiter)
+            same_bits(torch.from_numpy(rs.y), torch.from_numpy(xd),
+                      "the solve response vs guarded_solve called directly")
+            print(f"  solve (standard, b = ones, {rs.tier_kind}): "
+                  f"{info.iters} outer steps, trips {info.trips}, relres "
+                  f"{info.relres!r} against solve_tol {cfg.solve_tol} "
+                  f"({'met' if info.relres < cfg.solve_tol else 'NOT met'}; "
+                  f"m_in 16, maxiter {cfg.solve_maxiter}), true relres "
+                  f"{true_rel!r}; wall {solve_s!r} s (deadline 1.0 s: "
+                  f"{'missed' if rs.missed_deadline else 'met'}); equal bit "
+                  f"for bit to guarded_solve called directly", flush=True)
+
+            # overload: a burst over the shed watermark, max_queue 32. Cold,
+            # as a front end meets it: register warmed only the classes'
+            # own tiers, so the first demoted slot builds plan_bf16 on the
+            # dispatching thread, and the longest tick is that stall
+            cold = "plan_bf16" not in entry.ops._cache
+            f.cfg = dataclasses.replace(
+                cfg, admission=pol.AdmissionPolicy(max_queue=32))
+            xs = vectors(40)
+            snap0 = observe.snapshot()["counters"]
+            over = [f.submit(fp, xs[i], klass=classes[i % 3])
+                    for i in range(40)]
+            ticks = []
+            t0 = time.perf_counter()
+            while f.queue and len(ticks) < 1000:  # no trips: nothing waits
+                ticks.append(wall(f.step)[1])
+            over_s = time.perf_counter() - t0
+            f.cfg = cfg
+            snap1 = observe.snapshot()["counters"]
+
+            def delta(prefix):
+                return {k: v - snap0.get(k, 0) for k, v in snap1.items()
+                        if k.startswith(prefix) and v != snap0.get(k, 0)}
+
+            by_status = collections.Counter(r.status for r in over)
+            missed = collections.Counter(
+                r.klass.name for r in over
+                if r.missed_deadline or r.status == "deadline_miss")
+            rest = sorted(ticks)[:-1]
+            print(f"  overload (plan_bf16 built before: {not cold}): 40 "
+                  f"requests at once under AdmissionPolicy(max_queue=32): "
+                  f"{dict(by_status)}; tiers {tiers_of(over)}; sheds "
+                  f"{delta('frontend.shed')}; demotion "
+                  f"{delta('frontend.demote_level_change')}; deadline "
+                  f"misses by class {dict(missed)}; {len(ticks)} ticks, "
+                  f"the longest {max(ticks)!r} s (the first plan_bf16 "
+                  f"slot: its build and guard on the dispatching thread), "
+                  f"the rest {max(rest, default=None)!r} s at most; drained "
+                  f"in {over_s!r} s (host clock)", flush=True)
+            if f.queue:
+                fail(f"the overload burst did not drain: {len(f.queue)} left")
+            if by_status["rejected"] != 8 or not delta("frontend.shed"):
+                fail("the overload burst did not reject and shed")
+            if "plan_bf16" not in tiers_of(over):
+                fail("overload did not demote to plan_bf16")
+            nb_ok += budget_ok(over)
+            drop_payloads(over)
+
+            # a fault: one word of plan_fp16's stream flipped in place; as in
+            # the reference's chaos campaign it survives the first repair
+            # (flipped again once after the first rebuild), so the breaker
+            # meets its fail_threshold
+            mat16, plan16, _ = entry.bind("plan_fp16")
+            flips = []
+
+            def flip(mat_, plan_):
+                flips.append(next(
+                    i for i in (inject.flip_fused_word(mat_, plan_, sd,
+                                                       bit=27)
+                                for sd in range(100))
+                    if not i.value_neutral or i.undo()))
+
+            flip(mat16, plan16)
+            real = entry.rebuild
+
+            def sabotaged(kind):
+                real(kind)
+                if kind == "plan_fp16" and len(flips) == 1:
+                    flip(*entry.bind(kind)[:2])
+
+            entry.rebuild = sabotaged
+            snap0 = observe.snapshot()["counters"]
+            fault, fault_ok = [], 0
+            t0 = time.perf_counter()
+            edges = []
+            while time.perf_counter() - t0 < 300:
+                burst = [f.submit(fp, x, klass="interactive")
+                         for x in vectors(cfg.slots)]
+                f.run_until_drained()
+                fault_ok += budget_ok(burst)
+                fault += burst
+                drop_payloads(burst)
+                edges = [(a, c) for _, a, c in entry.breaker.transitions]
+                if (pol.HALF_OPEN, pol.CLOSED) in edges:
+                    break
+            f.drain_background(timeout=900)
+            del entry.rebuild
+            fault_s = time.perf_counter() - t0
+            snap1 = observe.snapshot()["counters"]
+            print(f"  fault ({[i.detail for i in flips]}): "
+                  f"{len(fault)} interactive requests in {fault_s!r} s: "
+                  f"{dict(collections.Counter(r.status for r in fault))}; "
+                  f"tiers {tiers_of(fault)}; guard trips "
+                  f"{delta('frontend.guard_trip')}; rebuilds "
+                  f"{delta('frontend.rebuild')}; breaker transitions "
+                  f"{[(round(t, 3), a, c) for t, a, c in entry.breaker.transitions]}",
+                  flush=True)
+            if (pol.CLOSED, pol.OPEN) not in edges or \
+                    (pol.HALF_OPEN, pol.CLOSED) not in edges:
+                fail(f"the breaker did not open and close: {edges}")
+            if "fp32_fallback" not in tiers_of(fault):
+                fail("the fp32 fallback never answered")
+            if not entry.healthy("plan_fp16"):
+                fail("plan_fp16 is not healthy after the rebuild")
+            nb_ok += fault_ok
+
+            counters = observe.snapshot()["counters"]
+            failed = [r for r in f.done if r.status == "failed"]
+            if counters.get("frontend.background_failure", 0) or failed:
+                fail(f"background failures "
+                     f"{counters.get('frontend.background_failure', 0)}, "
+                     f"failed requests {len(failed)}")
+            print(f"  {nb_ok} ok spmv responses within their tier's budget "
+                  f"(safety 16) of the fp64 host product; no background "
+                  f"failure, no failed request", flush=True)
+            print(f"  stats(): {f.stats()}", flush=True)
+            rep = observe.report()
+            print(f"  frontend.* series: "
+                  f"{ {k: v for k, v in rep['counters'].items() if k.startswith('frontend.')} }",
+                  flush=True)
+            print(f"  frontend.latency_s: "
+                  f"{ {k: {q: h[q] for q in ('count', 'p50', 'p99')} for k, h in rep['histograms'].items() if k.startswith('frontend.')} }",
+                  flush=True)
+        observe.enable(prev)
+        observe.reset()
+        launches = self.counts()
+        print(f"  launches in this run: {launches}", flush=True)
+        return dict(launches=launches)
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 12's request vectors")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
               file=sys.stderr)
@@ -2181,14 +2756,15 @@ def main() -> int:
 
     smoke = Smoke(dev)
     phase_s = {}
+    out = {}
 
     def phase(num: int, title: str, fn):
         print(f"== {num}. {title}", flush=True)
         t0 = time.perf_counter()
-        out = fn()
+        out[num] = fn()
         phase_s[num] = time.perf_counter() - t0
         print(f"  phase {num}: {phase_s[num]:.1f} s", flush=True)
-        return out
+        return out[num]
 
     # graph replays make no Python call: the ledger counts their launches
     with graphs.LEDGER.watch(smoke.raw_counts):
@@ -2211,9 +2787,18 @@ def main() -> int:
                    "K1, K4 and K2, Jacobi-PCG through CUDA graphs; the "
                    "mixed: kind and the precision store",
                    lambda: smoke.composite_path(mp["a"]))
-        gp = phase(10, "the guards, HPCG 104^3: guarded SpMV, every "
-                   "injector, an injection into a captured graph, "
-                   "guarded_solve", lambda: smoke.guard_path(mp, mx, cp))
+        phase(10, "the guards, HPCG 104^3: guarded SpMV, every "
+              "injector, an injection into a captured graph, "
+              "guarded_solve", lambda: smoke.guard_path(mp, mx, cp))
+        phase(11, "the recorder on the card, HPCG 104^3: REPRO_OBS off and "
+              "on through the graphs, no sync, its host cost, "
+              "profile_dispatch, the exporters",
+              lambda: smoke.recorder_path(
+                  mp, mx, rows["K1"][0]))
+        phase(12, "the serving front end, HPCG 104^3: warmup, steady "
+              "traffic and a solve, an overload burst, a fault that opens "
+              "and heals a breaker", lambda: smoke.serving_path(
+                  mp, seed=args.seed))
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -2232,10 +2817,13 @@ def main() -> int:
         "K2-f64": ("sell_spmv_bucket (float64 sum)", src + "sell_spmv.cu",
                    "src/repro/kernels/sell_spmv.py:47"),
     }
+    print(f"== 13. done in {time.perf_counter() - t_start:.1f} s (phases "
+          f"3-12: {phase_s})", flush=True)
+    print(f"card: {card_line()}", flush=True)
     # each path ran with the counts set to 0 just before it
-    launches = {k: sum(run.get(k, 0) for run in (
-        mp["launches"], mx["launches"], sv, cp["launches"], gp["launches"]))
-                for k in meta}
+    runs = (mp["launches"], mx["launches"], sv, cp["launches"],
+            out[10]["launches"], out[11]["launches"], out[12]["launches"])
+    launches = {k: sum(run.get(k, 0) for run in runs) for k in meta}
     kernels = []
     for k, (kname, source, replaces) in meta.items():
         t, tp, tl, tb, by, te = rows[k]
@@ -2246,9 +2834,6 @@ def main() -> int:
                         "plain_ms": tp, "bound_ms": tb, "bound_by": by,
                         "library_ms": tl, "eager_ms": te,
                         "checked_cases": smoke.cases[k]})
-    print(f"== 11. done in {time.perf_counter() - t_start:.1f} s (phases "
-          f"3-10: {phase_s})", flush=True)
-    print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -44,6 +44,7 @@ from ..core import packsell as pk
 from ..core import sell as sl
 from ..core.packsell import PackSELLMatrix
 from ..core.sell import SELLMatrix
+from ..observe import metrics as _obs
 from . import plan as kplan
 from . import sell_spmv as _sk
 
@@ -357,6 +358,9 @@ class CompositePlan:
             raise ValueError(
                 "composite has members on input index > 0 (a distributed "
                 "halo composition); drive it via execute_with")
+        _obs.inc("composite.dispatch", composite=self.name,
+                 kind="spmm" if multi_rhs else "spmv",
+                 members=len(self.members), terms=self.n_terms)
         return self.execute_with(self.member_mats(), self.member_devs(),
                                  self.invs, (x,), multi_rhs=multi_rhs)
 

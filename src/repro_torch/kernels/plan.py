@@ -41,12 +41,22 @@ environment variable moves it: the reference's ``REPRO_SPMV_POLICY`` and
   the kernel wrapper, which takes the plain version for CPU tensors.
 * The reference's ``REPRO_FULL_X_LIMIT`` (x resident in TPU VMEM) does not
   apply: the CUDA kernels gather x from device memory through the 50 MB
-  L2, so no size of x demotes a plan.
+  L2, so no size of x demotes a plan, and the reference's
+  ``spmv.mm_fallback`` counter (an SpMM past that limit) has no
+  counterpart.
+
+The flight recorder (:mod:`repro_torch.observe`): ``plan.spmv``/``spmm``
+record ``spmv.dispatch``/``spmv.nnz`` and the plan's byte gauges at the
+host entry, the execution body runs inside the reference's spans
+(``packsell.fused_kernel``, ``fused_decode``, ``bucket_decode``,
+``gather_epilogue``), and the build and the cache count ``plan.build``,
+``plan.build_s`` and ``plan_cache.hit/miss/evict``.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 import weakref
 from typing import Optional
 
@@ -57,6 +67,7 @@ from .. import _generations
 from ..core import codecs as cd
 from ..core import packsell as pk
 from ..core.packsell import PackSELLMatrix
+from ..observe import metrics as _obs
 from . import packsell_spmv as _pk
 
 _POLICIES = ("auto", "full", "band", "jnp", "fused")
@@ -73,6 +84,40 @@ _BAND_MIN_M = 65_536
 
 _NO_X_LIMIT = ("; no x-residency limit (the CUDA kernels gather x from "
                "device memory through L2)")
+
+
+#: most entries a plan's ``_fns`` holds (the reference's default)
+JIT_CACHE_CAP = 64
+
+
+class LRUDict(dict):
+    """A dict with LRU eviction at :data:`JIT_CACHE_CAP` entries: the
+    plan's cache of solver graphs and dispatch records (``_fns``). An
+    evicted entry rebuilds at its next use, bit-identically (the
+    reference's ``LRUDict``, whose cap the port reads from no environment
+    variable)."""
+
+    def _touch(self, key) -> None:
+        val = super().pop(key)
+        super().__setitem__(key, val)       # move to MRU position
+
+    def __getitem__(self, key):
+        val = super().__getitem__(key)
+        self._touch(key)
+        return val
+
+    def get(self, key, default=None):
+        if key not in self:
+            return default
+        return self[key]
+
+    def __setitem__(self, key, value) -> None:
+        if key in self:
+            super().pop(key)
+        super().__setitem__(key, value)
+        while len(self) > JIT_CACHE_CAP:
+            super().pop(next(iter(self)))   # evict LRU
+            _obs.inc("jit_cache.evict", cache="plan._fns")
 
 
 # ---------------------------------------------------------------------------
@@ -539,7 +584,8 @@ class SpMVPlan:
     kckpts: Optional[tuple] = None    # per-bucket int32 [S, nw, C]
     ktable: Optional[_pk.BucketTable] = None  # K4/K5/K6 launch table
     #: the solvers' cached graphs on this plan (``cg.jacobi_pcg_stored``)
-    _fns: dict = dataclasses.field(default_factory=dict, repr=False,
+    #: and the recorder's per-kind dispatch records
+    _fns: dict = dataclasses.field(default_factory=LRUDict, repr=False,
                                    compare=False)
     #: the matrix the plan was built for (weakly: the cache holds the plan)
     _matref: Optional[weakref.ref] = dataclasses.field(
@@ -584,23 +630,32 @@ class SpMVPlan:
             if self.variant == "fused":
                 body = (_pk.packsell_spmm_fused if multi_rhs
                         else _pk.packsell_spmv_fused)
+                name = "packsell.fused_kernel"
             else:
                 body = (_pk.packsell_spmm_fused_plain if multi_rhs
                         else _pk.packsell_spmv_fused_plain)
-            part = body(fused[0], fused[1], xc, codec_name=mat.codec_name,
-                        D=mat.D, encoding=lay.encoding, scale=lay.scale)
+                name = "packsell.fused_decode"
+            with _obs.span(name):
+                part = body(fused[0], fused[1], xc,
+                            codec_name=mat.codec_name, D=mat.D,
+                            encoding=lay.encoding, scale=lay.scale)
             return self._fused_epilogue(part, dev, permuted)
         if self.variant == "fused":
             raise ValueError("fused plan dispatched without its stream "
                              "operand (dev['fused'] is None)")
-        t_cat = self._bucket_parts(mat, dev, xc, multi_rhs)
-        return t_cat if permuted else stored_unpermute(t_cat, dev["inv"])
+        with _obs.span("packsell.bucket_decode"):
+            t_cat = self._bucket_parts(mat, dev, xc, multi_rhs)
+        if permuted:
+            return t_cat
+        with _obs.span("packsell.gather_epilogue"):
+            return stored_unpermute(t_cat, dev["inv"])
 
     def _fused_epilogue(self, part, dev: dict, permuted: bool):
-        if permuted:
-            return _fused_tail(part, self.fused_layout)
-        return _fused_unpermute2(_fused_tail2(part, self.fused_layout),
-                                 dev["inv2"])
+        with _obs.span("packsell.gather_epilogue"):
+            if permuted:
+                return _fused_tail(part, self.fused_layout)
+            return _fused_unpermute2(_fused_tail2(part, self.fused_layout),
+                                     dev["inv2"])
 
     def _bucket_parts(self, mat, dev, xc, multi_rhs: bool):
         """The bucket bodies: one launch over all buckets of a ``full`` or
@@ -633,10 +688,39 @@ class SpMVPlan:
                                device=xc.device)
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
+    def _obs_record(self, mat: PackSELLMatrix, kind: str) -> None:
+        """The per-dispatch flight-recorder record: variant, checkpoint
+        width ``wr``, hot-path stream bytes and bytes/nnz (gauges, set once
+        per (plan, kind)) and the ``spmv.dispatch``/``spmv.nnz`` bump,
+        built once and parked in ``_fns`` (cleared by :meth:`retile`, so
+        they re-derive). The bump skips a call that is no host entry
+        (``observe.metrics``)."""
+        bump = self._fns.get(("_obs", kind))
+        if bump is None:
+            if not _obs.recording():
+                return
+            dcs = self.decode_cache_stats()
+            stream = (dcs["fused_stream_bytes"] or 4 * self.total_words) \
+                + dcs["decode_cache_bytes"]
+            lab = dict(variant=self.variant, codec=mat.codec_name,
+                       cache_mode=self.cache_mode)
+            _obs.gauge("spmv.wr", 0 if self.fused_layout is None
+                       else int(self.fused_layout.wr), **lab)
+            _obs.gauge("spmv.stream_bytes", int(stream), **lab)
+            _obs.gauge("spmv.bytes_per_nnz",
+                       stream / max(int(mat.nnz), 1), **lab)
+            bump = _obs.counter_bump((
+                (_obs.series_key("spmv.dispatch", kind=kind, **lab), 1),
+                (_obs.series_key("spmv.nnz", **lab), int(mat.nnz))))
+            self._fns[("_obs", kind)] = bump
+        bump()
+
     def spmv(self, mat: PackSELLMatrix, x: torch.Tensor, *,
              permuted: bool = False) -> torch.Tensor:
         """y = A @ x; ``permuted=True`` returns y in stored-row order,
         skipping the σ-permutation epilogue."""
+        if _obs._ENABLED:
+            self._obs_record(mat, "spmv")
         return self.execute_with(mat, self.device_operands(), x,
                                  permuted=permuted)
 
@@ -644,6 +728,8 @@ class SpMVPlan:
              permuted: bool = False) -> torch.Tensor:
         """Y = A @ X for X: [m, nb] (one pass over the words for all
         right-hand sides)."""
+        if _obs._ENABLED:
+            self._obs_record(mat, "spmm")
         return self.execute_with(mat, self.device_operands(), x,
                                  permuted=permuted, multi_rhs=True)
 
@@ -793,6 +879,20 @@ def build_plan(mat: PackSELLMatrix, *, sb: int = 8, wb: int = 32,
     {'checkpoint', 'full', '0'} picks the decode cache; ``fused_trim=False``
     keeps the fused layout shape-derived; ``ckpt_wr=`` pins the checkpoint
     width."""
+    t0 = time.perf_counter()
+    with _obs.span("packsell.plan_build"):
+        plan = _build_plan(mat, sb=sb, wb=wb, hw=hw, force=force,
+                           decode_cache=decode_cache, fused_trim=fused_trim,
+                           ckpt_wr=ckpt_wr)
+    _obs.inc("plan.build", variant=plan.variant, cache_mode=plan.cache_mode)
+    _obs.observe("plan.build_s", time.perf_counter() - t0,
+                 variant=plan.variant)
+    return plan
+
+
+def _build_plan(mat: PackSELLMatrix, *, sb: int, wb: int, hw: int,
+                force: str, decode_cache: str, fused_trim: bool,
+                ckpt_wr: int | None) -> SpMVPlan:
     policy = force.lower()
     if policy not in _POLICIES:
         raise ValueError(f"force={policy!r} not in {_POLICIES}")
@@ -951,6 +1051,7 @@ def get_plan(mat: PackSELLMatrix, *, sb: int = 8, wb: int = 32,
     ent = _PLANS.get(key)
     if ent is not None and ent[0]() is mat:
         _STATS["hits"] += 1
+        _obs.inc("plan_cache.hit")
         _PLANS[key] = _PLANS.pop(key)       # move to MRU position
         return ent[1]
     plan = build_plan(mat, sb=sb, wb=wb, hw=hw, force=force,
@@ -960,16 +1061,22 @@ def get_plan(mat: PackSELLMatrix, *, sb: int = 8, wb: int = 32,
     def _drop(_ref, key=key):
         if _PLANS.pop(key, None) is not None:
             _STATS["evicted"] += 1
+            _obs.inc("plan_cache.evict", cause="matrix_dead")
 
     _PLANS[key] = (weakref.ref(mat, _drop), plan)
     _STATS["misses"] += 1
+    _obs.inc("plan_cache.miss")
     while len(_PLANS) > PLAN_CACHE_CAP:
         _PLANS.pop(next(iter(_PLANS)))
         _STATS["evicted"] += 1
+        _obs.inc("plan_cache.evict", cause="capacity")
     return plan
 
 
 def cache_stats() -> dict:
+    """Plan-cache counters; the live source of ``observe.report()``'s
+    ``plan_cache`` block (the registry's ``plan_cache.*`` counters mirror
+    the same increments)."""
     return dict(_STATS, size=len(_PLANS))
 
 

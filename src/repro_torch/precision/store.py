@@ -35,6 +35,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..observe import metrics as _obs
 from . import analyze as an
 from . import select as se
 
@@ -120,6 +121,7 @@ class PrecisionStore:
             f"precision store {self.path} is unreadable ({why}); "
             f"quarantined to {quarantine}, starting with an empty store",
             RuntimeWarning, stacklevel=4)
+        _obs.inc("store.quarantine")
         return {}
 
     def _read_entries(self) -> dict:
@@ -228,6 +230,7 @@ class PrecisionStore:
         if (plan is not None and budget_ok
                 and plan.rationale.get("safety", 1.0) <= safety):
             if not validate:
+                _obs.inc("store.lookup", outcome="hit", mode=mode)
                 return plan, True
             c = plan.primary
             err = (0.0 if c.codec == "fp32" else an.probe_error(
@@ -235,8 +238,10 @@ class PrecisionStore:
                 n_probes=select_kw.get("n_probes", 3),
                 seed=select_kw.get("seed", 0) + 1))
             if err <= error_budget:
+                _obs.inc("store.lookup", outcome="hit", mode=mode)
                 return plan, True
             # stale entry (fingerprint collision / matrix drift): reselect
+        _obs.inc("store.lookup", outcome="miss", mode=mode)
         plan = se.select_codec(a, error_budget, fingerprint=fp, **select_kw)
         self.put_plan(plan, fingerprint=fp, save=save)
         return plan, False
@@ -288,8 +293,10 @@ class PrecisionStore:
                                 backend=plan.device if backend is None
                                 else backend)
         if tiles is None or len(tiles) != len(plan.tiles):
+            _obs.inc("store.retile", applied="no")
             return False
         plan.retile(tiles)
+        _obs.inc("store.retile", applied="yes")
         return True
 
 

@@ -35,6 +35,7 @@ import torch
 from ..core import codecs as cd
 from ..core.packsell import PackSELLMatrix
 from ..kernels import packsell_spmv as _pk
+from ..observe import metrics as _obs
 
 
 class IntegrityError(ValueError):
@@ -49,6 +50,7 @@ class IntegrityError(ValueError):
 def mark_unhealthy(plan, reason: str) -> None:
     """Flag a plan as tripped."""
     plan._unhealthy = str(reason)
+    _obs.inc("guard.plan_unhealthy", reason=str(reason))
 
 
 def plan_health(plan) -> str | None:
@@ -367,14 +369,16 @@ def _stride(gs: GuardState, full):
 
 
 def _checked(mat, plan, gdev, ok):
-    cs0, cs1 = _checksum_torch(guard_arrays(mat, plan))
+    with _obs.span("packsell.guard_checksum"):
+        cs0, cs1 = _checksum_torch(guard_arrays(mat, plan))
     return ok & (cs0 == gdev["ref"][0]) & (cs1 == gdev["ref"][1])
 
 
 def guarded_spmv(mat: PackSELLMatrix, plan, gs: GuardState, x, *,
                  full: bool | None = None):
-    """``(y, ok, rel_err)``: the plan's SpMV plus the ABFT identity and the
-    exact operand checksum. ``ok`` is a device bool scalar (False = the
+    """``(y, ok, rel_err)``: the plan's SpMV (its execution body: a guarded
+    call counts as ``guard.check``, not ``spmv.dispatch``, as in the
+    reference) plus the ABFT identity and the exact operand checksum. ``ok`` is a device bool scalar (False = the
     guard tripped) and ``rel_err`` the analytic residual scaled by
     ``cabs·|x|``; nothing is read on the host. Callers that confirm a trip
     should :func:`mark_unhealthy` the plan.
@@ -385,7 +389,8 @@ def guarded_spmv(mat: PackSELLMatrix, plan, gs: GuardState, x, *,
     if not torch.is_tensor(x):
         x = torch.as_tensor(x, device=plan.device)
     full = _stride(gs, full)
-    y = plan.spmv(mat, x)
+    _obs.inc("guard.check", depth="full" if full else "light")
+    y = plan.execute_with(mat, plan.device_operands(), x)
     if not full:
         return (y, torch.isfinite(y).all(),
                 torch.zeros((), dtype=torch.float64, device=y.device))
@@ -406,7 +411,8 @@ def guarded_spmm(mat: PackSELLMatrix, plan, gs: GuardState, x, *,
         raise ValueError(f"guarded_spmm wants x of shape [m, nb], got "
                          f"{tuple(x.shape)}")
     full = _stride(gs, full)
-    y = plan.spmm(mat, x)
+    _obs.inc("guard.check", depth="full" if full else "light", op="spmm")
+    y = plan.execute_with(mat, plan.device_operands(), x, multi_rhs=True)
     if not full:
         return (y, torch.isfinite(y).all(),
                 torch.zeros((), dtype=torch.float64, device=y.device))

@@ -19,7 +19,10 @@ operator under suspicion), and divergence. On detection it escalates:
 4. **fp32**    — fall back to the uncompressed fp32 operator (terminal).
 
 Each escalation appends a record to the recovery log, and every tripped
-plan is marked unhealthy.
+plan is marked unhealthy. The flight recorder gets the reference's
+``guard.detection_latency_calls`` histogram and ``guard.trip`` counter
+per escalation, and ``guard.solves`` and a ``guard.solve`` trace per
+solve.
 
 The correction solve is ``cg.pcg`` (fp64, ``tol=0``, ``m_in`` steps), so
 it runs through CUDA graphs. The graphs of one binding (a kind and its
@@ -34,6 +37,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..observe import metrics as _obs
 from ..solvers import cg
 from ..solvers import operators as op
 from . import guard as gd
@@ -173,6 +177,9 @@ def guarded_solve(ops: op.OperatorSet, kind: str, b, *,
         # -- escalation -------------------------------------------------
         trips += 1
         attempts += 1
+        _obs.observe("guard.detection_latency_calls",
+                     bound.guard.last_check_latency
+                     if bound.guard is not None else 1, event=event[0])
         x = x_snap                          # revert to the last good iterate
         r = b - a64 @ x
         relres = float(np.linalg.norm(r)) / bnorm
@@ -197,6 +204,14 @@ def guarded_solve(ops: op.OperatorSet, kind: str, b, *,
             action, detail = "fp32_fallback", dict(kind=cur)
         log.append(dict(step=outer, event=event[0], action=action,
                         detail={**event[1], **detail}))
+        _obs.inc("guard.trip", event=event[0], action=action)
 
+    _obs.inc("guard.solves", kind=cur)
+    _obs.record_trace(
+        "guard.solve",
+        dict(iters=steps, relres=relres, trips=trips, final_kind=cur,
+             log=[dict(step=e["step"], event=e["event"], action=e["action"])
+                  for e in log]),
+        kind=kind)
     return x, GuardedSolveInfo(steps, relres, np.asarray(hist), log, cur,
                                trips)

@@ -30,9 +30,19 @@ application is one graph.
 across calls, as the reference's keep the compiled solve (the caller's
 key must identify the ``matvec``/``M`` closures); without them the
 graphs live for one call.
+
+The flight recorder: :func:`pcg`, :func:`jacobi_pcg_stored` and
+:func:`adaptive_pcg` call ``observe.record_solve`` once, after the loop,
+with the reference's ``path`` label (``jit_cache`` when the caller passes
+one, else ``eager``; ``fused`` for ``jacobi_pcg_stored``), and run their
+loops inside the ``packsell.solver_while`` span. A solve with a
+``jit_cache`` is the reference's one compiled dispatch: nothing inside it,
+its set-up included, records (``observe.metrics.quiet``), as nothing
+inside the reference's traced solve does.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import weakref
 from typing import Callable, NamedTuple
@@ -40,6 +50,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from .. import observe as _observe
+from ..observe import metrics as _obs
 from . import graphs
 
 Matvec = Callable[[torch.Tensor], torch.Tensor]
@@ -202,12 +214,30 @@ def _key(name, jit_key, tol, maxiter, b, dtype, chunk, *extra):
             dtype or b.dtype, *extra, chunk)
 
 
+def _compiled(jit_cache):
+    """The recorder's rule for a solve: quiet inside one with a
+    ``jit_cache`` (the reference's compiled dispatch)."""
+    return _obs.quiet() if jit_cache is not None \
+        else contextlib.nullcontext()
+
+
 def pcg(matvec: Matvec, b: torch.Tensor, *, M: Matvec | None = None,
         tol: float = 1e-9, maxiter: int = 1000, x0=None, dtype=None,
         chunk: int = PCG_CHUNK, jit_cache: dict | None = None,
         jit_key=None) -> tuple[torch.Tensor, SolveInfo]:
     """Preconditioned CG. ``M`` must be a fixed SPD operator; ``chunk``
     steps per graph replay."""
+    with _compiled(jit_cache):
+        x, info = _pcg(matvec, b, M=M, tol=tol, maxiter=maxiter, x0=x0,
+                       dtype=dtype, chunk=chunk, jit_cache=jit_cache,
+                       jit_key=jit_key)
+    _observe.record_solve("pcg", info, path="eager" if jit_cache is None
+                          else "jit_cache")
+    return x, info
+
+
+def _pcg(matvec, b, *, M, tol, maxiter, x0, dtype, chunk, jit_cache,
+         jit_key) -> tuple[torch.Tensor, SolveInfo]:
     dot, norm = torch.dot, torch.linalg.vector_norm
     key = _key("pcg", jit_key, tol, maxiter, b, dtype, chunk)
     b, x, bnorm, dtype = _prep(b, x0, dtype)
@@ -228,9 +258,10 @@ def pcg(matvec: Matvec, b: torch.Tensor, *, M: Matvec | None = None,
 
     r = b - matvec(x).to(dtype)
     z = M(r).to(dtype)
-    (x, r, _, _), k, hist = _loop(
-        step, (x, r, z, dot(r, z)), bnorm, norm(r) / bnorm, tol=tol,
-        maxiter=maxiter, chunk=chunk, cache=jit_cache, key=key)
+    with _obs.span("packsell.solver_while"):
+        (x, r, _, _), k, hist = _loop(
+            step, (x, r, z, dot(r, z)), bnorm, norm(r) / bnorm, tol=tol,
+            maxiter=maxiter, chunk=chunk, cache=jit_cache, key=key)
     return x, SolveInfo(k, norm(r) / bnorm, hist)
 
 
@@ -334,9 +365,11 @@ def jacobi_pcg_stored(mat, plan, diag, b: torch.Tensor, *,
         ent = plan._fns[key] = (torch.empty_like(dinv_s), matvec_s, {})
     dinv_buf, matvec_s, cache = ent
     dinv_buf.copy_(dinv_s)
-    x_s, info = pcg(matvec_s, b_s, M=lambda r: r * dinv_buf, tol=tol,
-                    maxiter=maxiter, dtype=dtype, chunk=chunk,
-                    jit_cache=cache, jit_key=key)
+    with _obs.quiet():
+        x_s, info = _pcg(matvec_s, b_s, M=lambda r: r * dinv_buf, tol=tol,
+                         maxiter=maxiter, x0=None, dtype=dtype, chunk=chunk,
+                         jit_cache=cache, jit_key=key)
+    _observe.record_solve("jacobi_pcg_stored", info, path="fused")
     return _kp.stored_unpermute(x_s, dev["inv"]), info
 
 
@@ -440,6 +473,19 @@ def adaptive_pcg(tiers, b: torch.Tensor, *, M: Matvec | None = None,
     """
     if not tiers:
         raise ValueError("need at least one tier")
+    with _compiled(jit_cache):
+        x, info = _adaptive_pcg(
+            tiers, b, M=M, matvec_hi=matvec_hi, tol=tol, maxiter=maxiter,
+            m_in=m_in, x0=x0, dtype=dtype, stag_factor=stag_factor,
+            start_tier=start_tier, chunk=chunk, jit_cache=jit_cache,
+            jit_key=jit_key)
+    _observe.record_solve("adaptive_pcg", info,
+                          path="eager" if jit_cache is None else "jit_cache")
+    return x, info
+
+
+def _adaptive_pcg(tiers, b, *, M, matvec_hi, tol, maxiter, m_in, x0, dtype,
+                  stag_factor, start_tier, chunk, jit_cache, jit_key):
     norm = torch.linalg.vector_norm
     n_tiers = len(tiers)
     key = _key("adaptive", jit_key, tol, maxiter, b, dtype, chunk, int(m_in),
@@ -464,7 +510,8 @@ def adaptive_pcg(tiers, b: torch.Tensor, *, M: Matvec | None = None,
                                stag_factor=stag_factor, chunk=chunk)
             if jit_cache is not None:
                 jit_cache[key] = loop
-        return loop.run(b, x, r, bnorm, rel_t, tier, n_tiers, m_in)
+        with _obs.span("packsell.solver_while"):
+            return loop.run(b, x, r, bnorm, rel_t, tier, n_tiers, m_in)
 
     # the host's stop and promotion tests compare in the history's type,
     # as the reference's traced comparisons do
@@ -477,20 +524,21 @@ def adaptive_pcg(tiers, b: torch.Tensor, *, M: Matvec | None = None,
     relres = as_h(float(rel_t))
     tol_h, stag_h = as_h(tol), as_h(stag_factor)
     k, nprom, hic = 0, 0, 1
-    while k < maxiter and relres >= tol_h:
-        x = x + inner_solve[tier](r)
-        r = b - hi(x).to(dtype)
-        rel_t = norm(r) / bnorm
-        mvc[tier] += m_in
-        hic += 1
-        hist[k + 1] = rel_t
-        thist[k] = tier
-        rel_new = as_h(float(rel_t))
-        # stagnation: the tier's quantization floor caps the contraction
-        if rel_new > stag_h * relres and rel_new >= tol_h \
-                and tier < n_tiers - 1:
-            tier += 1
-            nprom += 1
-        relres = rel_new
-        k += 1
+    with _obs.span("packsell.solver_while"):
+        while k < maxiter and relres >= tol_h:
+            x = x + inner_solve[tier](r)
+            r = b - hi(x).to(dtype)
+            rel_t = norm(r) / bnorm
+            mvc[tier] += m_in
+            hic += 1
+            hist[k + 1] = rel_t
+            thist[k] = tier
+            rel_new = as_h(float(rel_t))
+            # stagnation: the tier's quantization floor caps the contraction
+            if rel_new > stag_h * relres and rel_new >= tol_h \
+                    and tier < n_tiers - 1:
+                tier += 1
+                nprom += 1
+            relres = rel_new
+            k += 1
     return x, AdaptiveSolveInfo(k, rel_t, hist, thist, nprom, mvc, hic)

@@ -46,6 +46,15 @@ A replay makes no Python call, so counters of calls (the kernel
 wrappers' launches, a test's matvec counts) see only the warm-up and the
 capture. :data:`LEDGER` keeps the difference: each capture records the
 calls it made in the watched counters, and each replay adds them again.
+The flight recorder (:mod:`repro_torch.observe`) records nothing inside a
+body (warm-up, capture or CPU run), as the reference records nothing
+inside a traced body; ``observe.report()`` carries the ledger's replays.
+
+PyTorch captures in ``capture_error_mode="global"``: an allocation or a
+sync that another thread issues while a graph is captured invalidates
+the capture. :data:`CAPTURE_LOCK` is held around every warm-up and
+capture; a thread that runs device work beside the solvers (the serving
+front end's background worker) holds it around each task.
 """
 from __future__ import annotations
 
@@ -60,6 +69,7 @@ from typing import Callable, Mapping
 import torch
 
 from .. import _generations
+from ..observe import metrics as _obs
 
 
 class Ledger:
@@ -74,6 +84,8 @@ class Ledger:
     def __init__(self):
         self.sources: list = []
         self.net = collections.Counter()
+        self.replays = 0                     # graph replays, ever
+        self.replayed = collections.Counter()   # watched calls they ran
 
     @contextlib.contextmanager
     def watch(self, source: Callable[[], Mapping[str, int]]):
@@ -103,6 +115,10 @@ _MODE = threading.local()       # .eager: inside eager(); .depth: bodies
                                 # CPU run)
 _SIDE: dict = {}                # device index -> the warm-up/capture stream
 
+#: held around every warm-up and capture, and by any other thread around
+#: device work that may run while a graph is captured (module docstring)
+CAPTURE_LOCK = threading.RLock()
+
 
 @contextlib.contextmanager
 def eager():
@@ -131,7 +147,8 @@ def inline(device: torch.device) -> bool:
 def _body():
     _MODE.depth = getattr(_MODE, "depth", 0) + 1
     try:
-        yield
+        with _obs.quiet():
+            yield
     finally:
         _MODE.depth -= 1
 
@@ -206,10 +223,13 @@ class Graph:
             return self._cpu_call()
         if self.graph is None or _generations.stale(self.reads):
             self.graph = None
-            return self._warm_up_and_capture()
+            with CAPTURE_LOCK:
+                return self._warm_up_and_capture()
         self.graph.replay()
         self.replays += 1
         LEDGER.net.update(self.calls)
+        LEDGER.replays += 1
+        LEDGER.replayed.update(self.calls)
         return self._result()
 
     def _cpu_call(self):

@@ -199,7 +199,8 @@ def test_scan_spmv_real_values_rtol(klass):
 
 def test_package_imports_no_jax_and_no_repro():
     """A fresh interpreter imports repro_torch and every submodule without
-    loading JAX or any module of the reference package."""
+    loading JAX or any module of the reference package; the walk reaches
+    the recorder (``observe``) and the front end (``serving``)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -209,6 +210,10 @@ def test_package_imports_no_jax_and_no_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "need = ['repro_torch.observe.' + m for m in ('metrics', 'export', "
+        "'profile')] + ['repro_torch.serving.' + m for m in ('policy', "
+        "'frontend')]\n"
+        "assert all(k in sys.modules for k in need), need\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env={"PYTHONPATH": str(SRC),

@@ -941,3 +941,192 @@ def test_new_kinds_run_on_the_card(cuda, kind):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
     if kind.startswith("guarded:"):
         assert fn.trips() == 0
+
+
+# ---------------------------------------------------------------------------
+# The recorder and the serving front end on the card
+# ---------------------------------------------------------------------------
+
+
+class _Recorder:
+    """The recorder on (or off) inside the block, reset, restored after."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        from repro_torch import observe
+
+        self.prev = observe.enable(self.on)
+        observe.reset()
+        return observe
+
+    def __exit__(self, *exc):
+        from repro_torch import observe
+
+        observe.reset()
+        observe.enable(self.prev)
+
+
+def test_recorder_is_bit_neutral_through_the_graphs(cuda):
+    s, b = _spd_system()
+    bd = torch.from_numpy(b).to(cuda)
+    out = {}
+    for on in (False, True):
+        with _Recorder(on) as observe:
+            kplan.clear_cache()
+            ops_k = OperatorSet(s, C=8, sigma=32, device=cuda)
+            mat, plan = ops_k.plan_pair("plan_fp16")
+            runs = [cg.jacobi_pcg_stored(mat, plan, s.diagonal(), bd,
+                                         tol=1e-8, maxiter=500)
+                    for _ in range(2)]         # the capture, then replays
+            tiers, _, _, hi = ops_k.adaptive_tiers(1e-3, n_probes=2)
+            cache = {}
+            runs += [cg.adaptive_pcg(tiers, bd, matvec_hi=hi, tol=1e-8,
+                                     maxiter=40, m_in=8, jit_cache=cache,
+                                     jit_key="t") for _ in range(2)]
+            out[on] = (runs, observe.report())
+    for (x0, i0), (x1, i1) in zip(out[False][0], out[True][0]):
+        assert i0.iters == i1.iters
+        _same_bits(x0, x1)
+    counters = out[True][1]["counters"]
+    assert counters["solver.solves{path=fused,solver=jacobi_pcg_stored}"] \
+        == 2
+    assert counters["solver.iters{path=fused,solver=jacobi_pcg_stored}"] \
+        == sum(i.iters for _, i in out[True][0][:2])
+    assert counters["solver.solves{path=jit_cache,solver=adaptive_pcg}"] \
+        == 2
+    # a cached solve is one dispatch: nothing inside it records
+    assert not any(k.startswith("spmv.dispatch") for k in counters)
+    assert out[True][1]["graphs"]["replays"] > 0
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_spmv_and_replay_make_no_sync_with_the_recorder(cuda, on):
+    s, b = _spd_system()
+    mat = pk.from_csr(s, C=8, sigma=32, D=15, codec="fp16", device=cuda)
+    plan = kplan.get_plan(mat)
+    bd = torch.from_numpy(b).to(cuda)
+    x = bd.float()
+    cache = {}
+    mv = lambda v: plan.spmv(mat, v)                          # noqa: E731
+    cg.pcg(mv, bd, tol=1e-8, maxiter=200, jit_cache=cache, jit_key="k")
+    loop = next(iter(cache.values()))
+    with _Recorder(on) as observe:
+        plan.spmv(mat, x)                   # the record is built once
+        with _NoSync():
+            y = plan.spmv(mat, x)
+            loop.graph()
+        disp = [v for k, v in observe.snapshot()["counters"].items()
+                if k.startswith("spmv.dispatch")]
+    assert disp == ([2] if on else [])
+    assert bool(torch.isfinite(y).all())
+
+
+def test_profile_dispatch_credits_k1_to_its_span_and_raises_on_failure(
+        cuda, monkeypatch):
+    from repro_torch.observe import profile
+
+    s, b = _spd_system()
+    mat = pk.from_csr(s, C=8, sigma=32, D=15, codec="fp16", device=cuda)
+    plan = kplan.get_plan(mat)
+    assert plan.variant == "fused"
+    x = torch.from_numpy(b.astype(np.float32)).to(cuda)
+    prof = profile.profile_dispatch(lambda v: plan.spmv(mat, v), x,
+                                    repeats=5, device=cuda)
+    assert prof.mode == "trace" and not prof.profiler_unavailable
+    assert prof.spans["packsell.fused_kernel"]["device_s"] > 0
+    assert not any("fused" in u["op"] for u in prof.unattributed)
+
+    def boom(*a, **k):
+        raise RuntimeError("no profiler here")
+
+    monkeypatch.setattr(profile, "_trace_events", boom)
+    with pytest.raises(RuntimeError, match="on the card"):
+        profile.profile_dispatch(lambda v: plan.spmv(mat, v), x, repeats=2,
+                                 device=cuda)
+
+
+def test_worker_rebuilds_while_guarded_solve_captures(cuda):
+    """The worker rebuilds a tier again and again while the dispatching
+    thread runs ``guarded_solve``, whose correction solves capture
+    graphs: the capture lock keeps them apart, no task fails, and the
+    solve equals one run with an idle worker bit for bit."""
+    from repro_torch.robust import recover
+    from repro_torch.serving import frontend as fe
+
+    s, b = _spd_system()
+    want, _ = recover.guarded_solve(
+        OperatorSet(s, C=32, sigma=64, device=cuda), "plan_e8m4", b,
+        tol=1e-8, maxiter=60)
+    with _Recorder(True) as observe:
+        with fe.ServingFrontend(fe.FrontendConfig(device=cuda)) as f:
+            fp = f.register(s, warm=True)
+            entry = f._entry(fp)
+            for _ in range(8):
+                f._defer(lambda: entry.rebuild("plan_fp16"))
+            got, info = recover.guarded_solve(entry.ops, "plan_e8m4", b,
+                                              tol=1e-8, maxiter=60)
+            f.drain_background(timeout=300)
+        assert "frontend.background_failure" not in \
+            observe.snapshot()["counters"]
+    assert info.trips == 0
+    np.testing.assert_array_equal(got, want)
+
+
+def test_a_graph_over_a_rebuilt_entry_captures_again(cuda):
+    from repro_torch.serving import frontend as fe
+
+    s, b = _spd_system()
+    bd = torch.from_numpy(b).to(cuda)
+    with fe.ServingFrontend(fe.FrontendConfig(device=cuda,
+                                              background=False)) as f:
+        fp = f.register(s, warm=False)
+        entry = f._entry(fp)
+        entry.bind("plan_fp16")
+        mv = lambda v: entry.ops.matvec("plan_fp16")(v)       # noqa: E731
+        cache = {}
+        x0, i0 = cg.pcg(mv, bd, tol=1e-8, maxiter=300, jit_cache=cache,
+                        jit_key="entry")
+        loop = next(iter(cache.values()))
+        captured = loop.graph.graph
+        cg.pcg(mv, bd, tol=1e-8, maxiter=300, jit_cache=cache,
+               jit_key="entry")
+        assert loop.graph.graph is captured            # replayed
+        entry.rebuild("plan_fp16")
+        x1, i1 = cg.pcg(mv, bd, tol=1e-8, maxiter=300, jit_cache=cache,
+                        jit_key="entry")
+        assert loop.graph.graph is not captured        # captured again
+        assert i1.iters == i0.iters
+        _same_bits(x1, x0)                  # the same CSR, the same operand
+
+
+def test_frontend_serves_on_the_card(cuda):
+    from repro_torch.kernels import packsell_spmv as kpk
+    from repro_torch.serving import frontend as fe
+    from repro_torch.serving import policy as pol
+
+    s, _ = _spd_system()
+    rng = np.random.default_rng(3)
+    with fe.ServingFrontend(fe.FrontendConfig(device=cuda,
+                                              background=False),
+                            clock=pol.ManualClock()) as f:
+        fp = f.register(s, warm=True)
+        xs = [rng.standard_normal(s.shape[1]).astype(np.float32)
+              for _ in range(12)]
+        k3 = kpk.packsell_spmm_fused.launches
+        reqs = [f.submit(fp, x, klass=k) for x, k in
+                zip(xs, ["interactive", "standard", "batch"] * 4)]
+        f.run_until_drained()
+        assert all(r.status == "ok" for r in reqs)
+        assert kpk.packsell_spmm_fused.launches - k3 == 1   # 4 interactive
+        entry = f._entry(fp)
+        for r in reqs:
+            if r.tier_kind == "fp32":
+                y1 = entry.ops.matvec("fp32")(
+                    torch.from_numpy(r.x).to(cuda)).cpu().numpy()
+            else:
+                mat, plan, _ = entry.bind(r.tier_kind)
+                y1 = plan.spmv(mat, torch.from_numpy(r.x).to(cuda)).cpu(
+                ).numpy()
+            np.testing.assert_array_equal(r.y, y1)
