@@ -13,7 +13,11 @@ the self-healing guarded_solve); then the flight recorder (bit-neutral,
 sync-free, its host cost, span attribution, the exporters) and the
 serving front end (coalesced slots through K3 and K5, the fp32 tier
 through K2, solve requests, overload and a fault that opens and heals a
-breaker) -- times the kernels, and ends with one JSON line. Every solve runs as the port runs
+breaker); then distribution (the same matrix as four shards on the one
+card: the distributed SpMV and SpMM in both exchange modes against the CPU
+replay, ``jacobi_pcg_dist``, ``adaptive_pcg_dist``, ``dist_mixed:`` and
+``dist_auto:``, a checkpoint fault) -- times the kernels, and ends with
+one JSON line. Every solve runs as the port runs
 it, through CUDA-graph replays (``repro_torch.solvers.graphs``), and in
 turns with its eager loop (eager, captured, captured, eager), which it
 must equal bit for bit.
@@ -2717,6 +2721,370 @@ class Smoke:
         print(f"  launches in this run: {launches}", flush=True)
         return dict(launches=launches)
 
+    # -- phase 13: distribution on the card -----------------------------------
+    def dist_path(self, mp, mx, k1_ms, shards: int = 4):
+        """Phase 4's matrix as ``shards`` row blocks on one card
+        (``make_shard_mesh(shards, devices=[dev] * shards)``): the
+        distributed fp16 SpMV and SpMM in both exchange modes against the
+        port's ``reference_spmv`` (the stacked host arrays replayed on the
+        CPU through the plain bodies), against ``plan_fp16`` and against
+        P = 1; ``jacobi_pcg_dist`` and ``adaptive_pcg_dist`` (phase 5's
+        tier ladder, ``OperatorSet.dist_adaptive_tiers``, each tier's and
+        the fp64 operator's shard bodies held to the CPU replay first) in
+        turns; ``dist_mixed:1e-3`` and ``dist_auto:1e-3`` at P = shards
+        (the calls those kinds make) and at P = 1 through ``OperatorSet``,
+        and three classes per shard through ``dist_mixed:``'s call;
+        ``corrupt_dist_checkpoint`` over 5 seeds, reaching a captured
+        graph and undone; then the device time of a matvec, the exchange's
+        share and the device ops."""
+        from repro_torch import distributed as dist
+        from repro_torch.distributed import halo as dh
+        from repro_torch.kernels import packsell_spmv as kpk
+        from repro_torch.distributed.partition import partition_rows
+        from repro_torch.parallel import make_shard_mesh
+        from repro_torch.precision import PrecisionClass, PrecisionPlan
+        from repro_torch.precision.store import select_codec_per_shard
+        from repro_torch.robust import inject
+        from repro_torch.solvers import cg, graphs
+
+        s = mp["a"]
+        n = s.shape[0]
+        P = shards
+        self.zero_counts()
+        mesh = make_shard_mesh(P, devices=[self.dev] * P)
+        mesh1 = make_shard_mesh(1, devices=[self.dev])
+        kw = dict(C=32, sigma=256)
+        d4, b4 = wall(lambda: dist.build_dist_plan(
+            s, mesh=mesh, codec="fp16", D=15, **kw))
+        d1, b1 = wall(lambda: dist.build_dist_plan(
+            s, mesh=mesh1, codec="fp16", D=15, **kw))
+        st = d4.memory_stats()
+
+        def variants(ops):
+            """Each member's label and its shards' plan variants (SELL
+            members run K2), of a plan's or a tier's operands."""
+            return [(dm.label, ["sell"] if dm.plans is None else
+                     sorted({p.variant for p in dm.plans}))
+                    for dm in getattr(ops, "ops", ops).members]
+
+        def per_matvec(ops):
+            """The launches one matvec of a plan's or a tier's operands
+            makes: each member runs its kernel once per shard (a SELL
+            member once per bucket and shard; K2's count holds its float64
+            launches too)."""
+            want = collections.Counter()
+            for dm in getattr(ops, "ops", ops).members:
+                if dm.plans is None:
+                    nk = sum(len(m.vals) for m in dm.mats)
+                    want["K2"] += nk
+                    if dm.codec == "fp64":
+                        want["K2-f64"] += nk
+                else:
+                    for pl in dm.plans:
+                        want[{"fused": "K1", "full": "K4",
+                              "band": "K6"}[pl.variant]] += 1
+            return dict(want)
+
+        def launched(run):
+            """``run()`` and the launches it made on the device."""
+            before = self.counts()
+            out = run()
+            return out, {k: v - before[k] for k, v in self.counts().items()
+                         if v != before[k]}
+
+        print(f"  dist_fp16 at P = {P} on one card: built in {b4:.1f} s "
+              f"(host), P = 1 in {b1:.1f} s; n_pad {st['n_pad']}, h_pad "
+              f"{st['h_pad']}, halo entries {st['halo_entries']}, k_max "
+              f"{st['halo_k_max']}, shard bytes max {st['max_shard_bytes']}"
+              f" min {st['min_shard_bytes']}, composite "
+              f"{st['composite_bytes']} B ({st['bytes_per_nnz']!r} B/nnz); "
+              f"members {variants(d4)}; P = 1 {variants(d1)}", flush=True)
+        print(f"  a member plan's policy: "
+              f"{d4.ops.members[0].plans[0].policy}", flush=True)
+        for dp in (d4, d1):
+            for label, vs in variants(dp):
+                if vs != ["fused"]:
+                    fail(f"dist_fp16 member {label} runs {vs}, not K1")
+        rng = np.random.default_rng(31)
+        xi_h = rng.integers(-8, 9, n).astype(np.float32)
+        xr_h = rng.standard_normal(n).astype(np.float32)
+        xi = torch.from_numpy(xi_h).to(self.dev)
+        xr = torch.from_numpy(xr_h).to(self.dev)
+        Xr = torch.from_numpy(rng.standard_normal((n, 4)).astype(
+            np.float32)).to(self.dev)
+
+        # one matvec and one SpMM: their launches; the two modes
+        members = len(d4.ops.members)
+        for what, run, want in (
+                ("spmv", lambda: d4.spmv(xi), {"K1": members * P}),
+                ("spmm nb=4", lambda: d4.spmm(Xr), {"K3": members * P})):
+            before = self.counts()
+            run()
+            got = {k: v - before[k] for k, v in self.counts().items()
+                   if v != before[k]}
+            if got != want:
+                fail(f"dist_fp16 {what} launched {got}, want {want}")
+        y_pp = d4.spmv(xi, mode="ppermute")
+        y_ag = d4.spmv(xi, mode="all_gather")
+        same_bits(y_pp, y_ag, "dist_fp16: ppermute vs all_gather")
+        t0 = time.perf_counter()
+        for mode in dh.EXCHANGE_MODES:
+            y_cpu = torch.from_numpy(dist.reference_spmv(d4.ops, xi_h, mode))
+            same_bits(y_pp.cpu(), y_cpu, f"dist_fp16 (integer x) vs the CPU "
+                      f"replay ({mode})")
+        replay_s = time.perf_counter() - t0
+        y4r = d4.spmv(xr)
+        same_bits(y4r, d4.spmv(xr, mode="all_gather"),
+                  "dist_fp16 (N(0, 1) x): ppermute vs all_gather")
+        y1r = d1.spmv(xr)
+        yp = mp["plan"].spmv(mp["mat"], xr)
+        err4 = float(((y4r - yp).abs() - 2e-5 * yp.abs()).max())
+        print(f"  y at P = {P}: ppermute and all_gather equal bit for bit; "
+              f"equal to the CPU replay (reference_spmv, plain bodies) bit "
+              f"for bit on integer x in both modes ({replay_s:.1f} s); on "
+              f"N(0, 1) x |y4 - plan_fp16| max {max_abs(y4r, yp)!r}, "
+              f"|y4 - y1| max {max_abs(y4r, y1r)!r}, |y1 - plan_fp16| max "
+              f"{max_abs(y1r, yp)!r}", flush=True)
+        if err4 > 2e-5:
+            fail(f"dist_fp16 at P = {P} not within 2e-5 of plan_fp16: "
+                 f"{err4}")
+        Y = d4.spmm(Xr)
+        for j in range(Xr.shape[1]):
+            same_bits(Y[:, j], d4.spmv(Xr[:, j].contiguous()),
+                      f"dist_fp16 spmm column {j} vs spmv")
+        print("  spmm nb = 4 (K3 per member and shard): every column equal "
+              "to the spmv of that column bit for bit", flush=True)
+
+        # jacobi_pcg_dist, as phase 4's solve
+        b = torch.ones(n, dtype=torch.float64, device=self.dev)
+        diag = s.diagonal()
+
+        def each(turn, x, info, launched):
+            steps = info.iters if turn.startswith("eager") else \
+                chunk_steps(info.iters, cg.PCG_CHUNK)
+            if launched["K1"] != members * P * (steps + 1):
+                fail(f"jacobi_pcg_dist {turn}: K1 launches "
+                     f"{launched['K1']} != {members * P} x (steps + 1) "
+                     f"({steps + 1})")
+
+        runs = self.in_turns(lambda: cg.jacobi_pcg_dist(
+            d4, diag, b, tol=1e-8, maxiter=2000), "jacobi_pcg_dist", each)
+        x, info = runs["capture"][:2]
+        relres = float(info.relres)
+        # phase 4's solve again (its graphs replay): the same fp16 operator
+        # on one device
+        x1, _ = cg.jacobi_pcg_stored(mp["mat"], mp["plan"], diag, b,
+                                     tol=1e-8, maxiter=2000)
+        dx = float(torch.linalg.vector_norm(x - x1)
+                   / torch.linalg.vector_norm(x1))
+        x_h = x.cpu().numpy()
+        true_rel = float(np.linalg.norm(1.0 - s @ x_h) / np.sqrt(n))
+        true_1 = float(np.linalg.norm(1.0 - s @ x1.cpu().numpy())
+                       / np.sqrt(n))
+        print(f"  jacobi_pcg_dist (fp16, tol 1e-8): iterations {info.iters} "
+              f"(phase 4, one device: {mp['iters']}), recurrence relres "
+              f"{relres!r}; ||x - x_phase4|| / ||x_phase4|| {dx!r}; true "
+              f"relres vs unquantized s (host float64) {true_rel!r}, phase "
+              f"4's x {true_1!r} (both the fp16 operator's quantization, "
+              f"not the solve's); the same x bit for bit in every run; "
+              f"walls {turn_walls(runs)}", flush=True)
+        if not relres < 1e-8 or not np.isfinite(x_h).all():
+            fail(f"jacobi_pcg_dist: recurrence relres {relres} not < 1e-8")
+        if not dx <= 1e-4:         # the reference's rule (rtol 1e-4)
+            fail(f"jacobi_pcg_dist: x {dx} from phase 4's x")
+
+        # adaptive_pcg_dist over phase 5's ladder
+        ops_k = mx["ops"]
+        ladder, lb = wall(lambda: ops_k.dist_adaptive_tiers(
+            1e-3, mesh=mesh, n_probes=2))
+        print(f"  tier ladder at P = {P}: {ladder.labels} + fp64, built in "
+              f"{lb:.1f} s (host); members "
+              f"{[variants(o) for o in ladder.tiers]}", flush=True)
+        # every tier's and the fp64 operator's shard bodies on the card,
+        # at the solve's dtype, against the CPU replay (the plain bodies)
+        xis = ladder.shard_vector(xi.double())
+        t0 = time.perf_counter()
+        for label, t in zip(ladder.labels + ["fp64"],
+                            ladder.tiers + [ladder.hi]):
+            vs = sorted({v for _, v_ in variants(t) for v in v_})
+            if label.startswith("e8m") and vs != ["full"]:
+                fail(f"tier {label} runs {vs}, not K4 ('full')")
+            ys, got = launched(lambda: t.run(
+                xis, mode=ladder.exchange, shared=ladder.dev["shared"]))
+            if got != per_matvec(t):
+                fail(f"tier {label}: one matvec launched {got}, want "
+                     f"{per_matvec(t)}")
+            y = ladder.unshard_vector(ys).double().cpu()
+            y_cpu = torch.from_numpy(dist.reference_spmv(t, xi_h)).double()
+            for k in got:
+                self.note(k, same_bits(y, y_cpu, f"tier {label} (integer "
+                                       "x) vs its CPU replay"))
+            print(f"  tier {label}: members {variants(t)}, one matvec "
+                  f"launches {got}; y equal to the CPU replay bit for bit",
+                  flush=True)
+        print(f"  (the ladder's {len(ladder.tiers) + 1} CPU replays: "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        b_h = np.random.default_rng(0).standard_normal(n)
+        bn = torch.from_numpy(b_h).to(self.dev)
+        runs = self.in_turns(lambda: cg.adaptive_pcg_dist(
+            ladder, diag, bn, tol=1e-8, maxiter=60, m_in=16),
+            "adaptive_pcg_dist")
+        xa, ia = runs["capture"][:2]
+        xa_h = xa.cpu().numpy()
+        rel = float(np.linalg.norm(b_h - s @ xa_h) / np.linalg.norm(b_h))
+        i5 = mx["info"]
+        print(f"  adaptive_pcg_dist (tol 1e-8, m_in 16): outer steps "
+              f"{ia.iters}, promotions {ia.promotions}, tier_history "
+              f"{ia.tier_history[:ia.iters].tolist()}; phase 5 (one "
+              f"device): {i5.iters} steps, {i5.promotions} promotions, "
+              f"{i5.tier_history[:i5.iters].tolist()}; TRUE relres vs s "
+              f"(host float64) {rel!r}; walls {turn_walls(runs)}", flush=True)
+        if not rel <= 1e-8:
+            fail(f"adaptive_pcg_dist: true relres {rel} > 1e-8")
+
+        # dist_mixed:1e-3 and dist_auto:1e-3
+        want = s @ xr_h.astype(np.float64)
+        pplan, sel_s = wall(lambda: ops_k.precision_plan(1e-3, mode="rows"))
+        (_, fleet), fleet_s = wall(lambda: select_codec_per_shard(
+            s, P, 1e-3, sigma=256))
+        kinds = {
+            f"dist_mixed:1e-3, P = {P}": lambda: dist.build_dist_plan(
+                s, pplan=pplan, mesh=mesh, **kw),
+            f"dist_auto:1e-3, P = {P}": lambda: dist.build_dist_plan(
+                s, classes=[(fleet.codec, fleet.D, None)], mesh=mesh, **kw),
+            "dist_mixed:1e-3, P = 1": lambda: ops_k.dist_plan(
+                "dist_mixed:1e-3"),
+            "dist_auto:1e-3, P = 1": lambda: ops_k.dist_plan(
+                "dist_auto:1e-3")}
+        print(f"  selection: rows mode {sel_s:.1f} s ({len(pplan.classes)} "
+              f"classes {[(c.codec, c.D) for c in pplan.classes]}), per "
+              f"shard at P = {P} {fleet_s:.1f} s (fleet {fleet.codec}/D"
+              f"{fleet.D})", flush=True)
+        for what, build in kinds.items():
+            dp, bs = wall(build)
+            y = dp.spmv(xr).double().cpu().numpy()
+            err = float(np.abs(y - want).max() / np.abs(want).max())
+            yi = dp.spmv(xi)
+            same_bits(yi.cpu(), torch.from_numpy(dist.reference_spmv(
+                dp.ops, xi_h)), f"{what} vs its CPU replay")
+            print(f"  {what}: {dp.n_shards} shards, built in {bs:.1f} s; "
+                  f"members {variants(dp)}; "
+                  f"max |y - s x| / max |s x| {err!r} (budget 1e-3); equal "
+                  f"to its CPU replay bit for bit on integer x", flush=True)
+            if not err <= 1e-3:
+                fail(f"{what}: error {err} over its budget 1e-3")
+
+        # several classes per shard (the selector gives HPCG one class at
+        # 1e-3, as above): each shard's rows in contiguous thirds at phase 9's
+        # codecs, through the call dist_mixed: makes (pplan=). Each term
+        # has three members; every shard has its own row maps.
+        part = partition_rows(n, P)
+        thirds = [np.array_split(np.arange(*part.rows_of(p)), 3)
+                  for p in range(P)]
+        pp3 = PrecisionPlan(mode="rows", classes=tuple(
+            PrecisionClass(c, D, tuple(np.concatenate(
+                [t[k] for t in thirds]).tolist()))
+            for k, (c, D) in enumerate((("fp16", 15), ("e8m", 8),
+                                        ("fp32", 0)))),
+            error_budget=1e-3, rationale={"classes": "shard thirds, by hand"})
+        d3, b3 = wall(lambda: dist.build_dist_plan(
+            s, pplan=pp3, mesh=mesh, **kw))
+        ys, got = launched(lambda: d3.spmv_sharded(d3.shard_vector(xi)))
+        if got != per_matvec(d3):
+            fail(f"three classes: one matvec launched {got}, want "
+                 f"{per_matvec(d3)}")
+        for mode in dh.EXCHANGE_MODES:
+            y_cpu = torch.from_numpy(dist.reference_spmv(d3.ops, xi_h, mode))
+            for k in got:
+                self.note(k, same_bits(
+                    d3.spmv(xi, mode=mode).cpu(), y_cpu,
+                    f"three classes (integer x, {mode}) vs the CPU replay"))
+        y = d3.spmv(xr).double().cpu().numpy()
+        err = float(np.abs(y - want).max() / np.abs(want).max())
+        print(f"  three classes per shard (thirds of each shard's rows: "
+              f"fp16/D15, e8m/D8, fp32) at P = {P}: built in {b3:.1f} s; "
+              f"members {variants(d3)}; one matvec launches {got}; equal to "
+              f"the CPU replay bit for bit on integer x in both modes; max "
+              f"|y - s x| / max |s x| {err!r} (budget 1e-3)", flush=True)
+        if not err <= 1e-3:
+            fail(f"three classes: error {err} over its budget 1e-3")
+
+        # the fault: a shifted checkpoint, in place, reaching a graph
+        xs = d4.shard_vector(xr)
+        g = graphs.Graph(lambda: d4.spmv_sharded(xs), self.dev)
+        y0g = g().clone()
+        y0g = g().clone()
+        y0 = d4.spmv(xr)
+        for seed in range(5):
+            inj = inject.corrupt_dist_checkpoint(d4, seed)
+            k = int(inj.detail["key"][1:].split("_")[0])
+            arr = d4.dev[inj.detail["key"]]
+            p, gi, c = np.unravel_index(inj.detail["index"], arr.shape)
+            dm = d4.ops.members[k]
+            lay = dm.plans[p].fused_layout
+            v, _ = kpk.fused_decode_word(
+                dm.plans[p].fused[0][gi, :, c], dm.mats[p].codec, dm.D,
+                lay.encoding, lay.scale)
+            neutral = not bool((v != 0).any())
+            y1 = d4.spmv(xr)
+            y1g = g().clone()
+            changed = not torch.equal(y1, y0)
+            same_bits(d4.unshard_vector(y1g), y1,
+                      f"fault seed {seed}: graph replay vs eager")
+            inj.undo()
+            same_bits(d4.spmv(xr), y0, f"fault seed {seed}: y after undo")
+            same_bits(g(), y0g, f"fault seed {seed}: replay after undo")
+            print(f"  fault seed {seed}: {inj.detail}, shard {p} of "
+                  f"{dm.label}; y changed {changed} (the lane's words "
+                  f"{'are all zero: value-neutral' if neutral else 'carry values'}), "
+                  f"the captured graph's replay equal to the eager y; undo "
+                  f"restores y and the replay bit for bit", flush=True)
+            if changed == neutral:
+                fail(f"fault seed {seed}: y changed {changed} but the lane "
+                     f"is {'neutral' if neutral else 'not neutral'}")
+        torch.cuda.synchronize()
+        launches = self.counts()
+        print(f"  launches in this run: {launches}", flush=True)
+
+        # device time per matvec, the exchange's share, the device ops
+        reps = self.reps
+        xs1 = d1.shard_vector(xr)
+        t4 = device_ms(lambda: d4.spmv_sharded(xs), reps)
+        t1 = device_ms(lambda: d1.spmv_sharded(xs1), reps)
+        ex = {mode: device_ms(lambda: dh.gather_halo(
+            xs, d4.ops.index, n_shards=P, h_pad=d4.ops.h_pad, mode=mode),
+            reps) for mode in dh.EXCHANGE_MODES}
+        e4 = timed(lambda: d4.spmv_sharded(xs), reps)
+        e1 = timed(lambda: d1.spmv_sharded(xs1), reps)
+        def bound(dp):
+            """The matvec's bound: every member's stream and checkpoints,
+            x and y once."""
+            nbytes = sum(4 * t.numel() for k_, t in dp.dev.items()
+                         if k_.endswith(("_fwords", "_fckpt"))) + 8 * n
+            return (nbytes,) + bound_ms(nbytes, 2 * s.nnz)
+
+        (nb4, tb, by), (nb1, tb1, by1) = bound(d4), bound(d1)
+        before = self.raw_counts()
+        ops_aten = aten_ops(lambda: d4.spmv_sharded(xs))
+        ours = {k_: v - before[k_] for k_, v in self.raw_counts().items()
+                if v != before[k_]}
+        n_ops = sum(ours.values()) + len(ops_aten)
+        print(f"  one matvec (CUDA graph of {reps} calls, device): P = {P} "
+              f"{t4!r} ms, P = 1 {t1!r} ms, phase 6's K1 alone {k1_ms!r} ms; "
+              f"bound (every member's stream and checkpoints, x and y "
+              f"once) P = {P} {tb!r} ms by {by} ({nb4} B), P = 1 {tb1!r} "
+              f"ms by {by1} ({nb1} B): P = {P} at {t4 / tb!r} x, P = 1 at "
+              f"{t1 / tb1!r} x; exchange alone "
+              f"{ex} ms, share of the P = {P} matvec "
+              f"{ex['ppermute'] / t4!r}; eager (CUDA events over {reps} "
+              f"calls) P = {P} {e4!r} ms, P = 1 {e1!r} ms; on "
+              f"{card_line()}", flush=True)
+        print(f"  its device ops (one P = {P} matvec, counted on the host): "
+              f"{n_ops}: the kernels {ours} and {len(ops_aten)} aten ops "
+              f"{dict(collections.Counter(ops_aten))}", flush=True)
+        return dict(launches=launches, t4=t4, t1=t1, ex=ex)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2799,6 +3167,11 @@ def main(argv=None) -> int:
               "traffic and a solve, an overload burst, a fault that opens "
               "and heals a breaker", lambda: smoke.serving_path(
                   mp, seed=args.seed))
+        phase(13, "distribution on the card, HPCG 104^3 as 4 shards on one "
+              "card: dist_fp16 SpMV and SpMM in both exchange modes, "
+              "jacobi_pcg_dist and adaptive_pcg_dist through CUDA graphs, "
+              "dist_mixed: and dist_auto:, a checkpoint fault",
+              lambda: smoke.dist_path(mp, mx, rows["K1"][0]))
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -2817,12 +3190,13 @@ def main(argv=None) -> int:
         "K2-f64": ("sell_spmv_bucket (float64 sum)", src + "sell_spmv.cu",
                    "src/repro/kernels/sell_spmv.py:47"),
     }
-    print(f"== 13. done in {time.perf_counter() - t_start:.1f} s (phases "
-          f"3-12: {phase_s})", flush=True)
+    print(f"== 14. done in {time.perf_counter() - t_start:.1f} s (phases "
+          f"3-13: {phase_s})", flush=True)
     print(f"card: {card_line()}", flush=True)
     # each path ran with the counts set to 0 just before it
     runs = (mp["launches"], mx["launches"], sv, cp["launches"],
-            out[10]["launches"], out[11]["launches"], out[12]["launches"])
+            out[10]["launches"], out[11]["launches"], out[12]["launches"],
+            out[13]["launches"])
     launches = {k: sum(run.get(k, 0) for run in runs) for k in meta}
     kernels = []
     for k, (kname, source, replaces) in meta.items():

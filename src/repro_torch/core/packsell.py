@@ -355,6 +355,81 @@ def from_dense(a: np.ndarray, **kw) -> PackSELLMatrix:
 
 
 # ---------------------------------------------------------------------------
+# Per-partition build hooks (the distributed layer)
+# ---------------------------------------------------------------------------
+
+
+def pad_uniform(mat: PackSELLMatrix, *, n_slices: int | None = None,
+                width: int | None = None, n_rows: int | None = None,
+                device: bool = True) -> PackSELLMatrix:
+    """Pad a single-bucket ('uniform') matrix to a common [S, w, C] shape.
+
+    The distributed partitioner σ-sorts and builds each shard's block
+    independently, which leaves every shard with different slice counts
+    and widths; the shards' blocks are stacked along a shard axis, so each
+    is padded here to the fleet-wide maxima: extra words are ``PAD_WORD``
+    (flag=0, delta=0 → contribute nothing), extra slices get sentinel
+    outrows, and ``n`` grows to ``n_rows`` with the old sentinel value
+    remapped so padding rows stay dead. Every padding row gets a stored
+    slot of its own, carved out of the all-PAD sentinel slots, so it reads
+    exactly 0 through the plan engine's inverse-permutation gather too.
+    The words, ``d0s``, outrows and maxcols are the reference's byte for
+    byte. ``device=False`` keeps the result on the host (CPU), else it
+    lands on the matrix's own device.
+    """
+    if len(mat.packs) != 1:
+        raise ValueError("pad_uniform needs a single-bucket matrix "
+                         "(build with bucket_strategy='uniform')")
+    pack = cd.words_to_numpy(mat.packs[0])
+    d0 = mat.d0s[0].cpu().numpy()
+    outrow = mat.outrows[0].cpu().numpy()
+    maxcol = mat.maxcols[0].cpu().numpy()
+    perm = mat.perm.cpu().numpy()
+    S, w, C = pack.shape
+    S_t = S if n_slices is None else int(n_slices)
+    w_t = w if width is None else int(width)
+    n_t = mat.n if n_rows is None else int(n_rows)
+    if S_t < S or w_t < w or n_t < mat.n:
+        raise ValueError(f"cannot shrink: have (S={S}, w={w}, n={mat.n}), "
+                         f"asked (S={S_t}, w={w_t}, n={n_t})")
+    if S_t * C < n_t:
+        raise ValueError(f"S={S_t} slices of C={C} cannot hold n={n_t} rows")
+
+    pack_p = np.full((S_t, w_t, C), PAD_WORD, dtype=np.uint32)
+    pack_p[:S, :w, :] = pack
+    d0_p = np.zeros(S_t, np.int32)
+    d0_p[:S] = d0
+    maxcol_p = np.zeros(S_t, np.int32)
+    maxcol_p[:S] = maxcol
+    # remap the old padding sentinel (== mat.n) to the new one (== n_t)
+    outrow_p = np.full(S_t * C, n_t, np.int32)
+    outrow_p[:S * C] = np.where(outrow >= mat.n, n_t, outrow)
+    sentinel = np.nonzero(outrow_p >= n_t)[0]
+    extra = n_t - mat.n
+    outrow_p[sentinel[:extra]] = mat.n + np.arange(extra, dtype=np.int32)
+    perm_p = np.zeros(S_t * C, perm.dtype)
+    perm_p[:len(perm)] = perm
+
+    meta = {k: getattr(mat, k) for k in PackSELLMatrix.STATIC}
+    meta.update(n=n_t, words_bucketed=int(pack_p.size))
+    return from_arrays(((pack_p,), (d0_p,), (outrow_p,), (maxcol_p,),
+                        perm_p), meta,
+                       device=mat.device if device else torch.device("cpu"))
+
+
+def aggregate_memory_stats(mats) -> dict:
+    """Fleet-level :meth:`PackSELLMatrix.memory_stats`: per-shard sums plus
+    the max/min shard footprint (load-balance signal for the partitioner)."""
+    stats = [m.memory_stats() for m in mats]
+    agg = {k: sum(s[k] for s in stats) for k in stats[0]} if stats else {}
+    per_shard = [s["packsell_bytes"] for s in stats]
+    agg["shards"] = len(stats)
+    agg["max_shard_bytes"] = max(per_shard) if per_shard else 0
+    agg["min_shard_bytes"] = min(per_shard) if per_shard else 0
+    return agg
+
+
+# ---------------------------------------------------------------------------
 # Host-side decode (oracle for tests)
 # ---------------------------------------------------------------------------
 

@@ -188,6 +188,47 @@ def from_dense(a: np.ndarray, **kw) -> SELLMatrix:
     return from_csr(sp.csr_matrix(np.asarray(a)), **kw)
 
 
+def pad_uniform(mat: SELLMatrix, *, n_slices: int | None = None,
+                width: int | None = None,
+                device: bool = True) -> SELLMatrix:
+    """Pad a single-bucket ('uniform') SELL matrix to a common [S, w, C]
+    shape: the fp32/fp64 twin of
+    :func:`repro_torch.core.packsell.pad_uniform`, used by the distributed
+    composite to stack uncompressed members across shards. Padding entries
+    carry ``val=0, col=0`` (a harmless read that contributes nothing);
+    padded slices get sentinel outrows (>= n). ``device``: as there."""
+    if len(mat.vals) != 1:
+        raise ValueError("pad_uniform needs a single-bucket matrix "
+                         "(build with bucket_strategy='uniform')")
+    val = mat.vals[0].cpu()
+    col = mat.cols[0].cpu()
+    outrow = mat.outrows[0].cpu().numpy()
+    perm = mat.perm.cpu().numpy()
+    S, w, C = val.shape
+    S_t = S if n_slices is None else int(n_slices)
+    w_t = w if width is None else int(width)
+    if S_t < S or w_t < w:
+        raise ValueError(f"cannot shrink: have (S={S}, w={w}), "
+                         f"asked (S={S_t}, w={w_t})")
+    val_p = torch.zeros((S_t, w_t, C), dtype=val.dtype)
+    val_p[:S, :w, :] = val
+    col_p = torch.zeros((S_t, w_t, C), dtype=torch.int32)
+    col_p[:S, :w, :] = col
+    outrow_p = np.full(S_t * C, mat.n, np.int32)
+    outrow_p[:S * C] = outrow
+    perm_p = np.zeros(S_t * C, perm.dtype)
+    perm_p[:len(perm)] = perm
+    dev = mat.device if device else torch.device("cpu")
+    return SELLMatrix(
+        vals=(val_p.to(dev),), cols=(col_p.to(dev),),
+        outrows=(torch.from_numpy(outrow_p).to(dev),),
+        perm=torch.from_numpy(perm_p).to(dev),
+        slot=_row_slots((outrow_p,), mat.n).to(dev),
+        n=mat.n, m=mat.m, C=C, sigma=mat.sigma, value_dtype=mat.value_dtype,
+        nnz=mat.nnz, words_sell_padded=mat.words_sell_padded,
+        words_bucketed=int(val_p.numel()))
+
+
 def from_arrays(leaves, meta: dict, *, device=None) -> SELLMatrix:
     """A SELL matrix from host arrays: ``leaves = (vals, cols, outrows,
     perm)`` as numpy and ``meta`` the static fields by name: the leaves of

@@ -1,0 +1,12 @@
+"""Distributed PackSELL: row-block partitioning, the halo exchange and the
+distributed plan layer over a shard mesh (DESIGN.md §7). The port of
+``repro.distributed``."""
+from . import halo  # noqa: F401
+from .halo import HaloMaps, build_halo_maps, gather_halo  # noqa: F401
+from .partition import (RowPartition, ShardSplit,  # noqa: F401
+                        assemble_global, comm_matrix, partition_rows,
+                        split_csr)
+from .plan import (DistOperands, DistSpMVPlan,  # noqa: F401
+                   DistTierLadder, build_composite_operands,
+                   build_dist_plan, build_dist_tiers, build_operands,
+                   reference_spmv)

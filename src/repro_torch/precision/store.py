@@ -301,30 +301,18 @@ class PrecisionStore:
 
 
 # ---------------------------------------------------------------------------
-# Per-shard selection (host only; the dist_auto kind that uses it waits for
-# the distributed layer)
+# Per-shard selection (host only; the dist_auto kind)
 # ---------------------------------------------------------------------------
-
-
-def partition_rows(n: int, n_shards: int) -> np.ndarray:
-    """Row starts ``int64[n_shards + 1]`` of the balanced contiguous split
-    (the first ``n % n_shards`` shards get one extra row): the reference
-    partitioner's ``RowPartition.starts``."""
-    if n_shards < 1:
-        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
-    base, rem = divmod(n, n_shards)
-    counts = base + (np.arange(n_shards) < rem).astype(np.int64)
-    starts = np.zeros(n_shards + 1, np.int64)
-    np.cumsum(counts, out=starts[1:])
-    return starts
 
 
 def shard_fingerprints(a: sp.csr_matrix, n_shards: int) -> list[str]:
     """Per-row-shard content fingerprints (the distributed layer's store
     key), over the partitioner's balanced contiguous row blocks."""
+    from ..distributed.partition import partition_rows
+
     a = a.tocsr()
-    starts = partition_rows(a.shape[0], n_shards)
-    return [matrix_fingerprint(a[int(starts[p]):int(starts[p + 1])])
+    part = partition_rows(a.shape[0], n_shards)
+    return [matrix_fingerprint(a[slice(*part.rows_of(p))])
             for p in range(n_shards)]
 
 
@@ -339,13 +327,15 @@ def select_codec_per_shard(a: sp.csr_matrix, n_shards: int,
     is still recorded in ``store``.
 
     Returns ``(per_shard_plans, fleet_class)``."""
+    from ..distributed.partition import partition_rows
+
     a = a.tocsr()
-    starts = partition_rows(a.shape[0], n_shards)
+    part = partition_rows(a.shape[0], n_shards)
     fps = shard_fingerprints(a, n_shards)
     store = None if store is None else PrecisionStore.coerce(store)
     plans, subs = [], []
     for p in range(n_shards):
-        sub = a[int(starts[p]):int(starts[p + 1])]
+        sub = a[slice(*part.rows_of(p))]
         if sub.shape[0] == 0:
             plans.append(None)        # empty shard: no constraint
             continue

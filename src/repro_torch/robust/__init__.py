@@ -17,7 +17,7 @@ from .guard import (GuardState, IntegrityError, build_guard,  # noqa: F401
                     is_healthy, mark_unhealthy, plan_health,
                     validate_composite, validate_matrix, validate_plan)
 from .inject import (Injection, corrupt_composite_word,  # noqa: F401
-                     corrupt_fused_checkpoint, corrupt_permutation,
+                     corrupt_dist_checkpoint, corrupt_fused_checkpoint, corrupt_permutation,
                      corrupt_store, flip_fused_word, flip_pack_word,
                      poison_x)
 from .recover import GuardedSolveInfo, guarded_solve  # noqa: F401

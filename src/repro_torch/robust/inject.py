@@ -1,8 +1,7 @@
 """Seeded, deterministic fault injectors for every execution path.
 
-The port of ``repro.robust.inject`` (all of it but the distributed
-checkpoint injector, which waits for the distributed layer). Each
-injector corrupts ONE operand of a live plan and returns an
+The port of ``repro.robust.inject``. Each injector corrupts ONE operand
+of a live plan and returns an
 :class:`Injection` describing what changed and whether the corruption is
 provably **value-neutral** (y bit-identical for every finite x, e.g. a
 flip inside a padding word). The neutrality oracle is exact: it compares
@@ -306,6 +305,29 @@ def corrupt_store(path: str, seed: int, mode: str = "truncate") -> \
 # ---------------------------------------------------------------------------
 # Composite operand injector
 # ---------------------------------------------------------------------------
+
+
+def corrupt_dist_checkpoint(dplan, seed: int) -> Injection:
+    """Shift one cursor checkpoint inside a DistSpMVPlan's stacked
+    operands (a ``*_fckpt`` tensor), in place. Each shard's fused plan
+    reads row p of that tensor, so the corruption reaches the shard's
+    kernel and every graph captured over it. The key, index and delta are
+    drawn as the reference draws them (no neutrality oracle: as there,
+    ``value_neutral`` is False)."""
+    keys = sorted(k for k in dplan.dev if k.endswith("_fckpt"))
+    if not keys:
+        raise ValueError("dist plan has no fused checkpoint operands")
+    rng = np.random.default_rng(seed)
+    key = keys[int(rng.integers(len(keys)))]
+    flat = dplan.dev[key].view(-1)
+    i = int(rng.integers(flat.numel()))
+    delta = int(rng.integers(1, max(int(dplan.m) if hasattr(dplan, "m")
+                                    else 2 ** 15, 2)))
+    old = int(flat[i])
+    _put(flat, (i,), old + delta)
+    return Injection("dist_ckpt", dict(key=key, index=i, old=old,
+                                       delta=delta, seed=seed),
+                     False, lambda: _put(flat, (i,), old))
 
 
 def corrupt_composite_word(comp, member: int, seed: int) -> Injection:

@@ -1,6 +1,8 @@
 """Preconditioned CG, Jacobi-PCG in stored-row order, the
 residual-adaptive mixed-precision PCG, flexible CG and fixed-iteration
-PCG (the outer and inner loops of IO-CG).
+PCG (the outer and inner loops of IO-CG), and the distributed Jacobi-PCG
+and adaptive PCG over stacked shard vectors (:func:`jacobi_pcg_dist`,
+:func:`adaptive_pcg_dist`, with :func:`dist_dot` / :func:`dist_norm`).
 
 The convergence criterion is the paper's eq. (6), ``||b - A x||_2 /
 ||b||_2 < tol``, tracked through the CG recurrence residual. Outer
@@ -31,14 +33,16 @@ across calls, as the reference's keep the compiled solve (the caller's
 key must identify the ``matvec``/``M`` closures); without them the
 graphs live for one call.
 
-The flight recorder: :func:`pcg`, :func:`jacobi_pcg_stored` and
-:func:`adaptive_pcg` call ``observe.record_solve`` once, after the loop,
-with the reference's ``path`` label (``jit_cache`` when the caller passes
-one, else ``eager``; ``fused`` for ``jacobi_pcg_stored``), and run their
-loops inside the ``packsell.solver_while`` span. A solve with a
-``jit_cache`` is the reference's one compiled dispatch: nothing inside it,
-its set-up included, records (``observe.metrics.quiet``), as nothing
-inside the reference's traced solve does.
+The flight recorder: :func:`pcg`, :func:`jacobi_pcg_stored`,
+:func:`adaptive_pcg` and the distributed solvers call
+``observe.record_solve`` once, after the loop, with the reference's
+``path`` label (``jit_cache`` when the caller passes one, else ``eager``;
+``fused`` for ``jacobi_pcg_stored``; ``shards=P`` for the distributed
+ones), and run their loops inside the ``packsell.solver_while`` span. A
+solve with a ``jit_cache`` is the reference's one compiled dispatch:
+nothing inside it, its set-up included, records
+(``observe.metrics.quiet``), as nothing inside the reference's traced
+solve does.
 """
 from __future__ import annotations
 
@@ -87,11 +91,34 @@ def _hist_dtype(dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def _prep(b, x0, dtype):
+def _prep(b, x0, dtype, norm=torch.linalg.vector_norm):
     dtype = dtype or b.dtype
     b = b.to(dtype)
     x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
-    return b, x, _nonzero(torch.linalg.vector_norm(b)), dtype
+    return b, x, _nonzero(norm(b)), dtype
+
+
+def _shard_sum(parts: torch.Tensor) -> torch.Tensor:
+    """``[P]`` per-shard partials summed in rank order, the reference's
+    ``psum`` (one add per shard, so the order is fixed)."""
+    total = parts[0]
+    for p in range(1, parts.shape[0]):
+        total = total + parts[p]
+    return total
+
+
+def dist_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """⟨a, b⟩ of two stacked ``[P, n_pad]`` vectors: each shard's dot,
+    summed over the shards in rank order (the reference's ``psum`` of
+    per-shard ``vdot``s; shard pad slots must be zero, which the row mask
+    guarantees for the distributed layer's vectors)."""
+    return _shard_sum(torch.linalg.vecdot(a, b))
+
+
+def dist_norm(a: torch.Tensor) -> torch.Tensor:
+    """‖a‖₂ of a stacked vector: the square root of the rank-order sum of
+    per-shard squared sums."""
+    return torch.sqrt(_shard_sum((a * a).sum(dim=-1)))
 
 
 def _masked(go: torch.Tensor, bufs, vals) -> None:
@@ -223,24 +250,30 @@ def _compiled(jit_cache):
 
 def pcg(matvec: Matvec, b: torch.Tensor, *, M: Matvec | None = None,
         tol: float = 1e-9, maxiter: int = 1000, x0=None, dtype=None,
-        chunk: int = PCG_CHUNK, jit_cache: dict | None = None,
+        dot=None, norm=None, chunk: int = PCG_CHUNK,
+        jit_cache: dict | None = None,
         jit_key=None) -> tuple[torch.Tensor, SolveInfo]:
     """Preconditioned CG. ``M`` must be a fixed SPD operator; ``chunk``
-    steps per graph replay."""
+    steps per graph replay. ``dot`` / ``norm`` default to ``torch.dot`` /
+    ``torch.linalg.vector_norm``; :func:`jacobi_pcg_dist` passes
+    :func:`dist_dot` / :func:`dist_norm`, so the same recurrence runs on
+    stacked shard vectors (it records the solve itself: this call, inside
+    its ``quiet`` block, records nothing)."""
     with _compiled(jit_cache):
         x, info = _pcg(matvec, b, M=M, tol=tol, maxiter=maxiter, x0=x0,
                        dtype=dtype, chunk=chunk, jit_cache=jit_cache,
-                       jit_key=jit_key)
+                       jit_key=jit_key, dot=dot, norm=norm)
     _observe.record_solve("pcg", info, path="eager" if jit_cache is None
                           else "jit_cache")
     return x, info
 
 
 def _pcg(matvec, b, *, M, tol, maxiter, x0, dtype, chunk, jit_cache,
-         jit_key) -> tuple[torch.Tensor, SolveInfo]:
-    dot, norm = torch.dot, torch.linalg.vector_norm
+         jit_key, dot=None, norm=None) -> tuple[torch.Tensor, SolveInfo]:
+    dot = dot or torch.dot
+    norm = norm or torch.linalg.vector_norm
     key = _key("pcg", jit_key, tol, maxiter, b, dtype, chunk)
-    b, x, bnorm, dtype = _prep(b, x0, dtype)
+    b, x, bnorm, dtype = _prep(b, x0, dtype, norm)
     M = M or (lambda r: r)
 
     def step(bnorm, x, r, p, rz):
@@ -298,11 +331,11 @@ def fcg(matvec: Matvec, b: torch.Tensor, *, M: Matvec, tol: float = 1e-9,
 
 
 def pcg_fixed_iters(matvec: Matvec, M: Matvec, m_in: int,
-                    dtype=torch.float32) -> graphs.Applied:
+                    dtype=torch.float32, dot=None) -> graphs.Applied:
     """``m_in`` PCG iterations from x0 = 0, packaged as a preconditioner:
     the inner solver of IO-CG (paper §5.2.2). One application is one
-    graph (the eager body is ``.fn``)."""
-    dot = torch.dot
+    graph (the eager body is ``.fn``). ``dot``: as in :func:`pcg`."""
+    dot = dot or torch.dot
 
     def apply(rhs: torch.Tensor) -> torch.Tensor:
         r = rhs.to(dtype)
@@ -381,11 +414,12 @@ class _Refinement:
     ``(k, live, promoted)`` once per chunk and picks the next tier."""
 
     def __init__(self, inner, hi, b, x, rel_t, *, tol, maxiter, m_in,
-                 stag_factor, chunk):
+                 stag_factor, chunk, norm=torch.linalg.vector_norm):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         dev, dtype = b.device, b.dtype
         self.inner, self.hi, self.tol, self.maxiter = inner, hi, tol, maxiter
+        self.norm = norm
         self.chunk = chunk
         hdt = _hist_dtype(dtype)
         self.b, self.x, self.r = (torch.empty_like(b), torch.empty_like(x),
@@ -411,7 +445,7 @@ class _Refinement:
             go = self.live & torch.logical_not(self.prom)
             x = self.x + self.inner[tier](self.r)
             r = self.b - self.hi(x).to(dtype)
-            rel_t = torch.linalg.vector_norm(r) / self.bnorm
+            rel_t = self.norm(r) / self.bnorm
             rel_new = rel_t.to(self.relres.dtype)
             pos = torch.where(go, self.k + 1, self.maxiter + 1)
             self.hist.index_copy_(0, pos.reshape(1), rel_new.reshape(1))
@@ -455,7 +489,8 @@ def adaptive_pcg(tiers, b: torch.Tensor, *, M: Matvec | None = None,
                  matvec_hi: Matvec | None = None, tol: float = 1e-9,
                  maxiter: int = 60, m_in: int = 16, x0=None, dtype=None,
                  stag_factor: float = 0.25, start_tier: int = 0,
-                 chunk: int = 1, jit_cache: dict | None = None, jit_key=None
+                 dot=None, norm=None, prestage=None, chunk: int = 1,
+                 jit_cache: dict | None = None, jit_key=None
                  ) -> tuple[torch.Tensor, AdaptiveSolveInfo]:
     """Residual-adaptive mixed-precision PCG (iterative refinement).
 
@@ -470,6 +505,12 @@ def adaptive_pcg(tiers, b: torch.Tensor, *, M: Matvec | None = None,
     replay and one host read (a promotion masks the rest of the chunk);
     inside :func:`.graphs.eager` it is the reference's loop written out on
     the host, which reads the residual once per outer step.
+
+    ``dot`` / ``norm`` are as in :func:`pcg`. ``prestage`` (distributed:
+    the halo gather) maps a matvec's input to extra operands that every
+    tier and ``matvec_hi`` receive as trailing arguments; it runs once per
+    matvec, outside the tier choice, so one exchange serves whichever tier
+    is active.
     """
     if not tiers:
         raise ValueError("need at least one tier")
@@ -478,26 +519,33 @@ def adaptive_pcg(tiers, b: torch.Tensor, *, M: Matvec | None = None,
             tiers, b, M=M, matvec_hi=matvec_hi, tol=tol, maxiter=maxiter,
             m_in=m_in, x0=x0, dtype=dtype, stag_factor=stag_factor,
             start_tier=start_tier, chunk=chunk, jit_cache=jit_cache,
-            jit_key=jit_key)
+            jit_key=jit_key, dot=dot, norm=norm, prestage=prestage)
     _observe.record_solve("adaptive_pcg", info,
                           path="eager" if jit_cache is None else "jit_cache")
     return x, info
 
 
 def _adaptive_pcg(tiers, b, *, M, matvec_hi, tol, maxiter, m_in, x0, dtype,
-                  stag_factor, start_tier, chunk, jit_cache, jit_key):
-    norm = torch.linalg.vector_norm
+                  stag_factor, start_tier, chunk, jit_cache, jit_key,
+                  dot=None, norm=None, prestage=None):
+    norm = norm or torch.linalg.vector_norm
     n_tiers = len(tiers)
     key = _key("adaptive", jit_key, tol, maxiter, b, dtype, chunk, int(m_in),
                float(stag_factor), int(start_tier))
-    b, x, bnorm, dtype = _prep(b, x0, dtype)
+    b, x, bnorm, dtype = _prep(b, x0, dtype, norm)
     M = M or (lambda r: r)
-    hi = matvec_hi or tiers[-1]
+    hi_raw = matvec_hi or tiers[-1]
+    if prestage is None:
+        hi = hi_raw
+    else:
+        tiers = [functools.partial(_staged, t, prestage) for t in tiers]
+        hi = functools.partial(_staged, hi_raw, prestage)
     tier = min(start_tier, n_tiers - 1)
     loop = jit_cache.get(key) if jit_cache is not None else None
     if loop is None:
         # m_in PCG iterations on A_tier d = r from d = 0: one graph each
-        inner_solve = [pcg_fixed_iters(t, M, m_in, dtype) for t in tiers]
+        inner_solve = [pcg_fixed_iters(t, M, m_in, dtype, dot)
+                       for t in tiers]
     else:
         inner_solve = loop.inner
 
@@ -507,7 +555,8 @@ def _adaptive_pcg(tiers, b, *, M, matvec_hi, tol, maxiter, m_in, x0, dtype,
         if loop is None:
             loop = _Refinement(inner_solve, hi, b, x, rel_t, tol=tol,
                                maxiter=maxiter, m_in=m_in,
-                               stag_factor=stag_factor, chunk=chunk)
+                               stag_factor=stag_factor, chunk=chunk,
+                               norm=norm)
             if jit_cache is not None:
                 jit_cache[key] = loop
         with _obs.span("packsell.solver_while"):
@@ -542,3 +591,127 @@ def _adaptive_pcg(tiers, b, *, M, matvec_hi, tol, maxiter, m_in, x0, dtype,
             relres = rel_new
             k += 1
     return x, AdaptiveSolveInfo(k, rel_t, hist, thist, nprom, mvc, hic)
+
+
+def _staged(matvec, prestage, v):
+    """``matvec(v, *prestage(v))``: a tier of :func:`adaptive_pcg` with
+    the shared pre-stage in front."""
+    return matvec(v, *prestage(v))
+
+
+# ---------------------------------------------------------------------------
+# The distributed solvers
+# ---------------------------------------------------------------------------
+
+
+def _dtype_name(dtype) -> str:
+    """``torch.float64`` → ``'float64'``, as the reference's keys name it."""
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def _dist_setup(bound, diag, b, dtype, mode):
+    """``(b, dinv)`` stacked on the mesh's device in the solve's dtype,
+    the exchange mode, and the dtype."""
+    dev = bound.mesh.device
+    b = torch.as_tensor(b, device=dev)
+    dtype = dtype or b.dtype
+    diag = torch.as_tensor(diag, device=dev)
+    dinv = torch.where(diag == 0, torch.ones_like(diag), 1.0 / diag)
+    return (bound.shard_vector(b.to(dtype)),
+            bound.shard_vector(dinv.to(dtype)),
+            mode or bound.exchange, dtype)
+
+
+def jacobi_pcg_dist(dplan, diag, b: torch.Tensor, *, tol: float = 1e-9,
+                    maxiter: int = 1000, dtype=None, mode: str | None = None
+                    ) -> tuple[torch.Tensor, SolveInfo]:
+    """Jacobi-PCG over a shard mesh on stacked vectors.
+
+    ``dplan`` is a :class:`~repro_torch.distributed.plan.DistSpMVPlan`;
+    each iteration's matvec is its shard body (the halo exchange, every
+    shard's local and remote blocks, the row mask), and every dot and norm
+    is :func:`dist_dot` / :func:`dist_norm`, so all shards advance through
+    one scalar recurrence: the iteration count matches the single-device
+    solver up to summation-order rounding. Vectors stay stacked for the
+    whole solve. The solve's graphs and static buffers are cached on
+    ``dplan._fns`` under the reference's key, as the reference caches its
+    one compiled dispatch there, so a second solve only replays.
+
+    ``diag``: the matrix diagonal in global row order (numpy or tensor);
+    ``b``: the global right-hand side; ``mode`` overrides the plan's
+    exchange mode.
+    """
+    bs, ds, mode, dtype = _dist_setup(dplan, diag, b, dtype, mode)
+    key = ("pcg", float(tol), int(maxiter), _dtype_name(dtype), mode)
+    ent = dplan._fns.get(key)
+    if ent is None:
+        # the closure holds the operands, not the plan (no cycle)
+        ent = dplan._fns[key] = (
+            torch.empty_like(ds),
+            functools.partial(dplan.ops.run, mode=mode), {})
+    dinv_buf, matvec, cache = ent
+    dinv_buf.copy_(ds)
+    with _obs.quiet():
+        xs, info = pcg(matvec, bs, M=lambda r: r * dinv_buf, tol=tol,
+                       maxiter=maxiter, dtype=dtype, dot=dist_dot,
+                       norm=dist_norm, jit_cache=cache, jit_key=key)
+    _observe.record_solve("jacobi_pcg_dist", info, shards=dplan.n_shards)
+    return dplan.unshard_vector(xs), info
+
+
+def adaptive_pcg_dist(ladder, diag, b: torch.Tensor, *, tol: float = 1e-9,
+                      maxiter: int = 60, m_in: int = 16,
+                      stag_factor: float = 0.25, start_tier: int = 0,
+                      dtype=None, mode: str | None = None
+                      ) -> tuple[torch.Tensor, AdaptiveSolveInfo]:
+    """Residual-adaptive mixed-precision PCG over a shard mesh.
+
+    ``ladder`` is a :class:`~repro_torch.distributed.plan.DistTierLadder`:
+    one stacked member set per codec tier over one shared partition, plus
+    the exact fp64 set for the outer true-residual step. The body is
+    :func:`adaptive_pcg` with three injections:
+
+    * ``dot`` / ``norm`` are :func:`dist_dot` / :func:`dist_norm`, so the
+      iteration and promotion schedule match the single-device solver up
+      to summation-order rounding;
+    * each tier's matvec is that tier's shard body
+      (``DistOperands.run``) on the ladder's shared maps and mask;
+    * the halo gather is the shared ``prestage``, once per matvec
+      whatever the tier.
+
+    The tier is chosen on the host, as in :func:`adaptive_pcg`; the graphs
+    are cached on ``ladder._fns`` under the reference's key.
+    """
+    from ..distributed import halo as dh
+
+    bs, ds, mode, dtype = _dist_setup(ladder, diag, b, dtype, mode)
+    key = ("adaptive", float(tol), int(maxiter), int(m_in),
+           float(stag_factor), int(start_tier), _dtype_name(dtype), mode)
+    ent = ladder._fns.get(key)
+    if ent is None:
+        shared = ladder.dev["shared"]
+
+        def tier_fn(ops):
+            def matvec(v, *extras):
+                return ops.run(v, mode=mode,
+                               x_halo=extras[0] if extras else None,
+                               shared=shared)
+            return matvec
+
+        pre = dh.prestage(shared["index"], n_shards=ladder.n_shards,
+                          h_pad=ladder.h_pad, mode=mode)
+        ent = ladder._fns[key] = (
+            torch.empty_like(ds), [tier_fn(o) for o in ladder.tiers],
+            tier_fn(ladder.hi), pre, {})
+    dinv_buf, tiers, hi, pre, cache = ent
+    dinv_buf.copy_(ds)
+    with _obs.quiet():
+        xs, info = adaptive_pcg(
+            tiers, bs, M=lambda r: r * dinv_buf, matvec_hi=hi, tol=tol,
+            maxiter=maxiter, m_in=m_in, dtype=dtype,
+            stag_factor=stag_factor, start_tier=start_tier,
+            dot=dist_dot, norm=dist_norm, prestage=pre, jit_cache=cache,
+            jit_key=key)
+    _observe.record_solve("adaptive_pcg_dist", info,
+                          shards=ladder.n_shards)
+    return ladder.unshard_vector(xs), info

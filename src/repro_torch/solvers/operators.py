@@ -9,12 +9,15 @@ the matrix's plan kernels on the card), the ``plan_<codec>`` kinds (the
 cached plan engine) with ``plan_pair`` for ``cg.jacobi_pcg_stored``, their
 ``guarded:plan_<codec>`` form (the ABFT guard on every call outside a
 graph capture), the budget-driven ``auto:`` and ``mixed:`` kinds (one
-codec, or a ``MixedPackSELL`` composite of row classes), and the
+codec, or a ``MixedPackSELL`` composite of row classes), the
 ``cg.adaptive_pcg`` inputs (:meth:`OperatorSet.precision_plan`,
 :meth:`OperatorSet.adaptive_tiers`), with an optional
-:class:`~repro_torch.precision.store.PrecisionStore`. The distributed
-families parse but raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+:class:`~repro_torch.precision.store.PrecisionStore`, and the distributed
+kinds ``dist_<codec>``, ``dist_auto:`` and ``dist_mixed:`` (a
+:class:`~repro_torch.distributed.plan.DistSpMVPlan` over the default shard
+mesh of the set's device; global vectors in and out) with
+:meth:`OperatorSet.dist_plan` and :meth:`OperatorSet.dist_adaptive_tiers`
+for ``cg.jacobi_pcg_dist`` and ``cg.adaptive_pcg_dist``.
 """
 from __future__ import annotations
 
@@ -67,14 +70,6 @@ KIND_MENU = (
     "| dist_<codec> | auto:<budget> | mixed:<budget> | dist_auto:<budget> "
     "| dist_mixed:<budget> | guarded:plan_<codec>   (<codec>: fp16 | bf16 "
     "| e8m<D>, e.g. e8m8; <budget>: a positive float, e.g. 1e-3)")
-
-#: where each family not ported yet is tracked
-_NOT_PORTED = {
-    "dist": "ROADMAP.md queue 1, M9 (distribution)",
-    "dist_auto": "ROADMAP.md queue 1, M9 (distribution)",
-    "dist_mixed": "ROADMAP.md queue 1, M9 (distribution)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class KindSpec:
@@ -224,13 +219,34 @@ class OperatorSet:
             self, psel.tier_ladder(plan))
         return mvs, labels, sub32, self.matvec("fp64")
 
+    def dist_adaptive_tiers(self, error_budget: float, *,
+                            n_shards: int | None = None, mesh=None,
+                            exchange: str = "ppermute", store=None,
+                            **select_kw):
+        """The same tier ladder as :meth:`adaptive_tiers`, built as a
+        :class:`~repro_torch.distributed.plan.DistTierLadder` for
+        ``cg.adaptive_pcg_dist``: per-tier stacked member sets over one
+        shared partition plus the exact fp64 outer operator, on ``mesh``
+        (default: ``make_shard_mesh(n_shards)`` on the set's device)."""
+        from ..distributed import build_dist_tiers
+
+        plan = self.precision_plan(error_budget, store=store, **select_kw)
+        return build_dist_tiers(self.csr, psel.tier_ladder(plan),
+                                n_shards=n_shards, mesh=mesh,
+                                exchange=exchange, C=self.C,
+                                sigma=self.sigma, device=self.device)
+
     def matvec(self, kind: str) -> Matvec:
         """The matvec of a dense SELL kind (K2; ``fp64`` sums in float64),
         ``csr64``, a ``packsell_<codec>`` kind, a ``plan_<codec>`` kind
         (the matrix's cached SpMVPlan), its ``guarded:`` form, an
         ``auto:<budget>`` kind (the selected codec's ``plan_`` kind, or
-        ``fp32``) or a ``mixed:<budget>`` kind (a ``MixedPackSELL`` of the
-        per-row-class selection).
+        ``fp32``), a ``mixed:<budget>`` kind (a ``MixedPackSELL`` of the
+        per-row-class selection), or a distributed kind over the default
+        shard mesh of the set's device: ``dist_<codec>``, ``dist_auto:``
+        (per-shard selection coalesced to one fleet codec) and
+        ``dist_mixed:`` (per-shard per-class members); these take and
+        return global vectors, so they drop into any solver unchanged.
 
         ``packsell_<codec>`` is the reference's per-call path
         (``kernels.ops.packsell_spmv_percall``): on the CPU with
@@ -284,11 +300,39 @@ class OperatorSet:
                 device=self.device, force=self.force)
             fn = mat.spmv
         else:
-            raise NotImplementedError(
-                f"operator kind {kind!r} (family {spec.family!r}) is not "
-                f"ported yet: {_NOT_PORTED[spec.family]}")
+            mat = self._dist(spec)
+            fn = mat.spmv
         self._cache[kind] = (fn, mat)
         return fn
+
+    def _dist(self, spec: KindSpec):
+        """The DistSpMVPlan of a ``dist_<codec>``, ``dist_auto:`` or
+        ``dist_mixed:`` kind."""
+        from ..distributed import build_dist_plan
+
+        kw = dict(C=self.C, sigma=self.sigma, device=self.device)
+        if spec.family == "dist":
+            return build_dist_plan(self.csr, D=spec.D, codec=spec.codec,
+                                   **kw)
+        if spec.family == "dist_auto":
+            # per-shard fingerprinted selection, coalesced to the most
+            # conservative fleet codec (one program for every shard)
+            from ..precision.store import select_codec_per_shard
+            _, fleet = select_codec_per_shard(
+                self.csr, self._dist_shards(), spec.budget,
+                store=self.store, sigma=self.sigma)
+            return build_dist_plan(
+                self.csr, classes=[(fleet.codec, fleet.D, None)], **kw)
+        if spec.family == "dist_mixed":
+            return build_dist_plan(
+                self.csr, pplan=self.precision_plan(spec.budget,
+                                                    mode="rows"), **kw)
+        raise ValueError(spec.raw)  # pragma: no cover: parse_kind is total
+
+    def _dist_shards(self) -> int:
+        """Shards of the default mesh on the set's device."""
+        from ..parallel import make_shard_mesh
+        return make_shard_mesh(device=self.device).size
 
     def _guarded(self, spec: KindSpec):
         from ..robust import guard as gd
@@ -326,3 +370,14 @@ class OperatorSet:
         self.matvec(kind)
         mat = self._cache[kind][1]
         return mat, kplan.get_plan(mat, force=self.force)
+
+    def dist_plan(self, kind: str):
+        """The :class:`~repro_torch.distributed.plan.DistSpMVPlan` behind a
+        distributed kind (``dist_<codec>`` / ``dist_auto:<b>`` /
+        ``dist_mixed:<b>``): what ``cg.jacobi_pcg_dist`` takes."""
+        if not parse_kind(kind).distributed:
+            raise ValueError(
+                f"{kind!r} is not a distributed kind (valid: dist_<codec> "
+                f"| dist_auto:<budget> | dist_mixed:<budget>)")
+        self.matvec(kind)
+        return self._cache[kind][1]

@@ -1130,3 +1130,104 @@ def test_frontend_serves_on_the_card(cuda):
                 y1 = plan.spmv(mat, torch.from_numpy(r.x).to(cuda)).cpu(
                 ).numpy()
             np.testing.assert_array_equal(r.y, y1)
+
+
+# ---------------------------------------------------------------------------
+# distribution: four shards on one card
+# ---------------------------------------------------------------------------
+
+
+def _dist4(cuda, a, **kw):
+    from repro_torch.distributed import build_dist_plan
+    from repro_torch.parallel import make_shard_mesh
+
+    mesh = make_shard_mesh(4, devices=[cuda] * 4)
+    return build_dist_plan(a, mesh=mesh, C=32, sigma=64, **kw)
+
+
+@pytest.mark.parametrize("codec,D", [("fp16", 15), ("e8m", 8), ("fp32", 0)])
+def test_dist_p4_matches_the_cpu_replay(cuda, codec, D):
+    """P = 4 on one card equals the port's ``reference_spmv`` (the
+    stacked host arrays replayed on the CPU through the plain bodies) bit
+    for bit on integer data, in both exchange modes, and launches each
+    member's kernel once per shard."""
+    from repro_torch.distributed import halo, reference_spmv
+
+    a = SUITE["scattered"].tocsr().copy()
+    rng = np.random.default_rng(5)
+    a.data = rng.integers(1, 9, a.nnz).astype(np.float64)
+    dp = _dist4(cuda, a, codec=codec, D=D)
+    x = rng.integers(-8, 9, a.shape[0]).astype(np.float32)
+    xd = torch.from_numpy(x).to(cuda)
+    k1 = kpk.packsell_spmv_fused.launches
+    y = dp.spmv(xd)
+    fused = [m for m in dp.ops.members
+             if m.plans is not None and m.plans[0].variant == "fused"]
+    assert kpk.packsell_spmv_fused.launches - k1 == 4 * len(fused)
+    for mode in halo.EXCHANGE_MODES:
+        _same_bits(dp.spmv(xd, mode=mode), y)
+        np.testing.assert_array_equal(
+            y.cpu().numpy(), reference_spmv(dp.ops, x, mode))
+
+
+def test_dist_tier_ladder_and_classes_match_the_cpu_replay(cuda):
+    """Every tier of a P = 4 ladder, its fp64 operator and a five-class
+    composite (several members per term, per-shard row maps) equal the
+    CPU replay bit for bit on integer data."""
+    from repro_torch.distributed import build_dist_tiers, reference_spmv
+    from repro_torch.parallel import make_shard_mesh
+
+    a = SUITE["scattered"].tocsr().copy()
+    rng = np.random.default_rng(6)
+    a.data = rng.integers(1, 9, a.nnz).astype(np.float64)
+    x = rng.integers(-8, 9, a.shape[0]).astype(np.float32)
+    mesh = make_shard_mesh(4, devices=[cuda] * 4)
+    ladder = build_dist_tiers(a, [("fp16", 15), ("e8m", 8), ("e8m", 1),
+                                  ("fp32", 0)], mesh=mesh, C=32, sigma=64)
+    xs = ladder.shard_vector(torch.from_numpy(x).double().to(cuda))
+    for t in ladder.tiers + [ladder.hi]:
+        y = ladder.unshard_vector(t.run(xs, mode=ladder.exchange,
+                                        shared=ladder.dev["shared"]))
+        np.testing.assert_array_equal(y.double().cpu().numpy(),
+                                      reference_spmv(t, x))
+    rows = np.arange(a.shape[0])
+    classes = [(c, D, rows[rows % 5 == i]) for i, (c, D) in enumerate(
+        (("fp16", 15), ("bf16", 12), ("e8m", 8), ("fp32", 0), ("fp64", 0)))]
+    dp = _dist4(cuda, a, classes=classes)
+    assert len(dp.ops.members) == 10
+    y = dp.spmv(torch.from_numpy(x).to(cuda)).cpu().numpy()
+    np.testing.assert_array_equal(y, reference_spmv(dp.ops, x))
+
+
+def test_jacobi_pcg_dist_graph_equals_eager(cuda):
+    s, b = _spd_system()
+    dp = _dist4(cuda, s, codec="fp16", D=15)
+    bd = torch.from_numpy(b).to(cuda)
+    with graphs.eager():
+        xe, ie = cg.jacobi_pcg_dist(dp, s.diagonal(), bd, tol=1e-8,
+                                    maxiter=300)
+    for _ in range(2):                         # the capture, then a replay
+        xg, ig = cg.jacobi_pcg_dist(dp, s.diagonal(), bd, tol=1e-8,
+                                    maxiter=300)
+        assert ig.iters == ie.iters and float(ig.relres) < 1e-8
+        _same_bits(xg, xe)
+
+
+def test_corrupt_dist_checkpoint_reaches_a_captured_graph(cuda):
+    from repro_torch.robust import inject
+
+    s, b = _spd_system()
+    dp = _dist4(cuda, s, codec="fp16", D=15)
+    xs = dp.shard_vector(torch.from_numpy(b).float().to(cuda))
+    g = graphs.Graph(lambda: dp.spmv_sharded(xs), cuda)
+    g()
+    y0 = g().clone()
+    changed = 0
+    for seed in range(5):
+        inj = inject.corrupt_dist_checkpoint(dp, seed)
+        y1 = g().clone()
+        _same_bits(y1, dp.spmv_sharded(xs))        # replay == eager
+        changed += not torch.equal(y1, y0)
+        inj.undo()
+        _same_bits(g(), y0)
+    assert changed > 0

@@ -161,9 +161,8 @@ def test_operator_families_now_ported_match_reference(kind):
 
 
 def test_mixed_kind_and_store_raise_naming_roadmap(tmp_path):
-    """``mixed:`` and ``store=`` are ported (M5): they build and agree
-    with the reference; only the distributed ``dist_mixed:`` still raises,
-    naming ROADMAP's M9."""
+    """``mixed:``, ``store=`` and the distributed ``dist_mixed:`` are
+    ported (M5, M9): they build and agree with the reference."""
     a = MATRICES["scattered"]()
     ops = top.OperatorSet(a, device="cpu")
     ref = rop.OperatorSet(a)
@@ -178,8 +177,10 @@ def test_mixed_kind_and_store_raise_naming_roadmap(tmp_path):
         ref.precision_plan(1e-3, store=str(tmp_path / "ref.json")).to_dict()
     assert ops.adaptive_tiers(1e-3, store=store)[1] == \
         ref.adaptive_tiers(1e-3)[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*M9"):
-        ops.matvec("dist_mixed:1e-3")
+    np.testing.assert_allclose(
+        ops.matvec("dist_mixed:1e-3")(torch.from_numpy(x)).numpy(),
+        np.asarray(ref.matvec("dist_mixed:1e-3")(jnp.asarray(x))),
+        rtol=1e-6, atol=1e-6)
 
 
 def test_adaptive_tiers_match_reference():

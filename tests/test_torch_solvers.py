@@ -62,19 +62,29 @@ def test_parse_kind_matches_reference(kind):
 @pytest.mark.parametrize("kind", ["csr64", "dist_fp16", "mixed:1e-3",
                                   "dist_auto:1e-3", "dist_mixed:1e-3",
                                   "guarded:plan_fp16"])
-def test_operator_families_outside_the_slice_raise(kind):
-    """The distributed families raise naming ROADMAP's M9; ``csr64``,
-    ``mixed:`` and ``guarded:`` are ported and build. No family but
-    ``plan_`` gives a ``plan_pair``."""
-    ops = top.OperatorSet(SUITE["hpcg_mini"], device="cpu")
+def test_operator_families_build_and_match(kind):
+    """Every family outside ``plan_`` builds: ``csr64``, ``mixed:`` and
+    ``guarded:`` within 1e-3 of the fp64 product, and the distributed
+    families (one shard on the set's device, as the reference's without
+    the XLA flag) equal to the reference's kind within 1e-6, with
+    ``dist_plan`` their DistSpMVPlan. No family but ``plan_`` gives a
+    ``plan_pair``."""
+    a = SUITE["hpcg_mini"]
+    ops = top.OperatorSet(a, device="cpu")
+    x = torch.ones(ops.n)
     if top.parse_kind(kind).distributed:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*M9"):
-            ops.matvec(kind)
+        want = torch.from_numpy(np.asarray(rop.OperatorSet(a).matvec(kind)(
+            jnp.ones(ops.n, jnp.float32))))
+        torch.testing.assert_close(ops.matvec(kind)(x), want, rtol=1e-6,
+                                   atol=1e-6)
+        assert ops.dist_plan(kind).n_shards == 1
+        assert ops.dist_plan(kind).spmv is not None
     else:
-        x = torch.ones(ops.n)
-        want = torch.from_numpy(SUITE["hpcg_mini"] @ np.ones(ops.n))
+        want = torch.from_numpy(a @ np.ones(ops.n))
         torch.testing.assert_close(ops.matvec(kind)(x).double(), want,
                                    rtol=1e-3, atol=1e-3)
+        with pytest.raises(ValueError, match="not a distributed kind"):
+            ops.dist_plan(kind)
     with pytest.raises(ValueError, match="not a plan_ kind"):
         ops.plan_pair(kind)
 

@@ -24,6 +24,7 @@ from repro.core import testmats as rtm
 from repro.precision import store as rst
 from repro.robust import inject as rinj
 from repro_torch.core import packsell as tpk
+from repro_torch.distributed import partition as tdp
 from repro_torch.kernels import plan as tpl
 from repro_torch.precision import select as tsel
 from repro_torch.precision import store as tst
@@ -194,6 +195,6 @@ def test_select_codec_per_shard_equals_reference(tmp_path):
         assert (tf.codec, tf.D, tf.rows) == (rf.codec, rf.D, rf.rows)
         assert [p.to_dict() for p in tp] == [p.to_dict() for p in rp]
     with pytest.raises(ValueError):
-        tst.partition_rows(5, 0)
-    np.testing.assert_array_equal(tst.partition_rows(10, 4),
+        tdp.partition_rows(5, 0)
+    np.testing.assert_array_equal(tdp.partition_rows(10, 4).starts,
                                   [0, 3, 6, 8, 10])
