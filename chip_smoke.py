@@ -16,8 +16,10 @@ through K2, solve requests, overload and a fault that opens and heals a
 breaker); then distribution (the same matrix as four shards on the one
 card: the distributed SpMV and SpMM in both exchange modes against the CPU
 replay, ``jacobi_pcg_dist``, ``adaptive_pcg_dist``, ``dist_mixed:`` and
-``dist_auto:``, a checkpoint fault) -- times the kernels, and ends with
-one JSON line. Every solve runs as the port runs
+``dist_auto:``, a checkpoint fault); then the LM serving path
+(granite-3-2b at full width and depth in ``DecodeEngine``, its decode
+step one CUDA graph, the PackSELL-pruned head through K1 and K3) -- times
+the kernels, and ends with one JSON line. Every solve runs as the port runs
 it, through CUDA-graph replays (``repro_torch.solvers.graphs``), and in
 turns with its eager loop (eager, captured, captured, eager), which it
 must equal bit for bit.
@@ -48,6 +50,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 #: sheet, at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+#: dense bfloat16 tensor-core peak, the same data sheet
+PEAK_BF16_OPS_PER_S = 989e12
+#: phase 14's decode-against-prefill check in bfloat16 at granite-3-2b's
+#: width and depth: 16 bf16 ulps (2^-8 each) of the largest |logit|. The
+#: two paths may round their products at other places (cuBLAS picks
+#: kernels by row count); a cache that misplaced a position would move the
+#: logits by their own scale
+LM_DECODE_TOL = 2.0 ** -4
 #: the kernel a plan variant's SpMV launches
 PLAN_KERNEL = {"fused": "K1", "full": "K4", "band": "K6"}
 
@@ -237,9 +247,10 @@ def ptxas_table(logs: dict) -> list:
     return rows
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+def bound_ms(nbytes: int, ops: int,
+             peak_ops: float = PEAK_F32_OPS_PER_S) -> tuple[float, str]:
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    to = ops / PEAK_F32_OPS_PER_S * 1e3
+    to = ops / peak_ops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -3084,13 +3095,272 @@ class Smoke:
               f"{dict(collections.Counter(ops_aten))}", flush=True)
         return dict(launches=launches, t4=t4, t1=t1, ex=ex)
 
+    # -- phase 14: the LM serving path -------------------------------------
+    def lm_path(self, seed: int = 0, cfg=None, max_len: int = 512,
+                new_tokens: int = 32):
+        """granite-3-2b at its published widths and depth (``cfg``
+        overrides, for a rehearsal), weights from ``seed`` on the card: the
+        allocated parameters against ``cfg.param_count()``; the LM head
+        pruned to 30 % and stored as PackSELL bf16/D15 at C = 128, as
+        ``examples/serve_sparse.py`` stores it; ``DecodeEngine`` with 4
+        slots, its warmup (the decode step captured as one CUDA graph,
+        the prompt lengths, the head's plan), 8 greedy requests of
+        prompt lengths 4-11 and ``new_tokens`` new tokens
+        each. Then, on the pool's state after them: a graph tick against
+        an eager tick, bit for bit; the tick's walls and device time
+        against its bound; decode against prefill at the full width
+        (``LM_DECODE_TOL``); the head on the next tick's hidden state of
+        slot 0 (K1) and of every slot (K3), each part bit-equal to its
+        plain body and y within the bf16 codec's bound of the float64 product with
+        the pruned weight, with the top-10 overlap against the dense
+        head; K1 and K3 timed against their bounds, ``torch.matmul`` of
+        the dense bf16 head and cuSPARSE CSR."""
+        from repro_torch import configs
+        from repro_torch.core import codecs as cd
+        from repro_torch.kernels import packsell_spmv as kpk
+        from repro_torch.models import transformer as tfm
+        from repro_torch.models.sparse_linear import PackSELLLinear
+        from repro_torch.precision.analyze import ulp_bound
+        from repro_torch.serving import DecodeEngine, ServeConfig, WarmupSpec
+        from repro_torch.solvers import graphs
+
+        cfg = cfg or configs.get("granite-3-2b")
+        slots, n_req = 4, 8
+        dev = self.dev
+        rng = np.random.default_rng(seed)
+        params, sec = wall(lambda: tfm.init_params(cfg, seed, device=dev))
+        n_par, want = params.param_count(), cfg.param_count()
+        print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
+              f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} "
+              f"padded to {cfg.vocab_padded}, params {cfg.param_dtype}, "
+              f"compute {cfg.dtype}; {n_par} parameters allocated on the "
+              f"card in {sec!r} s (param_count() {want}, "
+              f"{abs(n_par - want) / want!r} apart)", flush=True)
+        if not abs(n_par - want) / want < 0.02:
+            fail(f"{n_par} parameters allocated, param_count() {want}")
+
+        # the head, pruned and packed on the host
+        t0 = time.perf_counter()
+        head_w = params.head.w.cpu().numpy()               # [d, vocab_padded]
+        head = PackSELLLinear.from_dense(head_w, density=0.3, codec="bf16",
+                                         D=15, C=128, sigma=256, device=dev)
+        t_head = time.perf_counter() - t0
+        mat, csr = head.mat, head._csr
+        eng = DecodeEngine(cfg, params, ServeConfig(slots=slots,
+                                                    max_len=max_len,
+                                                    seed=seed), device=dev)
+        del params
+        prompts = [rng.integers(1, cfg.vocab, size=int(p))
+                   for p in rng.integers(4, 12, size=n_req)]
+        lens = tuple(sorted({len(p) for p in prompts}))
+        self.zero_counts()
+        _, t_warm = wall(lambda: eng.warmup(WarmupSpec(
+            prompt_lens=lens, sparse_layers=(head,), nb=slots)))
+        plan = head.plan
+        print(f"  head [{mat.m} x {mat.n}] pruned to 30 % ({mat.nnz} stored "
+              f"entries), bf16/D15, C 128, sigma 256: prune, CSR and "
+              f"from_csr {t_head!r} s; plan {plan.variant} ({plan.policy}); "
+              f"warmup (the decode graph, prefills at {list(lens)}, the "
+              f"head's plan) {t_warm!r} s", flush=True)
+        if plan.variant != "fused":
+            fail(f"the head's plan is {plan.policy}, not the fused stream")
+
+        reqs = [eng.submit(p, new_tokens) for p in prompts]
+        _, t_run = wall(eng.run)
+        short = [(r.uid, len(r.out_tokens)) for r in reqs
+                 if len(r.out_tokens) != new_tokens]
+        if short or len(eng.done) != n_req:
+            fail(f"{len(eng.done)} of {n_req} requests done; with other "
+                 f"than {new_tokens} tokens: {short}")
+        st = eng.stats()
+        print(f"  served {st['requests']} requests (prompts {lens[0]}-"
+              f"{lens[-1]} tokens, {new_tokens} new each, greedy, {slots} "
+              f"slots, max_len {max_len}) in {t_run!r} s: "
+              f"{st['tokens_per_s']!r} tokens/s, mean TTFT "
+              f"{st['mean_ttft_s']!r} s, mean latency "
+              f"{st['mean_latency_s']!r} s (host clock)", flush=True)
+
+        # the head on the next tick's hidden states: K1 for slot 0, K3 for
+        # every slot, inside the counted run
+        saved = eng.state()
+        eng.tokens.copy_(torch.from_numpy(eng.last_token[:, None]))
+        h = tfm.decode_hidden(cfg, eng.params, eng.tokens, eng.cache)[:, 0]
+        eng.set_state(saved)
+        x1, X = h[0].float().contiguous(), h.float()
+        before = self.counts()
+        y1, Y = head(x1), head(X)
+        ran = {k: v - before[k] for k, v in self.counts().items()
+               if v != before[k]}
+        if ran != {"K1": 1, "K3": 1}:
+            fail(f"head(h) on one and on {slots} slots launched {ran}, "
+                 "not one K1 and one K3")
+        torch.cuda.synchronize()
+        launches = self.counts()
+        print(f"  launches in this run: {launches}", flush=True)
+
+        # a graph tick against an eager tick, on the same state
+        walls = {"eager": [], "graph": []}
+        for _ in range(5):
+            eng.set_state(saved)
+            with graphs.eager():
+                le, sec = wall(lambda: eng.tick().clone())
+            walls["eager"].append(sec)
+            after = eng.state()
+            eng.set_state(saved)
+            lg, sec = wall(lambda: eng.tick().clone())
+            walls["graph"].append(sec)
+            same_bits(lg, le, "graph tick vs eager tick logits")
+            for k, v in eng.state().items():
+                if not torch.equal(v, after[k]):
+                    fail(f"graph tick vs eager tick: {k} differs")
+        eng.set_state(saved)
+        reps = max(self.reps // 2, 2)
+        t_tick = timed(eng._decode, reps)
+        eng.set_state(saved)
+        # what one tick must read: every weight but the embedding table
+        # (its slots rows), and each slot's valid KV positions
+        emb = eng.params.embed.w
+        w_bytes = sum(p.numel() * p.element_size()
+                      for p in eng.params.parameters()) \
+            - emb.numel() * emb.element_size() \
+            + slots * cfg.d_model * emb.element_size()
+        kv = eng.cache["k"]
+        pos = int(torch.clamp(saved["len"] + 1, max=max_len).sum())
+        kv_bytes = 2 * pos * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim \
+            * kv.element_size()
+        tb, by = bound_ms(w_bytes + kv_bytes + 4 * slots * cfg.vocab_padded,
+                          2 * slots * (w_bytes // emb.element_size()),
+                          PEAK_BF16_OPS_PER_S)
+        with graphs.eager():
+            tick_ops = collections.Counter(aten_ops(eng.tick))
+        eng.set_state(saved)
+        n_ops = sum(tick_ops.values())
+        print(f"  the decode tick ({slots} slots): logits and cache of a "
+              f"graph tick equal an eager tick's bit for bit (5 times); "
+              f"wall eager {float(np.median(walls['eager']))!r} s, graph "
+              f"{float(np.median(walls['graph']))!r} s (medians of 5: "
+              f"{walls}); device {t_tick!r} ms (CUDA events over {reps} "
+              f"replays); bound {tb!r} ms by {by} (weights {w_bytes} B "
+              f"in {cfg.dtype}, the KV cache {kv_bytes} B): {t_tick / tb!r} "
+              f"x; on {card_line()}", flush=True)
+        print(f"  its device ops (one tick, counted on the host): {n_ops}, "
+              f"{n_ops / cfg.n_layers!r} a layer, "
+              f"{t_tick * 1e3 / max(n_ops, 1)!r} us of device time each; "
+              f"most frequent {tick_ops.most_common(12)}", flush=True)
+
+        # decode against prefill at the full width
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 9)).astype(
+            np.int32)).to(dev)
+        _, c8 = tfm.forward_prefill(cfg, eng.params, {"tokens": toks[:, :8]},
+                                    16)
+        l9d, _ = tfm.forward_decode(cfg, eng.params, toks[:, 8:9], c8)
+        l9p, _ = tfm.forward_prefill(cfg, eng.params, {"tokens": toks}, 16)
+        l9d, l9p = l9d[0, 0, :cfg.vocab], l9p[0, 0, :cfg.vocab]
+        err, top = max_abs(l9d, l9p), float(l9p.abs().max())
+        print(f"  decode of token 9 after a prefill of 8 vs a prefill of 9: "
+              f"max |diff| {err!r}, {err / top!r} of max |logit| {top!r} "
+              f"(limit {LM_DECODE_TOL!r}); argmax "
+              f"{int(l9d.argmax())} vs {int(l9p.argmax())}", flush=True)
+        if not err <= LM_DECODE_TOL * top:
+            fail(f"decode vs prefill: {err} > {LM_DECODE_TOL} x {top}")
+
+        # the head's kernels against their plain bodies, and y against the
+        # float64 product with the pruned weight
+        words, ckpt = plan.fused
+        lay = plan.fused_layout
+        kw = dict(codec_name=mat.codec_name, D=mat.D, encoding=lay.encoding,
+                  scale=lay.scale)
+        XT = X.T.contiguous()
+        dev_ops = plan.device_operands()
+        p1 = kpk.packsell_spmv_fused_plain(words, ckpt, x1, **kw)
+        p3 = kpk.packsell_spmm_fused_plain(words, ckpt, XT, **kw)
+        self.note("K1", same_bits(self.k1(words, ckpt, x1, **kw), p1,
+                                  "K1 on the head"))
+        self.note("K3", same_bits(self.k3(words, ckpt, XT, **kw), p3,
+                                  f"K3 on the head, nb={slots}"))
+        same_bits(y1, plan._fused_epilogue(p1, dev_ops, False),
+                  "head(h) slot 0 vs its plain body")
+        same_bits(Y, plan._fused_epilogue(p3, dev_ops, False).T,
+                  "head(h) all slots vs its plain body")
+        a64 = csr.astype(np.float64)
+        Xh = X.cpu().numpy().astype(np.float64).T            # [d, slots]
+        exact, mag = a64 @ Xh, abs(a64) @ np.abs(Xh)
+        row_nnz = np.diff(csr.indptr)[:, None]
+        lim = (ulp_bound("bf16", 15) + row_nnz * 2.0 ** -24) * mag
+        got = Y.cpu().numpy().T.astype(np.float64)
+        worst = float(np.max(np.abs(got - exact) / np.maximum(lim, 1e-300)))
+        if not worst <= 1.0:
+            fail(f"head y vs the float64 pruned product: {worst} x the "
+                 "bf16 bound")
+        dense = head_w.astype(np.float64).T @ Xh             # [vocab_p, slots]
+        overlap = [len(set(np.argsort(-dense[:cfg.vocab, j])[:10])
+                       & set(np.argsort(-got[:cfg.vocab, j])[:10]))
+                   for j in range(slots)]
+        rel = float(np.abs(got - exact).max() / np.abs(exact).max())
+        print(f"  head(h): K1 (slot 0) and K3 (nb={slots}) bit-equal to "
+              f"their plain bodies, the epilogue too; y within {worst!r} x "
+              f"the bound (2^-8 per value + n_row 2^-24) of the float64 "
+              f"product with the pruned weight, max |y - exact| / max "
+              f"|exact| {rel!r}; top-10 overlap with the dense head per slot "
+              f"{overlap}/10", flush=True)
+
+        # times at the head's shape
+        G, wr, C = words.shape
+        m = mat.m
+        preps = max(self.reps // 10, 2)
+        w16 = torch.from_numpy(head_w).to(dev, torch.bfloat16)
+        x16, X16 = x1.to(torch.bfloat16)[None], X.to(torch.bfloat16)
+        a_q = sparse_csr(csr, cd.quantize_np(csr.data, mat.codec, mat.D),
+                         dev)
+        rows = {}
+        for key, run, plain, full, mm, lib, nb in (
+                ("K1", lambda: self.k1(words, ckpt, x1, **kw),
+                 lambda: kpk.packsell_spmv_fused_plain(words, ckpt, x1, **kw),
+                 lambda: head(x1), lambda: torch.matmul(x16, w16),
+                 lambda: a_q @ x1, 1),
+                (f"K3 nb={slots}", lambda: self.k3(words, ckpt, XT, **kw),
+                 lambda: kpk.packsell_spmm_fused_plain(words, ckpt, XT, **kw),
+                 lambda: head(X), lambda: torch.matmul(X16, w16),
+                 lambda: a_q @ XT, slots)):
+            nbytes = (4 * G * wr * C + 4 * G * C + 4 * m * nb
+                      + 4 * G * C * nb)
+            dbytes = 2 * w16.numel() + 2 * m * nb + 2 * mat.n * nb
+            rows[key] = dict(
+                ms=device_ms(run, self.reps), eager_ms=timed(run, self.reps),
+                plain_ms=timed(plain, preps), head_ms=device_ms(full,
+                                                                self.reps),
+                bound=bound_ms(nbytes, 2 * G * wr * C * nb),
+                matmul_ms=device_ms(mm, self.reps),
+                matmul_bound=bound_ms(dbytes, 2 * w16.numel() * nb,
+                                      PEAK_BF16_OPS_PER_S),
+                csr_ms=timed(lib, self.reps))
+            r = rows[key]
+            print(f"  {key} at the head's shape: {r['ms']!r} ms on the "
+                  f"device (eager {r['eager_ms']!r}), plain {r['plain_ms']!r}"
+                  f" ms, bound {r['bound'][0]!r} ms by {r['bound'][1]} "
+                  f"({r['ms'] / r['bound'][0]!r} x); head(h) with its "
+                  f"epilogue {r['head_ms']!r} ms; torch.matmul of the dense "
+                  f"bf16 head {r['matmul_ms']!r} ms (bound "
+                  f"{r['matmul_bound'][0]!r} ms); cuSPARSE CSR "
+                  f"{r['csr_ms']!r} ms; on {card_line()}", flush=True)
+        print(f"  bytes per token: PackSELL {head.decode_bytes_per_token()} "
+              f"B (memory_ratio {head.memory_ratio()!r} of fp32), stream "
+              f"and checkpoints {4 * G * wr * C + 4 * G * C} B, dense bf16 "
+              f"{2 * w16.numel()} B: "
+              f"{2 * w16.numel() / head.decode_bytes_per_token()!r} x",
+              flush=True)
+        return dict(launches=launches, rows=rows, tick_ms=t_tick,
+                    tick_ops=n_ops)
+
 
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of phase 12's request vectors")
+                    help="seed of phase 12's request vectors and of phase "
+                    "14's weights and requests")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -3172,6 +3442,10 @@ def main(argv=None) -> int:
               "jacobi_pcg_dist and adaptive_pcg_dist through CUDA graphs, "
               "dist_mixed: and dist_auto:, a checkpoint fault",
               lambda: smoke.dist_path(mp, mx, rows["K1"][0]))
+        phase(14, "the LM serving path: granite-3-2b at full width and "
+              "depth, DecodeEngine with the decode step as one CUDA graph, "
+              "8 requests, the PackSELL head through K1 and K3",
+              lambda: smoke.lm_path(seed=args.seed))
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -3190,13 +3464,13 @@ def main(argv=None) -> int:
         "K2-f64": ("sell_spmv_bucket (float64 sum)", src + "sell_spmv.cu",
                    "src/repro/kernels/sell_spmv.py:47"),
     }
-    print(f"== 14. done in {time.perf_counter() - t_start:.1f} s (phases "
-          f"3-13: {phase_s})", flush=True)
+    print(f"== 15. done in {time.perf_counter() - t_start:.1f} s (phases "
+          f"3-14: {phase_s})", flush=True)
     print(f"card: {card_line()}", flush=True)
     # each path ran with the counts set to 0 just before it
     runs = (mp["launches"], mx["launches"], sv, cp["launches"],
             out[10]["launches"], out[11]["launches"], out[12]["launches"],
-            out[13]["launches"])
+            out[13]["launches"], out[14]["launches"])
     launches = {k: sum(run.get(k, 0) for run in runs) for k in meta}
     kernels = []
     for k, (kname, source, replaces) in meta.items():

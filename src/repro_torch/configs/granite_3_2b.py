@@ -1,0 +1,7 @@
+"""Granite-3.0-2B [hf:ibm-granite/granite-3.0-2b-base] — dense GQA."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-2b", family="dense", n_layers=40, d_model=2048,
+    n_heads=32, n_kv_heads=8, d_ff=8192, vocab=49155, head_dim=64,
+)

@@ -1,0 +1,162 @@
+"""GQA attention with chunked (flash-style) softmax and KV caching.
+
+The port of ``repro.models.attention``, dense path. ``flash_attention``
+is the reference's online softmax over query and KV chunks in torch ops,
+chunk sizes, padding masks, causal chunk skip, ``NEG_INF`` and the final
+``max(s, 1e-30)`` included; it launches no kernel of this repository
+(the reference's is jnp, not Pallas). Its loops are Python loops over
+chunk counts that the shapes fix, so a decode step runs no host sync and
+captures into a CUDA graph.
+
+``apply_decode`` writes the new K/V into the cache in place (the
+reference returns a new cache): a slot whose ``cache_len`` has reached
+the cache's length writes nothing, as the reference's one-hot add writes
+nothing there. ``cross_kv`` and ``apply_cross`` belong to the
+encoder-decoder family, which the port does not carry yet (ROADMAP M11).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import layers as L
+
+NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    def __init__(self, wq: L.Dense, wk: L.Dense, wv: L.Dense, wo: L.Dense):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+
+
+def init(gen, cfg, dtype, *, device=None) -> Attention:
+    d = cfg.d_model
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(device=device)
+    wq = L.dense_init(gen, d, H * hd, dtype, bias=cfg.qkv_bias, **kw)
+    wk = L.dense_init(gen, d, KV * hd, dtype, bias=cfg.qkv_bias, **kw)
+    wv = L.dense_init(gen, d, KV * hd, dtype, bias=cfg.qkv_bias, **kw)
+    wo = L.dense_init(gen, H * hd, d, dtype, **kw)
+    return Attention(wq, wk, wv, wo)
+
+
+def _qkv(p: Attention, cfg, x, positions, dtype):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = L.dense_apply(p.wq, x, dtype).reshape(B, S, H, hd)
+    k = L.dense_apply(p.wk, x, dtype).reshape(B, S, KV, hd)
+    v = L.dense_apply(p.wv, x, dtype).reshape(B, S, KV, hd)
+    q, k = L.rope(q, k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _pad_seq(t, n: int):
+    """Zero-pad dim 1 of ``[B, S, heads, hd]`` by ``n``."""
+    return F.pad(t, (0, 0, 0, 0, 0, n)) if n else t
+
+
+def flash_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
+                    q_chunk: int = 512, kv_chunk: int = 1024):
+    """Online-softmax attention.
+
+    q: [B, Sq, H, hd]; k,v: [B, Sk, KV, hd] (GQA: H % KV == 0).
+    q_offset: absolute position of q[0] (causal masking with a cache).
+    kv_len: optional [B] valid KV lengths (decode with ragged cache).
+    """
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+    # the reference bounds its q unroll to <= 16 chunks on long sequences
+    q_chunk = min(max(q_chunk, -(-Sq // 16)), Sq)
+    kv_chunk = min(kv_chunk, Sk)
+    nq = (Sq + q_chunk - 1) // q_chunk
+    nk = (Sk + kv_chunk - 1) // kv_chunk
+    dev = q.device
+    # pad to whole chunks; [B, nq, qc, KV, G, hd] and [B, nk, kc, KV, hd]
+    qp = _pad_seq(q, nq * q_chunk - Sq).reshape(B, nq, q_chunk, KV, G, hd)
+    kp = _pad_seq(k, nk * kv_chunk - Sk).reshape(B, nk, kv_chunk, KV, hd)
+    vp = _pad_seq(v, nk * kv_chunk - Sk).reshape(B, nk, kv_chunk, KV, hd)
+    f32 = torch.float32
+
+    def q_step(qi):
+        qc = qp[:, qi].to(f32)                # [B, qc, KV, G, hd]
+        q_pos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((B, q_chunk, G, KV), NEG_INF, dtype=f32, device=dev)
+        s = torch.zeros((B, q_chunk, G, KV), dtype=f32, device=dev)
+        acc = torch.zeros((B, q_chunk, G, KV, hd), dtype=f32, device=dev)
+        # causal chunk skip: kv chunks strictly above the diagonal are
+        # fully masked, so they are not computed
+        nk_i = min(nk, (qi * q_chunk + q_chunk - 1) // kv_chunk + 1) \
+            if causal else nk
+        for ki in range(nk_i):
+            kc = kp[:, ki].to(f32)            # [B, kc, KV, hd]
+            vc = vp[:, ki].to(f32)
+            logits = torch.einsum("bqkgh,bckh->bqgkc", qc, kc) * scale
+            k_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
+            valid = (k_pos[None, :] < Sk).expand(q_chunk, kv_chunk)
+            if causal:
+                valid = valid & (k_pos[None, :] <= q_pos[:, None])
+            logits = torch.where(valid[None, :, None, None, :], logits,
+                                 NEG_INF)
+            if kv_len is not None:
+                lv = k_pos[None, :] < kv_len[:, None]   # [B, kc]
+                logits = torch.where(lv[:, None, None, None, :], logits,
+                                     NEG_INF)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            s = s * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bqgkc,bckh->bqgkh", p, vc)
+            m = m_new
+        return acc / torch.clamp_min(s[..., None], 1e-30)  # [B,qc,G,KV,hd]
+
+    outs = torch.stack([q_step(qi) for qi in range(nq)], dim=0)
+    # outs: [nq, B, qc, G, KV, hd] -> [B, Sq, H, hd]
+    out = outs.permute(1, 0, 2, 4, 3, 5).reshape(B, nq * q_chunk, KV * G,
+                                                 hd)[:, :Sq]
+    return out.to(q.dtype)
+
+
+def apply_full(p: Attention, cfg, x, positions, dtype, *, causal=True):
+    """Training / prefill path (no cache in, optionally cache out)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, positions, dtype)
+    out = flash_attention(q, k, v, causal=causal)
+    y = L.dense_apply(p.wo, out.reshape(B, S, -1), dtype)
+    return y, (k, v)
+
+
+def write_kv(cache, new, cache_len) -> None:
+    """Add ``new`` ``[B, 1, KV, hd]`` into ``cache`` ``[B, Smax, KV, hd]``
+    at position ``cache_len[b]`` of each row, in place: the reference's
+    one-hot einsum add. A row whose position is past the cache (an idle
+    slot keeps advancing) writes nothing, where the one-hot is all zero;
+    it neither clamps nor raises."""
+    B, Smax = cache.shape[0], cache.shape[1]
+    rows = torch.arange(B, device=cache.device)
+    pos = torch.clamp(cache_len, max=Smax - 1).long()
+    cur = cache[rows, pos]                                 # [B, KV, hd]
+    keep = (cache_len < Smax)[:, None, None]
+    cache[rows, pos] = torch.where(keep, cur + new[:, 0].to(cache.dtype),
+                                   cur)
+
+
+def apply_decode(p: Attention, cfg, x, cache_k, cache_v, cache_len, dtype):
+    """Single-token decode. x: [B, 1, d]; cache: [B, Smax, KV, hd], written
+    in place (and returned)."""
+    B = x.shape[0]
+    positions = cache_len[:, None]            # [B, 1]
+    q, k, v = _qkv(p, cfg, x, positions, dtype)
+    write_kv(cache_k, k, cache_len)
+    write_kv(cache_v, v, cache_len)
+    dt = L.as_dtype(dtype)
+    out = flash_attention(q, cache_k.to(dt), cache_v.to(dt),
+                          causal=False, kv_len=cache_len + 1,
+                          q_chunk=1, kv_chunk=4096)
+    y = L.dense_apply(p.wo, out.reshape(B, 1, -1), dtype)
+    return y, cache_k, cache_v

@@ -1,0 +1,262 @@
+"""Model assembly, dense family: init, prefill and decode with a KV cache.
+
+The port of ``repro.models.transformer``'s serving path for the dense
+family (``cfg.family == "dense"``). Parameters are an ``nn.Module`` tree
+(:class:`Transformer`: ``embed``, ``blocks[l]`` with ``ln1``, ``attn``,
+``ln2``, ``mlp``, then ``lnf`` and ``head``) holding the reference's
+tensors layer by layer where the reference stacks them ``[L, ...]``; the
+reference's function names are the entry points. The other families
+(moe, ssm, hybrid, vlm, encdec) raise ``NotImplementedError``: they are
+ROADMAP M11's later slices.
+
+Not copied from the reference: the sharding constraints (``constrain``;
+the port runs on one card), the per-layer remat and ``lax.scan`` (a
+Python loop over the layers), and the functional cache. The port's
+``forward_decode`` writes the new K/V and ``len`` into the cache it is
+given, in place, so a decode step over static buffers captures into one
+CUDA graph (``serving.engine``). :func:`cast_params` casts the weights to
+the compute dtype once; ``layers.dense_apply``'s per-call cast is then a
+no-op with the same bits.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import _device
+from . import attention as attn
+from . import layers as L
+from .config import ModelConfig
+
+
+def _dt(cfg) -> torch.dtype:
+    return L.as_dtype(cfg.dtype)
+
+
+def _pdt(cfg) -> torch.dtype:
+    return L.as_dtype(cfg.param_dtype)
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+            "(ROADMAP M11); repro_torch.models carries the dense family")
+
+
+class Block(nn.Module):
+    """One pre-norm decoder block of the dense family."""
+
+    def __init__(self, ln1, attention, ln2, mlp):
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.mlp = ln1, attention, ln2, mlp
+
+
+class Transformer(nn.Module):
+    """The parameter tree of a dense model (module docstring)."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype=None, device=None,
+                 gen=None):
+        super().__init__()
+        _dense_only(cfg)
+        self.cfg = cfg
+        dt = _pdt(cfg) if dtype is None else L.as_dtype(dtype)
+        d = cfg.d_model
+        kw = dict(device=device)
+        self.embed = L.embed_init(gen, cfg.vocab_padded, d, dt, **kw)
+        self.blocks = nn.ModuleList(
+            Block(L.rmsnorm_init(d, dt, **kw), attn.init(gen, cfg, dt, **kw),
+                  L.rmsnorm_init(d, dt, **kw),
+                  L.swiglu_init(gen, d, cfg.d_ff, dt, **kw))
+            for _ in range(cfg.n_layers))
+        self.lnf = L.rmsnorm_init(d, dt, **kw)
+        self.head = None if cfg.tie_embeddings else L.dense_init(
+            gen, d, cfg.vocab_padded, dt, **kw)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.w.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed.w.dtype
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+
+def init_params(cfg: ModelConfig, seed: int, *, device=None) -> Transformer:
+    """Random parameters in ``cfg.param_dtype`` on ``device`` (None: the
+    GPU), drawn from a ``torch.Generator`` on that device seeded with
+    ``seed``, with the reference's distributions."""
+    dev = _device.resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    return Transformer(cfg, device=dev, gen=gen)
+
+
+def cast_params(params: Transformer, dtype, *, device=None) -> Transformer:
+    """``params`` with every tensor in ``dtype`` on ``device`` (None: where
+    it is), made once: the same module when nothing changes, else a new
+    one filled by ``copy_`` (round to nearest even, as ``astype``)."""
+    dt = L.as_dtype(dtype)
+    dev = params.device if device is None else torch.device(device)
+    if params.dtype == dt and params.device == dev:
+        return params
+    out = Transformer(params.cfg, dtype=dt, device=dev)
+    with torch.no_grad():
+        for dst, src in zip(out.parameters(), params.parameters()):
+            dst.copy_(src)
+    return out
+
+
+def load_reference_params(cfg: ModelConfig, tree, device=None) -> Transformer:
+    """The reference's parameter pytree (``repro.models.transformer.
+    init_params``' first result, its leaves as numpy arrays with the
+    blocks stacked ``[L, ...]``) as the port's :class:`Transformer` in
+    ``cfg.param_dtype`` on ``device`` (None: the GPU)."""
+    dev = _device.resolve_device(device)
+    params = Transformer(cfg, device=dev)
+
+    def put(p: nn.Parameter, arr) -> None:
+        a = np.array(arr, dtype=np.float32)
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"shape {a.shape} for a parameter of shape "
+                             f"{tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(torch.from_numpy(a))
+
+    def put_dense(p: L.Dense, leaf, i=None) -> None:
+        put(p.w, leaf["w"] if i is None else leaf["w"][i])
+        if p.b is not None:
+            put(p.b, leaf["b"] if i is None else leaf["b"][i])
+
+    put(params.embed.w, tree["embed"]["w"])
+    blk = tree["blocks"]
+    for i, b in enumerate(params.blocks):
+        put(b.ln1.g, blk["ln1"]["g"][i])
+        put(b.ln2.g, blk["ln2"]["g"][i])
+        for name in ("wq", "wk", "wv", "wo"):
+            put_dense(getattr(b.attn, name), blk["attn"][name], i)
+        for name in ("wi", "wg", "wo"):
+            put_dense(getattr(b.mlp, name), blk["mlp"][name], i)
+    put(params.lnf.g, tree["lnf"]["g"])
+    if params.head is not None:
+        put_dense(params.head, tree["head"])
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode with caches
+# ---------------------------------------------------------------------------
+
+
+def n_attn_caches(cfg: ModelConfig) -> int:
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device=None) -> dict:
+    """Zeroed decode cache for a batch: ``k``/``v`` ``[L, batch, max_len,
+    KV, hd]`` in the compute dtype, ``len`` ``[batch]`` int32."""
+    _dense_only(cfg)
+    dev = _device.resolve_device(device)
+    dt = _dt(cfg)
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    na = n_attn_caches(cfg)
+    return {"k": torch.zeros((na, batch, max_len, KV, hd), dtype=dt,
+                             device=dev),
+            "v": torch.zeros((na, batch, max_len, KV, hd), dtype=dt,
+                             device=dev),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def _embed_inputs(cfg, params: Transformer, batch, dtype):
+    """Token embedding. Returns (x, positions, labels, mask); the
+    modality frontends belong to the vlm and encdec families."""
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
+            "(ROADMAP M11)")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.embed_apply(params.embed, tokens, dtype)
+    labels = batch.get("labels")
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask.to(torch.float32)
+    elif labels is not None:
+        mask = torch.ones(tokens.shape, dtype=torch.float32,
+                          device=tokens.device)
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    return x, positions, labels, mask
+
+
+def _logits_last(cfg, params: Transformer, x):
+    """Logits for the last position only (decode). x: [B, 1, d]. Padded
+    vocab columns are masked so sampling/argmax never picks them."""
+    head = params.head.w if params.head is not None else params.embed.w.T
+    logits = (x @ head.to(x.dtype)).to(torch.float32)
+    if head.shape[-1] > cfg.vocab:
+        cols = torch.arange(head.shape[-1], device=logits.device)
+        logits = torch.where(cols < cfg.vocab, logits, -1e30)
+    return logits
+
+
+def _block_full(cfg, b: Block, x, pos, dtype):
+    h, (k, v) = attn.apply_full(
+        b.attn, cfg, L.rmsnorm_apply(b.ln1, x, cfg.norm_eps, dtype), pos,
+        dtype, causal=True)
+    x = x + h
+    z = L.rmsnorm_apply(b.ln2, x, cfg.norm_eps, dtype)
+    return x + L.swiglu_apply(b.mlp, z, dtype), k, v
+
+
+def forward_prefill(cfg: ModelConfig, params: Transformer, batch,
+                    max_len: int):
+    """Process a prompt; returns (last-position logits, populated cache)."""
+    _dense_only(cfg)
+    dtype = _dt(cfg)
+    x, pos, _, _ = _embed_inputs(cfg, params, batch, dtype)
+    B, S, _ = x.shape
+    cache = init_cache(cfg, B, max_len, device=x.device)
+    for i, b in enumerate(params.blocks):
+        x, k, v = _block_full(cfg, b, x, pos, dtype)
+        cache["k"][i, :, :S] = k.to(dtype)
+        cache["v"][i, :, :S] = v.to(dtype)
+    x = L.rmsnorm_apply(params.lnf, x, cfg.norm_eps, dtype)
+    logits = _logits_last(cfg, params, x[:, -1:, :])
+    cache["len"].fill_(S)
+    return logits, cache
+
+
+def decode_hidden(cfg: ModelConfig, params: Transformer, token, cache):
+    """One decode step up to the final norm: the hidden state ``[B, 1, d]``
+    that the head reads. Writes the step's K/V into ``cache`` and advances
+    ``cache["len"]`` for every row, in place, as the reference's
+    ``forward_decode`` advances it for every slot."""
+    _dense_only(cfg)
+    dtype = _dt(cfg)
+    x = L.embed_apply(params.embed, token, dtype)
+    clen = cache["len"]
+    for i, b in enumerate(params.blocks):
+        h, _, _ = attn.apply_decode(
+            b.attn, cfg, L.rmsnorm_apply(b.ln1, x, cfg.norm_eps, dtype),
+            cache["k"][i], cache["v"][i], clen, dtype)
+        x = x + h
+        z = L.rmsnorm_apply(b.ln2, x, cfg.norm_eps, dtype)
+        x = x + L.swiglu_apply(b.mlp, z, dtype)
+    clen += 1
+    return L.rmsnorm_apply(params.lnf, x, cfg.norm_eps, dtype)
+
+
+def forward_decode(cfg: ModelConfig, params: Transformer, token, cache):
+    """One decode step. token: [B, 1] int32. Returns (logits, cache), the
+    cache the one given, updated in place (:func:`decode_hidden`)."""
+    x = decode_hidden(cfg, params, token, cache)
+    return _logits_last(cfg, params, x), cache

@@ -200,8 +200,9 @@ def test_scan_spmv_real_values_rtol(klass):
 def test_package_imports_no_jax_and_no_repro():
     """A fresh interpreter imports repro_torch and every submodule without
     loading JAX or any module of the reference package; the walk reaches
-    the recorder (``observe``), the front end (``serving``) and the
-    distributed layer (``distributed``, ``parallel``)."""
+    the recorder (``observe``), the front end (``serving``), the
+    distributed layer (``distributed``, ``parallel``) and the LM serving
+    path (``models``, ``configs``, ``serving.engine``, ``launch``)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -214,7 +215,10 @@ def test_package_imports_no_jax_and_no_repro():
         "need = ['repro_torch.observe.' + m for m in ('metrics', 'export', "
         "'profile')] + ['repro_torch.serving.' + m for m in ('policy', "
         "'frontend')] + ['repro_torch.distributed.' + m for m in "
-        "('partition', 'halo', 'plan')] + ['repro_torch.parallel.sharding']\n"
+        "('partition', 'halo', 'plan')] + ['repro_torch.parallel.sharding', "
+        "'repro_torch.models.transformer', 'repro_torch.models.sparse_linear', "
+        "'repro_torch.configs.granite_3_2b', 'repro_torch.serving.engine', "
+        "'repro_torch.launch.serve']\n"
         "assert all(k in sys.modules for k in need), need\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

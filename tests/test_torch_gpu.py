@@ -13,6 +13,9 @@ matvecs and the fixed-iteration solvers (``neumann_ainv``,
 ``torch.cuda.set_sync_debug_mode("error")`` without raising; a
 ``packsell_<codec>`` matvec launches its plan's kernel and equals the
 plan's plain body bit for bit; IO-CG and F3R take the CPU's counts.
+The LM serving path: the decode engine's graph tick equals its eager
+tick bit for bit, ``PackSELLLinear`` runs K1 and K3 bit-equal to the
+plain plan, and an idle slot runs past ``max_len``.
 
 Run on a machine with a CUDA device:
 
@@ -21,6 +24,8 @@ Run on a machine with a CUDA device:
 Without one every test skips with its reason. The module imports neither
 JAX nor ``repro``.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1231,3 +1236,84 @@ def test_corrupt_dist_checkpoint_reaches_a_captured_graph(cuda):
         inj.undo()
         _same_bits(g(), y0)
     assert changed > 0
+
+
+# -- the LM serving path -------------------------------------------------------
+
+
+def _lm(cuda, **kw):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import DecodeEngine, ServeConfig
+
+    cfg = dataclasses.replace(configs.reduce(configs.get("granite-3-2b")),
+                              dtype="bfloat16")
+    params = tfm.init_params(cfg, 0, device=cuda)
+    return cfg, DecodeEngine(cfg, params, ServeConfig(**kw), device=cuda)
+
+
+def test_decode_graph_tick_equals_eager_tick(cuda):
+    cfg, eng = _lm(cuda, slots=3, max_len=32)
+    eng.warmup()
+    assert eng._decode.graph is not None          # captured in warmup
+    rng = np.random.default_rng(0)
+    for n in (5, 7, 3):
+        eng.submit(rng.integers(1, cfg.vocab, size=n), 12)
+    for _ in range(4):
+        eng.step()
+    saved = eng.state()
+    with graphs.eager():
+        le = eng.tick().clone()
+    after = eng.state()
+    eng.set_state(saved)
+    lg = eng.tick().clone()
+    _bits_equal(lg, le)
+    for k, v in eng.state().items():
+        assert torch.equal(v, after[k]), k
+    eng.set_state(saved)
+    eng.run()
+    assert all(len(r.out_tokens) == 12 for r in eng.done)
+
+
+def test_packsell_linear_k1_k3_bit_equal_plain(cuda):
+    from repro_torch.models.sparse_linear import PackSELLLinear
+
+    w = np.random.default_rng(1).standard_normal((256, 1000)).astype(
+        np.float32)
+    lin = PackSELLLinear.from_dense(w, density=0.3, codec="bf16", D=15,
+                                    C=128, sigma=256, device=cuda)
+    plan = lin.plan
+    assert plan.variant == "fused"
+    plain = kplan.build_plan(lin.mat, force="jnp")
+    x = _x(256, cuda, seed=2)
+    X = _x(4 * 256, cuda, seed=3).view(4, 256)
+    k1, k3 = kpk.packsell_spmv_fused.launches, kpk.packsell_spmm_fused.launches
+    y, Y = lin(x), lin(X)
+    assert (kpk.packsell_spmv_fused.launches - k1,
+            kpk.packsell_spmm_fused.launches - k3) == (1, 1)
+    _bits_equal(y, plain.spmv(lin.mat, x))
+    _bits_equal(Y.contiguous(), plain.spmm(lin.mat, X.T).T.contiguous())
+    for i in range(4):
+        np.testing.assert_allclose(Y[i].cpu().numpy(),
+                                   lin(X[i]).cpu().numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_idle_slot_runs_past_max_len(cuda):
+    """An idle slot's ``len`` passes ``max_len`` on the card: the KV write
+    drops, nothing raises, and the tokens are the eager loop's."""
+    reqs = [(np.arange(1, 13, dtype=np.int32), 3),
+            (np.arange(5, 7, dtype=np.int32), 14)]
+    outs = []
+    for eager in (False, True):
+        _, e = _lm(cuda, slots=2, max_len=16)
+        for p, k in reqs:
+            e.submit(p, k)
+        with graphs.eager() if eager else contextlib.nullcontext():
+            e.run()
+        torch.cuda.synchronize()
+        assert int(e.cache["len"][0]) > 16
+        outs.append([r.out_tokens for r in e.done])
+    assert outs[0] == outs[1]

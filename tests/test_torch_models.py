@@ -1,0 +1,362 @@
+"""repro_torch's LM stack against the reference's, on the CPU.
+
+* the config registry: all ten configs, ``reduce``, ``param_count`` and
+  the dry-run cell rule equal; the port's dense models allocate the
+  analytic parameter count (within 2 %, as the reference's shape check);
+* the layers: rmsnorm, rope, swiglu, the embedding and a biased dense;
+* ``flash_attention``: causal and not, ``q_offset``, ``kv_len``, lengths
+  that leave padded chunks, GQA;
+* ``forward_prefill`` (logits and cache) and a chain of
+  ``forward_decode`` steps on reduced qwen2-0.5b (tied head, QKV bias),
+  granite-3-2b and yi-6b, with the reference's parameters carried over by
+  ``load_reference_params``;
+* the KV write of a row whose ``len`` has reached or passed ``max_len``
+  (the reference's one-hot add writes nothing there);
+* the families the port does not carry yet raise.
+
+Inputs come from numpy with a seed and go through both packages. The
+models run in float32 (the reduced configs' compute dtype): the two
+packages' float32 sums differ in order, so values are held within
+``RTOL`` relative to the largest magnitude, integers and lengths exactly.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as rconfigs
+from repro.models import attention as rattn
+from repro.models import layers as rlayers
+from repro.models import transformer as rtfm
+from repro.models.config import SHAPES as RSHAPES
+from repro.models.config import cell_applicable as rcell
+from repro_torch import configs
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as tfm
+from repro_torch.models.config import SHAPES, cell_applicable
+
+#: float32 values against the reference's, relative to the largest |value|
+RTOL = 1e-5
+DENSE = ("qwen2-0.5b", "granite-3-2b", "yi-6b")
+NOT_PORTED = ("qwen2-moe-a2.7b", "mamba2-1.3b", "zamba2-2.7b",
+              "llava-next-mistral-7b", "seamless-m4t-large-v2")
+
+
+def _close(got, want, rtol=RTOL):
+    got = got.detach().cpu().numpy() if torch.is_tensor(got) else got
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got.astype(np.float64) - want).max()) / scale
+    assert err <= rtol, err
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+
+def test_registry_ids_equal():
+    assert configs.ARCH_IDS == rconfigs.ARCH_IDS
+    assert set(SHAPES) == set(RSHAPES)
+    for k, s in SHAPES.items():
+        assert dataclasses.asdict(s) == dataclasses.asdict(RSHAPES[k])
+
+
+@pytest.mark.parametrize("arch", rconfigs.ARCH_IDS)
+def test_config_reduce_and_counts_equal(arch):
+    mod_id = arch.replace("-", "_").replace(".", "_")
+    for cfg, ref in ((configs.get(arch), rconfigs.get(arch)),
+                     (configs.get(mod_id), rconfigs.get(mod_id)),
+                     (configs.reduce(configs.get(arch)),
+                      rconfigs.reduce(rconfigs.get(arch)))):
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+        assert cfg.param_count() == ref.param_count()
+        assert cfg.active_param_count() == ref.active_param_count()
+        assert cfg.vocab_padded == ref.vocab_padded
+        assert (cfg.d_inner, cfg.ssm_heads, cfg.sub_quadratic) == \
+            (ref.d_inner, ref.ssm_heads, ref.sub_quadratic)
+        for name in SHAPES:
+            assert cell_applicable(cfg, SHAPES[name]) == \
+                rcell(ref, RSHAPES[name])
+
+
+@pytest.mark.parametrize("arch", DENSE + ("internlm2-20b",))
+def test_full_config_allocates_the_analytic_count(arch):
+    """The published widths, on the meta device (no memory): the
+    allocated parameters match ``param_count`` within 2 % (the analytic
+    count omits the norms and counts the unpadded vocab)."""
+    cfg = configs.get(arch)
+    model = tfm.Transformer(cfg, device="meta")
+    n = model.param_count()
+    assert abs(n - cfg.param_count()) / cfg.param_count() < 0.02
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_reduced_model_shapes_equal_reference(arch):
+    cfg = configs.reduce(configs.get(arch))
+    params, _ = rtfm.init_params(rconfigs.reduce(rconfigs.get(arch)),
+                                 jax.random.PRNGKey(0))
+    n_ref = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(params))
+    assert tfm.init_params(cfg, 0, device="cpu").param_count() == n_ref
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+def test_rmsnorm_equal():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 64)).astype(np.float32)
+    g = rng.standard_normal(64).astype(np.float32)
+    p = L.rmsnorm_init(64, torch.float32, device="cpu")
+    p.g.copy_(_t(g))
+    want = rlayers.rmsnorm_apply({"g": jnp.asarray(g)}, jnp.asarray(x), 1e-5,
+                                 jnp.float32)
+    _close(L.rmsnorm_apply(p, _t(x), 1e-5, torch.float32), want)
+
+
+@pytest.mark.parametrize("theta", [10_000.0, 1e6])
+def test_rope_equal(theta):
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((2, 7, 4, 32)).astype(np.float32)
+    k = rng.standard_normal((2, 7, 2, 32)).astype(np.float32)
+    pos = rng.integers(0, 500, (2, 7)).astype(np.int32)
+    rq, rk = rlayers.rope(jnp.asarray(q), jnp.asarray(k), jnp.asarray(pos),
+                          theta)
+    tq, tk = L.rope(_t(q), _t(k), _t(pos), theta)
+    _close(tq, rq)
+    _close(tk, rk)
+
+
+def test_swiglu_and_dense_equal():
+    rng = np.random.default_rng(2)
+    d, ff = 48, 96
+    w = {n: rng.standard_normal(s).astype(np.float32) * 0.1
+         for n, s in (("wi", (d, ff)), ("wg", (d, ff)), ("wo", (ff, d)))}
+    x = rng.standard_normal((3, 4, d)).astype(np.float32)
+    p = L.swiglu_init(None, d, ff, torch.float32, device="cpu")
+    for n, a in w.items():
+        getattr(p, n).w.copy_(_t(a))
+    want = rlayers.swiglu_apply({n: {"w": jnp.asarray(a)} for n, a in
+                                 w.items()}, jnp.asarray(x), jnp.float32)
+    _close(L.swiglu_apply(p, _t(x), torch.float32), want)
+    b = rng.standard_normal(ff).astype(np.float32)
+    dp = L.dense_init(None, d, ff, torch.float32, bias=True, device="cpu")
+    dp.w.copy_(_t(w["wi"]))
+    dp.b.copy_(_t(b))
+    want = rlayers.dense_apply({"w": jnp.asarray(w["wi"]),
+                                "b": jnp.asarray(b)}, jnp.asarray(x),
+                               jnp.float32)
+    _close(L.dense_apply(dp, _t(x), torch.float32), want)
+
+
+def test_embedding_equal():
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((64, 16)).astype(np.float32)
+    tok = rng.integers(0, 64, (2, 9)).astype(np.int32)
+    p = L.embed_init(None, 64, 16, torch.float32, device="cpu")
+    p.w.copy_(_t(w))
+    for dt, rdt in ((torch.float32, jnp.float32),
+                    (torch.bfloat16, jnp.bfloat16)):
+        got = L.embed_apply(p, _t(tok), dt)
+        want = rlayers.embed_apply({"w": jnp.asarray(w)}, jnp.asarray(tok),
+                                   rdt)
+        assert got.dtype == dt
+        # a gather and a cast: the same bits in either order
+        np.testing.assert_array_equal(
+            got.to(torch.float32).numpy(),
+            np.asarray(want, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+CASES = [
+    # (Sq, Sk, H, KV, causal, q_offset, kv_len, q_chunk, kv_chunk)
+    (13, 13, 4, 2, True, 0, None, 4, 5),       # padded q and kv chunks
+    (13, 13, 4, 4, False, 0, None, 4, 5),      # no GQA, not causal
+    (20, 20, 6, 2, True, 0, None, 512, 1024),  # one chunk each
+    (40, 40, 4, 1, True, 0, None, 1, 7),       # the <= 16 q-chunk bound
+    (5, 17, 4, 2, True, 12, None, 2, 6),       # a cached prefix: q_offset
+    (1, 24, 8, 2, False, 0, (24, 9, 1), 1, 4096),   # decode, ragged cache
+    (3, 24, 4, 2, False, 0, (0, 5, 30), 2, 5),      # kv_len 0 and past Sk
+]
+
+
+@pytest.mark.parametrize("case", CASES, ids=[f"c{i}" for i in
+                                              range(len(CASES))])
+def test_flash_attention_equal(case):
+    Sq, Sk, H, KV, causal, q_off, kv_len, qc, kc = case
+    B, hd = 3, 16
+    rng = np.random.default_rng(Sq * 100 + Sk)
+    q = rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, KV, hd)).astype(np.float32)
+    kl = None if kv_len is None else np.asarray(kv_len, np.int32)
+    want = rattn.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        q_offset=q_off, kv_len=None if kl is None else jnp.asarray(kl),
+        q_chunk=qc, kv_chunk=kc)
+    got = attn.flash_attention(
+        _t(q), _t(k), _t(v), causal=causal, q_offset=q_off,
+        kv_len=None if kl is None else _t(kl), q_chunk=qc, kv_chunk=kc)
+    _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+
+def _models(arch, seed=0):
+    rcfg = rconfigs.reduce(rconfigs.get(arch))
+    cfg = configs.reduce(configs.get(arch))
+    rparams, _ = rtfm.init_params(rcfg, jax.random.PRNGKey(seed))
+    tree = jax.tree.map(np.asarray, rparams)
+    return rcfg, rparams, cfg, tfm.load_reference_params(cfg, tree, "cpu")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_and_decode_chain_equal(arch):
+    rcfg, rparams, cfg, params = _models(arch)
+    rng = np.random.default_rng(4)
+    B, S, MAX = 2, 11, 24
+    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    rl, rc = rtfm.forward_prefill(rcfg, rparams,
+                                  {"tokens": jnp.asarray(toks)}, MAX)
+    tl, tc = tfm.forward_prefill(cfg, params, {"tokens": _t(toks)}, MAX)
+    _close(tl, rl)
+    for key in ("k", "v"):
+        _close(tc[key], rc[key])
+    np.testing.assert_array_equal(tc["len"].numpy(), np.asarray(rc["len"]))
+    tok = np.argmax(np.asarray(rl)[:, -1], -1).astype(np.int32)[:, None]
+    for _ in range(4):
+        rl, rc = rtfm.forward_decode(rcfg, rparams, jnp.asarray(tok), rc)
+        tl, tc = tfm.forward_decode(cfg, params, _t(tok), tc)
+        _close(tl, rl)
+        for key in ("k", "v"):
+            _close(tc[key], rc[key])
+        np.testing.assert_array_equal(tc["len"].numpy(),
+                                      np.asarray(rc["len"]))
+        tok = np.argmax(np.asarray(rl)[:, -1], -1).astype(np.int32)[:, None]
+        assert np.array_equal(tok[:, 0], tl[:, -1].argmax(-1).numpy())
+
+
+def test_tied_head_and_qkv_bias_carried_over():
+    rcfg, rparams, cfg, params = _models("qwen2-0.5b", seed=5)
+    assert params.head is None and params.blocks[0].attn.wq.b is not None
+    np.testing.assert_array_equal(
+        params.blocks[1].attn.wv.b.numpy(),
+        np.asarray(rparams["blocks"]["attn"]["wv"]["b"][1]))
+
+
+def test_decode_matches_prefill_continuation():
+    """The reference's ``tests/test_models_smoke.py:105`` on the port:
+    decoding token 9 after a prefill of 8 gives the logits of a prefill
+    of 9 (float32; the reference's tolerance)."""
+    cfg = configs.reduce(configs.get("yi-6b"))
+    params = tfm.init_params(cfg, 3, device="cpu")
+    toks = _t(np.random.default_rng(3).integers(0, cfg.vocab, (1, 9))
+              .astype(np.int32))
+    _, cache = tfm.forward_prefill(cfg, params, {"tokens": toks[:, :8]}, 16)
+    l9_dec, _ = tfm.forward_decode(cfg, params, toks[:, 8:9], cache)
+    l9_pre, _ = tfm.forward_prefill(cfg, params, {"tokens": toks}, 16)
+    np.testing.assert_allclose(l9_dec.numpy(), l9_pre.numpy(), rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_kv_write_past_max_len_drops():
+    """Rows at ``len`` max_len - 1 (the last write), max_len and past it:
+    the reference's one-hot add writes nothing at or past the end, and
+    attends over the whole cache. Logits and caches as the reference's."""
+    rcfg, rparams, cfg, params = _models("granite-3-2b", seed=6)
+    rng = np.random.default_rng(6)
+    MAX = 8
+    toks = rng.integers(0, cfg.vocab, (4, MAX)).astype(np.int32)
+    rl, rc = rtfm.forward_prefill(rcfg, rparams,
+                                  {"tokens": jnp.asarray(toks)}, MAX)
+    _, tc = tfm.forward_prefill(cfg, params, {"tokens": _t(toks)}, MAX)
+    lens = np.array([MAX - 1, MAX, MAX + 1, MAX + 40], np.int32)
+    rc = dict(rc, len=jnp.asarray(lens))
+    tc["len"].copy_(_t(lens))
+    before = tc["k"].clone()
+    tok = rng.integers(0, cfg.vocab, (4, 1)).astype(np.int32)
+    for _ in range(2):
+        rl, rc = rtfm.forward_decode(rcfg, rparams, jnp.asarray(tok), rc)
+        tl, tc = tfm.forward_decode(cfg, params, _t(tok), tc)
+        _close(tl, rl)
+        for key in ("k", "v"):
+            _close(tc[key], rc[key])
+    np.testing.assert_array_equal(tc["len"].numpy(), lens + 2)
+    # rows 1-3 never wrote; row 0 wrote its last position once
+    assert torch.equal(tc["k"][:, 1:], before[:, 1:])
+    assert not torch.equal(tc["k"][:, 0, MAX - 1], before[:, 0, MAX - 1])
+    assert torch.equal(tc["k"][:, 0, :MAX - 1], before[:, 0, :MAX - 1])
+
+
+def test_write_kv_adds_at_len():
+    """The one-hot einsum is an add: a position that holds a value gets
+    the new K/V added to it, as in the reference."""
+    cache = torch.ones((2, 4, 1, 2))
+    new = torch.full((2, 1, 1, 2), 2.0)
+    attn.write_kv(cache, new, torch.tensor([1, 4], dtype=torch.int32))
+    want = torch.ones((2, 4, 1, 2))
+    want[0, 1] = 3.0
+    assert torch.equal(cache, want)
+
+
+def test_cast_params_once_same_bits():
+    """Weights cast to bfloat16 once give the logits of the float32
+    weights cast per call (``dense_apply``'s cast), bit for bit."""
+    cfg = dataclasses.replace(configs.reduce(configs.get("granite-3-2b")),
+                              dtype="bfloat16")
+    p32 = tfm.init_params(cfg, 7, device="cpu")
+    p16 = tfm.cast_params(p32, "bfloat16")
+    assert p16.dtype == torch.bfloat16 and p32.dtype == torch.float32
+    assert tfm.cast_params(p16, torch.bfloat16) is p16
+    toks = _t(np.arange(1, 7, dtype=np.int32)[None])
+    a, ca = tfm.forward_prefill(cfg, p32, {"tokens": toks}, 12)
+    b, cb = tfm.forward_prefill(cfg, p16, {"tokens": toks}, 12)
+    assert torch.equal(a, b) and torch.equal(ca["k"], cb["k"])
+    a, _ = tfm.forward_decode(cfg, p32, toks[:, :1], ca)
+    b, _ = tfm.forward_decode(cfg, p16, toks[:, :1], cb)
+    assert torch.equal(a, b)
+
+
+def test_padded_vocab_masked():
+    cfg = dataclasses.replace(configs.reduce(configs.get("granite-3-2b")),
+                              vocab=500)
+    params = tfm.init_params(cfg, 8, device="cpu")
+    logits, _ = tfm.forward_prefill(
+        cfg, params, {"tokens": _t(np.array([[1, 2, 3]], np.int32))}, 8)
+    assert logits.shape == (1, 1, 512)
+    assert torch.all(logits[..., 500:] == -1e30)
+    assert torch.all(logits[..., :500] > -1e29)
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
+def test_other_families_raise(arch):
+    cfg = configs.reduce(configs.get(arch))
+    with pytest.raises(NotImplementedError, match="M11"):
+        tfm.init_params(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="M11"):
+        tfm.init_cache(cfg, 2, 16, device="cpu")
+
+
+def test_default_device_is_the_gpu(monkeypatch):
+    cfg = configs.reduce(configs.get("granite-3-2b"))
+    if torch.cuda.is_available():       # decide here: simulate its absence
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tfm.init_params(cfg, 0)
