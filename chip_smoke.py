@@ -18,8 +18,11 @@ card: the distributed SpMV and SpMM in both exchange modes against the CPU
 replay, ``jacobi_pcg_dist``, ``adaptive_pcg_dist``, ``dist_mixed:`` and
 ``dist_auto:``, a checkpoint fault); then the LM serving path
 (granite-3-2b at full width and depth in ``DecodeEngine``, its decode
-step one CUDA graph, the PackSELL-pruned head through K1 and K3) -- times
-the kernels, and ends with one JSON line. Every solve runs as the port runs
+step one CUDA graph, the PackSELL-pruned head through K1 and K3); then
+the moe family (qwen2-moe-a2.7b at full width and depth in one bf16 copy
+through the engine, layer 0 against a float64 loop) and the vlm family
+(llava-next-mistral-7b, 2,880 patches a row, its decode step one CUDA
+graph) -- times the kernels, and ends with one JSON line. Every solve runs as the port runs
 it, through CUDA-graph replays (``repro_torch.solvers.graphs``), and in
 turns with its eager loop (eager, captured, captured, eager), which it
 must equal bit for bit.
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -52,12 +56,23 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 #: dense bfloat16 tensor-core peak, the same data sheet
 PEAK_BF16_OPS_PER_S = 989e12
-#: phase 14's decode-against-prefill check in bfloat16 at granite-3-2b's
+#: the decode-against-prefill checks of phases 14-16 in bfloat16 at full
 #: width and depth: 16 bf16 ulps (2^-8 each) of the largest |logit|. The
 #: two paths may round their products at other places (cuBLAS picks
-#: kernels by row count); a cache that misplaced a position would move the
-#: logits by their own scale
+#: kernels by row count; phase 15's expert products have 1 row a slot in
+#: decode and 9 in the prefill, which moves qwen2-moe's logits by up to
+#: 0.0145 of the largest at seeds 0 and 2); a cache that misplaced a
+#: position would move the logits by their own scale
 LM_DECODE_TOL = 2.0 ** -4
+#: phase 15's layer check: the bf16 moe layer's y against the float64 loop,
+#: relative to the largest |y|: 2^-9 per bf16 rounding, of which y takes
+#: about four in turn (x, the two products, h, the output, the shared
+#: sum), with 4x to spare
+MOE_Y_TOL = 2.0 ** -5
+#: phase 15's peak memory above the phase's start: qwen2-moe-a2.7b's 30.3 GB
+#: of bf16 parameters, one float32 tensor drawn at a time (the largest, the
+#: embedding, 1.25 GB), the KV cache and the activations
+MOE_PEAK_BYTES = 33e9
 #: the kernel a plan variant's SpMV launches
 PLAN_KERNEL = {"fused": "K1", "full": "K4", "band": "K6"}
 
@@ -317,6 +332,97 @@ def sync_debug(mode: str):
         yield
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def tick_profile(eng, saved: dict, *, runs: int, reps: int, windows: int = 1,
+                 sync: str | None = None) -> dict:
+    """A ``DecodeEngine``'s decode tick from ``saved`` (its ``state()``):
+    ``runs`` times an eager tick and a graph tick, each from ``saved``,
+    whose logits and buffers must equal bit for bit (both under
+    ``set_sync_debug_mode(sync)`` when ``sync`` is given), with their walls
+    on the host clock; the graph tick's device time by CUDA events over
+    ``reps`` replays, in ``windows`` windows (``ms`` is their median); the
+    device ops of one eager tick counted on the host. Leaves the engine at
+    ``saved``."""
+    from repro_torch.solvers import graphs
+
+    def once(eager: bool):
+        eng.set_state(saved)
+        torch.cuda.synchronize()
+        with (sync_debug(sync) if sync else contextlib.nullcontext()), \
+                (graphs.eager() if eager else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            out = eng._decode().clone()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, eng.state()
+
+    walls = {"eager": [], "graph": []}
+    for _ in range(runs):
+        le, sec, after = once(True)
+        walls["eager"].append(sec)
+        lg, sec, got = once(False)
+        walls["graph"].append(sec)
+        same_bits(lg, le, "graph tick vs eager tick logits")
+        for k, v in got.items():
+            if not torch.equal(v, after[k]):
+                fail(f"graph tick vs eager tick: {k} differs")
+    device = []
+    for _ in range(windows):
+        eng.set_state(saved)
+        device.append(timed(eng._decode, reps))
+    eng.set_state(saved)
+    with graphs.eager():
+        ops = collections.Counter(aten_ops(eng._decode))
+    eng.set_state(saved)
+    return dict(walls=walls, wall_eager=float(np.median(walls["eager"])),
+                wall_graph=float(np.median(walls["graph"])),
+                ms=float(np.median(device)), windows=device, reps=reps,
+                ops=ops)
+
+
+@contextlib.contextmanager
+def route_tap(moe, each, layers: int, *, exact: bool = True):
+    """Inside the block every ``moe.route`` call hands ``(x, routing)`` to
+    ``each``, and the layer goes on with the routing ``each`` returns. The
+    model reaches the router through the module's ``route``; should it
+    bind it otherwise, the tap would see nothing, so the block fails
+    unless it saw ``layers`` calls (``exact``) or a positive multiple of
+    them."""
+    route, seen = moe.route, [0]
+
+    def tap(p, cfg, x):
+        seen[0] += 1
+        return each(x, route(p, cfg, x))
+
+    moe.route = tap
+    try:
+        yield
+    finally:
+        moe.route = route
+    n = seen[0]
+    if not (n == layers if exact else n > 0 and n % layers == 0):
+        fail(f"moe.route was called {n} times, not "
+             f"{'' if exact else 'a positive multiple of '}{layers}: the "
+             "model no longer routes through moe.route")
+
+
+def pinned(r, experts):
+    """One token's routing ``r`` (S = 1) sent to ``experts`` ``[B, 1, k]``
+    instead: the gates are the router's probabilities there, renormalised
+    as ``moe.route`` renormalises them, and every assignment is kept (the
+    one token ranks first at each of its k experts). With the experts
+    ``r`` chose, the result equals ``r`` bit for bit."""
+    import dataclasses
+
+    B, S, k = r.experts.shape
+    if S != 1 or experts.shape != r.experts.shape:
+        fail(f"pinned: routing {tuple(r.experts.shape)}, experts "
+             f"{tuple(experts.shape)}; one token a row only")
+    gates = torch.gather(r.probs, -1, experts)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    return dataclasses.replace(
+        r, gates=gates, experts=experts, keep=torch.ones_like(r.keep),
+        slot=experts.reshape(B, k) * r.cap)
 
 
 def plain_twin(ops, kinds):
@@ -3122,7 +3228,6 @@ class Smoke:
         from repro_torch.models.sparse_linear import PackSELLLinear
         from repro_torch.precision.analyze import ulp_bound
         from repro_torch.serving import DecodeEngine, ServeConfig, WarmupSpec
-        from repro_torch.solvers import graphs
 
         cfg = cfg or configs.get("granite-3-2b")
         slots, n_req = 4, 8
@@ -3183,8 +3288,8 @@ class Smoke:
 
         # the head on the next tick's hidden states: K1 for slot 0, K3 for
         # every slot, inside the counted run
-        saved = eng.state()
         eng.tokens.copy_(torch.from_numpy(eng.last_token[:, None]))
+        saved = eng.state()
         h = tfm.decode_hidden(cfg, eng.params, eng.tokens, eng.cache)[:, 0]
         eng.set_state(saved)
         x1, X = h[0].float().contiguous(), h.float()
@@ -3200,24 +3305,9 @@ class Smoke:
         print(f"  launches in this run: {launches}", flush=True)
 
         # a graph tick against an eager tick, on the same state
-        walls = {"eager": [], "graph": []}
-        for _ in range(5):
-            eng.set_state(saved)
-            with graphs.eager():
-                le, sec = wall(lambda: eng.tick().clone())
-            walls["eager"].append(sec)
-            after = eng.state()
-            eng.set_state(saved)
-            lg, sec = wall(lambda: eng.tick().clone())
-            walls["graph"].append(sec)
-            same_bits(lg, le, "graph tick vs eager tick logits")
-            for k, v in eng.state().items():
-                if not torch.equal(v, after[k]):
-                    fail(f"graph tick vs eager tick: {k} differs")
-        eng.set_state(saved)
         reps = max(self.reps // 2, 2)
-        t_tick = timed(eng._decode, reps)
-        eng.set_state(saved)
+        prof = tick_profile(eng, saved, runs=5, reps=reps)
+        t_tick, walls, tick_ops = prof["ms"], prof["walls"], prof["ops"]
         # what one tick must read: every weight but the embedding table
         # (its slots rows), and each slot's valid KV positions
         emb = eng.params.embed.w
@@ -3232,14 +3322,11 @@ class Smoke:
         tb, by = bound_ms(w_bytes + kv_bytes + 4 * slots * cfg.vocab_padded,
                           2 * slots * (w_bytes // emb.element_size()),
                           PEAK_BF16_OPS_PER_S)
-        with graphs.eager():
-            tick_ops = collections.Counter(aten_ops(eng.tick))
-        eng.set_state(saved)
         n_ops = sum(tick_ops.values())
         print(f"  the decode tick ({slots} slots): logits and cache of a "
               f"graph tick equal an eager tick's bit for bit (5 times); "
-              f"wall eager {float(np.median(walls['eager']))!r} s, graph "
-              f"{float(np.median(walls['graph']))!r} s (medians of 5: "
+              f"wall eager {prof['wall_eager']!r} s, graph "
+              f"{prof['wall_graph']!r} s (medians of 5: "
               f"{walls}); device {t_tick!r} ms (CUDA events over {reps} "
               f"replays); bound {tb!r} ms by {by} (weights {w_bytes} B "
               f"in {cfg.dtype}, the KV cache {kv_bytes} B): {t_tick / tb!r} "
@@ -3353,14 +3440,495 @@ class Smoke:
         return dict(launches=launches, rows=rows, tick_ms=t_tick,
                     tick_ops=n_ops)
 
+    # -- phases 15 and 16: the moe and vlm families --------------------------
+    def _lm_params(self, cfg, seed: int):
+        """``cfg``'s parameters from ``seed`` in the compute dtype, one copy
+        on the card (``init_params(..., dtype=cfg.dtype)``), with the peak
+        memory counted from here; prints and checks the allocated count
+        against ``cfg.param_count()`` (2 %). Returns ``(params, base)``:
+        ``base`` is the memory allocated before."""
+        from repro_torch.models import transformer as tfm
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params, sec = wall(lambda: tfm.init_params(cfg, seed, device=self.dev,
+                                                   dtype=cfg.dtype))
+        n_par, want = params.param_count(), cfg.param_count()
+        nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+        print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, head_dim "
+              f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to "
+              f"{cfg.vocab_padded}; {n_par} parameters drawn from seed {seed} "
+              f"straight into {cfg.dtype} (one copy, {nbytes} B) in {sec!r} "
+              f"s; param_count() {want}: {n_par - want:+d} "
+              f"({abs(n_par - want) / want!r} apart); memory allocated "
+              f"before the phase {base} B", flush=True)
+        if not abs(n_par - want) / want < 0.02:
+            fail(f"{n_par} parameters allocated, param_count() {want}")
+        return params, base
+
+    def moe_path(self, seed: int = 0, cfg=None, max_len: int = 512,
+                 new_tokens: int = 32, check_len: int = 11):
+        """qwen2-moe-a2.7b at its published widths and depth (``cfg``
+        overrides, for a rehearsal), weights from ``seed`` in one bf16 copy
+        (the peak memory after it at most ``MOE_PEAK_BYTES``); the engine
+        with 4 slots, its warmup (the decode step captured), 8 greedy
+        requests of prompt lengths 4-11 and ``new_tokens`` each, the
+        assignments their prefills dropped counted. Then, on the pool's
+        state: a graph tick against an eager tick, bit for bit, both under
+        ``set_sync_debug_mode("error")``; the tick's device time and ops
+        against two byte bounds, (a) the reference's dispatch (every padded
+        expert read) and (b) a routed-only dispatch (the experts the slots
+        picked); decode against prefill at ``capacity_factor = E/k``, the
+        decode pinned to the prefill's experts (``LM_DECODE_TOL``; the
+        free decode's routing reported); layer 0's ``moe.apply`` on
+        ``check_len`` tokens of 4 rows against a float64 loop over tokens
+        that applies the reference's rule (the kept set equal, y within
+        ``MOE_Y_TOL``)."""
+        import dataclasses
+
+        from repro_torch import configs
+        from repro_torch.models import moe
+        from repro_torch.models import transformer as tfm
+        from repro_torch.serving import DecodeEngine, ServeConfig, WarmupSpec
+        from repro_torch.solvers import graphs
+
+        cfg = cfg or configs.get("qwen2-moe-a2.7b")
+        slots, n_req = 4, 8
+        dev = self.dev
+        E, k, d, ff = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff
+        Ep = moe.padded_experts(E)
+        rng = np.random.default_rng(seed)
+        params, base = self._lm_params(cfg, seed)
+        eng = DecodeEngine(cfg, params, ServeConfig(slots=slots,
+                                                    max_len=max_len,
+                                                    seed=seed), device=dev)
+        if eng.params is not params:
+            fail("the engine copied parameters already in the compute dtype")
+        del params
+        prompts = [rng.integers(1, cfg.vocab, size=int(p))
+                   for p in rng.integers(4, 12, size=n_req)]
+        lens = tuple(sorted({len(p) for p in prompts}))
+        self.zero_counts()
+        _, t_warm = wall(lambda: eng.warmup(WarmupSpec(prompt_lens=lens)))
+        print(f"  {E} routed experts padded to {Ep}, top-{k}, "
+              f"{cfg.n_shared_experts} shared, capacity factor "
+              f"{cfg.capacity_factor}: cap {[moe.capacity(cfg, s) for s in lens]}"
+              f" at prompt lengths {list(lens)}, {moe.capacity(cfg, 1)} in a "
+              f"decode tick; warmup (the decode graph, prefills at "
+              f"{list(lens)}) {t_warm!r} s", flush=True)
+
+        # the served prefills' dropped assignments, read after the run
+        dropped = []
+
+        def counting(x, r):
+            if x.shape[1] > 1:
+                dropped.append((~r.keep).sum())
+            return r
+
+        reqs = [eng.submit(p, new_tokens) for p in prompts]
+        with route_tap(moe, counting, cfg.n_layers, exact=False):
+            _, t_run = wall(eng.run)
+        short = [(r.uid, len(r.out_tokens)) for r in reqs
+                 if len(r.out_tokens) != new_tokens]
+        if short or len(eng.done) != n_req:
+            fail(f"{len(eng.done)} of {n_req} requests done; with other "
+                 f"than {new_tokens} tokens: {short}")
+        if not dropped:
+            fail("no prefill of several tokens reached moe.route")
+        n_drop = int(torch.stack(dropped).sum())
+        n_assign = sum(len(p) for p in prompts) * k * cfg.n_layers
+        st = eng.stats()
+        print(f"  served {st['requests']} requests (prompts {lens[0]}-"
+              f"{lens[-1]} tokens, {new_tokens} new each, greedy, {slots} "
+              f"slots, max_len {max_len}) in {t_run!r} s: "
+              f"{st['tokens_per_s']!r} tokens/s, mean TTFT "
+              f"{st['mean_ttft_s']!r} s, mean latency "
+              f"{st['mean_latency_s']!r} s (host clock); the prefills "
+              f"dropped {n_drop} of {n_assign} assignments "
+              f"({n_drop / n_assign!r}; {len(dropped)} layer calls), as the "
+              f"reference's capacity rule drops them", flush=True)
+        launches = self.counts()
+        print(f"  launches in this run: {launches} (no kernel of this "
+              "repository lies on the moe path)", flush=True)
+
+        # a graph tick against an eager tick, both without a host sync
+        eng.tokens.copy_(torch.from_numpy(eng.last_token[:, None]))
+        saved = eng.state()
+        reps = max(self.reps // 2, 2)
+        prof = tick_profile(eng, saved, runs=3, reps=reps, sync="error")
+        t_tick, tick_ops = prof["ms"], prof["ops"]
+        # the experts this tick's slots picked, per layer
+        picked = []
+
+        def recording(x, r):
+            picked.append(r.experts.reshape(-1))
+            return r
+
+        with route_tap(moe, recording, cfg.n_layers), graphs.eager():
+            eng._decode()
+        eng.set_state(saved)
+        n_ops = sum(tick_ops.values())
+        distinct = [int(torch.unique(t).numel()) for t in picked]
+        bf = eng.params.embed.w.element_size()
+        emb = eng.params.embed.w
+        w_all = sum(p.numel() * p.element_size()
+                    for p in eng.params.parameters()) \
+            - emb.numel() * emb.element_size() + slots * d * bf
+        expert_b = 3 * d * ff * bf
+        w_routed = w_all - cfg.n_layers * Ep * expert_b \
+            + sum(distinct) * expert_b
+        w_max16 = w_all - cfg.n_layers * (Ep - min(Ep, slots * k)) * expert_b
+        pos = int(torch.clamp(saved["len"] + 1, max=max_len).sum())
+        kv_b = 2 * pos * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * bf
+        out_b = 4 * slots * cfg.vocab_padded
+        ta, _ = bound_ms(w_all + kv_b + out_b, 0)
+        tb, _ = bound_ms(w_routed + kv_b + out_b, 0)
+        t16, _ = bound_ms(w_max16 + kv_b + out_b, 0)
+        print(f"  the decode tick ({slots} slots): logits and cache of a "
+              f"graph tick equal an eager tick's bit for bit (3 times, "
+              f"both under set_sync_debug_mode('error')); wall eager "
+              f"{prof['wall_eager']!r} s, graph {prof['wall_graph']!r} s "
+              f"(medians of 3); device {t_tick!r} ms (CUDA events over "
+              f"{reps} replays); on {card_line()}", flush=True)
+        print(f"  bound (a), the reference's dispatch (every padded expert "
+              f"read): {w_all + kv_b + out_b} B, {ta!r} ms ({t_tick / ta!r} "
+              f"x); bound (b), a routed-only dispatch (the {sum(distinct)} "
+              f"experts this tick's slots picked, {distinct} a layer): "
+              f"{w_routed + kv_b + out_b} B, {tb!r} ms ({t_tick / tb!r} x); "
+              f"at the most {min(Ep, slots * k)} experts a layer {t16!r} ms; "
+              f"KV {kv_b} B", flush=True)
+        print(f"  its device ops (one tick, counted on the host): {n_ops}, "
+              f"{n_ops / cfg.n_layers!r} a layer, "
+              f"{t_tick * 1e3 / max(n_ops, 1)!r} us of device time each; "
+              f"most frequent {tick_ops.most_common(12)}", flush=True)
+
+        # decode against prefill, where the prefill drops nothing. Two runs
+        # of top-k routing part where a token's k-th and (k+1)-th
+        # probabilities tie within their rounding, so the verdict pins the
+        # decode to the experts the prefill gave token 9 in each layer; the
+        # free decode's routing and logits are reported beside it
+        cfg_nd = dataclasses.replace(cfg, capacity_factor=E / k)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 9)).astype(
+            np.int32)).to(dev)
+        _, c8 = tfm.forward_prefill(cfg_nd, eng.params,
+                                    {"tokens": toks[:, :8]}, 16)
+        seen = {"prefill": [], "decode": [], "pinned": []}
+
+        def record(into, pin=None):
+            def each(x, r):
+                if pin is not None:
+                    r = pinned(r, pin[len(into)][0])
+                into.append((r.experts[:, -1:], r.logits[0, -1],
+                             r.probs[0, -1]))
+                return r
+            return each
+
+        def decode():
+            cache = {key: v.clone() for key, v in c8.items()}
+            return tfm.forward_decode(cfg_nd, eng.params, toks[:, 8:9],
+                                      cache)[0]
+
+        logits = {}
+        for mode, run in (
+                ("prefill", lambda: tfm.forward_prefill(
+                    cfg_nd, eng.params, {"tokens": toks}, 16)[0]),
+                ("decode", decode), ("pinned", decode)):
+            pin = seen["prefill"] if mode == "pinned" else None
+            with route_tap(moe, record(seen[mode], pin), cfg.n_layers):
+                logits[mode] = run()[0, 0, :cfg.vocab]
+        pre, dec, pin = seen["prefill"], seen["decode"], seen["pinned"]
+        flips = [i for i, (a, b) in enumerate(zip(dec, pre))
+                 if not torch.equal(a[0].sort(-1).values,
+                                    b[0].sort(-1).values)]
+        first = flips[0] if flips else cfg.n_layers - 1
+        # the router's logits against the prefill's: the free decode's up
+        # to its first flip, the pinned decode's in every layer
+        drift = max(max_abs(a[1], b[1]) for a, b in zip(dec[:first + 1], pre))
+        drift_pin = max(max_abs(a[1], b[1]) for a, b in zip(pin, pre))
+        scale = max(float(b[1].abs().max()) for b in pre)
+        gaps = [float(-pre[i][2].sort(descending=True).values[k - 1:k + 1]
+                      .diff()[0]) for i in flips]
+        lp = logits["prefill"]
+        err, top = max_abs(logits["decode"], lp), float(lp.abs().max())
+        err_pin = max_abs(logits["pinned"], lp)
+        if not flips:
+            same_bits(logits["pinned"], logits["decode"], "the pinned decode "
+                      "vs the free decode, which routes token 9 alike")
+        print(f"  decode of token 9 after a prefill of 8 vs a prefill of 9 "
+              f"at capacity_factor E/k = {E / k!r} (cap "
+              f"{moe.capacity(cfg_nd, 9)} >= S, so the prefill drops "
+              f"nothing; at the published {cfg.capacity_factor} a 9-token "
+              f"prefill has cap {moe.capacity(cfg, 9)} and drops "
+              f"assignments, which a decode step never does, in the "
+              f"reference as here)", flush=True)
+        print(f"  the decode pinned to the prefill's experts: max |diff| "
+              f"{err_pin!r}, {err_pin / top!r} of max |logit| {top!r} "
+              f"(limit {LM_DECODE_TOL!r}); argmax "
+              f"{int(logits['pinned'].argmax())} vs {int(lp.argmax())}; its "
+              f"router logits at most {drift_pin!r} from the prefill's over "
+              f"all {cfg.n_layers} layers (max |router logit| {scale!r})",
+              flush=True)
+        print(f"  the free decode: max |diff| {err!r}, {err / top!r} of max "
+              f"|logit|; token 9's {k} experts differ from the prefill's in "
+              f"{len(flips)} of {cfg.n_layers} layers {flips}, where the "
+              f"prefill's {k}th and {k + 1}th probabilities lie {gaps} apart; "
+              f"its router logits up to layer {first} at most {drift!r} from "
+              f"the prefill's", flush=True)
+        if not err_pin <= LM_DECODE_TOL * top:
+            fail(f"moe decode pinned to the prefill's experts vs prefill: "
+                 f"{err_pin} > {LM_DECODE_TOL} x {top}")
+
+        # layer 0 against a float64 loop over tokens (the reference's rule)
+        p0 = eng.params.blocks[0].moe
+        B, S = slots, check_len
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        x = torch.randn((B, S, d), generator=g, device=dev).to(
+            getattr(torch, cfg.dtype))
+        y, _ = moe.apply(p0, cfg, x, cfg.dtype, aux=False)
+        r = moe.route(p0, cfg, x)
+        got_kept = {(b, a // k, int(e)) for b, a, e in zip(
+            *np.nonzero(r.keep.cpu().numpy()),
+            r.experts.reshape(B, -1).cpu().numpy()[r.keep.cpu().numpy()])}
+        y64, want_kept, ids64 = self._moe_f64(p0, cfg, x)
+        same_ids = bool(np.array_equal(ids64, r.experts.cpu().numpy()))
+        err = max_abs(y.double(), y64)
+        top = float(y64.abs().max())
+        print(f"  layer 0's moe.apply on {B} x {S} tokens ~ N(0, 1) in "
+              f"{cfg.dtype} against a float64 loop over tokens (the "
+              f"reference's rule, moe.py:77-150): expert ids equal "
+              f"{same_ids}; kept {len(got_kept)} of {B * S * k} (cap "
+              f"{r.cap}), the kept set equal {got_kept == want_kept}; max "
+              f"|y - y64| {err!r}, {err / top!r} of max |y64| {top!r} "
+              f"(limit {MOE_Y_TOL!r})", flush=True)
+        if not same_ids or got_kept != want_kept:
+            fail(f"moe routing: expert ids equal {same_ids}, kept sets "
+                 f"differ by {sorted(got_kept ^ want_kept)[:8]}")
+        if not err <= MOE_Y_TOL * top:
+            fail(f"moe y vs the float64 loop: {err} > {MOE_Y_TOL} x {top}")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak memory allocated in the phase: {peak} B "
+              f"(max_memory_allocated; {peak - base} B above the "
+              f"{base} B allocated before it; limit {MOE_PEAK_BYTES})",
+              flush=True)
+        if peak - base > MOE_PEAK_BYTES:
+            fail(f"moe phase peak {peak - base} B > {MOE_PEAK_BYTES}")
+        return dict(launches=launches, tick_ms=t_tick, tick_ops=n_ops,
+                    bound_a=ta, bound_b=tb, peak=peak)
+
+    @staticmethod
+    def _moe_f64(p, cfg, x):
+        """``moe.apply`` in float64 token by token: the router, softmax,
+        top-k and the renormalised gates; per batch row each expert keeps
+        its first ``cap`` assignments in assignment order; each kept
+        (token, expert) adds its gated SwiGLU output; then the shared
+        experts. Returns ``(y, kept set of (row, token, expert), ids)``."""
+        from repro_torch.models import moe
+
+        B, S, d = x.shape
+        E, k = cfg.n_experts, cfg.top_k
+        cap = moe.capacity(cfg, S)
+        x64 = x.double()
+        y = torch.zeros_like(x64)
+        probs = torch.softmax(x64 @ p.router.double(), dim=-1)
+        gates, ids = torch.topk(probs, k, dim=-1)
+        gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        ids_h = ids.cpu().numpy()
+        kept, work = set(), collections.defaultdict(list)
+        for b in range(B):
+            seen = np.zeros(E, np.int64)
+            for a in range(S * k):
+                s, j = divmod(a, k)
+                e = int(ids_h[b, s, j])
+                if seen[e] < cap:
+                    kept.add((b, s, e))
+                    work[e].append((b, s, j))
+                seen[e] += 1
+
+        def swiglu64(wi, wg, wo, v):
+            return (torch.nn.functional.silu(v @ wg.double())
+                    * (v @ wi.double())) @ wo.double()
+
+        ex = p.experts
+        for e, items in work.items():
+            bs = torch.tensor([(b, s) for b, s, _ in items], device=x.device)
+            out = swiglu64(ex.wi[e], ex.wg[e], ex.wo[e], x64[bs[:, 0],
+                                                             bs[:, 1]])
+            for (b, s, j), o in zip(items, out):
+                y[b, s] += gates[b, s, j] * o
+        if p.shared is not None:
+            for i in range(p.shared.wi.shape[0]):
+                y += swiglu64(p.shared.wi[i], p.shared.wg[i], p.shared.wo[i],
+                              x64)
+        return y, kept, ids_h
+
+    def vlm_path(self, seed: int = 0, cfg=None, batch: int = 4,
+                 prompt: int = 8, new_tokens: int = 32):
+        """llava-next-mistral-7b at its published widths and depth
+        (``cfg`` overrides, for a rehearsal), weights from ``seed`` in one
+        bf16 copy; ``forward_prefill`` of ``batch`` rows, each
+        ``cfg.frontend_len`` patches ~ N(0, 1) (bf16) and ``prompt``
+        tokens, into a cache of ``frontend_len + 64`` positions; then
+        ``new_tokens`` greedy steps of ``forward_decode``, the step one
+        CUDA graph over the static cache (``solvers.graphs.Graph``, as the
+        engine's), the next token chosen on the device; a graph step
+        against an eager step bit for bit; the step's device time against
+        its byte bound; decode of the next position after a prefill
+        against a prefill one token longer (``LM_DECODE_TOL``)."""
+        from repro_torch import configs
+        from repro_torch.models import io_spec
+        from repro_torch.models import transformer as tfm
+        from repro_torch.solvers import graphs
+
+        cfg = cfg or configs.get("llava-next-mistral-7b")
+        dev = self.dev
+        B, P = batch, cfg.frontend_len
+        max_len = P + 64
+        rng = np.random.default_rng(seed)
+        params, base = self._lm_params(cfg, seed)
+        proj = params.projector.w.numel()
+        print(f"  the projector: {proj} parameters ({io_spec.STUB_DIM} x "
+              f"{cfg.d_model}) where param_count() takes d_model^2 = "
+              f"{cfg.d_model ** 2}: {cfg.d_model ** 2 - proj} of the gap",
+              flush=True)
+        self.zero_counts()
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        patches = torch.randn((B, P, io_spec.STUB_DIM), generator=g,
+                              device=dev).to(getattr(torch, cfg.dtype))
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, prompt))
+                                .astype(np.int32)).to(dev)
+        batch_in = {"tokens": toks, "patches": patches}
+        (logits, cache), t_pre = wall(lambda: tfm.forward_prefill(
+            cfg, params, batch_in, max_len))
+        S = P + prompt
+        if not torch.equal(cache["len"].cpu(), torch.full((B,), S,
+                                                           dtype=torch.int32)):
+            fail(f"vlm prefill: cache len {cache['len'].tolist()}, not {S}")
+        if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
+            fail("vlm prefill: logits not finite")
+        print(f"  forward_prefill of {B} rows x ({P} patches + {prompt} "
+              f"tokens) = {S} positions into a cache of {max_len}: "
+              f"{t_pre!r} s (host clock, eager, first call)", flush=True)
+
+        # the decode step as one graph over the static token and cache
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None].contiguous()
+
+        def body():
+            return tfm.forward_decode(cfg, params, tok, cache)[0]
+
+        step = graphs.Graph(body, dev)
+        saved = {key: v.clone() for key, v in cache.items()}
+        saved_tok = tok.clone()
+        _, t_cap = wall(step)
+        for key, v in cache.items():
+            v.copy_(saved[key])
+        tok.copy_(saved_tok)
+        gen = [tok.clone()]
+
+        def greedy():
+            for _ in range(new_tokens):
+                out = step()
+                tok.copy_(out[:, -1].argmax(-1).to(torch.int32)[:, None])
+                gen.append(tok.clone())
+
+        _, t_dec = wall(greedy)
+        if not torch.equal(cache["len"].cpu(),
+                           torch.full((B,), S + new_tokens,
+                                      dtype=torch.int32)):
+            fail(f"vlm decode: cache len {cache['len'].tolist()}")
+        seqs = torch.cat(gen, 1).cpu().numpy()
+        print(f"  {new_tokens} greedy steps (graph replays, the next token "
+              f"chosen on the device): {t_dec!r} s, "
+              f"{t_dec / new_tokens!r} s a step (host clock; the capture "
+              f"{t_cap!r} s); row 0's tokens {seqs[0, :12].tolist()}...",
+              flush=True)
+
+        # a graph step against an eager step, on the same state
+        saved = {key: v.clone() for key, v in cache.items()}
+        saved_tok = tok.clone()
+
+        def restore():
+            for key, v in cache.items():
+                v.copy_(saved[key])
+            tok.copy_(saved_tok)
+
+        for _ in range(3):
+            restore()
+            with graphs.eager():
+                le = step().clone()
+            after = {key: v.clone() for key, v in cache.items()}
+            restore()
+            lg = step().clone()
+            same_bits(lg, le, "vlm graph step vs eager step logits")
+            for key, v in cache.items():
+                if not torch.equal(v, after[key]):
+                    fail(f"vlm graph step vs eager step: {key} differs")
+        restore()
+        reps = max(self.reps // 5, 2)
+        t_step = timed(step, reps)
+        restore()
+        with graphs.eager():
+            step_ops = collections.Counter(aten_ops(step))
+        restore()
+        n_ops = sum(step_ops.values())
+        bf = params.embed.w.element_size()
+        skip = params.embed.w.numel() + proj
+        w_b = sum(p.numel() * p.element_size() for p in params.parameters()) \
+            - skip * bf + B * cfg.d_model * bf
+        pos = int(torch.clamp(cache["len"] + 1, max=max_len).sum())
+        kv_b = 2 * pos * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * bf
+        tb, by = bound_ms(w_b + kv_b + 4 * B * cfg.vocab_padded,
+                          2 * B * (w_b // bf), PEAK_BF16_OPS_PER_S)
+        print(f"  the decode step ({B} rows at length {S + new_tokens}): "
+              f"logits and cache of a graph step equal an eager step's bit "
+              f"for bit (3 times); device {t_step!r} ms (CUDA events over "
+              f"{reps} replays); bound {tb!r} ms by {by} (weights {w_b} B, "
+              f"the embedding's rows and no projector; KV {kv_b} B): "
+              f"{t_step / tb!r} x; on {card_line()}", flush=True)
+        print(f"  its device ops (one step, counted on the host): {n_ops}, "
+              f"{n_ops / cfg.n_layers!r} a layer, "
+              f"{t_step * 1e3 / max(n_ops, 1)!r} us of device time each; "
+              f"most frequent {step_ops.most_common(10)}", flush=True)
+        del step, saved, after, cache
+
+        # decode of the next position against a prefill one longer
+        b1 = {"tokens": toks[:1, :prompt], "patches": patches[:1]}
+        nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 1)).astype(
+            np.int32)).to(dev)
+        _, c1 = tfm.forward_prefill(cfg, params, b1, S + 8)
+        ld, _ = tfm.forward_decode(cfg, params, nxt, c1)
+        lp, _ = tfm.forward_prefill(
+            cfg, params, {"tokens": torch.cat([b1["tokens"], nxt], 1),
+                          "patches": patches[:1]}, S + 8)
+        ld, lp = ld[0, 0, :cfg.vocab], lp[0, 0, :cfg.vocab]
+        err, top = max_abs(ld, lp), float(lp.abs().max())
+        print(f"  decode of position {S + 1} after a prefill of {S} vs a "
+              f"prefill of {S + 1}: max |diff| {err!r}, {err / top!r} of max "
+              f"|logit| {top!r} (limit {LM_DECODE_TOL!r}); argmax "
+              f"{int(ld.argmax())} vs {int(lp.argmax())}", flush=True)
+        if not err <= LM_DECODE_TOL * top:
+            fail(f"vlm decode vs prefill: {err} > {LM_DECODE_TOL} x {top}")
+        launches = self.counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  launches in this run: {launches} (no kernel of this "
+              f"repository lies on the vlm path); peak memory allocated "
+              f"{peak} B ({peak - base} B above the phase's start)",
+              flush=True)
+        return dict(launches=launches, step_ms=t_step, step_ops=n_ops,
+                    bound=tb, prefill_s=t_pre, peak=peak)
+
 
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of phase 12's request vectors and of phase "
-                    "14's weights and requests")
+                    help="seed of phase 12's request vectors and of the "
+                    "weights, requests and inputs of phases 14-16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -3446,6 +4014,24 @@ def main(argv=None) -> int:
               "depth, DecodeEngine with the decode step as one CUDA graph, "
               "8 requests, the PackSELL head through K1 and K3",
               lambda: smoke.lm_path(seed=args.seed))
+        # each path ran with the counts set to 0 just before it
+        runs = [mp["launches"], mx["launches"], sv, cp["launches"],
+                out[10]["launches"], out[11]["launches"], out[12]["launches"],
+                out[13]["launches"], out[14]["launches"]]
+        # free the earlier phases' matrices, plans and graphs: phases 15 and
+        # 16 count their own peak memory
+        del mp, mx, cp, sv
+        out.clear()
+        phase(15, "the moe family: qwen2-moe-a2.7b at full width and depth "
+              "in one bf16 copy, DecodeEngine with the decode step as one "
+              "CUDA graph, 8 requests, the tick against two byte bounds, "
+              "layer 0 against a float64 loop",
+              lambda: smoke.moe_path(seed=args.seed))
+        phase(16, "the vlm family: llava-next-mistral-7b at full width and "
+              "depth in one bf16 copy, a prefill of 4 x (2,880 patches + 8 "
+              "tokens), 32 greedy steps as one CUDA graph",
+              lambda: smoke.vlm_path(seed=args.seed))
+        runs += [out[15]["launches"], out[16]["launches"]]
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -3464,13 +4050,9 @@ def main(argv=None) -> int:
         "K2-f64": ("sell_spmv_bucket (float64 sum)", src + "sell_spmv.cu",
                    "src/repro/kernels/sell_spmv.py:47"),
     }
-    print(f"== 15. done in {time.perf_counter() - t_start:.1f} s (phases "
-          f"3-14: {phase_s})", flush=True)
+    print(f"== 17. done in {time.perf_counter() - t_start:.1f} s (phases "
+          f"3-16: {phase_s})", flush=True)
     print(f"card: {card_line()}", flush=True)
-    # each path ran with the counts set to 0 just before it
-    runs = (mp["launches"], mx["launches"], sv, cp["launches"],
-            out[10]["launches"], out[11]["launches"], out[12]["launches"],
-            out[13]["launches"], out[14]["launches"])
     launches = {k: sum(run.get(k, 0) for run in runs) for k in meta}
     kernels = []
     for k, (kname, source, replaces) in meta.items():

@@ -1,7 +1,11 @@
 """Serving launcher: the continuous-batching decode engine for an assigned
-architecture (dense family), fed with synthetic requests. Reduced config
-by default, the published widths and depth with ``--full``; on the GPU
-unless ``--device cpu``.
+architecture (dense and moe families), fed with synthetic requests.
+Reduced config by default, the published widths and depth with
+``--full``; on the GPU unless ``--device cpu``. The parameters are drawn
+straight into the compute dtype (``init_params(..., dtype=cfg.dtype)``),
+one copy on the device. A vlm config fails at its first prefill with a
+``KeyError`` on ``'patches'``, as the reference's does: the engine
+prefills tokens only.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         [--full] [--device cpu] [--requests 8 --slots 4 --max-new 8]
@@ -39,7 +43,7 @@ def main(argv=None) -> None:
         raise SystemExit("enc-dec serving needs encoder inputs; use the "
                          "engine API directly")
     dev = _device.resolve_device(args.device)
-    params = tfm.init_params(cfg, args.seed, device=dev)
+    params = tfm.init_params(cfg, args.seed, device=dev, dtype=cfg.dtype)
     eng = DecodeEngine(cfg, params, ServeConfig(
         slots=args.slots, max_len=args.max_len,
         temperature=args.temperature, seed=args.seed), device=dev)

@@ -65,12 +65,33 @@ class Embed(nn.Module):
                                     device=device))
 
 
+def draw_(t: torch.Tensor, sample) -> None:
+    """Fill ``t`` with ``sample`` (an in-place sampler such as
+    ``lambda s: s.uniform_(a, b, generator=gen)``) as a float32 draw: in
+    place for a float32 tensor; else into a float32 scratch of ``t``'s
+    shape, copied into ``t`` (round to nearest even, as ``astype``) and
+    freed. The generator advances as for the float32 draw, so a model
+    drawn this way in bfloat16 has the bits of one drawn in float32 and
+    cast afterwards, without the float32 copy. (``uniform_`` on a
+    bfloat16 tensor need not give those bits.)"""
+    if t.dtype == torch.float32:
+        sample(t)
+        return
+    scratch = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    sample(scratch)
+    t.copy_(scratch)
+
+
+def uniform_(t: torch.Tensor, scale: float, gen) -> None:
+    """``t`` ~ U(-scale, scale) from ``gen``, drawn as :func:`draw_`."""
+    draw_(t, lambda s: s.uniform_(-scale, scale, generator=gen))
+
+
 def dense_init(gen, d_in: int, d_out: int, dtype, *, bias: bool = False,
                device=None) -> Dense:
     p = Dense(d_in, d_out, dtype=dtype, device=device, bias=bias)
     if gen is not None:
-        scale = float(1.0 / np.sqrt(d_in))
-        p.w.uniform_(-scale, scale, generator=gen)
+        uniform_(p.w, float(1.0 / np.sqrt(d_in)), gen)
     return p
 
 
@@ -108,15 +129,26 @@ def swiglu_apply(p: SwiGLU, x, dtype):
 def embed_init(gen, vocab: int, d: int, dtype, *, device=None) -> Embed:
     p = Embed(vocab, d, dtype=dtype, device=device)
     if gen is not None:
-        p.w.normal_(0.0, 0.02, generator=gen)
+        draw_(p.w, lambda s: s.normal_(0.0, 0.02, generator=gen))
     return p
 
 
 def embed_apply(p: Embed, tokens, dtype):
     """Rows of the table for ``tokens``, in ``dtype``. The reference
     casts the whole table and then gathers; gathering first gives the same
-    bits and casts only the rows."""
-    rows = p.w.index_select(0, tokens.reshape(-1))
+    bits and casts only the rows.
+
+    Out-of-range ids follow the reference's ``jnp.take`` (fill mode): an
+    id in ``[-V, 0)`` wraps to ``id + V``, and any id outside ``[-V, V)``
+    gives a row of NaN. The gather reads the id clamped into ``[0, V)``,
+    so a bad id neither raises on the host nor asserts on the card, and
+    the step needs no host sync."""
+    V = p.w.shape[0]
+    idx = tokens.reshape(-1)
+    idx = torch.where(idx < 0, idx + V, idx)
+    rows = p.w.index_select(0, idx.clamp(0, V - 1))
+    ok = (idx >= 0) & (idx < V)
+    rows = torch.where(ok[:, None], rows, float("nan"))
     return rows.reshape(*tokens.shape, -1).to(as_dtype(dtype))
 
 

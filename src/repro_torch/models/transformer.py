@@ -1,13 +1,16 @@
-"""Model assembly, dense family: init, prefill and decode with a KV cache.
+"""Model assembly for the dense, moe and vlm families: init, prefill and
+decode with a KV cache.
 
-The port of ``repro.models.transformer``'s serving path for the dense
-family (``cfg.family == "dense"``). Parameters are an ``nn.Module`` tree
-(:class:`Transformer`: ``embed``, ``blocks[l]`` with ``ln1``, ``attn``,
-``ln2``, ``mlp``, then ``lnf`` and ``head``) holding the reference's
-tensors layer by layer where the reference stacks them ``[L, ...]``; the
-reference's function names are the entry points. The other families
-(moe, ssm, hybrid, vlm, encdec) raise ``NotImplementedError``: they are
-ROADMAP M11's later slices.
+The port of ``repro.models.transformer``'s serving path. Parameters are
+an ``nn.Module`` tree (:class:`Transformer`: ``embed``, ``blocks[l]``
+with ``ln1``, ``attn``, ``ln2`` and ``mlp`` (dense, vlm) or ``moe``
+(``models.moe``), then ``lnf``, ``head`` and, for the vision stub,
+``projector``) holding the reference's tensors layer by layer where the
+reference stacks them ``[L, ...]``; the reference's function names are
+the entry points. The moe family routes through ``moe.apply``; the vlm
+family prepends its projected patches in :func:`_embed_inputs` and then
+decodes as the dense family. The ssm, hybrid and encdec families raise
+``NotImplementedError``: they are ROADMAP M11's later slices.
 
 Not copied from the reference: the sharding constraints (``constrain``;
 the port runs on one card), the per-layer remat and ``lax.scan`` (a
@@ -15,8 +18,10 @@ Python loop over the layers), and the functional cache. The port's
 ``forward_decode`` writes the new K/V and ``len`` into the cache it is
 given, in place, so a decode step over static buffers captures into one
 CUDA graph (``serving.engine``). :func:`cast_params` casts the weights to
-the compute dtype once; ``layers.dense_apply``'s per-call cast is then a
-no-op with the same bits.
+the compute dtype once (the router stays float32, as the reference's);
+``layers.dense_apply``'s per-call cast is then a no-op with the same
+bits. ``init_params(..., dtype=cfg.dtype)`` draws the parameters straight
+into that one copy.
 """
 from __future__ import annotations
 
@@ -26,8 +31,13 @@ from torch import nn
 
 from .. import _device
 from . import attention as attn
+from . import io_spec
 from . import layers as L
+from . import moe as moe_mod
 from .config import ModelConfig
+
+#: the families the port carries; the rest are ROADMAP M11's later slices
+PORTED = ("dense", "moe", "vlm")
 
 
 def _dt(cfg) -> torch.dtype:
@@ -38,41 +48,53 @@ def _pdt(cfg) -> torch.dtype:
     return L.as_dtype(cfg.param_dtype)
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            "(ROADMAP M11); repro_torch.models carries the dense family")
+            "(ROADMAP M11); repro_torch.models carries the "
+            + ", ".join(PORTED) + " families")
 
 
 class Block(nn.Module):
-    """One pre-norm decoder block of the dense family."""
+    """One pre-norm decoder block: ``mlp`` (dense, vlm) or ``moe``."""
 
-    def __init__(self, ln1, attention, ln2, mlp):
+    def __init__(self, ln1, attention, ln2, *, mlp=None, moe=None):
         super().__init__()
-        self.ln1, self.attn, self.ln2, self.mlp = ln1, attention, ln2, mlp
+        self.ln1, self.attn, self.ln2 = ln1, attention, ln2
+        self.mlp, self.moe = mlp, moe
 
 
 class Transformer(nn.Module):
-    """The parameter tree of a dense model (module docstring)."""
+    """The parameter tree of a model (module docstring), drawn from
+    ``gen`` in the order embed, each block (attention, then its MLP or
+    MoE), head, projector; float32 draws cast to ``dtype``
+    (``layers.draw_``)."""
 
     def __init__(self, cfg: ModelConfig, *, dtype=None, device=None,
                  gen=None):
         super().__init__()
-        _dense_only(cfg)
+        _check_family(cfg)
         self.cfg = cfg
         dt = _pdt(cfg) if dtype is None else L.as_dtype(dtype)
         d = cfg.d_model
         kw = dict(device=device)
+
+        def block():
+            ln1, a = L.rmsnorm_init(d, dt, **kw), attn.init(gen, cfg, dt, **kw)
+            ln2 = L.rmsnorm_init(d, dt, **kw)
+            if cfg.family == "moe":
+                return Block(ln1, a, ln2, moe=moe_mod.init(gen, cfg, dt, **kw))
+            return Block(ln1, a, ln2,
+                         mlp=L.swiglu_init(gen, d, cfg.d_ff, dt, **kw))
+
         self.embed = L.embed_init(gen, cfg.vocab_padded, d, dt, **kw)
-        self.blocks = nn.ModuleList(
-            Block(L.rmsnorm_init(d, dt, **kw), attn.init(gen, cfg, dt, **kw),
-                  L.rmsnorm_init(d, dt, **kw),
-                  L.swiglu_init(gen, d, cfg.d_ff, dt, **kw))
-            for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(block() for _ in range(cfg.n_layers))
         self.lnf = L.rmsnorm_init(d, dt, **kw)
         self.head = None if cfg.tie_embeddings else L.dense_init(
             gen, d, cfg.vocab_padded, dt, **kw)
+        self.projector = (L.dense_init(gen, io_spec.STUB_DIM, d, dt, **kw)
+                          if cfg.frontend == "vision_stub" else None)
 
     @property
     def device(self) -> torch.device:
@@ -86,22 +108,33 @@ class Transformer(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
 
-def init_params(cfg: ModelConfig, seed: int, *, device=None) -> Transformer:
-    """Random parameters in ``cfg.param_dtype`` on ``device`` (None: the
-    GPU), drawn from a ``torch.Generator`` on that device seeded with
-    ``seed``, with the reference's distributions."""
+def init_params(cfg: ModelConfig, seed: int, *, device=None,
+                dtype=None) -> Transformer:
+    """Random parameters in ``dtype`` (None: ``cfg.param_dtype``) on
+    ``device`` (None: the GPU), drawn from a ``torch.Generator`` on that
+    device seeded with ``seed``, with the reference's distributions.
+
+    Each tensor is drawn in float32 and cast (``layers.draw_``), so
+    ``init_params(cfg, s, dtype=cfg.dtype)`` equals
+    ``cast_params(init_params(cfg, s), cfg.dtype)`` bit for bit, router
+    in float32 included, with one copy of the parameters and one float32
+    tensor at a time on the device instead of the float32 model."""
     dev = _device.resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    return Transformer(cfg, device=dev, gen=gen)
+    return Transformer(cfg, dtype=dtype, device=dev, gen=gen)
 
 
 def cast_params(params: Transformer, dtype, *, device=None) -> Transformer:
     """``params`` with every tensor in ``dtype`` on ``device`` (None: where
     it is), made once: the same module when nothing changes, else a new
-    one filled by ``copy_`` (round to nearest even, as ``astype``)."""
+    one filled by ``copy_`` (round to nearest even, as ``astype``). The
+    moe router stays float32: the reference casts no parameter when it
+    serves, and draws the router in float32."""
     dt = L.as_dtype(dtype)
     dev = params.device if device is None else torch.device(device)
+    if dev.type == "cuda" and dev.index is None:    # "cuda": the current one
+        dev = torch.device("cuda", torch.cuda.current_device())
     if params.dtype == dt and params.device == dev:
         return params
     out = Transformer(params.cfg, dtype=dt, device=dev)
@@ -139,11 +172,21 @@ def load_reference_params(cfg: ModelConfig, tree, device=None) -> Transformer:
         put(b.ln2.g, blk["ln2"]["g"][i])
         for name in ("wq", "wk", "wv", "wo"):
             put_dense(getattr(b.attn, name), blk["attn"][name], i)
-        for name in ("wi", "wg", "wo"):
-            put_dense(getattr(b.mlp, name), blk["mlp"][name], i)
+        if b.moe is not None:
+            m = blk["moe"]
+            put(b.moe.router, m["router"][i])
+            for name in ("wi", "wg", "wo"):
+                put(getattr(b.moe.experts, name), m[name][i])
+                if b.moe.shared is not None:        # stacked [L, n_sh, ...]
+                    put(getattr(b.moe.shared, name), m["shared"][name]["w"][i])
+        else:
+            for name in ("wi", "wg", "wo"):
+                put_dense(getattr(b.mlp, name), blk["mlp"][name], i)
     put(params.lnf.g, tree["lnf"]["g"])
     if params.head is not None:
         put_dense(params.head, tree["head"])
+    if params.projector is not None:
+        put_dense(params.projector, tree["projector"])
     return params
 
 
@@ -164,7 +207,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None) -> dict:
     """Zeroed decode cache for a batch: ``k``/``v`` ``[L, batch, max_len,
     KV, hd]`` in the compute dtype, ``len`` ``[batch]`` int32."""
-    _dense_only(cfg)
+    _check_family(cfg)
     dev = _device.resolve_device(device)
     dt = _dt(cfg)
     KV, hd = cfg.n_kv_heads, cfg.head_dim
@@ -177,23 +220,40 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _embed_inputs(cfg, params: Transformer, batch, dtype):
-    """Token embedding. Returns (x, positions, labels, mask); the
-    modality frontends belong to the vlm and encdec families."""
-    if cfg.frontend is not None:
+    """Token (+ vision stub) embedding. Returns (x, positions, labels,
+    mask). The vision stub's ``batch["patches"]`` ``[B, P, STUB_DIM]``
+    go through ``projector`` and come first; labels and mask gain P zeros
+    in front, and positions run over the whole length."""
+    if cfg.frontend not in (None, "vision_stub"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
             "(ROADMAP M11)")
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B = tokens.shape[0]
+    dev = tokens.device
     x = L.embed_apply(params.embed, tokens, dtype)
     labels = batch.get("labels")
-    mask = batch.get("mask")
-    if mask is not None:
-        mask = mask.to(torch.float32)
-    elif labels is not None:
-        mask = torch.ones(tokens.shape, dtype=torch.float32,
-                          device=tokens.device)
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    if cfg.frontend == "vision_stub":
+        patches = batch["patches"].to(L.as_dtype(dtype))     # [B, P, 1024]
+        proj = L.dense_apply(params.projector, patches, dtype)
+        x = torch.cat([proj, x], dim=1)
+        if labels is not None:
+            P = proj.shape[1]
+            labels = torch.cat([torch.zeros((B, P), dtype=labels.dtype,
+                                            device=dev), labels], dim=1)
+            mask = torch.cat([torch.zeros((B, P), dtype=torch.float32,
+                                          device=dev),
+                              batch["mask"].to(torch.float32)], dim=1)
+        else:
+            mask = None
+    else:
+        mask = batch.get("mask")
+        if mask is not None:
+            mask = mask.to(torch.float32)
+        elif labels is not None:
+            mask = torch.ones(tokens.shape, dtype=torch.float32, device=dev)
+    S = x.shape[1]
+    positions = torch.arange(S, device=dev)[None, :].expand(B, S)
     return x, positions, labels, mask
 
 
@@ -208,19 +268,27 @@ def _logits_last(cfg, params: Transformer, x):
     return logits
 
 
+def _mlp(b: Block, cfg, z, dtype):
+    """The block's MLP or MoE on ``z``; the aux terms are dropped, as the
+    reference's serving paths drop them."""
+    if b.moe is not None:
+        return moe_mod.apply(b.moe, cfg, z, dtype, aux=False)[0]
+    return L.swiglu_apply(b.mlp, z, dtype)
+
+
 def _block_full(cfg, b: Block, x, pos, dtype):
     h, (k, v) = attn.apply_full(
         b.attn, cfg, L.rmsnorm_apply(b.ln1, x, cfg.norm_eps, dtype), pos,
         dtype, causal=True)
     x = x + h
     z = L.rmsnorm_apply(b.ln2, x, cfg.norm_eps, dtype)
-    return x + L.swiglu_apply(b.mlp, z, dtype), k, v
+    return x + _mlp(b, cfg, z, dtype), k, v
 
 
 def forward_prefill(cfg: ModelConfig, params: Transformer, batch,
                     max_len: int):
     """Process a prompt; returns (last-position logits, populated cache)."""
-    _dense_only(cfg)
+    _check_family(cfg)
     dtype = _dt(cfg)
     x, pos, _, _ = _embed_inputs(cfg, params, batch, dtype)
     B, S, _ = x.shape
@@ -240,7 +308,7 @@ def decode_hidden(cfg: ModelConfig, params: Transformer, token, cache):
     that the head reads. Writes the step's K/V into ``cache`` and advances
     ``cache["len"]`` for every row, in place, as the reference's
     ``forward_decode`` advances it for every slot."""
-    _dense_only(cfg)
+    _check_family(cfg)
     dtype = _dt(cfg)
     x = L.embed_apply(params.embed, token, dtype)
     clen = cache["len"]
@@ -250,7 +318,7 @@ def decode_hidden(cfg: ModelConfig, params: Transformer, token, cache):
             cache["k"][i], cache["v"][i], clen, dtype)
         x = x + h
         z = L.rmsnorm_apply(b.ln2, x, cfg.norm_eps, dtype)
-        x = x + L.swiglu_apply(b.mlp, z, dtype)
+        x = x + _mlp(b, cfg, z, dtype)
     clen += 1
     return L.rmsnorm_apply(params.lnf, x, cfg.norm_eps, dtype)
 

@@ -18,7 +18,11 @@ once per engine into a CUDA graph (``solvers.graphs.Graph``, under its
 the KV cache, updated in place, and ``len``. A tick copies the last
 tokens in and replays the graph; sampling runs outside it. The weights
 are cast to the compute dtype once, when the engine is built
-(``transformer.cast_params``). Inside ``graphs.eager()`` a tick runs the
+(``transformer.cast_params``), and not copied at all when they already
+stand in it (``transformer.init_params(..., dtype=cfg.dtype)``). The moe
+family serves unchanged; a vlm config fails at its first prefill with a
+``KeyError`` on ``'patches'``, as the reference's does (the engine
+prefills tokens only). Inside ``graphs.eager()`` a tick runs the
 step's ops from the host instead, and on the CPU the graph runs its body.
 """
 from __future__ import annotations

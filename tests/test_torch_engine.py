@@ -8,9 +8,15 @@
   parameters carried over, give the same greedy tokens, the same
   ``serving.*`` series, and ``stats()`` with the same keys; an idle slot
   whose ``len`` runs past ``max_len`` changes nothing;
+* the moe family (reduced qwen2-moe-a2.7b and dbrx-132b) through both
+  engines: the same greedy tokens and series; a prompt holding
+  out-of-range ids (-1, -V, V, -V-1; V = ``vocab_padded``) gives the
+  reference engine's tokens on both families; a vlm config fails at its
+  first prefill with the reference's ``KeyError`` on ``'patches'``;
 * the port's own rules: warmup captures the decode step and leaves the
-  pool as it found it, the step buffers are written in place, and
-  temperature sampling is deterministic per seed.
+  pool as it found it, the step buffers are written in place, parameters
+  already in the compute dtype are not copied, and temperature sampling
+  is deterministic per seed.
 """
 import logging
 
@@ -33,16 +39,26 @@ from repro_torch.serving import DecodeEngine, ServeConfig, WarmupSpec
 from repro_torch.serving import engine as eng_mod
 
 ARCH = "qwen2-0.5b"          # the reference's ``tiny_cfg()``
+MOE = ("qwen2-moe-a2.7b", "dbrx-132b")
+
+
+def _load(arch):
+    rcfg = rconfigs.reduce(rconfigs.get(arch))
+    rparams, _ = rtfm.init_params(rcfg, jax.random.PRNGKey(0))
+    cfg = configs.reduce(configs.get(arch))
+    params = tfm.load_reference_params(
+        cfg, jax.tree.map(np.asarray, rparams), "cpu")
+    return rcfg, rparams, cfg, params
 
 
 @pytest.fixture(scope="module")
 def models():
-    rcfg = rconfigs.reduce(rconfigs.get(ARCH))
-    rparams, _ = rtfm.init_params(rcfg, jax.random.PRNGKey(0))
-    cfg = configs.reduce(configs.get(ARCH))
-    params = tfm.load_reference_params(
-        cfg, jax.tree.map(np.asarray, rparams), "cpu")
-    return rcfg, rparams, cfg, params
+    return _load(ARCH)
+
+
+@pytest.fixture(scope="module", params=MOE)
+def moe_models(request):
+    return _load(request.param)
 
 
 def _engine(models, **kw):
@@ -166,6 +182,89 @@ def test_same_greedy_tokens_series_and_stats(models, slots, max_len, n):
     assert set(got[3]) == set(want[3])
     assert got[3]["requests"] == want[3]["requests"]
     assert got[3]["tokens"] == want[3]["tokens"]
+
+
+@pytest.mark.parametrize("slots,max_len,n", [(2, 48, 5), (3, 24, 6)])
+def test_moe_same_greedy_tokens_and_series(moe_models, slots, max_len, n):
+    """The moe family through both engines: prefills at the published
+    capacity factor (prompts of 3-8 tokens may drop assignments), decode
+    ticks that drop none."""
+    rcfg, rparams, cfg, params = moe_models
+    reqs = _requests(cfg, n, seed=10 + slots)
+    want = _serve(lambda: RefEngine(rcfg, rparams, RefServeConfig(
+        slots=slots, max_len=max_len)), lambda e, p, k: e.submit(p, k),
+        reqs, robs)
+    got = _serve(lambda: DecodeEngine(cfg, params, ServeConfig(
+        slots=slots, max_len=max_len), device="cpu"),
+        lambda e, p, k: e.submit(p, k), reqs, tobs)
+    assert got[0] == want[0]
+    assert [len(t) for t in got[0]] == [k for _, k in reqs]
+    assert got[1] == want[1] and got[2] == want[2]
+    assert got[3]["tokens"] == want[3]["tokens"]
+
+
+def _out_of_range_prompts(m):
+    """Prompts holding -1, -V (wrapped) and V, -V-1 (a NaN row, so NaN
+    logits; argmax picks the first NaN, id 0, in both packages) beside
+    valid prompts: every request's greedy tokens are the reference
+    engine's, and the engine goes on serving."""
+    rcfg, rparams, cfg, params = m
+    V = cfg.vocab_padded
+    reqs = [(np.array([5, -1, 7, -V], np.int32), 4),
+            (np.array([3, 4, V, 6], np.int32), 3),
+            (np.array([-V - 1, 2], np.int32), 3),
+            (np.arange(1, 6, dtype=np.int32), 4)]
+    ref = RefEngine(rcfg, rparams, RefServeConfig(slots=2, max_len=24))
+    port = DecodeEngine(cfg, params, ServeConfig(slots=2, max_len=24),
+                        device="cpu")
+    want = [ref.submit(p, k) for p, k in reqs]
+    got = [port.submit(p, k) for p, k in reqs]
+    ref.run()
+    port.run()
+    assert [g.out_tokens for g in got] == [w.out_tokens for w in want]
+    assert got[1].out_tokens[0] == 0 and got[2].out_tokens[0] == 0
+
+
+def test_out_of_range_prompt_tokens_as_reference(models):
+    _out_of_range_prompts(models)
+
+
+def test_out_of_range_prompt_tokens_as_reference_moe(moe_models):
+    _out_of_range_prompts(moe_models)
+
+
+def test_vlm_fails_at_first_prefill_as_reference():
+    """The engine prefills tokens only; the vision stub reads
+    ``batch["patches"]``: both engines raise ``KeyError('patches')`` at
+    the first prefill, after the decode step itself ran."""
+    rcfg, rparams, cfg, params = _load("llava-next-mistral-7b")
+    ref = RefEngine(rcfg, rparams, RefServeConfig(slots=1, max_len=16))
+    port = DecodeEngine(cfg, params, ServeConfig(slots=1, max_len=16),
+                        device="cpu")
+    port.warmup()                       # the decode step runs
+    for eng in (ref, port):
+        eng.submit(np.arange(1, 5, dtype=np.int32), 2)
+        with pytest.raises(KeyError, match="patches"):
+            eng.run()
+
+
+def test_params_in_the_compute_dtype_are_not_copied():
+    import dataclasses
+
+    cfg = dataclasses.replace(configs.reduce(configs.get("qwen2-moe-a2.7b")),
+                              dtype="bfloat16")
+    once = tfm.init_params(cfg, 0, device="cpu", dtype=cfg.dtype)
+    eng = DecodeEngine(cfg, once, ServeConfig(slots=1, max_len=16),
+                       device="cpu")
+    assert eng.params is once
+    p32 = tfm.init_params(cfg, 0, device="cpu")
+    eng32 = DecodeEngine(cfg, p32, ServeConfig(slots=1, max_len=16),
+                         device="cpu")
+    assert eng32.params is not p32
+    assert eng32.params.blocks[0].moe.router.dtype == torch.float32
+    for e in (eng, eng32):
+        e.submit(np.arange(1, 5, dtype=np.int32), 3)
+    assert eng.run()[0].out_tokens == eng32.run()[0].out_tokens
 
 
 def test_idle_slot_past_max_len(models):

@@ -15,7 +15,11 @@ matvecs and the fixed-iteration solvers (``neumann_ainv``,
 plan's plain body bit for bit; IO-CG and F3R take the CPU's counts.
 The LM serving path: the decode engine's graph tick equals its eager
 tick bit for bit, ``PackSELLLinear`` runs K1 and K3 bit-equal to the
-plain plan, and an idle slot runs past ``max_len``.
+plain plan, and an idle slot runs past ``max_len``; a moe decode tick
+(routing, dispatch, the expert products and the combine) replays from
+its graph and runs eagerly under ``set_sync_debug_mode("error")``, the
+two bit-equal; a prompt holding out-of-range token ids leaves the CUDA
+context working and the other requests' tokens as a clean engine's.
 
 Run on a machine with a CUDA device:
 
@@ -1317,3 +1321,85 @@ def test_idle_slot_runs_past_max_len(cuda):
         assert int(e.cache["len"][0]) > 16
         outs.append([r.out_tokens for r in e.done])
     assert outs[0] == outs[1]
+
+
+def _lm_one_copy(cuda, arch, **kw):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import DecodeEngine, ServeConfig
+
+    cfg = dataclasses.replace(configs.reduce(configs.get(arch)),
+                              dtype="bfloat16")
+    params = tfm.init_params(cfg, 0, device=cuda, dtype=cfg.dtype)
+    return cfg, DecodeEngine(cfg, params, ServeConfig(**kw), device=cuda)
+
+
+def test_params_in_the_compute_dtype_are_not_copied(cuda):
+    """``DecodeEngine(device="cuda")`` keeps parameters drawn straight
+    into the compute dtype on ``cuda:0``: no second copy."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import DecodeEngine, ServeConfig
+
+    cfg = dataclasses.replace(configs.reduce(configs.get("qwen2-moe-a2.7b")),
+                              dtype="bfloat16")
+    params = tfm.init_params(cfg, 0, device=cuda, dtype=cfg.dtype)
+    assert params.device == torch.device("cuda", 0)
+    eng = DecodeEngine(cfg, params, ServeConfig(slots=1, max_len=8),
+                       device=cuda)
+    assert eng.params is params
+    assert tfm.cast_params(params, cfg.dtype, device="cuda:0") is params
+
+
+def test_moe_tick_captured_and_sync_free(cuda):
+    cfg, eng = _lm_one_copy(cuda, "qwen2-moe-a2.7b", slots=3, max_len=32)
+    eng.warmup()
+    assert eng._decode.graph is not None
+    rng = np.random.default_rng(1)
+    for n in (5, 9, 3):
+        eng.submit(rng.integers(1, cfg.vocab, size=n), 10)
+    for _ in range(3):
+        eng.step()
+    eng.tokens.copy_(torch.from_numpy(eng.last_token[:, None]))
+    saved = eng.state()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg = eng._decode().clone()
+        after = eng.state()
+        eng.set_state(saved)
+        with graphs.eager():
+            le = eng._decode().clone()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _bits_equal(lg, le)
+    for k, v in eng.state().items():
+        assert torch.equal(v, after[k]), k
+    eng.set_state(saved)
+    eng.run()
+    assert all(len(r.out_tokens) == 10 for r in eng.done)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen2-moe-a2.7b"])
+def test_out_of_range_prompt_keeps_the_context(cuda, arch):
+    cfg, eng = _lm_one_copy(cuda, arch, slots=2, max_len=24)
+    V = cfg.vocab_padded
+    bad = [eng.submit(np.array([5, V, 7], np.int32), 3),
+           eng.submit(np.array([-V - 1, 2, -1], np.int32), 3)]
+    good = eng.submit(np.arange(1, 6, dtype=np.int32), 4)
+    eng.run()
+    torch.cuda.synchronize()
+    assert [len(r.out_tokens) for r in bad + [good]] == [3, 3, 4]
+    assert float(torch.ones(3, device=cuda).sum()) == 3.0
+    # the same schedule with valid prompts: the good request's slot and
+    # ticks are the same, only the other slot's rows differ
+    _, clean = _lm_one_copy(cuda, arch, slots=2, max_len=24)
+    clean.submit(np.array([5, 6, 7], np.int32), 3)
+    clean.submit(np.array([8, 2, 9], np.int32), 3)
+    clean.submit(np.arange(1, 6, dtype=np.int32), 4)
+    clean.run()
+    assert clean.done[-1].out_tokens == good.out_tokens

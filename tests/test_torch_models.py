@@ -8,11 +8,18 @@
   that leave padded chunks, GQA;
 * ``forward_prefill`` (logits and cache) and a chain of
   ``forward_decode`` steps on reduced qwen2-0.5b (tied head, QKV bias),
-  granite-3-2b and yi-6b, with the reference's parameters carried over by
-  ``load_reference_params``;
+  granite-3-2b and yi-6b, the moe family's qwen2-moe-a2.7b (shared
+  experts) and dbrx-132b, and the vlm family's llava-next-mistral-7b
+  (patches through the projector), with the reference's parameters
+  carried over by ``load_reference_params``;
+* the vision stub's ``_embed_inputs`` (``io_spec.frontend_lens``), the
+  one-copy init (``init_params(..., dtype=cfg.dtype)``) against
+  ``cast_params`` bit for bit, and the embedding's out-of-range rule
+  (wrap in ``[-V, 0)``, NaN outside ``[-V, V)``) on its own and through
+  ``forward_prefill``;
 * the KV write of a row whose ``len`` has reached or passed ``max_len``
   (the reference's one-hot add writes nothing there);
-* the families the port does not carry yet raise.
+* the families the port does not carry yet (ssm, hybrid, encdec) raise.
 
 Inputs come from numpy with a seed and go through both packages. The
 models run in float32 (the reduced configs' compute dtype): the two
@@ -29,12 +36,14 @@ import torch
 
 from repro import configs as rconfigs
 from repro.models import attention as rattn
+from repro.models import io_spec as rio
 from repro.models import layers as rlayers
 from repro.models import transformer as rtfm
 from repro.models.config import SHAPES as RSHAPES
 from repro.models.config import cell_applicable as rcell
 from repro_torch import configs
 from repro_torch.models import attention as attn
+from repro_torch.models import io_spec
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import SHAPES, cell_applicable
@@ -42,8 +51,8 @@ from repro_torch.models.config import SHAPES, cell_applicable
 #: float32 values against the reference's, relative to the largest |value|
 RTOL = 1e-5
 DENSE = ("qwen2-0.5b", "granite-3-2b", "yi-6b")
-NOT_PORTED = ("qwen2-moe-a2.7b", "mamba2-1.3b", "zamba2-2.7b",
-              "llava-next-mistral-7b", "seamless-m4t-large-v2")
+MOE_VLM = ("qwen2-moe-a2.7b", "dbrx-132b", "llava-next-mistral-7b")
+NOT_PORTED = ("mamba2-1.3b", "zamba2-2.7b", "seamless-m4t-large-v2")
 
 
 def _close(got, want, rtol=RTOL):
@@ -89,18 +98,19 @@ def test_config_reduce_and_counts_equal(arch):
                 rcell(ref, RSHAPES[name])
 
 
-@pytest.mark.parametrize("arch", DENSE + ("internlm2-20b",))
+@pytest.mark.parametrize("arch", DENSE + ("internlm2-20b",) + MOE_VLM)
 def test_full_config_allocates_the_analytic_count(arch):
     """The published widths, on the meta device (no memory): the
     allocated parameters match ``param_count`` within 2 % (the analytic
-    count omits the norms and counts the unpadded vocab)."""
+    count omits the norms, counts the unpadded vocab and takes the
+    vision projector as d², where it is ``STUB_DIM``·d)."""
     cfg = configs.get(arch)
     model = tfm.Transformer(cfg, device="meta")
     n = model.param_count()
     assert abs(n - cfg.param_count()) / cfg.param_count() < 0.02
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE_VLM)
 def test_reduced_model_shapes_equal_reference(arch):
     cfg = configs.reduce(configs.get(arch))
     params, _ = rtfm.init_params(rconfigs.reduce(rconfigs.get(arch)),
@@ -178,6 +188,36 @@ def test_embedding_equal():
             np.asarray(want, np.float32))
 
 
+#: out-of-range ids for a table of V rows: -1, -V (wrap), -V-1, V (NaN)
+def _bad_ids(V):
+    return [-1, -V, -V - 1, V, V + 7, -(2 ** 31), 2 ** 31 - 1]
+
+
+@pytest.mark.parametrize("dt,rdt", [(torch.float32, jnp.float32),
+                                    (torch.bfloat16, jnp.bfloat16)],
+                         ids=["float32", "bfloat16"])
+def test_embedding_out_of_range_as_reference(dt, rdt):
+    """``jnp.take``'s fill mode: ids in ``[-V, 0)`` wrap, any id outside
+    ``[-V, V)`` gives a NaN row; one id at a time and mixed in a batch
+    with valid ones."""
+    rng = np.random.default_rng(13)
+    V = 64
+    w = rng.standard_normal((V, 16)).astype(np.float32)
+    p = L.embed_init(None, V, 16, torch.float32, device="cpu")
+    p.w.copy_(_t(w))
+    rp = {"w": jnp.asarray(w)}
+    bad = _bad_ids(V)
+    mixed = np.array([[3, -1, V, 0], [-V - 1, V - 1, -V, 5]], np.int32)
+    for tok in [np.array([[t]], np.int32) for t in bad] + [mixed]:
+        got = L.embed_apply(p, _t(tok), dt).to(torch.float32).numpy()
+        want = np.asarray(rlayers.embed_apply(rp, jnp.asarray(tok), rdt),
+                          np.float32)
+        np.testing.assert_array_equal(got, want)
+    got = L.embed_apply(p, _t(mixed), dt).to(torch.float32).numpy()
+    assert np.isnan(got[0, 2]).all() and np.isnan(got[1, 0]).all()
+    assert not np.isnan(got[0, 1]).any() and not np.isnan(got[1, 2]).any()
+
+
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
@@ -227,15 +267,24 @@ def _models(arch, seed=0):
     return rcfg, rparams, cfg, tfm.load_reference_params(cfg, tree, "cpu")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def _batch(cfg, rng, B, S):
+    """Prompt tokens, and the vision stub's patches ~ N(0, 1)."""
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = rng.standard_normal(
+            (B, cfg.frontend_len, io_spec.STUB_DIM)).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: _t(v) for k, v in batch.items()})
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE_VLM)
 def test_prefill_and_decode_chain_equal(arch):
     rcfg, rparams, cfg, params = _models(arch)
     rng = np.random.default_rng(4)
     B, S, MAX = 2, 11, 24
-    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
-    rl, rc = rtfm.forward_prefill(rcfg, rparams,
-                                  {"tokens": jnp.asarray(toks)}, MAX)
-    tl, tc = tfm.forward_prefill(cfg, params, {"tokens": _t(toks)}, MAX)
+    rbatch, tbatch = _batch(cfg, rng, B, S)
+    rl, rc = rtfm.forward_prefill(rcfg, rparams, rbatch, MAX)
+    tl, tc = tfm.forward_prefill(cfg, params, tbatch, MAX)
     _close(tl, rl)
     for key in ("k", "v"):
         _close(tc[key], rc[key])
@@ -251,6 +300,125 @@ def test_prefill_and_decode_chain_equal(arch):
                                       np.asarray(rc["len"]))
         tok = np.argmax(np.asarray(rl)[:, -1], -1).astype(np.int32)[:, None]
         assert np.array_equal(tok[:, 0], tl[:, -1].argmax(-1).numpy())
+
+
+@pytest.mark.parametrize("arch", ("granite-3-2b", "qwen2-moe-a2.7b",
+                                  "llava-next-mistral-7b"))
+def test_out_of_range_tokens_through_prefill(arch):
+    """A prompt holding -1, -V, V and -V-1 (V = ``vocab_padded``) runs as
+    the reference's: the wrapped ids give its logits, a NaN row gives NaN
+    where it gives NaN, and the cache lengths are equal."""
+    rcfg, rparams, cfg, params = _models(arch, seed=9)
+    rng = np.random.default_rng(9)
+    V = cfg.vocab_padded
+    rbatch, tbatch = _batch(cfg, rng, 3, 6)
+    toks = np.array(tbatch["tokens"].numpy())
+    toks[0, 2], toks[1, 0], toks[1, 4] = -1, -V, V - 1
+    toks[2, 3] = V
+    toks[2, 5] = -V - 1
+    rbatch["tokens"], tbatch["tokens"] = jnp.asarray(toks), _t(toks)
+    rl, rc = rtfm.forward_prefill(rcfg, rparams, rbatch, 16)
+    tl, tc = tfm.forward_prefill(cfg, params, tbatch, 16)
+    rl = np.asarray(rl)
+    np.testing.assert_array_equal(np.isnan(tl.numpy()), np.isnan(rl))
+    assert np.isnan(rl[2]).all() and not np.isnan(rl[:2]).any()
+    _close(tl[:2], rl[:2])
+    np.testing.assert_array_equal(tc["len"].numpy(), np.asarray(rc["len"]))
+    # a decode step on a wrapped id, as the reference's
+    tok = np.array([[-1], [-V], [3]], np.int32)
+    rl, _ = rtfm.forward_decode(rcfg, rparams, jnp.asarray(tok), rc)
+    tl, _ = tfm.forward_decode(cfg, params, _t(tok), tc)
+    _close(tl[:2], np.asarray(rl)[:2])
+
+
+def test_frontend_lens_equal():
+    for arch in rconfigs.ARCH_IDS:
+        cfg, rcfg = configs.get(arch), rconfigs.get(arch)
+        for S in (1, 2, 9, 16, 4096, 5760, 32768):
+            assert io_spec.frontend_lens(cfg, S) == \
+                rio.frontend_lens(rcfg, S)
+    assert io_spec.STUB_DIM == rio.STUB_DIM
+
+
+@pytest.mark.parametrize("with_labels", [False, True])
+def test_vlm_embed_inputs_equal(with_labels):
+    """The vision stub: the patches projected and put first; labels and
+    mask gain zeros in front; positions run over the whole length."""
+    rcfg, rparams, cfg, params = _models("llava-next-mistral-7b", seed=2)
+    rng = np.random.default_rng(2)
+    B = 2
+    fl, tl = io_spec.frontend_lens(cfg, 16)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, tl)).astype(np.int32),
+             "patches": rng.standard_normal((B, fl, io_spec.STUB_DIM))
+             .astype(np.float32)}
+    if with_labels:
+        batch["labels"] = rng.integers(0, cfg.vocab, (B, tl)).astype(
+            np.int32)
+        batch["mask"] = (rng.random((B, tl)) < 0.7).astype(np.int32)
+    want = rtfm._embed_inputs(rcfg, rparams,
+                              {k: jnp.asarray(v) for k, v in batch.items()},
+                              jnp.float32)
+    got = tfm._embed_inputs(cfg, params, {k: _t(v) for k, v in batch.items()},
+                            torch.float32)
+    assert got[0].shape == (B, fl + tl, cfg.d_model)
+    _close(got[0], want[0])
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    for g, w in zip(got[2:], want[2:]):
+        assert (g is None) == (w is None) == (not with_labels)
+        if g is not None:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(KeyError, match="patches"):
+        tfm._embed_inputs(cfg, params, {"tokens": _t(batch["tokens"])},
+                          torch.float32)
+
+
+@pytest.mark.parametrize("arch", ("granite-3-2b", "qwen2-moe-a2.7b",
+                                  "llava-next-mistral-7b"))
+def test_one_copy_init_bit_equal_cast(arch):
+    """``init_params(cfg, s, dtype=cfg.dtype)`` draws each tensor in
+    float32 and casts it: every tensor equals ``cast_params(init_params(
+    cfg, s), cfg.dtype)``'s bit for bit, the moe router in float32."""
+    cfg = dataclasses.replace(configs.reduce(configs.get(arch)),
+                              dtype="bfloat16")
+    once = tfm.init_params(cfg, 11, device="cpu", dtype=cfg.dtype)
+    cast = tfm.cast_params(tfm.init_params(cfg, 11, device="cpu"),
+                           cfg.dtype)
+    a, b = dict(once.named_parameters()), dict(cast.named_parameters())
+    assert a.keys() == b.keys()
+    for name, t in a.items():
+        assert t.dtype == b[name].dtype, name
+        want = torch.float32 if name.endswith("router") else torch.bfloat16
+        assert t.dtype == want, name
+        assert torch.equal(t.view(torch.int16 if t.dtype == torch.bfloat16
+                                  else torch.int32),
+                           b[name].view(torch.int16 if t.dtype ==
+                                        torch.bfloat16 else torch.int32)), \
+            name
+    assert tfm.cast_params(once, cfg.dtype) is once
+    # the default keeps param_dtype
+    assert tfm.init_params(cfg, 11, device="cpu").dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", ("qwen2-moe-a2.7b", "llava-next-mistral-7b"))
+def test_decode_matches_prefill_continuation_moe_vlm(arch):
+    """Token 9 decoded after a prefill of 8 against a prefill of 9. The
+    moe config takes ``capacity_factor = E/k``, so cap >= S and the
+    prefill drops nothing (a decode step never drops); the vlm config
+    prefills its patches first."""
+    cfg = configs.reduce(configs.get(arch))
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                  / cfg.top_k)
+    params = tfm.init_params(cfg, 3, device="cpu")
+    rng = np.random.default_rng(3)
+    _, b = _batch(cfg, rng, 1, 9)
+    toks = b["tokens"]
+    b8 = dict(b, tokens=toks[:, :8])
+    _, cache = tfm.forward_prefill(cfg, params, b8, 32)
+    l9_dec, _ = tfm.forward_decode(cfg, params, toks[:, 8:9], cache)
+    l9_pre, _ = tfm.forward_prefill(cfg, params, b, 32)
+    np.testing.assert_allclose(l9_dec.numpy(), l9_pre.numpy(), rtol=2e-3,
+                               atol=2e-3)
 
 
 def test_tied_head_and_qkv_bias_carried_over():
