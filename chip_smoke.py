@@ -20,9 +20,12 @@ replay, ``jacobi_pcg_dist``, ``adaptive_pcg_dist``, ``dist_mixed:`` and
 (granite-3-2b at full width and depth in ``DecodeEngine``, its decode
 step one CUDA graph, the PackSELL-pruned head through K1 and K3); then
 the moe family (qwen2-moe-a2.7b at full width and depth in one bf16 copy
-through the engine, layer 0 against a float64 loop) and the vlm family
+through the engine, layer 0 against a float64 loop), the vlm family
 (llava-next-mistral-7b, 2,880 patches a row, its decode step one CUDA
-graph) -- times the kernels, and ends with one JSON line. Every solve runs as the port runs
+graph), the ssm family (mamba2-1.3b through the engine, decode against
+prefill after 1,000 tokens) and the hybrid family (zamba2-2.7b, the
+shared attention block every 6th layer) -- times the kernels, and ends
+with one JSON line. Every solve runs as the port runs
 it, through CUDA-graph replays (``repro_torch.solvers.graphs``), and in
 turns with its eager loop (eager, captured, captured, eager), which it
 must equal bit for bit.
@@ -56,7 +59,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 #: dense bfloat16 tensor-core peak, the same data sheet
 PEAK_BF16_OPS_PER_S = 989e12
-#: the decode-against-prefill checks of phases 14-16 in bfloat16 at full
+#: the decode-against-prefill checks of phases 14-18 in bfloat16 at full
 #: width and depth: 16 bf16 ulps (2^-8 each) of the largest |logit|. The
 #: two paths may round their products at other places (cuBLAS picks
 #: kernels by row count; phase 15's expert products have 1 row a slot in
@@ -3765,6 +3768,45 @@ class Smoke:
                               x64)
         return y, kept, ids_h
 
+    @staticmethod
+    def _mamba_f64(p, cfg, x, at):
+        """A Mamba2 layer in float64, token by token: the projection, the
+        causal conv and SiLU, ``h <- exp(dt A) h + dt B x``, ``y = C h +
+        D x``, the gated norm, ``out_proj``. Returns ``(y, [h after token
+        n for n in at], max |sum over tokens of dt A|)``."""
+        w = {n: t.double() for n, t in p.named_parameters()}
+        B, S, _ = x.shape
+        di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        K = cfg.ssm_conv
+        zx = x.double() @ w["in_proj"]
+        z, xbc, dtr = zx[..., :di], zx[..., di:2 * di + 2 * N], \
+            zx[..., 2 * di + 2 * N:]
+        xp = torch.nn.functional.pad(xbc, (0, 0, K - 1, 0))
+        c = sum(xp[:, i:i + S] * w["conv_w"][i] for i in range(K)) \
+            + w["conv_b"]
+        c = torch.nn.functional.silu(c)
+        xh = c[..., :di].unflatten(-1, (H, cfg.ssm_head_dim))
+        Bc, Cc = c[..., di:di + N], c[..., di + N:]
+        dt = torch.logaddexp(dtr + w["dt_bias"], torch.zeros((), dtype=
+                                                             torch.float64,
+                                                             device=x.device))
+        A = -torch.exp(w["A_log"])
+        h = torch.zeros((B, H, N, cfg.ssm_head_dim), dtype=torch.float64,
+                        device=x.device)
+        ys, hs = [], []
+        for s in range(S):
+            h = torch.exp(dt[:, s] * A)[..., None, None] * h \
+                + (dt[:, s, :, None] * xh[:, s])[:, :, None, :] \
+                * Bc[:, s, None, :, None]
+            ys.append(torch.einsum("bn,bhnp->bhp", Cc[:, s], h)
+                      + w["D"][:, None] * xh[:, s])
+            if s + 1 in at:
+                hs.append(h.clone())
+        y = torch.stack(ys, 1).flatten(2) * torch.nn.functional.silu(z)
+        y = y * torch.rsqrt((y * y).mean(-1, keepdim=True) + cfg.norm_eps)
+        top = float((dt * A).sum(1).abs().max())
+        return (y * w["norm_g"]) @ w["out_proj"], hs, top
+
     def vlm_path(self, seed: int = 0, cfg=None, batch: int = 4,
                  prompt: int = 8, new_tokens: int = 32):
         """llava-next-mistral-7b at its published widths and depth
@@ -3922,18 +3964,220 @@ class Smoke:
                     bound=tb, prefill_s=t_pre, peak=peak)
 
 
+    # -- phases 17 and 18: the ssm and hybrid families -----------------------
+    def ssm_path(self, seed: int = 0, cfg=None, max_len: int = 512,
+                 new_tokens: int = 32, long_len: int = 1000):
+        """An ssm or hybrid config (mamba2-1.3b, zamba2-2.7b) at its
+        published widths and depth, weights from ``seed`` in one bf16 copy
+        (``A_log``, ``D`` and ``dt_bias`` float32); the engine with 4
+        slots, its warmup (the decode step captured), 8 greedy requests of
+        prompt lengths 4-11 and ``new_tokens`` each. Then, on the pool's
+        state: a graph tick against an eager tick, bit for bit, both under
+        ``set_sync_debug_mode("error")``; the tick's device time and ops
+        against its byte bound (the weights, the hybrid's shared block once
+        per use, the SSM and conv states read and written, the attention
+        cache read whole); decode against prefill (``LM_DECODE_TOL``)
+        after 9 tokens (one SSD chunk) and after ``long_len`` (several
+        chunks, the last padded: the recurrence between chunks and
+        ``_final_state`` feed the decode), the hybrid's K/V rows per
+        attention cache after the long prefill; one decode step's device
+        time after each prefill; layer 0's Mamba2 in float32 over
+        ``long_len`` + 1 tokens against a float64 loop over tokens
+        (``_mamba_f64``)."""
+        from repro_torch import configs
+        from repro_torch.models import ssm
+        from repro_torch.models import transformer as tfm
+        from repro_torch.serving import DecodeEngine, ServeConfig, WarmupSpec
+        from repro_torch.solvers import graphs
+
+        cfg = cfg or configs.get("mamba2-1.3b")
+        slots, n_req = 4, 8
+        dev = self.dev
+        rng = np.random.default_rng(seed)
+        params, base = self._lm_params(cfg, seed)
+        f32 = {n: str(t.dtype) for n, t in params.blocks[0].ssm
+               .named_parameters() if t.dtype == torch.float32}
+        print(f"  Mamba2: d_inner {cfg.d_inner}, {cfg.ssm_heads} heads of "
+              f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv "
+              f"{cfg.ssm_conv}, chunk {cfg.ssm_chunk}"
+              + (f"; the shared attention + SwiGLU block after every "
+                 f"{cfg.attn_every}th layer ({cfg.n_heads} heads over "
+                 f"{cfg.n_kv_heads} KV heads of {cfg.head_dim}, d_ff "
+                 f"{cfg.d_ff})" if cfg.family == "hybrid" else "")
+              + f"; float32 leaves of a block: {f32}", flush=True)
+        if sorted(f32) != ["A_log", "D", "dt_bias"]:
+            fail(f"Mamba2's float32 leaves are {sorted(f32)}")
+        eng = DecodeEngine(cfg, params, ServeConfig(slots=slots,
+                                                    max_len=max_len,
+                                                    seed=seed), device=dev)
+        if eng.params is not params:
+            fail("the engine copied parameters already in the compute dtype")
+        del params
+        prompts = [rng.integers(1, cfg.vocab, size=int(p))
+                   for p in rng.integers(4, 12, size=n_req)]
+        lens = tuple(sorted({len(p) for p in prompts}))
+        self.zero_counts()
+        _, t_warm = wall(lambda: eng.warmup(WarmupSpec(prompt_lens=lens)))
+        reqs = [eng.submit(p, new_tokens) for p in prompts]
+        _, t_run = wall(eng.run)
+        short = [(r.uid, len(r.out_tokens)) for r in reqs
+                 if len(r.out_tokens) != new_tokens]
+        if short or len(eng.done) != n_req:
+            fail(f"{len(eng.done)} of {n_req} requests done; with other "
+                 f"than {new_tokens} tokens: {short}")
+        st = eng.stats()
+        print(f"  warmup (the decode graph, prefills at {list(lens)}) "
+              f"{t_warm!r} s; served {st['requests']} requests (prompts "
+              f"{lens[0]}-{lens[-1]} tokens, {new_tokens} new each, greedy, "
+              f"{slots} slots, max_len {max_len}) in {t_run!r} s: "
+              f"{st['tokens_per_s']!r} tokens/s, mean TTFT "
+              f"{st['mean_ttft_s']!r} s, mean latency "
+              f"{st['mean_latency_s']!r} s (host clock)", flush=True)
+        launches = self.counts()
+        print(f"  launches in this run: {launches} (no kernel of this "
+              f"repository lies on the {cfg.family} path); cache "
+              f"{ {k: (tuple(v.shape), str(v.dtype)) for k, v in eng.cache.items()} }",
+              flush=True)
+
+        # a graph tick against an eager tick, both without a host sync
+        eng.tokens.copy_(torch.from_numpy(eng.last_token[:, None]))
+        saved = eng.state()
+        reps = max(self.reps // 2, 2)
+        prof = tick_profile(eng, saved, runs=3, reps=reps, sync="error")
+        t_tick, tick_ops = prof["ms"], prof["ops"]
+        n_ops = sum(tick_ops.values())
+        emb, cache = eng.params.embed.w, eng.cache
+        bf = emb.element_size()
+        w_b = sum(p.numel() * p.element_size()
+                  for p in eng.params.parameters()) \
+            - emb.numel() * bf + slots * cfg.d_model * bf
+        uses = 0
+        if eng.params.shared is not None:
+            uses = tfm.n_attn_caches(cfg)
+            w_b += (uses - 1) * sum(p.numel() * p.element_size() for p in
+                                    eng.params.shared.parameters())
+        state_b = 2 * cache["ssm"].numel() * cache["ssm"].element_size()
+        conv_b = 2 * cache["conv"].numel() * cache["conv"].element_size()
+        kv_b = 2 * cache["k"].numel() * bf if "k" in cache else 0
+        nbytes = w_b + state_b + conv_b + kv_b + 4 * slots * cfg.vocab_padded
+        tb, by = bound_ms(nbytes, 2 * slots * (w_b // bf),
+                          PEAK_BF16_OPS_PER_S)
+        print(f"  the decode tick ({slots} slots): logits and cache of a "
+              f"graph tick equal an eager tick's bit for bit (3 times, both "
+              f"under set_sync_debug_mode('error')); wall eager "
+              f"{prof['wall_eager']!r} s, graph {prof['wall_graph']!r} s "
+              f"(medians of 3); device {t_tick!r} ms (CUDA events over "
+              f"{reps} replays, windows {prof['windows']}); on "
+              f"{card_line()}", flush=True)
+        print(f"  bound {tb!r} ms by {by} ({t_tick / tb!r} x): {nbytes} B = "
+              f"weights {w_b} B in {cfg.dtype} (the embedding's {slots} "
+              f"rows" + (f"; the shared block read at each of its {uses} "
+                         f"uses" if uses else "")
+              + f"), the SSM state read and written {state_b} B "
+              f"(float32), the conv state {conv_b} B, the attention cache "
+              f"read whole {kv_b} B", flush=True)
+        print(f"  its device ops (one tick, counted on the host): {n_ops}, "
+              f"{n_ops / cfg.n_layers!r} a layer, "
+              f"{t_tick * 1e3 / max(n_ops, 1)!r} us of device time each; "
+              f"most frequent {tick_ops.most_common(12)}", flush=True)
+        del saved
+
+        # decode against prefill, after one chunk and after several
+        big = long_len + 24
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, long_len + 1))
+                                .astype(np.int32)).to(dev)
+        steps = {}
+        for n in (9, long_len):
+            (_, c), t_pre = wall(lambda: tfm.forward_prefill(
+                cfg, eng.params, {"tokens": toks[:, :n]}, big))
+            ld, _ = tfm.forward_decode(
+                cfg, eng.params, toks[:, n:n + 1],
+                {k: v.clone() for k, v in c.items()})
+            lp, _ = tfm.forward_prefill(cfg, eng.params,
+                                        {"tokens": toks[:, :n + 1]}, big)
+            ld, lp = ld[0, 0, :cfg.vocab], lp[0, 0, :cfg.vocab]
+            err, top = max_abs(ld, lp), float(lp.abs().max())
+            Q = min(cfg.ssm_chunk, n)
+            nq = -(-n // Q)
+            print(f"  decode of token {n + 1} after a prefill of {n} ({nq} "
+                  f"chunk{'s' if nq > 1 else ''} of {Q}, the last padded by "
+                  f"{nq * Q - n}; the prefill {t_pre!r} s) vs a prefill of "
+                  f"{n + 1}: max |diff| {err!r}, {err / top!r} of max |logit| "
+                  f"{top!r} (limit {LM_DECODE_TOL!r}); argmax "
+                  f"{int(ld.argmax())} vs {int(lp.argmax())}", flush=True)
+            if not err <= LM_DECODE_TOL * top:
+                fail(f"{cfg.name} decode vs prefill at {n}: {err} > "
+                     f"{LM_DECODE_TOL} x {top}")
+            if n == long_len and "k" in c:
+                rows = [int(c["k"][a, 0].flatten(1).ne(0).any(1).sum())
+                        for a in range(c["k"].shape[0])]
+                print(f"  after the prefill of {n}: len {c['len'].tolist()}; "
+                      f"nonzero K rows per attention cache {rows} (layers "
+                      f"{[i for i in range(cfg.n_layers) if i % cfg.attn_every == cfg.attn_every - 1]} "
+                      f"write caches {list(range(len(rows)))})", flush=True)
+                if rows != [n] * tfm.n_attn_caches(cfg):
+                    fail(f"hybrid K rows per attention cache {rows}, not "
+                         f"{n} in each of {tfm.n_attn_caches(cfg)}")
+            # one decode step's device time from this state, as a graph
+            tok = toks[:, n:n + 1].clone()
+            step = graphs.Graph(lambda: tfm.forward_decode(
+                cfg, eng.params, tok, c)[0], dev)
+            step()
+            steps[n] = timed(step, reps)
+            del step, c
+        print(f"  one decode step (batch 1, cache of {big}, a CUDA graph) "
+              f"after a prefill of 9: {steps[9]!r} ms; after {long_len}: "
+              f"{steps[long_len]!r} ms (CUDA events over {reps} replays; the "
+              f"state's size does not depend on the length)", flush=True)
+
+        # layer 0's Mamba2 in float32 against a float64 loop over tokens
+        p32 = ssm.init(None, cfg, torch.float32, device=dev)
+        with torch.no_grad():
+            for t32, t in zip(p32.parameters(),
+                              eng.params.blocks[0].ssm.parameters()):
+                t32.copy_(t)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        x = torch.randn((1, long_len + 1, cfg.d_model), generator=g,
+                        device=dev)
+        y_pre, st = ssm.apply_full(p32, cfg, x[:, :long_len], torch.float32)
+        h_pre = st["ssm"].clone()
+        y_dec, st = ssm.apply_decode(p32, cfg, x[:, long_len:], st,
+                                     torch.float32)
+        y64, hs, top = self._mamba_f64(p32, cfg, x, (long_len, long_len + 1))
+        tol = max(1e-5, 8 * float(np.spacing(np.float32(top))))
+        errs = [max_abs(a.double(), b) / float(b.abs().max()) for a, b in (
+            (torch.cat([y_pre, y_dec], 1), y64), (h_pre, hs[0]),
+            (st["ssm"], hs[1]))]
+        print(f"  layer 0's Mamba2 in float32 on {long_len} + 1 tokens ~ "
+              f"N(0, 1) (apply_full, then apply_decode) against a float64 "
+              f"loop over tokens: y {errs[0]!r}, the state handed to decode "
+              f"{errs[1]!r}, after the decode step {errs[2]!r} of their max "
+              f"|value| (limit {tol!r}: 8 float32 ulps of max |sum dt A| = "
+              f"{top!r}, the exponent the SSD's sums carry)", flush=True)
+        if not max(errs) <= tol:
+            fail(f"{cfg.name} layer 0 vs the float64 loop: {errs} > {tol}")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak memory allocated in the phase: {peak} B "
+              f"({peak - base} B above the {base} B allocated before it)",
+              flush=True)
+        return dict(launches=launches, tick_ms=t_tick, tick_ops=n_ops,
+                    bound=tb, step_ms=steps, peak=peak)
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of phase 12's request vectors and of the "
-                    "weights, requests and inputs of phases 14-16")
+                    "weights, requests and inputs of phases 14-18")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
               file=sys.stderr)
         return 2
+    from repro_torch import configs
     from repro_torch.kernels import _build
     from repro_torch.solvers import graphs
 
@@ -4018,8 +4262,8 @@ def main(argv=None) -> int:
         runs = [mp["launches"], mx["launches"], sv, cp["launches"],
                 out[10]["launches"], out[11]["launches"], out[12]["launches"],
                 out[13]["launches"], out[14]["launches"]]
-        # free the earlier phases' matrices, plans and graphs: phases 15 and
-        # 16 count their own peak memory
+        # free the earlier phases' matrices, plans and graphs: phases 15-18
+        # count their own peak memory
         del mp, mx, cp, sv
         out.clear()
         phase(15, "the moe family: qwen2-moe-a2.7b at full width and depth "
@@ -4031,7 +4275,17 @@ def main(argv=None) -> int:
               "depth in one bf16 copy, a prefill of 4 x (2,880 patches + 8 "
               "tokens), 32 greedy steps as one CUDA graph",
               lambda: smoke.vlm_path(seed=args.seed))
-        runs += [out[15]["launches"], out[16]["launches"]]
+        phase(17, "the ssm family: mamba2-1.3b at full width and depth in "
+              "one bf16 copy, DecodeEngine with the decode step as one CUDA "
+              "graph, 8 requests, the tick against its byte bound, decode "
+              "against prefill after 9 and 1,000 tokens",
+              lambda: smoke.ssm_path(seed=args.seed))
+        phase(18, "the hybrid family: zamba2-2.7b at full width and depth in "
+              "one bf16 copy, the shared attention block after every 6th "
+              "Mamba2 layer, DecodeEngine as phase 17",
+              lambda: smoke.ssm_path(seed=args.seed,
+                                     cfg=configs.get("zamba2-2.7b")))
+        runs += [out[k]["launches"] for k in (15, 16, 17, 18)]
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -4050,8 +4304,8 @@ def main(argv=None) -> int:
         "K2-f64": ("sell_spmv_bucket (float64 sum)", src + "sell_spmv.cu",
                    "src/repro/kernels/sell_spmv.py:47"),
     }
-    print(f"== 17. done in {time.perf_counter() - t_start:.1f} s (phases "
-          f"3-16: {phase_s})", flush=True)
+    print(f"== 19. done in {time.perf_counter() - t_start:.1f} s (phases "
+          f"3-18: {phase_s})", flush=True)
     print(f"card: {card_line()}", flush=True)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in meta}
     kernels = []

@@ -1,7 +1,7 @@
 """Serving launcher: the continuous-batching decode engine for an assigned
-architecture (dense and moe families), fed with synthetic requests.
-Reduced config by default, the published widths and depth with
-``--full``; on the GPU unless ``--device cpu``. The parameters are drawn
+architecture (the dense, moe, ssm and hybrid families), fed with
+synthetic requests. Reduced config by default, the published widths and
+depth with ``--full``; on the GPU unless ``--device cpu``. The parameters are drawn
 straight into the compute dtype (``init_params(..., dtype=cfg.dtype)``),
 one copy on the device. A vlm config fails at its first prefill with a
 ``KeyError`` on ``'patches'``, as the reference's does: the engine
@@ -9,6 +9,7 @@ prefills tokens only.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         [--full] [--device cpu] [--requests 8 --slots 4 --max-new 8]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --full
 """
 from __future__ import annotations
 

@@ -1,27 +1,33 @@
-"""Model assembly for the dense, moe and vlm families: init, prefill and
-decode with a KV cache.
+"""Model assembly for the dense, moe, vlm, ssm and hybrid families:
+init, prefill and decode with a cache.
 
 The port of ``repro.models.transformer``'s serving path. Parameters are
 an ``nn.Module`` tree (:class:`Transformer`: ``embed``, ``blocks[l]``
 with ``ln1``, ``attn``, ``ln2`` and ``mlp`` (dense, vlm) or ``moe``
-(``models.moe``), then ``lnf``, ``head`` and, for the vision stub,
-``projector``) holding the reference's tensors layer by layer where the
-reference stacks them ``[L, ...]``; the reference's function names are
-the entry points. The moe family routes through ``moe.apply``; the vlm
-family prepends its projected patches in :func:`_embed_inputs` and then
-decodes as the dense family. The ssm, hybrid and encdec families raise
-``NotImplementedError``: they are ROADMAP M11's later slices.
+(``models.moe``), or ``ln1`` and ``ssm`` (``models.ssm``'s Mamba2; ssm,
+hybrid), then ``lnf``, ``head``, for the hybrid family the ``shared``
+attention + SwiGLU block and, for the vision stub, ``projector``)
+holding the reference's tensors layer by layer where the reference
+stacks them ``[L, ...]``; the reference's function names are the entry
+points. The moe family routes through ``moe.apply``; the vlm family
+prepends its projected patches in :func:`_embed_inputs` and then decodes
+as the dense family. The hybrid family runs the shared block after every
+``attn_every``-th Mamba2 layer, its K/V in attention cache
+``idx // attn_every``. The encdec family raises ``NotImplementedError``:
+it is ROADMAP M11's next slice.
 
 Not copied from the reference: the sharding constraints (``constrain``;
 the port runs on one card), the per-layer remat and ``lax.scan`` (a
-Python loop over the layers), and the functional cache. The port's
-``forward_decode`` writes the new K/V and ``len`` into the cache it is
-given, in place, so a decode step over static buffers captures into one
-CUDA graph (``serving.engine``). :func:`cast_params` casts the weights to
-the compute dtype once (the router stays float32, as the reference's);
-``layers.dense_apply``'s per-call cast is then a no-op with the same
-bits. ``init_params(..., dtype=cfg.dtype)`` draws the parameters straight
-into that one copy.
+Python loop over the layers), ``lax.cond`` for the hybrid's shared block
+(a Python ``if`` on the static layer index), and the functional cache.
+The port's ``forward_decode`` writes the new K/V, conv and SSM states
+and ``len`` into the cache it is given, in place, so a decode step over
+static buffers captures into one CUDA graph (``serving.engine``).
+:func:`cast_params` casts the weights to the compute dtype once (the moe
+router and Mamba2's ``A_log``, ``D`` and ``dt_bias`` stay float32, as
+the reference's); ``layers.dense_apply``'s per-call cast is then a no-op
+with the same bits. ``init_params(..., dtype=cfg.dtype)`` draws the
+parameters straight into that one copy.
 """
 from __future__ import annotations
 
@@ -34,10 +40,11 @@ from . import attention as attn
 from . import io_spec
 from . import layers as L
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .config import ModelConfig
 
-#: the families the port carries; the rest are ROADMAP M11's later slices
-PORTED = ("dense", "moe", "vlm")
+#: the families the port carries; encdec is ROADMAP M11's next slice
+PORTED = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def _dt(cfg) -> torch.dtype:
@@ -57,18 +64,22 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """One pre-norm decoder block: ``mlp`` (dense, vlm) or ``moe``."""
+    """One pre-norm block: ``attn`` and ``mlp`` (dense, vlm, the hybrid's
+    shared block) or ``moe``, each after its norm; or ``ssm`` after
+    ``ln1`` (ssm, hybrid)."""
 
-    def __init__(self, ln1, attention, ln2, *, mlp=None, moe=None):
+    def __init__(self, ln1, attention=None, ln2=None, *, mlp=None, moe=None,
+                 ssm=None):
         super().__init__()
         self.ln1, self.attn, self.ln2 = ln1, attention, ln2
-        self.mlp, self.moe = mlp, moe
+        self.mlp, self.moe, self.ssm = mlp, moe, ssm
 
 
 class Transformer(nn.Module):
     """The parameter tree of a model (module docstring), drawn from
     ``gen`` in the order embed, each block (attention, then its MLP or
-    MoE), head, projector; float32 draws cast to ``dtype``
+    MoE; or its Mamba2), head, the shared block (attention, then its
+    MLP), projector; float32 draws cast to ``dtype``
     (``layers.draw_``)."""
 
     def __init__(self, cfg: ModelConfig, *, dtype=None, device=None,
@@ -80,19 +91,24 @@ class Transformer(nn.Module):
         d = cfg.d_model
         kw = dict(device=device)
 
-        def block():
-            ln1, a = L.rmsnorm_init(d, dt, **kw), attn.init(gen, cfg, dt, **kw)
-            ln2 = L.rmsnorm_init(d, dt, **kw)
-            if cfg.family == "moe":
+        def block(family):
+            ln1 = L.rmsnorm_init(d, dt, **kw)
+            if family in ("ssm", "hybrid"):
+                return Block(ln1, ssm=ssm_mod.init(gen, cfg, dt, **kw))
+            a, ln2 = attn.init(gen, cfg, dt, **kw), L.rmsnorm_init(d, dt, **kw)
+            if family == "moe":
                 return Block(ln1, a, ln2, moe=moe_mod.init(gen, cfg, dt, **kw))
             return Block(ln1, a, ln2,
                          mlp=L.swiglu_init(gen, d, cfg.d_ff, dt, **kw))
 
         self.embed = L.embed_init(gen, cfg.vocab_padded, d, dt, **kw)
-        self.blocks = nn.ModuleList(block() for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(block(cfg.family)
+                                    for _ in range(cfg.n_layers))
         self.lnf = L.rmsnorm_init(d, dt, **kw)
         self.head = None if cfg.tie_embeddings else L.dense_init(
             gen, d, cfg.vocab_padded, dt, **kw)
+        # one attention + SwiGLU block shared by every attn_every-th layer
+        self.shared = block("dense") if cfg.family == "hybrid" else None
         self.projector = (L.dense_init(gen, io_spec.STUB_DIM, d, dt, **kw)
                           if cfg.frontend == "vision_stub" else None)
 
@@ -116,9 +132,10 @@ def init_params(cfg: ModelConfig, seed: int, *, device=None,
 
     Each tensor is drawn in float32 and cast (``layers.draw_``), so
     ``init_params(cfg, s, dtype=cfg.dtype)`` equals
-    ``cast_params(init_params(cfg, s), cfg.dtype)`` bit for bit, router
-    in float32 included, with one copy of the parameters and one float32
-    tensor at a time on the device instead of the float32 model."""
+    ``cast_params(init_params(cfg, s), cfg.dtype)`` bit for bit, the
+    float32 router and Mamba2 parameters included, with one copy of the
+    parameters and one float32 tensor at a time on the device instead of
+    the float32 model."""
     dev = _device.resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -129,8 +146,9 @@ def cast_params(params: Transformer, dtype, *, device=None) -> Transformer:
     """``params`` with every tensor in ``dtype`` on ``device`` (None: where
     it is), made once: the same module when nothing changes, else a new
     one filled by ``copy_`` (round to nearest even, as ``astype``). The
-    moe router stays float32: the reference casts no parameter when it
-    serves, and draws the router in float32."""
+    moe router and Mamba2's ``A_log``, ``D`` and ``dt_bias`` stay
+    float32: the reference casts no parameter when it serves, and draws
+    them in float32."""
     dt = L.as_dtype(dtype)
     dev = params.device if device is None else torch.device(device)
     if dev.type == "cuda" and dev.index is None:    # "cuda": the current one
@@ -147,8 +165,10 @@ def cast_params(params: Transformer, dtype, *, device=None) -> Transformer:
 def load_reference_params(cfg: ModelConfig, tree, device=None) -> Transformer:
     """The reference's parameter pytree (``repro.models.transformer.
     init_params``' first result, its leaves as numpy arrays with the
-    blocks stacked ``[L, ...]``) as the port's :class:`Transformer` in
-    ``cfg.param_dtype`` on ``device`` (None: the GPU)."""
+    blocks stacked ``[L, ...]``; Mamba2's leaves are arrays, not
+    ``{"w": ...}``, and the hybrid's ``shared`` block is not stacked) as
+    the port's :class:`Transformer` in ``cfg.param_dtype`` on ``device``
+    (None: the GPU)."""
     dev = _device.resolve_device(device)
     params = Transformer(cfg, device=dev)
 
@@ -165,13 +185,27 @@ def load_reference_params(cfg: ModelConfig, tree, device=None) -> Transformer:
         if p.b is not None:
             put(p.b, leaf["b"] if i is None else leaf["b"][i])
 
+    def put_attn_mlp(b: Block, t, i=None) -> None:
+        def at(a):
+            return a if i is None else a[i]
+
+        put(b.ln1.g, at(t["ln1"]["g"]))
+        put(b.ln2.g, at(t["ln2"]["g"]))
+        for name in ("wq", "wk", "wv", "wo"):
+            put_dense(getattr(b.attn, name), t["attn"][name], i)
+        if b.mlp is not None:
+            for name in ("wi", "wg", "wo"):
+                put_dense(getattr(b.mlp, name), t["mlp"][name], i)
+
     put(params.embed.w, tree["embed"]["w"])
     blk = tree["blocks"]
     for i, b in enumerate(params.blocks):
-        put(b.ln1.g, blk["ln1"]["g"][i])
-        put(b.ln2.g, blk["ln2"]["g"][i])
-        for name in ("wq", "wk", "wv", "wo"):
-            put_dense(getattr(b.attn, name), blk["attn"][name], i)
+        if b.ssm is not None:
+            put(b.ln1.g, blk["ln1"]["g"][i])
+            for name, t in b.ssm.named_parameters():
+                put(t, blk["ssm"][name][i])
+            continue
+        put_attn_mlp(b, blk, i)
         if b.moe is not None:
             m = blk["moe"]
             put(b.moe.router, m["router"][i])
@@ -179,12 +213,11 @@ def load_reference_params(cfg: ModelConfig, tree, device=None) -> Transformer:
                 put(getattr(b.moe.experts, name), m[name][i])
                 if b.moe.shared is not None:        # stacked [L, n_sh, ...]
                     put(getattr(b.moe.shared, name), m["shared"][name]["w"][i])
-        else:
-            for name in ("wi", "wg", "wo"):
-                put_dense(getattr(b.mlp, name), blk["mlp"][name], i)
     put(params.lnf.g, tree["lnf"]["g"])
     if params.head is not None:
         put_dense(params.head, tree["head"])
+    if params.shared is not None:
+        put_attn_mlp(params.shared, tree["shared"])
     if params.projector is not None:
         put_dense(params.projector, tree["projector"])
     return params
@@ -205,18 +238,34 @@ def n_attn_caches(cfg: ModelConfig) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None) -> dict:
-    """Zeroed decode cache for a batch: ``k``/``v`` ``[L, batch, max_len,
-    KV, hd]`` in the compute dtype, ``len`` ``[batch]`` int32."""
+    """Zeroed decode cache for a batch, the reference's keys in its order:
+    ``k``/``v`` ``[n_attn_caches, batch, max_len, KV, hd]`` in the
+    compute dtype and ``len`` ``[batch]`` int32 where the family attends;
+    for ssm and hybrid ``conv`` ``[L, batch, K-1, d_inner + 2N]`` in the
+    compute dtype and ``ssm`` ``[L, batch, H, N, P]`` in float32 (the ssm
+    family's ``len`` after them)."""
     _check_family(cfg)
     dev = _device.resolve_device(device)
     dt = _dt(cfg)
     KV, hd = cfg.n_kv_heads, cfg.head_dim
     na = n_attn_caches(cfg)
-    return {"k": torch.zeros((na, batch, max_len, KV, hd), dtype=dt,
-                             device=dev),
-            "v": torch.zeros((na, batch, max_len, KV, hd), dtype=dt,
-                             device=dev),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+    def zeros(shape, t=dt):
+        return torch.zeros(shape, dtype=t, device=dev)
+
+    cache = {}
+    if na:
+        cache["k"] = zeros((na, batch, max_len, KV, hd))
+        cache["v"] = zeros((na, batch, max_len, KV, hd))
+        cache["len"] = zeros((batch,), torch.int32)
+    if cfg.family in ("ssm", "hybrid"):
+        ch = cfg.d_inner + 2 * cfg.ssm_state
+        cache["conv"] = zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, ch))
+        cache["ssm"] = zeros((cfg.n_layers, batch, cfg.ssm_heads,
+                              cfg.ssm_state, cfg.ssm_head_dim), torch.float32)
+        if cfg.family == "ssm":
+            cache["len"] = zeros((batch,), torch.int32)
+    return cache
 
 
 def _embed_inputs(cfg, params: Transformer, batch, dtype):
@@ -276,6 +325,11 @@ def _mlp(b: Block, cfg, z, dtype):
     return L.swiglu_apply(b.mlp, z, dtype)
 
 
+def _uses_shared(cfg, i: int) -> bool:
+    """Whether the hybrid's shared block runs after layer ``i``."""
+    return cfg.family == "hybrid" and i % cfg.attn_every == cfg.attn_every - 1
+
+
 def _block_full(cfg, b: Block, x, pos, dtype):
     h, (k, v) = attn.apply_full(
         b.attn, cfg, L.rmsnorm_apply(b.ln1, x, cfg.norm_eps, dtype), pos,
@@ -294,9 +348,20 @@ def forward_prefill(cfg: ModelConfig, params: Transformer, batch,
     B, S, _ = x.shape
     cache = init_cache(cfg, B, max_len, device=x.device)
     for i, b in enumerate(params.blocks):
-        x, k, v = _block_full(cfg, b, x, pos, dtype)
-        cache["k"][i, :, :S] = k.to(dtype)
-        cache["v"][i, :, :S] = v.to(dtype)
+        if b.ssm is None:
+            x, k, v = _block_full(cfg, b, x, pos, dtype)
+            cache["k"][i, :, :S] = k.to(dtype)
+            cache["v"][i, :, :S] = v.to(dtype)
+            continue
+        h, st = ssm_mod.apply_full(
+            b.ssm, cfg, L.rmsnorm_apply(b.ln1, x, cfg.norm_eps, dtype), dtype)
+        x = x + h
+        cache["conv"][i] = st["conv"]
+        cache["ssm"][i] = st["ssm"]
+        if _uses_shared(cfg, i):
+            x, k, v = _block_full(cfg, params.shared, x, pos, dtype)
+            cache["k"][i // cfg.attn_every, :, :S] = k.to(dtype)
+            cache["v"][i // cfg.attn_every, :, :S] = v.to(dtype)
     x = L.rmsnorm_apply(params.lnf, x, cfg.norm_eps, dtype)
     logits = _logits_last(cfg, params, x[:, -1:, :])
     cache["len"].fill_(S)
@@ -305,20 +370,35 @@ def forward_prefill(cfg: ModelConfig, params: Transformer, batch,
 
 def decode_hidden(cfg: ModelConfig, params: Transformer, token, cache):
     """One decode step up to the final norm: the hidden state ``[B, 1, d]``
-    that the head reads. Writes the step's K/V into ``cache`` and advances
-    ``cache["len"]`` for every row, in place, as the reference's
-    ``forward_decode`` advances it for every slot."""
+    that the head reads. Writes the step's K/V and its conv and SSM states
+    into ``cache`` and advances ``cache["len"]`` for every row, in place,
+    as the reference's ``forward_decode`` advances it for every slot."""
     _check_family(cfg)
     dtype = _dt(cfg)
     x = L.embed_apply(params.embed, token, dtype)
     clen = cache["len"]
-    for i, b in enumerate(params.blocks):
+
+    def attend(b: Block, x, ai: int):
         h, _, _ = attn.apply_decode(
             b.attn, cfg, L.rmsnorm_apply(b.ln1, x, cfg.norm_eps, dtype),
-            cache["k"][i], cache["v"][i], clen, dtype)
+            cache["k"][ai], cache["v"][ai], clen, dtype)
         x = x + h
         z = L.rmsnorm_apply(b.ln2, x, cfg.norm_eps, dtype)
-        x = x + _mlp(b, cfg, z, dtype)
+        return x + _mlp(b, cfg, z, dtype)
+
+    for i, b in enumerate(params.blocks):
+        if b.ssm is None:
+            x = attend(b, x, i)
+            continue
+        conv, st = cache["conv"][i], cache["ssm"][i]
+        h, new = ssm_mod.apply_decode(
+            b.ssm, cfg, L.rmsnorm_apply(b.ln1, x, cfg.norm_eps, dtype),
+            {"conv": conv, "ssm": st}, dtype)
+        x = x + h
+        conv.copy_(new["conv"])
+        st.copy_(new["ssm"])
+        if _uses_shared(cfg, i):
+            x = attend(params.shared, x, i // cfg.attn_every)
     clen += 1
     return L.rmsnorm_apply(params.lnf, x, cfg.norm_eps, dtype)
 

@@ -2,27 +2,30 @@
 
 The port of ``repro.serving.engine`` (vLLM-style):
 
-* A fixed pool of ``slots`` shares one KV cache ``[L, slots, max_len, …]``;
-  the decode step runs every engine tick for the whole pool regardless of
-  occupancy (inactive slots run too, and their results are dropped).
+* A fixed pool of ``slots`` shares one cache: KV ``[L, slots, max_len,
+  …]`` and, for the ssm and hybrid families, Mamba2's conv and SSM states
+  ``[L, slots, …]``; the decode step runs every engine tick for the whole
+  pool regardless of occupancy (inactive slots run too, and their results
+  are dropped).
 * Each prompt is prefilled eagerly at its exact length, with batch 1, and
   its cache rows are written into the pool at the assigned slot (the
-  whole row, so the slot's previous request leaves nothing behind). New
-  requests are admitted whenever a slot frees up (continuous batching).
+  whole row of every key, conv and SSM states included, so the slot's
+  previous request leaves nothing behind). New requests are admitted
+  whenever a slot frees up (continuous batching).
 * Sampling: greedy or temperature (an explicit ``torch.Generator`` from
   ``ServeConfig.seed``); per-slot EOS/max-token termination.
 
 Where the reference jits the pool decode step once, the port captures it
 once per engine into a CUDA graph (``solvers.graphs.Graph``, under its
 ``CAPTURE_LOCK``) over static buffers: the token buffer ``[slots, 1]``,
-the KV cache, updated in place, and ``len``. A tick copies the last
+the cache, updated in place, and ``len``. A tick copies the last
 tokens in and replays the graph; sampling runs outside it. The weights
 are cast to the compute dtype once, when the engine is built
 (``transformer.cast_params``), and not copied at all when they already
-stand in it (``transformer.init_params(..., dtype=cfg.dtype)``). The moe
-family serves unchanged; a vlm config fails at its first prefill with a
-``KeyError`` on ``'patches'``, as the reference's does (the engine
-prefills tokens only). Inside ``graphs.eager()`` a tick runs the
+stand in it (``transformer.init_params(..., dtype=cfg.dtype)``). The moe,
+ssm and hybrid families serve unchanged; a vlm config fails at its first
+prefill with a ``KeyError`` on ``'patches'``, as the reference's does
+(the engine prefills tokens only). Inside ``graphs.eager()`` a tick runs the
 step's ops from the host instead, and on the CPU the graph runs its body.
 """
 from __future__ import annotations

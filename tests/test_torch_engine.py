@@ -13,6 +13,10 @@
   out-of-range ids (-1, -V, V, -V-1; V = ``vocab_padded``) gives the
   reference engine's tokens on both families; a vlm config fails at its
   first prefill with the reference's ``KeyError`` on ``'patches'``;
+* the ssm and hybrid families (reduced mamba2-1.3b and zamba2-2.7b)
+  through both engines: the same greedy tokens and series; a slot reused
+  after a longer request holds the new prompt's conv and SSM states only
+  (the earlier request leaves nothing behind);
 * the port's own rules: warmup captures the decode step and leaves the
   pool as it found it, the step buffers are written in place, parameters
   already in the compute dtype are not copied, and temperature sampling
@@ -40,6 +44,7 @@ from repro_torch.serving import engine as eng_mod
 
 ARCH = "qwen2-0.5b"          # the reference's ``tiny_cfg()``
 MOE = ("qwen2-moe-a2.7b", "dbrx-132b")
+SSM = ("mamba2-1.3b", "zamba2-2.7b")
 
 
 def _load(arch):
@@ -58,6 +63,11 @@ def models():
 
 @pytest.fixture(scope="module", params=MOE)
 def moe_models(request):
+    return _load(request.param)
+
+
+@pytest.fixture(scope="module", params=SSM)
+def ssm_models(request):
     return _load(request.param)
 
 
@@ -201,6 +211,56 @@ def test_moe_same_greedy_tokens_and_series(moe_models, slots, max_len, n):
     assert [len(t) for t in got[0]] == [k for _, k in reqs]
     assert got[1] == want[1] and got[2] == want[2]
     assert got[3]["tokens"] == want[3]["tokens"]
+
+
+@pytest.mark.parametrize("slots,max_len,n", [(2, 48, 5), (3, 64, 6)])
+def test_ssm_same_greedy_tokens_and_series(ssm_models, slots, max_len, n):
+    """The ssm and hybrid families through both engines, prompts of 3-8
+    tokens and, in the second case, one of 37 (three SSD chunks)."""
+    rcfg, rparams, cfg, params = ssm_models
+    reqs = _requests(cfg, n, seed=20 + slots)
+    if slots == 3:
+        reqs[2] = (np.random.default_rng(5).integers(1, cfg.vocab, size=37),
+                   4)
+    want = _serve(lambda: RefEngine(rcfg, rparams, RefServeConfig(
+        slots=slots, max_len=max_len)), lambda e, p, k: e.submit(p, k),
+        reqs, robs)
+    got = _serve(lambda: DecodeEngine(cfg, params, ServeConfig(
+        slots=slots, max_len=max_len), device="cpu"),
+        lambda e, p, k: e.submit(p, k), reqs, tobs)
+    assert got[0] == want[0]
+    assert [len(t) for t in got[0]] == [k for _, k in reqs]
+    assert got[1] == want[1] and got[2] == want[2]
+    assert got[3]["tokens"] == want[3]["tokens"]
+
+
+def test_reused_slot_keeps_no_state_of_the_last_request(ssm_models):
+    """One slot: a request of 30 tokens, then one of 3. After the second
+    prefill the slot's conv and SSM states (and the hybrid's K/V rows) are
+    the short prompt's own prefill cache, bit for bit, and its tokens are
+    those of an engine that served it alone."""
+    _, _, cfg, params = ssm_models
+    rng = np.random.default_rng(8)
+    long, short = rng.integers(1, cfg.vocab, size=30), np.array([4, 9, 2])
+    eng = DecodeEngine(cfg, params, ServeConfig(slots=1, max_len=40),
+                       device="cpu")
+    eng.submit(long, 5)
+    eng.run()
+    assert any(torch.any(v != 0) for k, v in eng.cache.items())
+    req = eng.submit(short, 1)          # finishes at its prefill
+    eng.run()
+    _, want = tfm.forward_prefill(cfg, eng.params,
+                                  {"tokens": torch.from_numpy(short[None])},
+                                  40)
+    assert list(eng.cache) == list(want)
+    for k, v in want.items():
+        assert torch.equal(eng.cache[k], v), k
+    alone = DecodeEngine(cfg, params, ServeConfig(slots=1, max_len=40),
+                         device="cpu")
+    eng.submit(short, 6)
+    alone.submit(short, 6)
+    assert eng.run()[-1].out_tokens == alone.run()[-1].out_tokens
+    assert req.out_tokens == alone.done[0].out_tokens[:1]
 
 
 def _out_of_range_prompts(m):
@@ -359,7 +419,7 @@ def test_temperature_sampling_deterministic_per_seed(models, seed):
 
 
 def test_other_families_raise(models):
-    cfg = configs.reduce(configs.get("mamba2-1.3b"))
+    cfg = configs.reduce(configs.get("seamless-m4t-large-v2"))
     with pytest.raises(NotImplementedError, match="M11"):
         DecodeEngine(cfg, models[3], ServeConfig(), device="cpu")
 

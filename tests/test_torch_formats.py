@@ -202,7 +202,7 @@ def test_package_imports_no_jax_and_no_repro():
     loading JAX or any module of the reference package; the walk reaches
     the recorder (``observe``), the front end (``serving``), the
     distributed layer (``distributed``, ``parallel``) and the LM serving
-    path (``models`` with ``moe`` and ``io_spec``, ``configs``,
+    path (``models`` with ``moe``, ``ssm`` and ``io_spec``, ``configs``,
     ``serving.engine``, ``launch``)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -218,7 +218,8 @@ def test_package_imports_no_jax_and_no_repro():
         "'frontend')] + ['repro_torch.distributed.' + m for m in "
         "('partition', 'halo', 'plan')] + ['repro_torch.parallel.sharding', "
         "'repro_torch.models.transformer', 'repro_torch.models.sparse_linear', "
-        "'repro_torch.models.moe', 'repro_torch.models.io_spec', "
+        "'repro_torch.models.moe', 'repro_torch.models.ssm', "
+        "'repro_torch.models.io_spec', "
         "'repro_torch.configs.granite_3_2b', 'repro_torch.serving.engine', "
         "'repro_torch.launch.serve']\n"
         "assert all(k in sys.modules for k in need), need\n"

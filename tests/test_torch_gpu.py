@@ -18,8 +18,10 @@ tick bit for bit, ``PackSELLLinear`` runs K1 and K3 bit-equal to the
 plain plan, and an idle slot runs past ``max_len``; a moe decode tick
 (routing, dispatch, the expert products and the combine) replays from
 its graph and runs eagerly under ``set_sync_debug_mode("error")``, the
-two bit-equal; a prompt holding out-of-range token ids leaves the CUDA
-context working and the other requests' tokens as a clean engine's.
+two bit-equal, and so do the ssm and hybrid ticks (Mamba2's conv and SSM
+states written in place, the shared attention block); a prompt holding
+out-of-range token ids leaves the CUDA context working and the other
+requests' tokens as a clean engine's.
 
 Run on a machine with a CUDA device:
 
@@ -1379,6 +1381,42 @@ def test_moe_tick_captured_and_sync_free(cuda):
     _bits_equal(lg, le)
     for k, v in eng.state().items():
         assert torch.equal(v, after[k]), k
+    eng.set_state(saved)
+    eng.run()
+    assert all(len(r.out_tokens) == 10 for r in eng.done)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_ssm_tick_captured_and_sync_free(cuda, arch):
+    """The ssm and hybrid decode ticks (Mamba2's conv and SSM updates
+    written into the cache, the hybrid's shared attention block): a graph
+    tick and an eager tick, both under ``set_sync_debug_mode("error")``,
+    equal bit for bit, logits and every cache buffer; a prompt of 37
+    tokens prefills three SSD chunks."""
+    cfg, eng = _lm_one_copy(cuda, arch, slots=3, max_len=64)
+    eng.warmup()
+    assert eng._decode.graph is not None
+    rng = np.random.default_rng(2)
+    for n in (5, 37, 2):
+        eng.submit(rng.integers(1, cfg.vocab, size=n), 10)
+    for _ in range(3):
+        eng.step()
+    eng.tokens.copy_(torch.from_numpy(eng.last_token[:, None]))
+    saved = eng.state()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg = eng._decode().clone()
+        after = eng.state()
+        eng.set_state(saved)
+        with graphs.eager():
+            le = eng._decode().clone()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _bits_equal(lg, le)
+    for k, v in eng.state().items():
+        assert torch.equal(v, after[k]), k
+    assert not torch.equal(after["ssm"], saved["ssm"])
     eng.set_state(saved)
     eng.run()
     assert all(len(r.out_tokens) == 10 for r in eng.done)

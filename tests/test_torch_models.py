@@ -9,22 +9,27 @@
 * ``forward_prefill`` (logits and cache) and a chain of
   ``forward_decode`` steps on reduced qwen2-0.5b (tied head, QKV bias),
   granite-3-2b and yi-6b, the moe family's qwen2-moe-a2.7b (shared
-  experts) and dbrx-132b, and the vlm family's llava-next-mistral-7b
-  (patches through the projector), with the reference's parameters
-  carried over by ``load_reference_params``;
+  experts) and dbrx-132b, the vlm family's llava-next-mistral-7b
+  (patches through the projector), the ssm family's mamba2-1.3b and the
+  hybrid family's zamba2-2.7b (a prompt of 40: three SSD chunks; the
+  cache's keys in the reference's order), with the reference's
+  parameters carried over by ``load_reference_params``;
 * the vision stub's ``_embed_inputs`` (``io_spec.frontend_lens``), the
   one-copy init (``init_params(..., dtype=cfg.dtype)``) against
-  ``cast_params`` bit for bit, and the embedding's out-of-range rule
+  ``cast_params`` bit for bit (the moe router and Mamba2's ``A_log``,
+  ``D`` and ``dt_bias`` in float32), decode against a longer prefill,
+  and the embedding's out-of-range rule
   (wrap in ``[-V, 0)``, NaN outside ``[-V, V)``) on its own and through
   ``forward_prefill``;
 * the KV write of a row whose ``len`` has reached or passed ``max_len``
   (the reference's one-hot add writes nothing there);
-* the families the port does not carry yet (ssm, hybrid, encdec) raise.
+* the family the port does not carry yet (encdec) raises.
 
 Inputs come from numpy with a seed and go through both packages. The
 models run in float32 (the reduced configs' compute dtype): the two
 packages' float32 sums differ in order, so values are held within
-``RTOL`` relative to the largest magnitude, integers and lengths exactly.
+``RTOL`` relative to the largest magnitude, integers and lengths exactly;
+the SSM state a prefill hands to decode to ``SSM_STATE_RTOL``.
 """
 import dataclasses
 
@@ -52,7 +57,17 @@ from repro_torch.models.config import SHAPES, cell_applicable
 RTOL = 1e-5
 DENSE = ("qwen2-0.5b", "granite-3-2b", "yi-6b")
 MOE_VLM = ("qwen2-moe-a2.7b", "dbrx-132b", "llava-next-mistral-7b")
-NOT_PORTED = ("mamba2-1.3b", "zamba2-2.7b", "seamless-m4t-large-v2")
+SSM = ("mamba2-1.3b", "zamba2-2.7b")
+NOT_PORTED = ("seamless-m4t-large-v2",)
+#: the SSM state after a prefill: the reference's ``_final_state`` takes
+#: exp of the difference of two float32 sums of ``dt·A`` over the prompt,
+#: which reach about 450 at S = 40 in the reduced configs (A down to -16,
+#: dt about 0.7), where a float32 ulp is 2^-15. Both packages sum in one
+#: order, but their inputs to the sums round differently upstream (the
+#: matmuls), so the states agree to a few of those ulps: eight, 2^-12
+#: (4.7e-5 and 5.2e-5 measured). The part that differs decays within a
+#: decode step: every cache tensor after one is held to ``RTOL``
+SSM_STATE_RTOL = 2.0 ** -12
 
 
 def _close(got, want, rtol=RTOL):
@@ -98,7 +113,7 @@ def test_config_reduce_and_counts_equal(arch):
                 rcell(ref, RSHAPES[name])
 
 
-@pytest.mark.parametrize("arch", DENSE + ("internlm2-20b",) + MOE_VLM)
+@pytest.mark.parametrize("arch", DENSE + ("internlm2-20b",) + MOE_VLM + SSM)
 def test_full_config_allocates_the_analytic_count(arch):
     """The published widths, on the meta device (no memory): the
     allocated parameters match ``param_count`` within 2 % (the analytic
@@ -110,7 +125,7 @@ def test_full_config_allocates_the_analytic_count(arch):
     assert abs(n - cfg.param_count()) / cfg.param_count() < 0.02
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE_VLM)
+@pytest.mark.parametrize("arch", DENSE + MOE_VLM + SSM)
 def test_reduced_model_shapes_equal_reference(arch):
     cfg = configs.reduce(configs.get(arch))
     params, _ = rtfm.init_params(rconfigs.reduce(rconfigs.get(arch)),
@@ -277,27 +292,35 @@ def _batch(cfg, rng, B, S):
             {k: _t(v) for k, v in batch.items()})
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE_VLM)
+def _caches_close(tc, rc, ssm_rtol=RTOL):
+    """The same keys in the same order; every tensor within ``RTOL``
+    (``ssm`` within ``ssm_rtol``), ``len`` exactly."""
+    assert list(tc) == list(rc)
+    for key, v in tc.items():
+        want = np.asarray(rc[key])
+        assert v.dtype == getattr(torch, str(want.dtype)), key
+        if key == "len":
+            np.testing.assert_array_equal(v.numpy(), want)
+        else:
+            _close(v, want, ssm_rtol if key == "ssm" else RTOL)
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE_VLM + SSM)
 def test_prefill_and_decode_chain_equal(arch):
     rcfg, rparams, cfg, params = _models(arch)
     rng = np.random.default_rng(4)
-    B, S, MAX = 2, 11, 24
+    B, S, MAX = (2, 40, 48) if arch in SSM else (2, 11, 24)
     rbatch, tbatch = _batch(cfg, rng, B, S)
     rl, rc = rtfm.forward_prefill(rcfg, rparams, rbatch, MAX)
     tl, tc = tfm.forward_prefill(cfg, params, tbatch, MAX)
     _close(tl, rl)
-    for key in ("k", "v"):
-        _close(tc[key], rc[key])
-    np.testing.assert_array_equal(tc["len"].numpy(), np.asarray(rc["len"]))
+    _caches_close(tc, rc, SSM_STATE_RTOL)
     tok = np.argmax(np.asarray(rl)[:, -1], -1).astype(np.int32)[:, None]
     for _ in range(4):
         rl, rc = rtfm.forward_decode(rcfg, rparams, jnp.asarray(tok), rc)
         tl, tc = tfm.forward_decode(cfg, params, _t(tok), tc)
         _close(tl, rl)
-        for key in ("k", "v"):
-            _close(tc[key], rc[key])
-        np.testing.assert_array_equal(tc["len"].numpy(),
-                                      np.asarray(rc["len"]))
+        _caches_close(tc, rc)
         tok = np.argmax(np.asarray(rl)[:, -1], -1).astype(np.int32)[:, None]
         assert np.array_equal(tok[:, 0], tl[:, -1].argmax(-1).numpy())
 
@@ -373,11 +396,12 @@ def test_vlm_embed_inputs_equal(with_labels):
 
 
 @pytest.mark.parametrize("arch", ("granite-3-2b", "qwen2-moe-a2.7b",
-                                  "llava-next-mistral-7b"))
+                                  "llava-next-mistral-7b") + SSM)
 def test_one_copy_init_bit_equal_cast(arch):
     """``init_params(cfg, s, dtype=cfg.dtype)`` draws each tensor in
     float32 and casts it: every tensor equals ``cast_params(init_params(
-    cfg, s), cfg.dtype)``'s bit for bit, the moe router in float32."""
+    cfg, s), cfg.dtype)``'s bit for bit, the moe router and Mamba2's
+    ``A_log``, ``D`` and ``dt_bias`` in float32."""
     cfg = dataclasses.replace(configs.reduce(configs.get(arch)),
                               dtype="bfloat16")
     once = tfm.init_params(cfg, 11, device="cpu", dtype=cfg.dtype)
@@ -387,7 +411,8 @@ def test_one_copy_init_bit_equal_cast(arch):
     assert a.keys() == b.keys()
     for name, t in a.items():
         assert t.dtype == b[name].dtype, name
-        want = torch.float32 if name.endswith("router") else torch.bfloat16
+        want = torch.float32 if name.endswith(
+            ("router", "A_log", ".D", "dt_bias")) else torch.bfloat16
         assert t.dtype == want, name
         assert torch.equal(t.view(torch.int16 if t.dtype == torch.bfloat16
                                   else torch.int32),
@@ -419,6 +444,27 @@ def test_decode_matches_prefill_continuation_moe_vlm(arch):
     l9_pre, _ = tfm.forward_prefill(cfg, params, b, 32)
     np.testing.assert_allclose(l9_dec.numpy(), l9_pre.numpy(), rtol=2e-3,
                                atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", SSM)
+@pytest.mark.parametrize("n", [9, 41], ids=["S9_one_chunk", "S41_3chunks"])
+def test_decode_matches_prefill_continuation_ssm_hybrid(arch, n):
+    """Token n decoded after a prefill of n - 1 against a prefill of n:
+    the conv and SSM states the prefill hands over (``_final_state``) and
+    the hybrid's attention cache carry the sequence on."""
+    cfg = configs.reduce(configs.get(arch))
+    params = tfm.init_params(cfg, 3, device="cpu")
+    toks = _t(np.random.default_rng(n).integers(0, cfg.vocab, (2, n))
+              .astype(np.int32))
+    _, cache = tfm.forward_prefill(cfg, params, {"tokens": toks[:, :-1]}, 64)
+    l_dec, cache = tfm.forward_decode(cfg, params, toks[:, -1:], cache)
+    l_pre, c_pre = tfm.forward_prefill(cfg, params, {"tokens": toks}, 64)
+    np.testing.assert_allclose(l_dec.numpy(), l_pre.numpy(), rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_array_equal(cache["len"].numpy(), [n, n])
+    for key in ("conv", "ssm"):
+        np.testing.assert_allclose(cache[key].numpy(), c_pre[key].numpy(),
+                                   rtol=2e-3, atol=2e-3)
 
 
 def test_tied_head_and_qkv_bias_carried_over():
