@@ -23,9 +23,11 @@ the moe family (qwen2-moe-a2.7b at full width and depth in one bf16 copy
 through the engine, layer 0 against a float64 loop), the vlm family
 (llava-next-mistral-7b, 2,880 patches a row, its decode step one CUDA
 graph), the ssm family (mamba2-1.3b through the engine, decode against
-prefill after 1,000 tokens) and the hybrid family (zamba2-2.7b, the
-shared attention block every 6th layer) -- times the kernels, and ends
-with one JSON line. Every solve runs as the port runs
+prefill after 1,000 tokens), the hybrid family (zamba2-2.7b, the
+shared attention block every 6th layer) and the encdec family
+(seamless-m4t-large-v2: 4 x 1,500 audio-stub frames through the encoder,
+cross-attention over the encoder's K/V, its decode step one CUDA graph)
+-- times the kernels, and ends with one JSON line. Every solve runs as the port runs
 it, through CUDA-graph replays (``repro_torch.solvers.graphs``), and in
 turns with its eager loop (eager, captured, captured, eager), which it
 must equal bit for bit.
@@ -59,7 +61,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 #: dense bfloat16 tensor-core peak, the same data sheet
 PEAK_BF16_OPS_PER_S = 989e12
-#: the decode-against-prefill checks of phases 14-18 in bfloat16 at full
+#: the decode-against-prefill checks of phases 14-19 in bfloat16 at full
 #: width and depth: 16 bf16 ulps (2^-8 each) of the largest |logit|. The
 #: two paths may round their products at other places (cuBLAS picks
 #: kernels by row count; phase 15's expert products have 1 row a slot in
@@ -76,6 +78,17 @@ MOE_Y_TOL = 2.0 ** -5
 #: of bf16 parameters, one float32 tensor drawn at a time (the largest, the
 #: embedding, 1.25 GB), the KV cache and the activations
 MOE_PEAK_BYTES = 33e9
+#: phase 19's float64 check of decoder layer 0's cross-attention, relative
+#: to the largest |y|: y = softmax(q K^T / 8) V W_o from bf16 tensors with
+#: float32 inside the softmax. Its bf16 roundings: q (2^-9, which moves a
+#: logit by up to 2^-9 of sum |q_i k_i| / 8, printed as the phase's logit
+#: scale, and a softmax weight by twice that), the attention output (2^-9)
+#: and y (2^-9); a row of y sums 1,024 products of random sign, so an
+#: input's rounding reaches y at about its own size. The float32 softmax
+#: over 1,500 terms adds about 1500 x 2^-24 = 2^-13.5. With a logit scale
+#: up to 4 (2.95 at d 1,024, 16 heads of 64, on the CPU at seed 0): 2^-9
+#: (1 + 1 + 1 + 2 x 4) = 11 x 2^-9 < 2^-5
+XATTN_TOL = 2.0 ** -5
 #: the kernel a plan variant's SpMV launches
 PLAN_KERNEL = {"fused": "K1", "full": "K4", "band": "K6"}
 
@@ -4164,6 +4177,261 @@ class Smoke:
         return dict(launches=launches, tick_ms=t_tick, tick_ops=n_ops,
                     bound=tb, step_ms=steps, peak=peak)
 
+    # -- phase 19: the encdec family -----------------------------------------
+    def encdec_path(self, seed: int = 0, cfg=None, batch: int = 4,
+                    frames: int = 1500, prompt: int = 8,
+                    new_tokens: int = 32):
+        """seamless-m4t-large-v2 at its published widths and depth (``cfg``
+        overrides, for a rehearsal), weights from ``seed`` in one bf16
+        copy; ``forward_prefill`` of ``batch`` rows, each ``frames``
+        audio-stub frames ~ N(0, 1) (bf16; 1,500 is 30 s of speech at a 20
+        ms stride) and ``prompt`` tokens, into a cache of ``prompt + 64``
+        positions; ``new_tokens`` greedy steps of ``forward_decode``, the
+        step one CUDA graph over the static token and cache (as
+        ``vlm_path``), the next token chosen on the device; a graph step
+        against an eager step bit for bit, both under
+        ``set_sync_debug_mode("error")``, with ``ek``/``ev`` bit-unchanged;
+        the step's device time and ops against its byte bound; decode of
+        the next position against a prefill one token longer
+        (``LM_DECODE_TOL``); decoder layer 0's cross-attention of row 0's
+        decode query over its ``frames`` encoder rows against a float64
+        computation from the same bf16 tensors (``XATTN_TOL``)."""
+        from repro_torch import configs
+        from repro_torch.models import attention as attn
+        from repro_torch.models import io_spec
+        from repro_torch.models import transformer as tfm
+        from repro_torch.solvers import graphs
+
+        cfg = cfg or configs.get("seamless-m4t-large-v2")
+        dev = self.dev
+        B, Se, d = batch, frames, cfg.d_model
+        max_len = prompt + 64
+        rng = np.random.default_rng(seed)
+        params, base = self._lm_params(cfg, seed)
+        proj = params.projector.w.numel()
+        pad = (cfg.vocab_padded - cfg.vocab) * d * 2
+        print(f"  outside param_count(): the audio projector {proj} "
+              f"({io_spec.STUB_DIM} x {d}), enc_lnf {d}, the vocab padding "
+              f"of the embedding and the head {pad}: {proj + d + pad} in all; "
+              f"{cfg.enc_layers} encoder and {cfg.n_layers} decoder layers",
+              flush=True)
+        self.zero_counts()
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        dt = getattr(torch, cfg.dtype)
+        fr = torch.randn((B, Se, io_spec.STUB_DIM), generator=g,
+                         device=dev).to(dt)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, prompt))
+                                .astype(np.int32)).to(dev)
+        batch_in = {"tokens": toks, "frames": fr}
+        (logits, cache), t_pre = wall(lambda: tfm.forward_prefill(
+            cfg, params, batch_in, max_len))
+        if list(cache) != ["k", "v", "len", "ek", "ev"]:
+            fail(f"encdec cache keys {list(cache)}")
+        want = (cfg.n_layers, B, Se, cfg.n_kv_heads, cfg.head_dim)
+        if tuple(cache["ek"].shape) != want or cache["ek"].dtype != dt:
+            fail(f"encdec ek {tuple(cache['ek'].shape)} {cache['ek'].dtype}")
+        if not torch.equal(cache["len"].cpu(), torch.full(
+                (B,), prompt, dtype=torch.int32)):
+            fail(f"encdec prefill: cache len {cache['len'].tolist()}")
+        if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
+            fail("encdec prefill: logits not finite")
+        qc, kc = min(512, Se), min(1024, Se)
+        print(f"  forward_prefill of {B} rows x ({Se} frames + {prompt} "
+              f"tokens) into a cache of {max_len}: {t_pre!r} s (host clock, "
+              f"eager, first call); the encoder's self-attention runs "
+              f"{-(-Se // qc)} q-chunks of {qc} (the last {Se - (-(-Se // qc) - 1) * qc} "
+              f"valid), each cross-attention {-(-Se // kc)} KV chunks of "
+              f"{kc} (the last {Se - (-(-Se // kc) - 1) * kc} valid)",
+              flush=True)
+        ek0, ev0 = cache["ek"].clone(), cache["ev"].clone()
+
+        # the decode step as one graph over the static token and cache
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None].contiguous()
+
+        def body():
+            return tfm.forward_decode(cfg, params, tok, cache)[0]
+
+        step = graphs.Graph(body, dev)
+        saved = {key: v.clone() for key, v in cache.items()}
+        saved_tok = tok.clone()
+
+        def restore():
+            for key, v in cache.items():
+                v.copy_(saved[key])
+            tok.copy_(saved_tok)
+
+        _, t_cap = wall(step)
+        restore()
+        gen = [tok.clone()]
+
+        def greedy():
+            for _ in range(new_tokens):
+                out = step()
+                tok.copy_(out[:, -1].argmax(-1).to(torch.int32)[:, None])
+                gen.append(tok.clone())
+
+        _, t_dec = wall(greedy)
+        if not torch.equal(cache["len"].cpu(), torch.full(
+                (B,), prompt + new_tokens, dtype=torch.int32)):
+            fail(f"encdec decode: cache len {cache['len'].tolist()}")
+        for key, v0 in (("ek", ek0), ("ev", ev0)):
+            if not torch.equal(cache[key], v0):
+                fail(f"encdec decode: {new_tokens} steps changed {key}")
+        seqs = torch.cat(gen, 1).cpu().numpy()
+        print(f"  {new_tokens} greedy steps (graph replays, the next token "
+              f"chosen on the device): {t_dec!r} s, "
+              f"{t_dec / new_tokens!r} s a step (host clock; the capture "
+              f"{t_cap!r} s); ek/ev bit-unchanged; row 0's tokens "
+              f"{seqs[0, :12].tolist()}...", flush=True)
+
+        # a graph step against an eager step, on the same state
+        saved = {key: v.clone() for key, v in cache.items()}
+        saved_tok = tok.clone()
+        for _ in range(3):
+            restore()
+            with sync_debug("error"), graphs.eager():
+                le = step().clone()
+            after = {key: v.clone() for key, v in cache.items()}
+            restore()
+            with sync_debug("error"):
+                lg = step().clone()
+            same_bits(lg, le, "encdec graph step vs eager step logits")
+            for key, v in cache.items():
+                if not torch.equal(v, after[key]):
+                    fail(f"encdec graph step vs eager step: {key} differs")
+            for key, v0 in (("ek", ek0), ("ev", ev0)):
+                if not torch.equal(cache[key], v0):
+                    fail(f"encdec step changed {key}")
+            if not torch.equal(cache["len"], saved["len"] + 1):
+                fail("encdec step: len did not advance in every row")
+        restore()
+        reps = max(self.reps // 5, 2)
+        t_step = timed(step, reps)
+        restore()
+        with graphs.eager():
+            step_ops = collections.Counter(aten_ops(step))
+        restore()
+        n_ops = sum(step_ops.values())
+        bf = params.embed.w.element_size()
+        # the weights a step reads: the decoder but the cross-attention's
+        # wk/wv (prefill used them), lnf, the head, B rows of the embedding
+        n_w = sum(p.numel() for b in params.blocks
+                  for n, p in b.named_parameters()
+                  if not n.startswith(("xattn.wk", "xattn.wv")))
+        n_w += params.lnf.g.numel() + B * d + (
+            params.head.w.numel() if params.head is not None else 0)
+        w_b = n_w * bf
+        enc_b = 2 * cache["ek"].numel() * bf
+        kv_b = 2 * cache["k"].numel() * bf        # read whole at max_len
+        flops = 2 * B * n_w + 4 * B * cfg.n_layers * cfg.n_heads \
+            * cfg.head_dim * (Se + max_len)
+        tb, by = bound_ms(w_b + enc_b + kv_b + 4 * B * cfg.vocab_padded,
+                          flops, PEAK_BF16_OPS_PER_S)
+        print(f"  the decode step ({B} rows at length "
+              f"{prompt + new_tokens}): logits and cache of a graph step "
+              f"equal an eager step's bit for bit, both under sync-debug "
+              f"\"error\" (3 times), ek/ev untouched; device {t_step!r} ms "
+              f"(CUDA events over {reps} replays); bound {tb!r} ms by {by} "
+              f"(weights {w_b} B, the embedding's rows and no encoder; "
+              f"ek/ev {enc_b} B; the self-attention cache {kv_b} B): "
+              f"{t_step / tb!r} x; on {card_line()}", flush=True)
+        print(f"  its device ops (one step, counted on the host): {n_ops}, "
+              f"{n_ops / cfg.n_layers!r} a layer, "
+              f"{t_step * 1e3 / max(n_ops, 1)!r} us of device time each; "
+              f"most frequent {step_ops.most_common(10)}", flush=True)
+
+        # decoder layer 0's cross-attention for row 0 against float64
+        seen = []
+        cross = attn.apply_cross
+
+        def tap(p, cfg_, x, ek, ev, dtype):
+            y = cross(p, cfg_, x, ek, ev, dtype)
+            if not seen:
+                seen.append((p, x.clone(), ek.clone(), ev.clone(), y.clone()))
+            return y
+
+        attn.apply_cross = tap
+        try:
+            restore()
+            with graphs.eager():
+                step()
+        finally:
+            attn.apply_cross = cross
+        restore()
+        if not seen or seen[0][0] is not params.blocks[0].xattn:
+            fail("the decode step did not reach attention.apply_cross of "
+                 "decoder layer 0 first")
+        p0, x0, k0, v0, y0 = seen[0]
+        err, top, lmax = self._cross_f64(p0, cfg, x0[0, 0], k0[0], v0[0],
+                                         y0[0, 0])
+        print(f"  decoder layer 0's cross-attention, row 0's decode query "
+              f"over its {Se} encoder rows, against float64 from the same "
+              f"bf16 tensors: max |diff| {err!r}, {err / top!r} of max |y| "
+              f"{top!r} (limit {XATTN_TOL!r}); max over heads of "
+              f"sum |q_i k_i| / sqrt(hd) {lmax!r}", flush=True)
+        if not err <= XATTN_TOL * top:
+            fail(f"encdec cross-attention vs float64: {err} > {XATTN_TOL} "
+                 f"x {top}")
+        del step, saved, after, cache, ek0, ev0, seen
+
+        # decode of the next position against a prefill one longer
+        b1 = {"tokens": toks[:1], "frames": fr[:1]}
+        nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 1)).astype(
+            np.int32)).to(dev)
+        _, c1 = tfm.forward_prefill(cfg, params, b1, prompt + 8)
+        ld, _ = tfm.forward_decode(cfg, params, nxt, c1)
+        lp, _ = tfm.forward_prefill(
+            cfg, params, {"tokens": torch.cat([b1["tokens"], nxt], 1),
+                          "frames": fr[:1]}, prompt + 8)
+        ld, lp = ld[0, 0, :cfg.vocab], lp[0, 0, :cfg.vocab]
+        err, top = max_abs(ld, lp), float(lp.abs().max())
+        print(f"  decode of position {prompt + 1} after a prefill of "
+              f"{prompt} vs a prefill of {prompt + 1} (the same {Se} "
+              f"frames): max |diff| {err!r}, {err / top!r} of max |logit| "
+              f"{top!r} (limit {LM_DECODE_TOL!r}); argmax "
+              f"{int(ld.argmax())} vs {int(lp.argmax())}", flush=True)
+        if not err <= LM_DECODE_TOL * top:
+            fail(f"encdec decode vs prefill: {err} > {LM_DECODE_TOL} x {top}")
+        launches = self.counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  launches in this run: {launches} (no kernel of this "
+              f"repository lies on the encdec path); peak memory allocated "
+              f"{peak} B ({peak - base} B above the phase's start)",
+              flush=True)
+        return dict(launches=launches, step_ms=t_step, step_ops=n_ops,
+                    bound=tb, prefill_s=t_pre, peak=peak)
+
+    @staticmethod
+    def _cross_f64(p, cfg, x, k, v, y):
+        """``attention.apply_cross`` of one query row ``x`` ``[d]`` over
+        ``k``/``v`` ``[Se, KV, hd]`` in float64 from the same tensors
+        (``p``'s weights); returns (max |y - y64|, max |y64|, the largest
+        sum over a head of |q_i k_i| / sqrt(hd), which bounds how far q's
+        rounding moves a logit, in units of that rounding)."""
+        def f64(t):
+            return t.double().cpu().numpy()
+
+        def dense(lin, a):
+            out = a @ f64(lin.w)
+            return out + f64(lin.b) if lin.b is not None else out
+
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = dense(p.wq, f64(x)).reshape(H, hd)
+        # query head h reads KV head h // (H / KV), as flash_attention's
+        # [KV, G] split of the heads
+        kk = np.repeat(f64(k), H // KV, axis=1)            # [Se, H, hd]
+        vv = np.repeat(f64(v), H // KV, axis=1)
+        s = np.einsum("hd,shd->hs", q, kk) / np.sqrt(hd)
+        s -= s.max(axis=1, keepdims=True)
+        w = np.exp(s)
+        w /= w.sum(axis=1, keepdims=True)
+        y64 = dense(p.wo, np.einsum("hs,shd->hd", w, vv).reshape(-1))
+        lmax = float(np.einsum("hd,shd->hs", np.abs(q), np.abs(kk)).max()
+                     / np.sqrt(hd))
+        return (float(np.abs(f64(y) - y64).max()), float(np.abs(y64).max()),
+                lmax)
+
 
 def main(argv=None) -> int:
     import argparse
@@ -4171,7 +4439,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of phase 12's request vectors and of the "
-                    "weights, requests and inputs of phases 14-18")
+                    "weights, requests and inputs of phases 14-19")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -4262,7 +4530,7 @@ def main(argv=None) -> int:
         runs = [mp["launches"], mx["launches"], sv, cp["launches"],
                 out[10]["launches"], out[11]["launches"], out[12]["launches"],
                 out[13]["launches"], out[14]["launches"]]
-        # free the earlier phases' matrices, plans and graphs: phases 15-18
+        # free the earlier phases' matrices, plans and graphs: phases 15-19
         # count their own peak memory
         del mp, mx, cp, sv
         out.clear()
@@ -4286,6 +4554,16 @@ def main(argv=None) -> int:
               lambda: smoke.ssm_path(seed=args.seed,
                                      cfg=configs.get("zamba2-2.7b")))
         runs += [out[k]["launches"] for k in (15, 16, 17, 18)]
+        # phase 18's model goes before phase 19 draws its own
+        out.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(19, "the encdec family: seamless-m4t-large-v2 at full width "
+              "and depth in one bf16 copy, a prefill of 4 x (1,500 frames + "
+              "8 tokens), 32 greedy steps as one CUDA graph, layer 0's "
+              "cross-attention against float64",
+              lambda: smoke.encdec_path(seed=args.seed))
+        runs.append(out[19]["launches"])
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -4304,8 +4582,8 @@ def main(argv=None) -> int:
         "K2-f64": ("sell_spmv_bucket (float64 sum)", src + "sell_spmv.cu",
                    "src/repro/kernels/sell_spmv.py:47"),
     }
-    print(f"== 19. done in {time.perf_counter() - t_start:.1f} s (phases "
-          f"3-18: {phase_s})", flush=True)
+    print(f"== 20. done in {time.perf_counter() - t_start:.1f} s (phases "
+          f"3-19: {phase_s})", flush=True)
     print(f"card: {card_line()}", flush=True)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in meta}
     kernels = []

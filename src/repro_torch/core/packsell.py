@@ -109,7 +109,7 @@ class PackSELLMatrix:
 
 
 # ---------------------------------------------------------------------------
-# Plain SpMV / SpMM bodies (scan decode)
+# Plain SpMV / SpMM bodies (scan and loop decode)
 # ---------------------------------------------------------------------------
 
 
@@ -142,6 +142,27 @@ def _bucket_spmv_scan(pack, d0, xc, codec, D, mlim):
     return t
 
 
+def _bucket_spmv_loop(pack, d0, xc, codec, D, mlim):
+    """One bucket's stored-row outputs [S, C] (or [S, C, nb] for a 2-D
+    ``xc``) by the sequential word walk, the paper's per-word recurrence:
+    for each word, ``c += d``, gather x at ``min(c, m-1)``, ``t += v·x``."""
+    S, w, C = pack.shape
+    tail = tuple(xc.shape[1:])
+    c = d0.to(torch.int64)[:, None].expand(S, C)
+    t = torch.zeros((S, C) + tail, dtype=torch.float32, device=xc.device)
+    for j in range(w):
+        v, d = cd.unpack_words_torch(pack[:, j, :], codec, D)
+        c = c + d
+        xv = xc[c.clamp(0, mlim).reshape(-1)].reshape((S, C) + tail)
+        t = t + v.to(torch.float32).reshape(v.shape + (1,) * len(tail)) * xv
+    return t
+
+
+#: the bodies ``decode=`` selects; an unknown name raises ``KeyError``, as
+#: the reference's dict lookup does
+_BODIES = {"scan": _bucket_spmv_scan, "loop": _bucket_spmv_loop}
+
+
 def _scatter_rows(n: int, parts, outrows, tail, device,
                   dtype=torch.float32) -> torch.Tensor:
     """y[outrow[k]] = t[k], sentinel rows (>= n) dropped."""
@@ -153,22 +174,29 @@ def _scatter_rows(n: int, parts, outrows, tail, device,
     return y
 
 
-def packsell_spmv_torch(mat: PackSELLMatrix, x: torch.Tensor) -> torch.Tensor:
+def packsell_spmv_torch(mat: PackSELLMatrix, x: torch.Tensor,
+                        decode: str = "scan") -> torch.Tensor:
     """y = A @ x over the bucketed layout (paper §4.4), float32. Padding
-    and dummy words decode to v = 0, so nothing is masked."""
+    and dummy words decode to v = 0, so nothing is masked.
+    ``decode="scan"`` decodes the column cursors by prefix sums over width
+    chunks; ``"loop"`` walks the words one at a time (the reference's
+    oracle and benchmark baseline)."""
+    body = _BODIES[decode]
     codec, mlim = mat.codec, max(mat.m - 1, 0)
     xc = _nonempty(x.to(torch.float32))
-    parts = [_bucket_spmv_scan(p, d0, xc, codec, mat.D, mlim)
+    parts = [body(p, d0, xc, codec, mat.D, mlim)
              for p, d0 in zip(mat.packs, mat.d0s)]
     return _scatter_rows(mat.n, parts, mat.outrows, (), x.device)
 
 
-def packsell_spmm_torch(mat: PackSELLMatrix, x: torch.Tensor) -> torch.Tensor:
+def packsell_spmm_torch(mat: PackSELLMatrix, x: torch.Tensor,
+                        decode: str = "scan") -> torch.Tensor:
     """Y = A @ X for X: [m, nb]: one pass over the words for all nb
-    right-hand sides."""
+    right-hand sides; ``decode`` as :func:`packsell_spmv_torch`."""
+    body = _BODIES[decode]
     codec, mlim = mat.codec, max(mat.m - 1, 0)
     xc = _nonempty(x.to(torch.float32))
-    parts = [_bucket_spmv_scan(p, d0, xc, codec, mat.D, mlim)
+    parts = [body(p, d0, xc, codec, mat.D, mlim)
              for p, d0 in zip(mat.packs, mat.d0s)]
     return _scatter_rows(mat.n, parts, mat.outrows, (x.shape[1],), x.device)
 

@@ -5,7 +5,9 @@ depth with ``--full``; on the GPU unless ``--device cpu``. The parameters are dr
 straight into the compute dtype (``init_params(..., dtype=cfg.dtype)``),
 one copy on the device. A vlm config fails at its first prefill with a
 ``KeyError`` on ``'patches'``, as the reference's does: the engine
-prefills tokens only.
+prefills tokens only. An encdec config exits before drawing anything, as
+the reference's does: it needs encoder frames, which the engine does not
+take (``forward_prefill``/``forward_decode`` serve it).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         [--full] [--device cpu] [--requests 8 --slots 4 --max-new 8]
@@ -41,8 +43,9 @@ def main(argv=None) -> None:
     if not args.full:
         cfg = configs.reduce(cfg)
     if cfg.family == "encdec":
-        raise SystemExit("enc-dec serving needs encoder inputs; use the "
-                         "engine API directly")
+        raise SystemExit("enc-dec serving needs encoder inputs; drive "
+                         "models.transformer.forward_prefill (with "
+                         "batch['frames']) and forward_decode directly")
     dev = _device.resolve_device(args.device)
     params = tfm.init_params(cfg, args.seed, device=dev, dtype=cfg.dtype)
     eng = DecodeEngine(cfg, params, ServeConfig(

@@ -11,8 +11,11 @@ captures into a CUDA graph.
 ``apply_decode`` writes the new K/V into the cache in place (the
 reference returns a new cache): a slot whose ``cache_len`` has reached
 the cache's length writes nothing, as the reference's one-hot add writes
-nothing there. ``cross_kv`` and ``apply_cross`` belong to the
-encoder-decoder family, which the port does not carry yet (ROADMAP M11).
+nothing there. ``cross_kv`` and ``apply_cross`` are the encoder-decoder
+family's cross-attention: K/V projected from the encoder output once, the
+query from the decoder, neither rotated (RoPE stays in the self-attention
+of both stacks), over every encoder position (no ``kv_len``: only the
+padding of the last KV chunk is masked).
 """
 from __future__ import annotations
 
@@ -160,3 +163,24 @@ def apply_decode(p: Attention, cfg, x, cache_k, cache_v, cache_len, dtype):
                           q_chunk=1, kv_chunk=4096)
     y = L.dense_apply(p.wo, out.reshape(B, 1, -1), dtype)
     return y, cache_k, cache_v
+
+
+def cross_kv(p: Attention, cfg, enc_out, dtype):
+    """Project the encoder output ``[B, Se, d]`` to K/V ``[B, Se, KV, hd]``
+    once (every decode step reuses them); no RoPE."""
+    B, S, _ = enc_out.shape
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    k = L.dense_apply(p.wk, enc_out, dtype).reshape(B, S, KV, hd)
+    v = L.dense_apply(p.wv, enc_out, dtype).reshape(B, S, KV, hd)
+    return k, v
+
+
+def apply_cross(p: Attention, cfg, x, enc_k, enc_v, dtype):
+    """Cross-attention of ``x`` ``[B, S, d]`` over the fixed encoder K/V
+    (prefill and decode): the query unrotated, the reference's default
+    chunks, no causal mask and no ``kv_len``."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = L.dense_apply(p.wq, x, dtype).reshape(B, S, H, hd)
+    out = flash_attention(q, enc_k, enc_v, causal=False)
+    return L.dense_apply(p.wo, out.reshape(B, S, -1), dtype)

@@ -1,28 +1,35 @@
-"""Model assembly for the dense, moe, vlm, ssm and hybrid families:
-init, prefill and decode with a cache.
+"""Model assembly for the dense, moe, vlm, ssm, hybrid and encdec
+families: init, prefill and decode with a cache.
 
 The port of ``repro.models.transformer``'s serving path. Parameters are
 an ``nn.Module`` tree (:class:`Transformer`: ``embed``, ``blocks[l]``
-with ``ln1``, ``attn``, ``ln2`` and ``mlp`` (dense, vlm) or ``moe``
-(``models.moe``), or ``ln1`` and ``ssm`` (``models.ssm``'s Mamba2; ssm,
-hybrid), then ``lnf``, ``head``, for the hybrid family the ``shared``
-attention + SwiGLU block and, for the vision stub, ``projector``)
-holding the reference's tensors layer by layer where the reference
-stacks them ``[L, ...]``; the reference's function names are the entry
-points. The moe family routes through ``moe.apply``; the vlm family
-prepends its projected patches in :func:`_embed_inputs` and then decodes
-as the dense family. The hybrid family runs the shared block after every
+with ``ln1``, ``attn``, ``ln2`` and ``mlp`` (dense, vlm; encdec adds
+``ln3`` and the cross-attention ``xattn``) or ``moe`` (``models.moe``),
+or ``ln1`` and ``ssm`` (``models.ssm``'s Mamba2; ssm, hybrid), then
+``lnf``, ``head``, for the hybrid family the ``shared`` attention +
+SwiGLU block, for encdec the encoder's ``enc_blocks`` and ``enc_lnf``,
+and for the vision and audio stubs ``projector``) holding the
+reference's tensors layer by layer where the reference stacks them
+``[L, ...]``; the reference's function names are the entry points. The
+moe family routes through ``moe.apply``; the vlm family prepends its
+projected patches in :func:`_embed_inputs` and then decodes as the dense
+family. The hybrid family runs the shared block after every
 ``attn_every``-th Mamba2 layer, its K/V in attention cache
-``idx // attn_every``. The encdec family raises ``NotImplementedError``:
-it is ROADMAP M11's next slice.
+``idx // attn_every``. The encdec family encodes ``batch["frames"]``
+(the audio stub's projector, then non-causal encoder blocks with RoPE on
+the frame positions) in :func:`_prefill_encdec`, which writes each
+decoder layer's cross-attention K/V into ``cache["ek"/"ev"]``; decode
+reads them and never writes them.
 
 Not copied from the reference: the sharding constraints (``constrain``;
 the port runs on one card), the per-layer remat and ``lax.scan`` (a
-Python loop over the layers), ``lax.cond`` for the hybrid's shared block
-(a Python ``if`` on the static layer index), and the functional cache.
-The port's ``forward_decode`` writes the new K/V, conv and SSM states
-and ``len`` into the cache it is given, in place, so a decode step over
-static buffers captures into one CUDA graph (``serving.engine``).
+Python loop over the layers, the encoder's too), ``lax.cond`` for the
+hybrid's shared block (a Python ``if`` on the static layer index), and
+the functional cache. The port's ``forward_decode`` writes the new K/V,
+conv and SSM states and ``len`` into the cache it is given, in place, so
+a decode step over static buffers captures into one CUDA graph
+(``serving.engine``); the encdec prefill writes ``k``/``v`` and
+``ek``/``ev`` into the cache it allocates, in place.
 :func:`cast_params` casts the weights to the compute dtype once (the moe
 router and Mamba2's ``A_log``, ``D`` and ``dt_bias`` stay float32, as
 the reference's); ``layers.dense_apply``'s per-call cast is then a no-op
@@ -43,8 +50,8 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 
-#: the families the port carries; encdec is ROADMAP M11's next slice
-PORTED = ("dense", "moe", "vlm", "ssm", "hybrid")
+#: the families the port carries: all of the reference's
+PORTED = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 
 def _dt(cfg) -> torch.dtype:
@@ -56,31 +63,34 @@ def _pdt(cfg) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
+    """A family neither package knows raises ``ValueError``, as the
+    reference's ``_block_init`` does."""
     if cfg.family not in PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            "(ROADMAP M11); repro_torch.models carries the "
-            + ", ".join(PORTED) + " families")
+        raise ValueError(cfg.family)
 
 
 class Block(nn.Module):
     """One pre-norm block: ``attn`` and ``mlp`` (dense, vlm, the hybrid's
-    shared block) or ``moe``, each after its norm; or ``ssm`` after
-    ``ln1`` (ssm, hybrid)."""
+    shared block, the encoder) or ``moe``, each after its norm; the
+    encdec decoder's cross-attention ``xattn`` after ``ln3``, between
+    them; or ``ssm`` after ``ln1`` (ssm, hybrid)."""
 
     def __init__(self, ln1, attention=None, ln2=None, *, mlp=None, moe=None,
-                 ssm=None):
+                 ssm=None, ln3=None, xattn=None):
         super().__init__()
         self.ln1, self.attn, self.ln2 = ln1, attention, ln2
         self.mlp, self.moe, self.ssm = mlp, moe, ssm
+        self.ln3, self.xattn = ln3, xattn
 
 
 class Transformer(nn.Module):
     """The parameter tree of a model (module docstring), drawn from
     ``gen`` in the order embed, each block (attention, then its MLP or
-    MoE; or its Mamba2), head, the shared block (attention, then its
-    MLP), projector; float32 draws cast to ``dtype``
-    (``layers.draw_``)."""
+    MoE, then for encdec its cross-attention; or its Mamba2), head, the
+    shared block (attention, then its MLP), the encoder blocks (attention,
+    then MLP), projector; float32 draws cast to ``dtype``
+    (``layers.draw_``). The order is the port's own: the tests carry the
+    reference's parameters across (:func:`load_reference_params`)."""
 
     def __init__(self, cfg: ModelConfig, *, dtype=None, device=None,
                  gen=None):
@@ -98,8 +108,12 @@ class Transformer(nn.Module):
             a, ln2 = attn.init(gen, cfg, dt, **kw), L.rmsnorm_init(d, dt, **kw)
             if family == "moe":
                 return Block(ln1, a, ln2, moe=moe_mod.init(gen, cfg, dt, **kw))
-            return Block(ln1, a, ln2,
-                         mlp=L.swiglu_init(gen, d, cfg.d_ff, dt, **kw))
+            mlp = L.swiglu_init(gen, d, cfg.d_ff, dt, **kw)
+            if family == "encdec":
+                return Block(ln1, a, ln2, mlp=mlp,
+                             ln3=L.rmsnorm_init(d, dt, **kw),
+                             xattn=attn.init(gen, cfg, dt, **kw))
+            return Block(ln1, a, ln2, mlp=mlp)
 
         self.embed = L.embed_init(gen, cfg.vocab_padded, d, dt, **kw)
         self.blocks = nn.ModuleList(block(cfg.family)
@@ -109,8 +123,15 @@ class Transformer(nn.Module):
             gen, d, cfg.vocab_padded, dt, **kw)
         # one attention + SwiGLU block shared by every attn_every-th layer
         self.shared = block("dense") if cfg.family == "hybrid" else None
+        if cfg.family == "encdec":
+            self.enc_blocks = nn.ModuleList(block("dense")
+                                            for _ in range(cfg.enc_layers))
+            self.enc_lnf = L.rmsnorm_init(d, dt, **kw)
+        else:
+            self.enc_blocks = self.enc_lnf = None
         self.projector = (L.dense_init(gen, io_spec.STUB_DIM, d, dt, **kw)
-                          if cfg.frontend == "vision_stub" else None)
+                          if cfg.frontend in ("vision_stub", "audio_stub")
+                          else None)
 
     @property
     def device(self) -> torch.device:
@@ -166,7 +187,8 @@ def load_reference_params(cfg: ModelConfig, tree, device=None) -> Transformer:
     """The reference's parameter pytree (``repro.models.transformer.
     init_params``' first result, its leaves as numpy arrays with the
     blocks stacked ``[L, ...]``; Mamba2's leaves are arrays, not
-    ``{"w": ...}``, and the hybrid's ``shared`` block is not stacked) as
+    ``{"w": ...}``, the hybrid's ``shared`` block is not stacked, and the
+    encdec ``enc_blocks`` are stacked ``[enc_layers, ...]``) as
     the port's :class:`Transformer` in ``cfg.param_dtype`` on ``device``
     (None: the GPU)."""
     dev = _device.resolve_device(device)
@@ -196,6 +218,10 @@ def load_reference_params(cfg: ModelConfig, tree, device=None) -> Transformer:
         if b.mlp is not None:
             for name in ("wi", "wg", "wo"):
                 put_dense(getattr(b.mlp, name), t["mlp"][name], i)
+        if b.xattn is not None:
+            put(b.ln3.g, at(t["ln3"]["g"]))
+            for name in ("wq", "wk", "wv", "wo"):
+                put_dense(getattr(b.xattn, name), t["xattn"][name], i)
 
     put(params.embed.w, tree["embed"]["w"])
     blk = tree["blocks"]
@@ -218,6 +244,10 @@ def load_reference_params(cfg: ModelConfig, tree, device=None) -> Transformer:
         put_dense(params.head, tree["head"])
     if params.shared is not None:
         put_attn_mlp(params.shared, tree["shared"])
+    if params.enc_blocks is not None:
+        for i, b in enumerate(params.enc_blocks):
+            put_attn_mlp(b, tree["enc_blocks"], i)
+        put(params.enc_lnf.g, tree["enc_lnf"]["g"])
     if params.projector is not None:
         put_dense(params.projector, tree["projector"])
     return params
@@ -236,14 +266,15 @@ def n_attn_caches(cfg: ModelConfig) -> int:
     return cfg.n_layers
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device=None) -> dict:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
+               *, device=None) -> dict:
     """Zeroed decode cache for a batch, the reference's keys in its order:
     ``k``/``v`` ``[n_attn_caches, batch, max_len, KV, hd]`` in the
     compute dtype and ``len`` ``[batch]`` int32 where the family attends;
     for ssm and hybrid ``conv`` ``[L, batch, K-1, d_inner + 2N]`` in the
     compute dtype and ``ssm`` ``[L, batch, H, N, P]`` in float32 (the ssm
-    family's ``len`` after them)."""
+    family's ``len`` after them); for encdec the encoder's K/V ``ek``/``ev``
+    ``[L, batch, enc_len, KV, hd]`` in the compute dtype, last."""
     _check_family(cfg)
     dev = _device.resolve_device(device)
     dt = _dt(cfg)
@@ -265,6 +296,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                               cfg.ssm_state, cfg.ssm_head_dim), torch.float32)
         if cfg.family == "ssm":
             cache["len"] = zeros((batch,), torch.int32)
+    if cfg.family == "encdec":
+        cache["ek"] = zeros((cfg.n_layers, batch, enc_len, KV, hd))
+        cache["ev"] = zeros((cfg.n_layers, batch, enc_len, KV, hd))
     return cache
 
 
@@ -272,11 +306,9 @@ def _embed_inputs(cfg, params: Transformer, batch, dtype):
     """Token (+ vision stub) embedding. Returns (x, positions, labels,
     mask). The vision stub's ``batch["patches"]`` ``[B, P, STUB_DIM]``
     go through ``projector`` and come first; labels and mask gain P zeros
-    in front, and positions run over the whole length."""
-    if cfg.frontend not in (None, "vision_stub"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
-            "(ROADMAP M11)")
+    in front, and positions run over the whole length. The audio stub's
+    frames go to the encoder (:func:`_encode`), so here it is tokens
+    only, as in the reference."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
     dev = tokens.device
@@ -330,19 +362,73 @@ def _uses_shared(cfg, i: int) -> bool:
     return cfg.family == "hybrid" and i % cfg.attn_every == cfg.attn_every - 1
 
 
-def _block_full(cfg, b: Block, x, pos, dtype):
+def _cross(b: Block, cfg, x, ek, ev, dtype):
+    """The encdec decoder block's cross-attention sublayer on ``x``."""
+    return x + attn.apply_cross(
+        b.xattn, cfg, L.rmsnorm_apply(b.ln3, x, cfg.norm_eps, dtype), ek, ev,
+        dtype)
+
+
+def _block_full(cfg, b: Block, x, pos, dtype, *, causal=True, enc=None):
+    """A block over whole sequences: self-attention, the cross-attention
+    over ``enc`` = (ek, ev) where given, then the MLP or MoE. Returns
+    (x, k, v)."""
     h, (k, v) = attn.apply_full(
         b.attn, cfg, L.rmsnorm_apply(b.ln1, x, cfg.norm_eps, dtype), pos,
-        dtype, causal=True)
+        dtype, causal=causal)
     x = x + h
+    if enc is not None:
+        x = _cross(b, cfg, x, *enc, dtype)
     z = L.rmsnorm_apply(b.ln2, x, cfg.norm_eps, dtype)
     return x + _mlp(b, cfg, z, dtype), k, v
+
+
+def _encode(cfg, params: Transformer, batch, dtype):
+    """The encoder: ``batch["frames"]`` ``[B, Se, STUB_DIM]`` in the
+    compute dtype through the audio stub's ``projector``, then the
+    encoder blocks (non-causal self-attention with RoPE at the frame
+    positions, then SwiGLU), then ``enc_lnf``. Returns ``[B, Se, d]``."""
+    frames = batch["frames"].to(L.as_dtype(dtype))
+    h = L.dense_apply(params.projector, frames, dtype)
+    B, Se, _ = h.shape
+    pos = torch.arange(Se, device=h.device)[None, :].expand(B, Se)
+    for b in params.enc_blocks:
+        h = _block_full(cfg, b, h, pos, dtype, causal=False)[0]
+    return L.rmsnorm_apply(params.enc_lnf, h, cfg.norm_eps, dtype)
+
+
+def _prefill_encdec(cfg, params: Transformer, batch, max_len: int):
+    """The encdec prefill: encode the frames, then per decoder layer the
+    causal self-attention (K/V into ``cache["k"/"v"][i, :, :S]``), the
+    encoder K/V (``cross_kv``, into ``cache["ek"/"ev"][i]``), the
+    cross-attention over them and SwiGLU. Returns (last-position logits,
+    cache)."""
+    dtype = _dt(cfg)
+    enc_out = _encode(cfg, params, batch, dtype)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.embed_apply(params.embed, tokens, dtype)
+    pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    cache = init_cache(cfg, B, max_len, enc_out.shape[1], device=x.device)
+    for i, b in enumerate(params.blocks):
+        ek, ev = attn.cross_kv(b.xattn, cfg, enc_out, dtype)
+        cache["ek"][i] = ek
+        cache["ev"][i] = ev
+        x, k, v = _block_full(cfg, b, x, pos, dtype, enc=(ek, ev))
+        cache["k"][i, :, :S] = k.to(dtype)
+        cache["v"][i, :, :S] = v.to(dtype)
+    x = L.rmsnorm_apply(params.lnf, x, cfg.norm_eps, dtype)
+    logits = _logits_last(cfg, params, x[:, -1:, :])
+    cache["len"].fill_(S)
+    return logits, cache
 
 
 def forward_prefill(cfg: ModelConfig, params: Transformer, batch,
                     max_len: int):
     """Process a prompt; returns (last-position logits, populated cache)."""
     _check_family(cfg)
+    if cfg.family == "encdec":
+        return _prefill_encdec(cfg, params, batch, max_len)
     dtype = _dt(cfg)
     x, pos, _, _ = _embed_inputs(cfg, params, batch, dtype)
     B, S, _ = x.shape
@@ -372,7 +458,9 @@ def decode_hidden(cfg: ModelConfig, params: Transformer, token, cache):
     """One decode step up to the final norm: the hidden state ``[B, 1, d]``
     that the head reads. Writes the step's K/V and its conv and SSM states
     into ``cache`` and advances ``cache["len"]`` for every row, in place,
-    as the reference's ``forward_decode`` advances it for every slot."""
+    as the reference's ``forward_decode`` advances it for every slot. The
+    encdec decoder attends over ``cache["ek"/"ev"]`` and leaves them as
+    they are."""
     _check_family(cfg)
     dtype = _dt(cfg)
     x = L.embed_apply(params.embed, token, dtype)
@@ -383,6 +471,8 @@ def decode_hidden(cfg: ModelConfig, params: Transformer, token, cache):
             b.attn, cfg, L.rmsnorm_apply(b.ln1, x, cfg.norm_eps, dtype),
             cache["k"][ai], cache["v"][ai], clen, dtype)
         x = x + h
+        if b.xattn is not None:
+            x = _cross(b, cfg, x, cache["ek"][ai], cache["ev"][ai], dtype)
         z = L.rmsnorm_apply(b.ln2, x, cfg.norm_eps, dtype)
         return x + _mlp(b, cfg, z, dtype)
 

@@ -25,8 +25,13 @@ are cast to the compute dtype once, when the engine is built
 stand in it (``transformer.init_params(..., dtype=cfg.dtype)``). The moe,
 ssm and hybrid families serve unchanged; a vlm config fails at its first
 prefill with a ``KeyError`` on ``'patches'``, as the reference's does
-(the engine prefills tokens only). Inside ``graphs.eager()`` a tick runs the
-step's ops from the host instead, and on the CPU the graph runs its body.
+(the engine prefills tokens only). An encdec config builds its pool
+cache with ``enc_len`` 0, as the reference's: ``warmup()`` then raises
+``ZeroDivisionError`` (cross-attention over no encoder position) and the
+first prefill ``KeyError('frames')``; that family is served through
+``forward_prefill``/``forward_decode``. Inside ``graphs.eager()`` a tick
+runs the step's ops from the host instead, and on the CPU the graph runs
+its body.
 """
 from __future__ import annotations
 

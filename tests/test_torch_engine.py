@@ -12,7 +12,10 @@
   engines: the same greedy tokens and series; a prompt holding
   out-of-range ids (-1, -V, V, -V-1; V = ``vocab_padded``) gives the
   reference engine's tokens on both families; a vlm config fails at its
-  first prefill with the reference's ``KeyError`` on ``'patches'``;
+  first prefill with the reference's ``KeyError`` on ``'patches'``; an
+  encdec config (its pool cache has no encoder positions) fails at
+  ``warmup()`` with the reference's ``ZeroDivisionError`` and at its first
+  prefill with its ``KeyError`` on ``'frames'``;
 * the ssm and hybrid families (reduced mamba2-1.3b and zamba2-2.7b)
   through both engines: the same greedy tokens and series; a slot reused
   after a longer request holds the new prompt's conv and SSM states only
@@ -418,10 +421,25 @@ def test_temperature_sampling_deterministic_per_seed(models, seed):
     assert all(0 <= t < cfg.vocab for toks in a for t in toks)
 
 
-def test_other_families_raise(models):
-    cfg = configs.reduce(configs.get("seamless-m4t-large-v2"))
-    with pytest.raises(NotImplementedError, match="M11"):
-        DecodeEngine(cfg, models[3], ServeConfig(), device="cpu")
+def test_encdec_fails_at_warmup_and_first_prefill_as_reference():
+    """The engine builds an encdec pool cache with ``enc_len`` 0 and
+    prefills tokens only: both engines raise ``ZeroDivisionError`` at
+    ``warmup()`` (cross-attention over no encoder position) and
+    ``KeyError('frames')`` at the first prefill."""
+    rcfg, rparams, cfg, params = _load("seamless-m4t-large-v2")
+    ref = RefEngine(rcfg, rparams, RefServeConfig(slots=2, max_len=16))
+    port = DecodeEngine(cfg, params, ServeConfig(slots=2, max_len=16),
+                        device="cpu")
+    assert list(port.cache) == list(ref.cache)
+    for key, v in port.cache.items():
+        assert tuple(v.shape) == ref.cache[key].shape, key
+    assert port.cache["ek"].shape[2] == 0
+    for eng in (ref, port):
+        with pytest.raises(ZeroDivisionError):
+            eng.warmup()
+        eng.submit(np.arange(1, 5, dtype=np.int32), 2)
+        with pytest.raises(KeyError, match="frames"):
+            eng.run()
 
 
 def test_exporter_lifecycle(models, tmp_path):

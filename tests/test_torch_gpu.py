@@ -19,9 +19,12 @@ plain plan, and an idle slot runs past ``max_len``; a moe decode tick
 (routing, dispatch, the expert products and the combine) replays from
 its graph and runs eagerly under ``set_sync_debug_mode("error")``, the
 two bit-equal, and so do the ssm and hybrid ticks (Mamba2's conv and SSM
-states written in place, the shared attention block); a prompt holding
-out-of-range token ids leaves the CUDA context working and the other
-requests' tokens as a clean engine's.
+states written in place, the shared attention block); so does the
+encdec decode step (self-attention, cross-attention over the encoder's
+K/V at 8 and 1,100 frames, SwiGLU) as one CUDA graph outside the engine,
+which leaves ``ek``/``ev`` as they were; a prompt holding out-of-range
+token ids leaves the CUDA context working and the other requests' tokens
+as a clean engine's.
 
 Run on a machine with a CUDA device:
 
@@ -1441,3 +1444,61 @@ def test_out_of_range_prompt_keeps_the_context(cuda, arch):
     clean.submit(np.arange(1, 6, dtype=np.int32), 4)
     clean.run()
     assert clean.done[-1].out_tokens == good.out_tokens
+
+
+@pytest.mark.parametrize("Se", [8, 1100])
+def test_encdec_step_captured_and_sync_free(cuda, Se):
+    """The encdec decode step in bf16 as one CUDA graph over a static
+    token and cache (``forward_decode``; the engine does not serve the
+    family): a graph step and an eager step, both under
+    ``set_sync_debug_mode("error")``, equal bit for bit, logits and every
+    cache buffer; ``ek``/``ev`` stay as the prefill wrote them and ``len``
+    advances in every row. At 1,100 frames the cross-attention's second
+    KV chunk holds 76 valid rows of 1,024."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import io_spec
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(
+        configs.reduce(configs.get("seamless-m4t-large-v2")),
+        dtype="bfloat16")
+    params = tfm.init_params(cfg, 0, device=cuda, dtype=cfg.dtype)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(Se)
+    frames = torch.randn((3, Se, io_spec.STUB_DIM), generator=g,
+                         device=cuda).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (3, 7), generator=g, device=cuda,
+                         dtype=torch.int32)
+    logits, cache = tfm.forward_prefill(
+        cfg, params, {"tokens": toks, "frames": frames}, 32)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None].contiguous()
+    step = graphs.Graph(
+        lambda: tfm.forward_decode(cfg, params, tok, cache)[0], cuda)
+    saved = {k: v.clone() for k, v in cache.items()}
+
+    def restore():
+        for k, v in cache.items():
+            v.copy_(saved[k])
+
+    step()                                  # warm up and capture
+    assert step.graph is not None
+    restore()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg = step().clone()
+        after = {k: v.clone() for k, v in cache.items()}
+        restore()
+        with graphs.eager():
+            le = step().clone()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _bits_equal(lg, le)
+    for k, v in cache.items():
+        assert torch.equal(v, after[k]), k
+    for k in ("ek", "ev"):
+        assert torch.equal(after[k], saved[k]), k
+    assert torch.equal(after["len"], saved["len"] + 1)
+    assert bool(torch.isfinite(lg[..., :cfg.vocab]).all())

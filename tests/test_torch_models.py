@@ -13,7 +13,8 @@
   (patches through the projector), the ssm family's mamba2-1.3b and the
   hybrid family's zamba2-2.7b (a prompt of 40: three SSD chunks; the
   cache's keys in the reference's order), with the reference's
-  parameters carried over by ``load_reference_params``;
+  parameters carried over by ``load_reference_params`` (the encdec
+  family's are in ``test_torch_encdec.py``);
 * the vision stub's ``_embed_inputs`` (``io_spec.frontend_lens``), the
   one-copy init (``init_params(..., dtype=cfg.dtype)``) against
   ``cast_params`` bit for bit (the moe router and Mamba2's ``A_log``,
@@ -23,7 +24,7 @@
   ``forward_prefill``;
 * the KV write of a row whose ``len`` has reached or passed ``max_len``
   (the reference's one-hot add writes nothing there);
-* the family the port does not carry yet (encdec) raises.
+* a family neither package knows raises ``ValueError`` in both.
 
 Inputs come from numpy with a seed and go through both packages. The
 models run in float32 (the reduced configs' compute dtype): the two
@@ -58,7 +59,7 @@ RTOL = 1e-5
 DENSE = ("qwen2-0.5b", "granite-3-2b", "yi-6b")
 MOE_VLM = ("qwen2-moe-a2.7b", "dbrx-132b", "llava-next-mistral-7b")
 SSM = ("mamba2-1.3b", "zamba2-2.7b")
-NOT_PORTED = ("seamless-m4t-large-v2",)
+ENCDEC = ("seamless-m4t-large-v2",)
 #: the SSM state after a prefill: the reference's ``_final_state`` takes
 #: exp of the difference of two float32 sums of ``dt·A`` over the prompt,
 #: which reach about 450 at S = 40 in the reduced configs (A down to -16,
@@ -113,19 +114,21 @@ def test_config_reduce_and_counts_equal(arch):
                 rcell(ref, RSHAPES[name])
 
 
-@pytest.mark.parametrize("arch", DENSE + ("internlm2-20b",) + MOE_VLM + SSM)
+@pytest.mark.parametrize("arch", DENSE + ("internlm2-20b",) + MOE_VLM + SSM
+                         + ENCDEC)
 def test_full_config_allocates_the_analytic_count(arch):
     """The published widths, on the meta device (no memory): the
     allocated parameters match ``param_count`` within 2 % (the analytic
-    count omits the norms, counts the unpadded vocab and takes the
-    vision projector as d², where it is ``STUB_DIM``·d)."""
+    count omits the norms, counts the unpadded vocab, takes the vision
+    projector as d², where it is ``STUB_DIM``·d, and leaves out the audio
+    projector and ``enc_lnf``)."""
     cfg = configs.get(arch)
     model = tfm.Transformer(cfg, device="meta")
     n = model.param_count()
     assert abs(n - cfg.param_count()) / cfg.param_count() < 0.02
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE_VLM + SSM)
+@pytest.mark.parametrize("arch", DENSE + MOE_VLM + SSM + ENCDEC)
 def test_reduced_model_shapes_equal_reference(arch):
     cfg = configs.reduce(configs.get(arch))
     params, _ = rtfm.init_params(rconfigs.reduce(rconfigs.get(arch)),
@@ -396,7 +399,7 @@ def test_vlm_embed_inputs_equal(with_labels):
 
 
 @pytest.mark.parametrize("arch", ("granite-3-2b", "qwen2-moe-a2.7b",
-                                  "llava-next-mistral-7b") + SSM)
+                                  "llava-next-mistral-7b") + SSM + ENCDEC)
 def test_one_copy_init_bit_equal_cast(arch):
     """``init_params(cfg, s, dtype=cfg.dtype)`` draws each tensor in
     float32 and casts it: every tensor equals ``cast_params(init_params(
@@ -559,12 +562,20 @@ def test_padded_vocab_masked():
     assert torch.all(logits[..., :500] > -1e29)
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_other_families_raise(arch):
-    cfg = configs.reduce(configs.get(arch))
-    with pytest.raises(NotImplementedError, match="M11"):
+def test_unknown_family_raises():
+    """A family neither package knows raises ``ValueError`` in both
+    packages' ``init_params``, as the reference's ``_block_init`` does;
+    the port's ``init_cache`` too."""
+    arch = "granite-3-2b"
+    rcfg = dataclasses.replace(rconfigs.reduce(rconfigs.get(arch)),
+                               family="rnn")
+    cfg = dataclasses.replace(configs.reduce(configs.get(arch)),
+                              family="rnn")
+    with pytest.raises(ValueError, match="rnn"):
+        rtfm.init_params(rcfg, jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="rnn"):
         tfm.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="M11"):
+    with pytest.raises(ValueError, match="rnn"):
         tfm.init_cache(cfg, 2, 16, device="cpu")
 
 

@@ -5,6 +5,8 @@ reference, on the CPU.
   plan's permutation maps are byte-equal for every checkpoint width, with
   trimming on and off;
 * the plain bucket bodies (full cursor cache, scan) of the jnp variant;
+* the ``decode="loop"`` bodies (the word-by-word walk) against the
+  reference's and against the scan bodies, bit for bit on integer data;
 * the parity traps: the column clamp with inf in x (PAD words keep
   0 · inf = NaN), the empty stream (G = 0), the int32 checkpoints;
 * the variant policy on the CPU mirrors the reference's decisions, the
@@ -346,3 +348,41 @@ def test_stored_order_roundtrip():
     V = torch.from_numpy(np.stack([v, 2 * v], axis=1))
     assert torch.equal(tp.from_stored(tp.to_stored(V)), V)
     assert tp.describe()["variant"] == "jnp"
+
+
+# ---------------------------------------------------------------------------
+# the loop decode bodies
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("klass", sorted(SUITE))
+@pytest.mark.parametrize("codec,D", (("fp16", 15), ("e8m", 8)))
+@pytest.mark.parametrize("nb", [None, 1, 4], ids=["spmv", "nb1", "nb4"])
+def test_loop_bodies_bit_equal_reference_and_scan(klass, codec, D, nb):
+    """``decode="loop"`` (the word-by-word walk) equals the reference's
+    ``decode="loop"`` body and the port's scan body bit for bit on
+    integer data: SpMV, and SpMM at nb 1 and 4."""
+    r, t = _pair(INT_SUITE[klass], codec, D)
+    x = _int_x(r.m, nb=nb)
+    if nb is None:
+        rfn, tfn = rpk.packsell_spmv_jnp, tpk.packsell_spmv_torch
+    else:
+        rfn, tfn = rpk.packsell_spmm_jnp, tpk.packsell_spmm_torch
+    got = tfn(t, torch.from_numpy(x), decode="loop")
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(rfn(r, jnp.asarray(x), decode="loop")))
+    np.testing.assert_array_equal(
+        got.numpy(), tfn(t, torch.from_numpy(x), decode="scan").numpy())
+
+
+def test_unknown_decode_raises_keyerror():
+    """An unknown ``decode`` raises ``KeyError``, as the reference's dict
+    lookup does."""
+    r, t = _pair(INT_SUITE["hpcg_mini"], "fp16", 15)
+    x = _int_x(r.m)
+    with pytest.raises(KeyError):
+        rpk.packsell_spmv_jnp(r, jnp.asarray(x), decode="walk")
+    for fn, xx in ((tpk.packsell_spmv_torch, x),
+                   (tpk.packsell_spmm_torch, _int_x(r.m, nb=2))):
+        with pytest.raises(KeyError, match="walk"):
+            fn(t, torch.from_numpy(xx), decode="walk")
