@@ -26,7 +26,10 @@ graph), the ssm family (mamba2-1.3b through the engine, decode against
 prefill after 1,000 tokens), the hybrid family (zamba2-2.7b, the
 shared attention block every 6th layer) and the encdec family
 (seamless-m4t-large-v2: 4 x 1,500 audio-stub frames through the encoder,
-cross-attention over the encoder's K/V, its decode step one CUDA graph)
+cross-attention over the encoder's K/V, its decode step one CUDA graph);
+then the training path (qwen2-0.5b at full width and depth through
+``Trainer``: a float32 master, bf16 compute, checkpoints, a resume that
+must equal the uninterrupted run bit for bit)
 -- times the kernels, and ends with one JSON line. Every solve runs as the port runs
 it, through CUDA-graph replays (``repro_torch.solvers.graphs``), and in
 turns with its eager loop (eager, captured, captured, eager), which it
@@ -91,6 +94,39 @@ MOE_PEAK_BYTES = 33e9
 XATTN_TOL = 2.0 ** -5
 #: the kernel a plan variant's SpMV launches
 PLAN_KERNEL = {"fused": "K1", "full": "K4", "band": "K6"}
+#: phase 20's microbatch check (qwen2-0.5b, bf16, microbatch 4 of 8 rows
+#: against the whole batch on the same master): the two runs differ only in
+#: the rows of each bf16 product (4,096 tokens against 8,192), for which
+#: cuBLAS may pick other tiles and K splits. That moves a product's float32
+#: sums by a few ulps and flips the bf16 rounding (one ulp, 2^-8 relative)
+#: of a share of its outputs. A flip of every stored activation the same
+#: way moves the loss by at most 2^-8 of itself: the loss's limit. The
+#: gradient passes 24 layers' backward products, each flip of random sign:
+#: 2^-6 for its global norm
+MB_LOSS_TOL = 2.0 ** -8
+MB_GNORM_TOL = 2.0 ** -6
+#: phase 20's bf16 step against a float32-compute evaluation of the same
+#: master and batch: bf16 keeps 8 significant bits (u = 2^-8); a layer
+#: rounds its residual stream and its products about 4 times, 96 roundings
+#: in a chain over 24 layers whose errors add at random: sqrt(96) u, about
+#: 2^-4.7 of the hidden state. At init the loss is ln V plus a term of the
+#: logits' spread (about 0.6), which that error moves by a few percent, and
+#: the mean over 8,192 tokens averages the rest: 2^-7 of the loss. The
+#: gradient runs that chain twice (forward and backward): 2^-3 of its norm
+BF16_LOSS_TOL = 2.0 ** -7
+BF16_GNORM_TOL = 2.0 ** -3
+#: phase 20's peak memory against its prediction (``Smoke.train_peak``)
+TRAIN_PEAK_RATIO = 1.5
+#: phase 20's learning signal: the mean of the last four losses below the
+#: mean of the first four by more than this many nats. What 12 steps of
+#: the synthetic stream at qwen2-0.5b's vocab can show: its Markov table
+#: has 151,936 x 4 successors and 12 steps see 98,304 tokens, so the
+#: transitions stay unlearnt, and the loss can fall only by the initial
+#: logits' spread (about 0.18 above ln V) and the unigram's gap to ln V
+#: (0.149, the chain's stationary entropy). The card fell 0.023 at lr 3e-4
+#: with steps scattered by about 0.005 about the trend; a step that learns
+#: nothing stays within that scatter
+LEARN_DROP = 0.01
 
 
 def card_line() -> str:
@@ -4432,6 +4468,243 @@ class Smoke:
         return (float(np.abs(f64(y) - y64).max()), float(np.abs(y64).max()),
                 lmax)
 
+    # -- phase 20: the training path -----------------------------------------
+    @staticmethod
+    def train_peak(cfg, n_par: int, batch: int, seq_len: int,
+                   chunk: int = 512) -> int:
+        """Phase 20's predicted peak of allocated memory above its start:
+        the float32 master, m, v and gradients (16 B a parameter); one CE
+        chunk's float32 logits four times (the product's output, the
+        masked copy, the softmax and its gradient); the compute copy of
+        the embedding (the tied head) and its gradient in bf16; the update's
+        temporaries on the largest leaf, five float32 copies; the layers'
+        saved inputs, one bf16 ``[B, S, d]`` each."""
+        vp, d = cfg.vocab_padded, cfg.d_model
+        ce = 4 * batch * min(chunk, seq_len) * vp * 4
+        emb = 2 * 2 * vp * d
+        upd = 5 * 4 * vp * d
+        acts = cfg.n_layers * batch * seq_len * d * 2
+        return 16 * n_par + ce + emb + upd + acts
+
+    def train_path(self, seed: int = 0, cfg=None, seq_len: int = 1024,
+                   batch: int = 8, steps: int = 12, ckpt_every: int = 6,
+                   root: str = "build/train_smoke",
+                   learn: float = LEARN_DROP):
+        """qwen2-0.5b at its published widths and depth (``cfg`` overrides,
+        for a rehearsal): ``Trainer`` on the card with a float32 master and
+        bf16 compute, the synthetic stream from ``seed`` (``seq_len`` x
+        ``batch`` tokens a step), ``steps`` steps at the launcher's
+        defaults (lr 3e-4, warmup steps // 10), a checkpoint every
+        ``ckpt_every`` under ``root`` (removed after). First, on the
+        initial master and the first batch: microbatch ``batch // 2``
+        against the whole batch (``MB_*_TOL``) and the bf16 loss and
+        gradient norm against float32 compute (``BF16_*_TOL``). Then the
+        run: every loss finite, the mean of the last four below that of
+        the first four by more than ``learn`` (``LEARN_DROP``); the last
+        checkpoint removed, a new ``Trainer`` restores the one before and
+        runs to the end, its master, m and v equal to the uninterrupted
+        run's bit for bit, its losses too; peak memory against
+        :meth:`train_peak`. Prints the step's host wall and
+        CUDA-event time, tokens/s, the share of the dense bf16 peak,
+        the checkpoint walls and the ops of one step."""
+        import dataclasses
+        import shutil
+
+        from repro_torch import configs
+        from repro_torch.data import DataConfig, SyntheticTokenStream
+        from repro_torch.launch import steps as tsteps
+        from repro_torch.models import transformer as tfm
+        from repro_torch.optim import OptConfig, global_norm, init_state
+        from repro_torch.train import Trainer, TrainerConfig
+
+        cfg = cfg or configs.get("qwen2-0.5b")
+        dev = self.dev
+        root = Path(root)
+        shutil.rmtree(root, ignore_errors=True)
+        self.zero_counts()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        opt = OptConfig(lr_peak=3e-4, warmup=max(steps // 10, 1),
+                        total_steps=steps)
+        T = seq_len * batch
+
+        # the checks on the initial master and the first batch
+        (master, sec) = wall(lambda: init_state(
+            tfm.init_params(cfg, seed, device=dev)).master)
+        n_par = sum(p.numel() for p in master.parameters())
+        print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+              f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to "
+              f"{cfg.vocab_padded}, tied head; {n_par} parameters, a "
+              f"float32 master from seed {seed} in {sec!r} s; compute "
+              f"{cfg.dtype}; {batch} x {seq_len} = {T} tokens a step",
+              flush=True)
+        b0 = SyntheticTokenStream(DataConfig(
+            vocab=cfg.vocab, seq_len=seq_len, global_batch=batch,
+            seed=seed)).next_batch(dev)
+        groups = tfm.reference_groups(master)
+
+        def evaluate(c, mb=None):
+            def run():
+                loss, grads = tsteps.grads_of(c, master, b0, mb)
+                return float(loss), float(global_norm(grads, groups))
+            return wall(run)
+
+        (lf, gf), tf = evaluate(cfg)
+        (lm, gm), tm = evaluate(cfg, batch // 2)
+        (l32, g32), t32 = evaluate(dataclasses.replace(cfg, dtype="float32"))
+        del master, b0
+        ml, mg = abs(lm - lf) / lf, abs(gm - gf) / gf
+        bl, bg = abs(lf - l32) / l32, abs(gf - g32) / g32
+        print(f"  the first batch, the initial master: {cfg.dtype} loss "
+              f"{lf!r}, gradient norm {gf!r} ({tf!r} s, the first call); "
+              f"microbatch {batch // 2} of {batch}: loss {lm!r}, norm "
+              f"{gm!r} ({tm!r} s): {ml!r} and {mg!r} apart (limits "
+              f"{MB_LOSS_TOL!r}, {MB_GNORM_TOL!r}); float32 compute: loss "
+              f"{l32!r}, norm {g32!r} ({t32!r} s): {cfg.dtype} {bl!r} and "
+              f"{bg!r} apart (limits {BF16_LOSS_TOL!r}, "
+              f"{BF16_GNORM_TOL!r})", flush=True)
+        if not (ml <= MB_LOSS_TOL and mg <= MB_GNORM_TOL):
+            fail(f"microbatch vs full batch: loss {ml}, norm {mg} apart")
+        if not (bl <= BF16_LOSS_TOL and bg <= BF16_GNORM_TOL):
+            fail(f"{cfg.dtype} vs float32: loss {bl}, norm {bg} apart")
+
+        def timed_trainer(tr):
+            """``tr`` with its step and checkpoint save timed."""
+            rec = {"wall": [], "ev": [], "save": []}
+            step_fn, save = tr._step_fn, tr.ckpt.save
+
+            def step(state, b):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e0.record()
+                out = step_fn(state, b)
+                e1.record()
+                torch.cuda.synchronize()
+                rec["wall"].append(time.perf_counter() - t0)
+                rec["ev"].append(e0.elapsed_time(e1))
+                return out
+
+            def timed_save(*a, **kw):
+                out, sec = wall(lambda: save(*a, **kw))
+                rec["save"].append(sec)
+                return out
+
+            tr._step_fn, tr.ckpt.save = step, timed_save
+            return rec
+
+        # the run
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tcfg = TrainerConfig(steps=steps, ckpt_dir=str(root),
+                             ckpt_every=ckpt_every, log_every=1, seed=seed,
+                             seq_len=seq_len, global_batch=batch)
+        logs = []
+        ta = Trainer(cfg, opt, tcfg, device=dev, log_fn=logs.append)
+        rec = timed_trainer(ta)
+        sa, t_run = wall(ta.run)
+        peak = torch.cuda.max_memory_allocated() - base
+        losses = [h["loss"] for h in ta.history]
+        n4 = min(4, len(losses) // 2)
+        fell = (sum(losses[:n4]) - sum(losses[-n4:])) / max(n4, 1)
+        lnv = float(np.log(cfg.vocab))
+        print(f"  {steps} steps in {t_run!r} s (host clock, checkpoints "
+              f"included): losses {losses} (ln V {lnv!r}); "
+              f"the last {n4} below the first {n4} by {fell!r} on average "
+              f"(needs more than {learn!r}); the last below the first by "
+              f"{losses[0] - losses[-1]!r}", flush=True)
+        if len(losses) != steps or not all(np.isfinite(losses)):
+            fail(f"training losses {losses}")
+        if not fell > learn:
+            fail(f"no learning signal: the last {n4} losses below the first "
+                 f"{n4} by {fell} on average, not more than {learn}")
+        if ta.ckpt.steps() != list(range(ckpt_every, steps + 1,
+                                         ckpt_every))[-3:]:
+            fail(f"checkpoints {ta.ckpt.steps()}")
+
+        # the resume: the last checkpoint removed, the one before restored
+        shutil.rmtree(root / f"step_{steps}")
+        tb = Trainer(cfg, opt, tcfg, device=dev, log_fn=logs.append)
+        rec_b = timed_trainer(tb)
+        sb0, t_restore = wall(tb.init_or_restore)
+        if int(sb0.step) != steps - ckpt_every:
+            fail(f"restored step {int(sb0.step)}")
+        sb = tb.run(sb0)
+        for name in ("master", "m", "v"):
+            for (k, a), b in zip(getattr(sa, name).named_parameters(),
+                                 getattr(sb, name).parameters()):
+                if not torch.equal(a, b):
+                    fail(f"resumed run: {name} {k} differs from the "
+                         f"uninterrupted run's")
+        if int(sb.step) != steps or [h["loss"] for h in tb.history] != \
+                losses[steps - ckpt_every:]:
+            fail(f"resumed run: losses {tb.history}, uninterrupted "
+                 f"{losses[steps - ckpt_every:]}")
+        print(f"  the resume: step_{steps} removed, a new Trainer restored "
+              f"step {steps - ckpt_every} ({t_restore!r} s) and ran to "
+              f"{steps}; master, m and v equal the uninterrupted run's bit "
+              f"for bit, and its losses", flush=True)
+        del sa, sb0
+
+        # the ops of one step, counted on the host
+        step_fn = tsteps.make_train_step(cfg, opt)
+        bx = tb.data.next_batch(dev)
+        step_ops = collections.Counter(aten_ops(lambda: step_fn(sb, bx)))
+        n_ops = sum(step_ops.values())
+        del sb, bx, ta, tb
+
+        walls = sorted(rec["wall"][1:] + rec_b["wall"][1:])
+        evs = sorted(rec["ev"][1:] + rec_b["ev"][1:])
+        wall_s, ev_ms = walls[len(walls) // 2], evs[len(evs) // 2]
+        L, H, hd, d = cfg.n_layers, cfg.n_heads, cfg.head_dim, cfg.d_model
+        # the forward's attention products: QK^T and PV over the KV chunks
+        # flash_attention computes (a q-chunk skips only whole KV chunks
+        # above the diagonal)
+        qc, kc = min(512, seq_len), min(1024, seq_len)
+        kv = sum(min(-(-seq_len // kc), (i * qc + qc - 1) // kc + 1) * kc
+                 * qc for i in range(-(-seq_len // qc)))
+        attn_fwd = 4 * batch * kv * H * hd * L
+        model = 6 * n_par * T + 3 * attn_fwd
+        head = 2 * T * d * cfg.vocab_padded
+        recompute = 2 * (n_par - cfg.vocab_padded * d) * T + attn_fwd + head
+        share = model / (ev_ms * 1e-3 * PEAK_BF16_OPS_PER_S)
+        share_all = (model + recompute) / (ev_ms * 1e-3
+                                           * PEAK_BF16_OPS_PER_S)
+        pred = self.train_peak(cfg, n_par, batch, seq_len)
+        launches = self.counts()
+        print(f"  a step (median of {len(walls)}, the first of each run left "
+              f"out): host wall {wall_s!r} s, CUDA events {ev_ms!r} ms; "
+              f"{T / wall_s!r} tokens/s; model FLOPs 6 N T + attention "
+              f"{model} ({model / 1e12!r} T), the recompute {recompute} "
+              f"more: {share!r} of the dense bf16 peak "
+              f"({PEAK_BF16_OPS_PER_S!r}), {share_all!r} with the "
+              f"recompute; on {card_line()}", flush=True)
+        print(f"  every step's walls {rec['wall']} + {rec_b['wall']} s, "
+              f"CUDA events {rec['ev']} + {rec_b['ev']} ms", flush=True)
+        print(f"  checkpoints: save {rec['save']} + {rec_b['save']} s "
+              f"(host clock; master, m, v and the step, "
+              f"{12 * n_par + 4} B), restore {t_restore!r} s", flush=True)
+        print(f"  its device ops (one step, counted on the host): {n_ops}; "
+              f"most frequent {step_ops.most_common(10)}", flush=True)
+        print(f"  peak memory allocated above the run's start {peak} B, "
+              f"predicted {pred} B ({peak / pred!r} x; limit "
+              f"{TRAIN_PEAK_RATIO!r} x); launches {launches} (no kernel of "
+              f"this repository lies on the training path)", flush=True)
+        if not peak <= TRAIN_PEAK_RATIO * pred:
+            fail(f"training peak memory {peak} B > {TRAIN_PEAK_RATIO} x "
+                 f"{pred} B")
+        shutil.rmtree(root, ignore_errors=True)
+        return dict(launches=launches, losses=losses, step_wall=wall_s,
+                    step_ms=ev_ms, tokens_per_s=T / wall_s, share=share,
+                    peak=peak, pred=pred, save=rec["save"] + rec_b["save"],
+                    restore=t_restore, ops=n_ops)
+
 
 def main(argv=None) -> int:
     import argparse
@@ -4439,7 +4712,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of phase 12's request vectors and of the "
-                    "weights, requests and inputs of phases 14-19")
+                    "weights, requests and inputs of phases 14-19 and of "
+                    "phase 20's weights and data")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -4564,6 +4838,16 @@ def main(argv=None) -> int:
               "cross-attention against float64",
               lambda: smoke.encdec_path(seed=args.seed))
         runs.append(out[19]["launches"])
+        # phase 19's model goes before phase 20 draws its own
+        out.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(20, "the training path: qwen2-0.5b at full width and depth, "
+              "Trainer with a float32 master and bf16 compute, 12 steps of "
+              "8 x 1,024 tokens, a checkpoint every 6, the resume bit for "
+              "bit, microbatch and float32 checks",
+              lambda: smoke.train_path(seed=args.seed))
+        runs.append(out[20]["launches"])
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -4582,8 +4866,8 @@ def main(argv=None) -> int:
         "K2-f64": ("sell_spmv_bucket (float64 sum)", src + "sell_spmv.cu",
                    "src/repro/kernels/sell_spmv.py:47"),
     }
-    print(f"== 20. done in {time.perf_counter() - t_start:.1f} s (phases "
-          f"3-19: {phase_s})", flush=True)
+    print(f"== 21. done in {time.perf_counter() - t_start:.1f} s (phases "
+          f"3-20: {phase_s})", flush=True)
     print(f"card: {card_line()}", flush=True)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in meta}
     kernels = []

@@ -11,7 +11,9 @@ The ``*_init`` functions draw from an explicit ``torch.Generator`` (None
 leaves the tensors uninitialised, for a copy to fill). They give other
 numbers than ``jax.random`` from the same seed, so the tests carry the
 reference's parameters over (``transformer.load_reference_params``).
-Parameters are created with ``requires_grad=False``: the port serves.
+Parameters are created with ``requires_grad=False``: serving needs no
+gradients. The trainer's float32 master turns them on
+(``optim.adamw.init_state``).
 """
 from __future__ import annotations
 
@@ -142,11 +144,14 @@ def embed_apply(p: Embed, tokens, dtype):
     id in ``[-V, 0)`` wraps to ``id + V``, and any id outside ``[-V, V)``
     gives a row of NaN. The gather reads the id clamped into ``[0, V)``,
     so a bad id neither raises on the host nor asserts on the card, and
-    the step needs no host sync."""
+    the step needs no host sync. The gather is ``F.embedding``: the same
+    rows as ``index_select``, and a backward that sums each row's
+    gradients in one order on the card (``index_select``'s adds them with
+    atomics), so a training step repeats bit for bit."""
     V = p.w.shape[0]
     idx = tokens.reshape(-1)
     idx = torch.where(idx < 0, idx + V, idx)
-    rows = p.w.index_select(0, idx.clamp(0, V - 1))
+    rows = F.embedding(idx.clamp(0, V - 1), p.w)
     ok = (idx >= 0) & (idx < V)
     rows = torch.where(ok[:, None], rows, float("nan"))
     return rows.reshape(*tokens.shape, -1).to(as_dtype(dtype))

@@ -21,7 +21,11 @@ rules that torch does not have.
   card ``index_add_`` adds with atomics, whose order changes from run to
   run; this sum has one order, so a captured decode step equals its
   eager run bit for bit. The reference adds in expert order; the two
-  differ in the last float32 bits only.
+  differ in the last float32 bits only. Its backward repeats bit for
+  bit too, though the gather's backward adds with atomics on the card:
+  a kept slot is read once, and the dropped assignments' reads of the
+  clamped last slot carry a zero gradient (the ``where``), so each sum
+  has one addend that is not zero.
 
 Nothing here reads a value back to the host (no ``nonzero``, ``unique``,
 ``bincount``, boolean-mask indexing or ``.item()``): the layer runs

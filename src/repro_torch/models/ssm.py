@@ -253,15 +253,18 @@ def _out(p: Mamba2, cfg, y, z, dtype):
     return y @ p.out_proj.to(dt)
 
 
-def apply_full(p: Mamba2, cfg, x, dtype):
+def apply_full(p: Mamba2, cfg, x, dtype, *, state: bool = True):
     """Prefill. x: ``[B, S, d]`` -> ``(y, {"conv", "ssm"})``, the final
-    conv and SSM states that decode goes on from."""
+    conv and SSM states that decode goes on from; ``state=False`` (the
+    training forward, which drops them) skips them: ``(y, None)``."""
     z, xh, Bc, Cc, dt, conv = _inputs(p, cfg, x, dtype)
     A = -torch.exp(p.A_log)
     y = _ssd_chunked(cfg, xh, dt, Bc, Cc, A)
     y = y + xh * p.D[None, None, :, None]
-    return _out(p, cfg, y, z, dtype), {
-        "conv": conv, "ssm": _final_state(cfg, xh, dt, Bc, A)}
+    y = _out(p, cfg, y, z, dtype)
+    if not state:
+        return y, None
+    return y, {"conv": conv, "ssm": _final_state(cfg, xh, dt, Bc, A)}
 
 
 def apply_decode(p: Mamba2, cfg, x, cache: dict, dtype):

@@ -1,7 +1,7 @@
 """Model assembly for the dense, moe, vlm, ssm, hybrid and encdec
-families: init, prefill and decode with a cache.
+families: init, the training forward, prefill and decode with a cache.
 
-The port of ``repro.models.transformer``'s serving path. Parameters are
+The port of ``repro.models.transformer``. Parameters are
 an ``nn.Module`` tree (:class:`Transformer`: ``embed``, ``blocks[l]``
 with ``ln1``, ``attn``, ``ln2`` and ``mlp`` (dense, vlm; encdec adds
 ``ln3`` and the cross-attention ``xattn``) or ``moe`` (``models.moe``),
@@ -21,11 +21,18 @@ the frame positions) in :func:`_prefill_encdec`, which writes each
 decoder layer's cross-attention K/V into ``cache["ek"/"ev"]``; decode
 reads them and never writes them.
 
+:func:`forward_train` is the reference's training loss: each layer cast
+from the float32 master to the compute dtype inside the layer
+(:func:`_cast_block`, the router and Mamba2's float32 leaves too) and
+recomputed in the backward (``torch.utils.checkpoint`` for the
+reference's ``jax.checkpoint``), the CE loss over chunks of the
+sequence; :func:`to_reference_params` gives any tree of this structure
+(a master, Adam's moments, gradients) as the reference's.
+
 Not copied from the reference: the sharding constraints (``constrain``;
-the port runs on one card), the per-layer remat and ``lax.scan`` (a
-Python loop over the layers, the encoder's too), ``lax.cond`` for the
-hybrid's shared block (a Python ``if`` on the static layer index), and
-the functional cache. The port's ``forward_decode`` writes the new K/V,
+the port runs on one card), ``lax.scan`` (a Python loop over the
+layers, the encoder's too), ``lax.cond`` for the hybrid's shared block
+(a Python ``if`` on the static layer index), and the functional cache. The port's ``forward_decode`` writes the new K/V,
 conv and SSM states and ``len`` into the cache it is given, in place, so
 a decode step over static buffers captures into one CUDA graph
 (``serving.engine``); the encdec prefill writes ``k``/``v`` and
@@ -38,9 +45,14 @@ parameters straight into that one copy.
 """
 from __future__ import annotations
 
+import functools
+import types
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import _device
 from . import attention as attn
@@ -183,73 +195,96 @@ def cast_params(params: Transformer, dtype, *, device=None) -> Transformer:
     return out
 
 
-def load_reference_params(cfg: ModelConfig, tree, device=None) -> Transformer:
+#: the parameter lists the reference stacks ``[L, ...]``
+_STACKED = ("blocks", "enc_blocks")
+
+
+def _ref_path(name: str) -> tuple:
+    """The reference's tree path of the port's parameter ``name``: the
+    layer index dropped (``blocks.3.attn.wq.w`` -> ``blocks/attn/wq/w``);
+    the moe routed experts' ``experts.wi`` -> ``wi``, the shared experts'
+    ``shared.wi`` -> ``shared/wi/w``."""
+    parts = name.split(".")
+    if parts[0] in _STACKED:
+        del parts[1]
+    if "moe" in parts:
+        j = parts.index("moe") + 1
+        if parts[j] == "experts":
+            del parts[j]
+        elif parts[j] == "shared":
+            parts.append("w")
+    return tuple(parts)
+
+
+def reference_leaves(params: nn.Module) -> list:
+    """``[(path, names)]``: each leaf of the reference's parameter tree, in
+    its leaf order (``jax.tree.leaves``: sorted paths), with the port's
+    parameter names that make it (one per layer, in layer order, for a
+    stacked leaf). ``params``: a :class:`Transformer`, or a module of its
+    structure (the optimizer's moments)."""
+    groups = {}
+    for name, _ in params.named_parameters():
+        groups.setdefault(_ref_path(name), []).append(name)
+    return sorted(groups.items())
+
+
+def reference_groups(params: nn.Module) -> list:
+    """The reference's leaves as lists of indices into
+    ``list(params.parameters())`` (``optim.adamw.global_norm``'s
+    ``groups``)."""
+    index = {n: i for i, (n, _) in enumerate(params.named_parameters())}
+    return [[index[n] for n in names] for _, names in
+            reference_leaves(params)]
+
+
+def to_reference_params(params: nn.Module, *, host: bool = True) -> dict:
+    """The inverse of :func:`load_reference_params`: the reference's
+    parameter tree (nested dicts, the blocks stacked ``[L, ...]``, its
+    keys), from ``params`` or a module of its structure: numpy arrays on
+    the host (bfloat16 as float32), or with ``host=False`` tensors where
+    ``params`` lie (a checkpoint then copies each leaf once)."""
+    named = dict(params.named_parameters())
+    tree = {}
+    for path, names in reference_leaves(params):
+        ts = [named[n].detach() for n in names]
+        t = torch.stack(ts) if path[0] in _STACKED else ts[0]
+        if host:
+            t = t.to(torch.float32) if t.dtype == torch.bfloat16 else t
+            t = t.cpu().numpy()
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    return tree
+
+
+def load_reference_params(cfg: ModelConfig, tree, device=None,
+                          dtype=None) -> Transformer:
     """The reference's parameter pytree (``repro.models.transformer.
     init_params``' first result, its leaves as numpy arrays with the
     blocks stacked ``[L, ...]``; Mamba2's leaves are arrays, not
     ``{"w": ...}``, the hybrid's ``shared`` block is not stacked, and the
-    encdec ``enc_blocks`` are stacked ``[enc_layers, ...]``) as
-    the port's :class:`Transformer` in ``cfg.param_dtype`` on ``device``
-    (None: the GPU)."""
+    encdec ``enc_blocks`` are stacked ``[enc_layers, ...]``; a leaf may
+    also be a tensor, as a restored checkpoint's) as the port's
+    :class:`Transformer` in ``dtype`` (None: ``cfg.param_dtype``) on
+    ``device`` (None: the GPU)."""
     dev = _device.resolve_device(device)
-    params = Transformer(cfg, device=dev)
-
-    def put(p: nn.Parameter, arr) -> None:
-        a = np.array(arr, dtype=np.float32)
-        if tuple(a.shape) != tuple(p.shape):
-            raise ValueError(f"shape {a.shape} for a parameter of shape "
-                             f"{tuple(p.shape)}")
-        with torch.no_grad():
-            p.copy_(torch.from_numpy(a))
-
-    def put_dense(p: L.Dense, leaf, i=None) -> None:
-        put(p.w, leaf["w"] if i is None else leaf["w"][i])
-        if p.b is not None:
-            put(p.b, leaf["b"] if i is None else leaf["b"][i])
-
-    def put_attn_mlp(b: Block, t, i=None) -> None:
-        def at(a):
-            return a if i is None else a[i]
-
-        put(b.ln1.g, at(t["ln1"]["g"]))
-        put(b.ln2.g, at(t["ln2"]["g"]))
-        for name in ("wq", "wk", "wv", "wo"):
-            put_dense(getattr(b.attn, name), t["attn"][name], i)
-        if b.mlp is not None:
-            for name in ("wi", "wg", "wo"):
-                put_dense(getattr(b.mlp, name), t["mlp"][name], i)
-        if b.xattn is not None:
-            put(b.ln3.g, at(t["ln3"]["g"]))
-            for name in ("wq", "wk", "wv", "wo"):
-                put_dense(getattr(b.xattn, name), t["xattn"][name], i)
-
-    put(params.embed.w, tree["embed"]["w"])
-    blk = tree["blocks"]
-    for i, b in enumerate(params.blocks):
-        if b.ssm is not None:
-            put(b.ln1.g, blk["ln1"]["g"][i])
-            for name, t in b.ssm.named_parameters():
-                put(t, blk["ssm"][name][i])
-            continue
-        put_attn_mlp(b, blk, i)
-        if b.moe is not None:
-            m = blk["moe"]
-            put(b.moe.router, m["router"][i])
-            for name in ("wi", "wg", "wo"):
-                put(getattr(b.moe.experts, name), m[name][i])
-                if b.moe.shared is not None:        # stacked [L, n_sh, ...]
-                    put(getattr(b.moe.shared, name), m["shared"][name]["w"][i])
-    put(params.lnf.g, tree["lnf"]["g"])
-    if params.head is not None:
-        put_dense(params.head, tree["head"])
-    if params.shared is not None:
-        put_attn_mlp(params.shared, tree["shared"])
-    if params.enc_blocks is not None:
-        for i, b in enumerate(params.enc_blocks):
-            put_attn_mlp(b, tree["enc_blocks"], i)
-        put(params.enc_lnf.g, tree["enc_lnf"]["g"])
-    if params.projector is not None:
-        put_dense(params.projector, tree["projector"])
+    params = Transformer(cfg, dtype=dtype, device=dev)
+    named = dict(params.named_parameters())
+    for path, names in reference_leaves(params):
+        arr = tree
+        for k in path:
+            arr = arr[k]
+        if not torch.is_tensor(arr):
+            arr = torch.from_numpy(np.array(arr, dtype=np.float32))
+        for i, name in enumerate(names):
+            a = arr[i] if path[0] in _STACKED else arr
+            p = named[name]
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"shape {tuple(a.shape)} for a parameter of "
+                                 f"shape {tuple(p.shape)}")
+            with torch.no_grad():
+                p.copy_(a)
     return params
 
 
@@ -383,17 +418,22 @@ def _block_full(cfg, b: Block, x, pos, dtype, *, causal=True, enc=None):
     return x + _mlp(b, cfg, z, dtype), k, v
 
 
-def _encode(cfg, params: Transformer, batch, dtype):
+def _encode(cfg, params: Transformer, batch, dtype, *, train: bool = False):
     """The encoder: ``batch["frames"]`` ``[B, Se, STUB_DIM]`` in the
     compute dtype through the audio stub's ``projector``, then the
     encoder blocks (non-causal self-attention with RoPE at the frame
-    positions, then SwiGLU), then ``enc_lnf``. Returns ``[B, Se, d]``."""
+    positions, then SwiGLU), then ``enc_lnf``. Returns ``[B, Se, d]``.
+    ``train``: each block cast and recomputed as :func:`_scan_blocks`'."""
     frames = batch["frames"].to(L.as_dtype(dtype))
     h = L.dense_apply(params.projector, frames, dtype)
     B, Se, _ = h.shape
     pos = torch.arange(Se, device=h.device)[None, :].expand(B, Se)
     for b in params.enc_blocks:
-        h = _block_full(cfg, b, h, pos, dtype, causal=False)[0]
+        if train:
+            h = _remat(lambda h, b=b: _block_full(
+                cfg, _cast_block(b, dtype), h, pos, dtype, causal=False)[0], h)
+        else:
+            h = _block_full(cfg, b, h, pos, dtype, causal=False)[0]
     return L.rmsnorm_apply(params.enc_lnf, h, cfg.norm_eps, dtype)
 
 
@@ -498,3 +538,195 @@ def forward_decode(cfg: ModelConfig, params: Transformer, token, cache):
     cache the one given, updated in place (:func:`decode_hidden`)."""
     x = decode_hidden(cfg, params, token, cache)
     return _logits_last(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Training: the forward with per-layer cast and recompute, chunked CE
+# ---------------------------------------------------------------------------
+
+
+def _view(m: nn.Module, f) -> types.SimpleNamespace:
+    """``m``'s tree with every parameter through ``f``: the attributes the
+    ``*_apply`` functions read (``w``, ``g``, ``attn``, ``router``, ...),
+    an absent child or bias ``None``."""
+    ns = types.SimpleNamespace(**_absent(m))
+    for name, p in m._parameters.items():
+        setattr(ns, name, None if p is None else f(p))
+    for name, c in m._modules.items():
+        setattr(ns, name, None if c is None else _view(c, f))
+    return ns
+
+
+def _absent(m: nn.Module) -> dict:
+    """The children and parameters ``m`` was built without (``head``,
+    ``attn``, a dense layer's ``b``, ...): plain ``None`` attributes."""
+    return {k: None for k, v in vars(m).items()
+            if v is None and not k.startswith("_")}
+
+
+def _cast_block(b: nn.Module, dtype) -> types.SimpleNamespace:
+    """The reference's per-layer master -> compute cast (``_cast_block``):
+    every floating leaf of the block to ``dtype`` by a differentiable
+    ``.to``, the moe router and Mamba2's ``A_log``, ``D`` and ``dt_bias``
+    included (not :func:`cast_params`' serving rule, which keeps those in
+    float32). One layer's compute copy is live at a time."""
+    dt = L.as_dtype(dtype)
+    return _view(b, lambda t: t.to(dt) if t.is_floating_point() else t)
+
+
+def to_compute(cfg: ModelConfig, master: Transformer) -> types.SimpleNamespace:
+    """The parameters a training step reads (the reference trainer's
+    ``to_compute``): every leaf outside the layer stacks (``embed``,
+    ``lnf``, ``head``, the hybrid's ``shared`` block, ``enc_lnf``,
+    ``projector``) cast to the compute dtype once, differentiably; the
+    ``blocks`` and ``enc_blocks`` left as the master's, for
+    :func:`_scan_blocks` to cast one layer at a time."""
+    dt = _dt(cfg)
+    out = types.SimpleNamespace(**_absent(master))
+    for name, c in master._modules.items():
+        if name in _STACKED or c is None:
+            setattr(out, name, c)
+        else:
+            setattr(out, name, _view(c, lambda t: t.to(dt)
+                                     if t.is_floating_point() else t))
+    return out
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    saved (``torch.utils.checkpoint``, non-reentrant): the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``; only the inputs are
+    kept. Without autograd, a plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _apply_block(cfg, bp, x, positions, dtype, layer_idx: int, shared=None):
+    """One training block on ``x`` (the reference's ``_apply_block``):
+    attention then MLP or MoE (dense, moe, vlm), or Mamba2 then, after
+    every ``attn_every``-th layer of the hybrid, the ``shared`` block (a
+    Python ``if`` on the static index for the reference's ``lax.cond``).
+    Returns (x, aux): the moe family's ``moe_lb``/``moe_z``, else {}."""
+    aux = {}
+    if cfg.family in ("dense", "moe", "vlm"):
+        h, _ = attn.apply_full(
+            bp.attn, cfg, L.rmsnorm_apply(bp.ln1, x, cfg.norm_eps, dtype),
+            positions, dtype, causal=True)
+        x = x + h
+        z = L.rmsnorm_apply(bp.ln2, x, cfg.norm_eps, dtype)
+        if bp.moe is not None:
+            m, aux = moe_mod.apply(bp.moe, cfg, z, dtype)
+        else:
+            m = L.swiglu_apply(bp.mlp, z, dtype)
+        return x + m, aux
+    h, _ = ssm_mod.apply_full(
+        bp.ssm, cfg, L.rmsnorm_apply(bp.ln1, x, cfg.norm_eps, dtype), dtype,
+        state=False)
+    x = x + h
+    if shared is not None and _uses_shared(cfg, layer_idx):
+        x = _block_full(cfg, shared, x, positions, dtype)[0]
+    return x, aux
+
+
+def _scan_blocks(cfg, blocks, x, positions, dtype, shared=None):
+    """The layer loop of the training forward (the reference's
+    ``lax.scan``): each layer, its cast included, under :func:`_remat`.
+    Returns (x, {"moe_lb", "moe_z"}), the aux terms summed over the
+    layers in float32."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    lb, z = zero, zero
+    for i, b in enumerate(blocks):
+        def layer(x, b=b, i=i):
+            x, aux = _apply_block(cfg, _cast_block(b, dtype), x, positions,
+                                  dtype, i, shared)
+            return (x, aux["moe_lb"], aux["moe_z"]) if aux else (x,)
+
+        out = _remat(layer, x)
+        x = out[0]
+        if len(out) > 1:
+            lb, z = lb + out[1], z + out[2]
+    return x, {"moe_lb": lb, "moe_z": z}
+
+
+def _ce_chunk(cfg, xc, head_w, lc, mc):
+    """The summed cross-entropy of one chunk: float32 logits of the
+    compute-dtype product, padded vocab columns at -1e30."""
+    logits = (xc @ head_w.to(xc.dtype)).to(torch.float32)
+    vpad = head_w.shape[-1]
+    if vpad > cfg.vocab:
+        cols = torch.arange(vpad, device=logits.device)
+        logits = torch.where(cols < cfg.vocab, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return torch.sum((logz - ll) * mc)
+
+
+def chunked_ce_loss(cfg, head_w, x, labels, mask, *, chunk: int = 512):
+    """x: [B, S, d]; labels, mask: [B, S]. Returns (sum_loss, count): the
+    sequence padded to whole chunks of ``min(chunk, S)``, each chunk's
+    logits made and recomputed in the backward (:func:`_remat`), so the
+    ``[B, S, vocab]`` float32 logits never exist at once. A tied head is
+    ``embed.w.T``: the embedding's gradient then sums its gather's and
+    this product's."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + _remat(functools.partial(_ce_chunk, cfg), x[:, sl],
+                               head_w, labels[:, sl], mask[:, sl])
+    return total, torch.clamp_min(mask.sum(), 1.0)
+
+
+def _decode_stack_full(cfg, params, x, positions, enc_out, dtype):
+    """The encdec decoder over whole sequences (train): per layer, cast
+    and recomputed as :func:`_scan_blocks`', the causal self-attention,
+    the cross-attention over ``enc_out``'s K/V and SwiGLU. The reference
+    saves the weight products of these layers
+    (``dots_with_no_batch_dims_saveable``); the port recomputes the whole
+    layer, which changes only the memory held and the work redone."""
+    def layer(x, b):
+        bp = _cast_block(b, dtype)
+        enc = attn.cross_kv(bp.xattn, cfg, enc_out, dtype)
+        return _block_full(cfg, bp, x, positions, dtype, enc=enc)[0]
+
+    for b in params.blocks:
+        x = _remat(layer, x, b)
+    return x
+
+
+def forward_train(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """The scalar training loss (CE + 0.01 moe_lb + 0.001 moe_z).
+
+    ``params``: the master :class:`Transformer` or its
+    :func:`to_compute` view; the blocks are cast one layer at a time.
+    ``batch``: ``tokens``, ``labels``, ``mask`` ``[B, S]`` (the vlm
+    family's ``patches``, the encdec family's ``frames``)."""
+    _check_family(cfg)
+    dtype = _dt(cfg)
+    if cfg.family == "encdec":
+        enc_out = _encode(cfg, params, batch, dtype, train=True)
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = L.embed_apply(params.embed, tokens, dtype)
+        pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        x = _decode_stack_full(cfg, params, x, pos, enc_out, dtype)
+        aux = {"moe_lb": 0.0, "moe_z": 0.0}
+        labels, mask = batch["labels"], batch["mask"].to(torch.float32)
+    else:
+        x, pos, labels, mask = _embed_inputs(cfg, params, batch, dtype)
+        x, aux = _scan_blocks(cfg, params.blocks, x, pos, dtype,
+                              shared=params.shared)
+    x = L.rmsnorm_apply(params.lnf, x, cfg.norm_eps, dtype)
+    head = params.head.w if params.head is not None else params.embed.w.T
+    total, count = chunked_ce_loss(cfg, head, x, labels, mask)
+    loss = total / count
+    return loss + 0.01 * aux["moe_lb"] + 0.001 * aux["moe_z"]

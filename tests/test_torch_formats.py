@@ -201,9 +201,10 @@ def test_package_imports_no_jax_and_no_repro():
     """A fresh interpreter imports repro_torch and every submodule without
     loading JAX or any module of the reference package; the walk reaches
     the recorder (``observe``), the front end (``serving``), the
-    distributed layer (``distributed``, ``parallel``) and the LM serving
+    distributed layer (``distributed``, ``parallel``), the LM serving
     path (``models`` with ``moe``, ``ssm`` and ``io_spec``, ``configs``,
-    ``serving.engine``, ``launch``)."""
+    ``serving.engine``, ``launch``) and the training side (``optim``,
+    ``data``, ``train``, ``launch.steps``, ``launch.train``)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -221,7 +222,10 @@ def test_package_imports_no_jax_and_no_repro():
         "'repro_torch.models.moe', 'repro_torch.models.ssm', "
         "'repro_torch.models.io_spec', "
         "'repro_torch.configs.granite_3_2b', 'repro_torch.serving.engine', "
-        "'repro_torch.launch.serve']\n"
+        "'repro_torch.launch.serve'] + ['repro_torch.' + m for m in "
+        "('optim.adamw', 'optim.compression', 'data.synthetic', "
+        "'train.checkpoint', 'train.fault', 'train.trainer', "
+        "'launch.steps', 'launch.train')]\n"
         "assert all(k in sys.modules for k in need), need\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -24,7 +24,9 @@ encdec decode step (self-attention, cross-attention over the encoder's
 K/V at 8 and 1,100 frames, SwiGLU) as one CUDA graph outside the engine,
 which leaves ``ek``/``ev`` as they were; a prompt holding out-of-range
 token ids leaves the CUDA context working and the other requests' tokens
-as a clean engine's.
+as a clean engine's. The training side: a reduced float32 step of each
+family on the card against the same step on the CPU, its gradients
+repeated bit for bit.
 
 Run on a machine with a CUDA device:
 
@@ -1502,3 +1504,54 @@ def test_encdec_step_captured_and_sync_free(cuda, Se):
         assert torch.equal(after[k], saved[k]), k
     assert torch.equal(after["len"], saved["len"] + 1)
     assert bool(torch.isfinite(lg[..., :cfg.vocab]).all())
+
+
+# -- the training side ---------------------------------------------------------
+
+TRAIN_FAMILIES = ("qwen2-0.5b", "qwen2-moe-a2.7b", "llava-next-mistral-7b",
+                  "mamba2-1.3b", "zamba2-2.7b", "seamless-m4t-large-v2")
+
+
+def _train_batch(cfg, dev, B=2, S=40, seed=0):
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+         "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+         "mask": np.ones((B, S), np.float32)}
+    if cfg.frontend == "vision_stub":
+        b["patches"] = rng.standard_normal((B, 6, 1024)).astype(np.float32)
+    if cfg.frontend == "audio_stub":
+        b["frames"] = rng.standard_normal((B, 12, 1024)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """A reduced float32 training step on the card against the same step
+    on the CPU: the loss within 1e-5 and every gradient within 3e-5 of
+    its largest |value| (float32 sums in other orders; no TF32: torch's
+    default); the card's gradients repeat bit for bit (the embedding's
+    backward sums in one order); a full step with AdamW leaves a finite
+    master."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import OptConfig, init_state
+
+    cfg = configs.reduce(configs.get(arch))
+    host = init_state(tfm.init_params(cfg, 0, device="cpu"))
+    card = init_state(tfm.cast_params(host.master, torch.float32,
+                                      device=cuda))
+    lc, gc = steps.value_and_grad(cfg, host.master,
+                                  _train_batch(cfg, "cpu"))
+    lg, gg = steps.value_and_grad(cfg, card.master, _train_batch(cfg, cuda))
+    np.testing.assert_allclose(lg.item(), lc.item(), rtol=1e-5)
+    for a, b in zip(gg, gc):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a.cpu() - b).abs().max()) / scale <= 3e-5
+    _, again = steps.value_and_grad(cfg, card.master, _train_batch(cfg, cuda))
+    for a, b in zip(gg, again):
+        _bits_equal(a, b)
+    step = steps.make_train_step(cfg, OptConfig(warmup=1, total_steps=4))
+    card, m = step(card, _train_batch(cfg, cuda))
+    assert int(card.step) == 1 and torch.isfinite(m["loss"])
+    assert all(bool(torch.isfinite(p).all()) for p in card.master.parameters())
