@@ -29,7 +29,11 @@ shared attention block every 6th layer) and the encdec family
 cross-attention over the encoder's K/V, its decode step one CUDA graph);
 then the training path (qwen2-0.5b at full width and depth through
 ``Trainer``: a float32 master, bf16 compute, checkpoints, a resume that
-must equal the uninterrupted run bit for bit)
+must equal the uninterrupted run bit for bit); then the launchers (a
+STREAM-triad probe against the H100's HBM3 constant, the dry run's cells
+counted on the meta device, the decode cells that fit the card run for
+real with their FLOPs held to the meta count, the hotspot analyzer on
+one real cell)
 -- times the kernels, and ends with one JSON line. Every solve runs as the port runs
 it, through CUDA-graph replays (``repro_torch.solvers.graphs``), and in
 turns with its eager loop (eager, captured, captured, eager), which it
@@ -58,12 +62,15 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-#: H100 SXM: HBM3 bandwidth and float32 (non-tensor-core) peak, NVIDIA data
-#: sheet, at the full 700 W power limit
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
-#: dense bfloat16 tensor-core peak, the same data sheet
-PEAK_BF16_OPS_PER_S = 989e12
+from repro_torch.launch.roofline import HW  # noqa: E402
+
+#: H100 SXM: HBM3 bandwidth, float32 (non-tensor-core) and dense bfloat16
+#: tensor-core peaks, NVIDIA data sheet, at the full 700 W power limit: the
+#: dry run's constants (``repro_torch.launch.roofline.HW``), so the kernel
+#: bounds and the roofline terms cannot drift apart
+PEAK_BYTES_PER_S = HW["hbm_bw"]
+PEAK_F32_OPS_PER_S = HW["peak_flops_f32"]
+PEAK_BF16_OPS_PER_S = HW["peak_flops_bf16"]
 #: the decode-against-prefill checks of phases 14-19 in bfloat16 at full
 #: width and depth: 16 bf16 ulps (2^-8 each) of the largest |logit|. The
 #: two paths may round their products at other places (cuBLAS picks
@@ -4705,6 +4712,117 @@ class Smoke:
                     peak=peak, pred=pred, save=rec["save"] + rec_b["save"],
                     restore=t_restore, ops=n_ops)
 
+    def launch_path(self, jobs: int = 7, reduce: bool = False):
+        """The launchers: (c) the STREAM-triad probe on the card, within
+        [0.5, 1.05] of the H100's 3.35 TB/s; (a) every decode_32k and
+        long_500k cell, and qwen2-0.5b's train_4k and prefill_32k, counted
+        on meta by ``launch.dryrun`` in ``jobs`` processes, each applicable
+        cell "ok" and each skipped one skipped as ``cell_applicable``
+        says; (b) the decode cells among them that fit the card run for
+        real, each step's FLOPs counted on the card equal to its meta
+        trace's and to ``FlopCounterMode``'s, with its step ms (median of
+        ``dryrun.STEP_REPS``), host ms, temporary bytes and measured share
+        of the roofline bound; (d) ``launch.analyze`` on mamba2-1.3b x
+        decode_32k on the card, its sections summing to the totals and the
+        profiler's kernels ranked. ``reduce``: the reduced configs at
+        ``dryrun.reduced_shape`` (a rehearsal). Launches none of K1-K6."""
+        from repro_torch import configs
+        from repro_torch.launch import analyze, dryrun
+        from repro_torch.launch import roofline as rl
+        from repro_torch.models import SHAPES, cell_applicable
+
+        cells = [(a, s) for s in ("decode_32k", "long_500k")
+                 for a in configs.ARCH_IDS]
+        cells += [("qwen2-0.5b", s) for s in ("train_4k", "prefill_32k")]
+        analyzed = ("mamba2-1.3b", "decode_32k")
+        self.zero_counts()
+        card = card_line()
+        bw = rl.stream_probe_bandwidth(device=self.dev)
+        share = bw / rl.HW["hbm_bw"]
+        n = rl._probe_elems(self.dev)
+        print(f"  (c) STREAM triad over 3 x {n} float32 ({12 * n} B a "
+              f"pass): {bw!r} B/s against the constant {rl.HW['hbm_bw']!r}"
+              f" ({rl.peak_bandwidth('gpu')['source']}): {share!r}; card "
+              f"{card}", flush=True)
+        if not 0.5 <= share <= 1.05:
+            fail(f"STREAM probe {bw} B/s is {share} of {rl.HW['hbm_bw']}")
+
+        def cfg_shape(rec):
+            cfg, shape = configs.get(rec["arch"]), SHAPES[rec["shape"]]
+            if reduce:
+                cfg, shape = configs.reduce(cfg), dryrun.reduced_shape(shape)
+            return cfg, shape
+
+        t0 = time.perf_counter()
+        recs = dryrun.run_cells(cells, jobs=jobs, reduce=reduce)
+        t_count = time.perf_counter() - t0
+        print(f"  (a) {len(recs)} cells counted on meta in {jobs} processes "
+              f"in {t_count:.1f} s", flush=True)
+        for rec in recs:
+            print("  " + dryrun._line(rec).replace("\n", "\n  "),
+                  flush=True)
+            ok, _ = cell_applicable(*cfg_shape(rec))
+            if rec["status"] != ("ok" if ok else "skipped"):
+                fail(f"dry run {rec['arch']} x {rec['shape']}: "
+                     f"{rec['status']} {rec.get('error', '')}")
+        real = []
+        for rec in recs:
+            cfg, shape = cfg_shape(rec)
+            if rec["status"] != "ok" or shape.kind != "decode":
+                continue
+            t0 = time.perf_counter()
+            dryrun.run_counted(rec, device=self.dev, cfg=cfg, shape=shape)
+            if rec["status"] != "ok":
+                fail(f"real step {rec['arch']} x {rec['shape']}: "
+                     f"{rec['error']}\n{rec['traceback']}")
+            run = rec["run"]
+            tag = f"{rec['arch']} x {rec['shape']}"
+            if not run["fits"]:
+                print(f"  (b) {tag}: needs {run['need_bytes']} B of "
+                      f"{run['free_bytes']} B free: counted only", flush=True)
+                continue
+            if not run["flops"] == run["flop_counter"] == \
+                    rec["cost"]["flops"]:
+                fail(f"{tag}: FLOPs on the card {run['flops']}, "
+                     f"FlopCounterMode {run['flop_counter']}, meta "
+                     f"{rec['cost']['flops']}")
+            mem, r = rec["memory_analysis"], rec["roofline"]
+            bound = max(r["t_compute_s"], r["t_memory_s"])
+            print(f"  (b) {tag} on the card in "
+                  f"{time.perf_counter() - t0:.1f} s: FLOPs {run['flops']!r}"
+                  f" = meta = FlopCounterMode; unfused bytes "
+                  f"{run['bytes']!r} (meta "
+                  f"{rec['cost']['counted_unfused_bytes']!r}), needed "
+                  f"{rec['cost']['needed_bytes']!r}; step "
+                  f"{run['step_ms']!r} ms (CUDA events, median of "
+                  f"{run['step_ms_each']!r}), host {run['host_ms']!r} ms"
+                  f"{' (host-bound)' if run['host_bound'] else ''}; "
+                  f"arguments {mem['argument_size_in_bytes']} B, temp "
+                  f"{mem['temp_size_in_bytes']} B (meta peak live "
+                  f"{rec['meta_peak_live_bytes']} B); bound {r['dominant']} "
+                  f"{bound!r} s (unfused memory "
+                  f"{r['t_unfused_memory_s']!r} s): measured share "
+                  f"{run['measured_roofline_fraction']!r}; {card}", flush=True)
+            real.append(rec)
+        if not real:
+            fail("no dry-run cell fits the card")
+        print(f"  (d) analyze {analyzed[0]} x {analyzed[1]} on the card:",
+              flush=True)
+        cfg, shape = cfg_shape({"arch": analyzed[0], "shape": analyzed[1]})
+        out = analyze.analyze_cell(*analyzed, top=8, device=self.dev,
+                                   cfg=cfg, shape=shape)
+        for key in ("bytes", "flops"):
+            if sum(r[key] for r in out[key]) != out["totals"][key]:
+                fail(f"analyze: the {key} section does not sum to the total")
+        if not out["device_ms"]:
+            fail("analyze: the profiler recorded no kernel")
+        launches = self.counts()
+        if any(launches.values()):
+            fail(f"phase 21 launched kernels of this repository: {launches}")
+        return dict(launches=launches, recs=recs, real=real, probe=bw,
+                    count_s=t_count, analyzed=out["totals"])
+
+
 
 def main(argv=None) -> int:
     import argparse
@@ -4848,6 +4966,16 @@ def main(argv=None) -> int:
               "bit, microbatch and float32 checks",
               lambda: smoke.train_path(seed=args.seed))
         runs.append(out[20]["launches"])
+        out.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(21, "the launchers: the STREAM probe against the H100's HBM3 "
+              "constant; the dry run of every decode_32k and long_500k cell "
+              "and of qwen2-0.5b's train_4k and prefill_32k counted on "
+              "meta; the decode cells that fit run for real, their FLOPs "
+              "against the meta trace; analyze on one real cell",
+              smoke.launch_path)
+        runs.append(out[21]["launches"])
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -4866,8 +4994,8 @@ def main(argv=None) -> int:
         "K2-f64": ("sell_spmv_bucket (float64 sum)", src + "sell_spmv.cu",
                    "src/repro/kernels/sell_spmv.py:47"),
     }
-    print(f"== 21. done in {time.perf_counter() - t_start:.1f} s (phases "
-          f"3-20: {phase_s})", flush=True)
+    print(f"== 22. done in {time.perf_counter() - t_start:.1f} s (phases "
+          f"3-21: {phase_s})", flush=True)
     print(f"card: {card_line()}", flush=True)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in meta}
     kernels = []

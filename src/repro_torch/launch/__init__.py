@@ -1,4 +1,5 @@
-"""Launchers: ``python -m repro_torch.launch.serve`` and
-``python -m repro_torch.launch.train``, and the steps they run
-(``launch.steps``; the port of ``repro.launch``'s serving and training
-launchers)."""
+"""Launchers: ``python -m repro_torch.launch.serve``, ``.train``,
+``.dryrun`` and ``.analyze``, the steps they run (``launch.steps``), the
+op-level cost model (``launch.op_cost``), the roofline terms at one
+H100's constants (``launch.roofline``) and the one-device mesh
+(``launch.mesh``): the port of ``repro.launch``."""

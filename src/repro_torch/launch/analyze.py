@@ -1,0 +1,171 @@
+"""Hotspot analyzer for one dry-run cell: ranks the step's aten ops by
+bytes and by FLOPs, grouped by op and ``repro_torch`` call site, and on
+the card by device time.
+
+The port of the reference's ``launch/analyze.py``. The reference ranks
+the instructions of a cell's compiled HLO by cost × loop trips, with the
+jax op from the HLO metadata; the port ranks ``launch.op_cost``'s rows:
+one per (aten op, call site), whose count is the analogue of "× trips"
+(a Python loop over layers or chunks repeats a call site). Sections:
+the totals and the collectives (none on one device), then the top N by
+bytes and by FLOPs, each closed by a row summing the rest, so that every
+section sums to the totals; with ``--device cuda`` one real step also
+runs under ``torch.profiler`` and a third section ranks its kernels by
+device time.
+
+    PYTHONPATH=src python -m repro_torch.launch.analyze --arch qwen2-0.5b \\
+        --shape decode_32k [--top 25] [--device meta|cpu|cuda]
+    PYTHONPATH=src python -m repro_torch.launch.analyze --ops ops.jsonl
+
+``--save-ops FILE`` writes the rows as JSONL and ``--ops FILE`` analyzes
+saved rows (the reference's ``--save-hlo`` / ``--hlo``). ``--device
+meta`` (the default) counts on meta; ``cpu`` and ``cuda`` count one real
+step there (``--reduce`` for the reduced configs on the host).
+``--multi-pod`` and ``--pod-compress`` raise, as ``launch.mesh`` and
+``make_train_step``'s ``pod_wire`` do.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from .. import _device, configs
+from ..models import SHAPES
+from . import op_cost
+
+
+def _ranked(records, key: str, top: int) -> list:
+    """The top ``top`` rows by ``key`` (rows where it is 0 left out), and
+    one row summing the rest."""
+    rows = sorted((r for r in records if r[key] > 0), key=lambda r: -r[key])
+    shown, rest = rows[:top], rows[top:]
+    if rest:
+        shown = shown + [{"op": f"({len(rest)} more rows)", "site": "",
+                          "count": sum(r["count"] for r in rest),
+                          key: sum(r[key] for r in rest)}]
+    return shown
+
+
+def analyze_ops(records, top: int = 20, kernels=None) -> dict:
+    """Print the sections (module docstring) for op records (``op_cost``'s
+    ``records()``) and, when given, ``kernels``: ``(ms, count, name)``
+    from the profiler. Returns them: ``totals``, ``bytes``, ``flops`` and
+    ``device_ms``."""
+    agg = op_cost.totals(records)
+    print(f"ops={agg['ops']}  flops={agg['flops']:.3e}  "
+          f"bytes={agg['bytes']:.3e}  "
+          f"transcendentals={agg['transcendentals']:.3e}  "
+          f"coll_wire={agg['collective_bytes']:.3e}")
+    print("  collectives: none on one device")
+    out = {"totals": agg}
+    for title, key in (("memory bytes", "bytes"), ("flops", "flops")):
+        print(f"\n--- top {top} by {title} (x count) ---")
+        out[key] = _ranked(records, key, top)
+        for r in out[key]:
+            print(f"{r[key]:11.3e}  x{r['count']:<6d} {r['op']:24s} "
+                  f"{r['site'][-90:]}")
+    out["device_ms"] = None
+    if kernels is not None:
+        print(f"\n--- top {top} kernels by device time (torch.profiler, "
+              "one step) ---")
+        for ms, n, name in kernels[:top]:
+            print(f"{ms:11.3f} ms  x{n:<6d} {name[:90]}")
+        out["device_ms"] = kernels
+    return out
+
+
+def _kernels(step, args) -> list:
+    """``(ms, count, name)`` of every kernel one call of ``step`` runs,
+    by ``torch.profiler``'s device time, largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(*args)
+        torch.cuda.synchronize()
+    return sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+
+
+def analyze_cell(arch: str, shape_name: str, *, top: int = 20,
+                 device="meta", microbatch=None, cfg=None, shape=None,
+                 save_ops: str | None = None) -> dict:
+    """Count one cell's step on ``device`` (meta: the dry-run's trace;
+    else one real step, and on the card the profiler's kernels) and
+    print its sections; returns :func:`analyze_ops`' dict with the
+    records under ``records``."""
+    from . import dryrun
+
+    cfg = cfg or configs.get(arch)
+    shape = shape or SHAPES[shape_name]
+    kernels = None
+    if torch.device(device or "cuda").type == "meta":
+        rec, cost = dryrun.compile_cell(arch, shape_name, cfg=cfg,
+                                        shape=shape, microbatch=microbatch)
+        arg = rec["memory_analysis"]["argument_size_in_bytes"]
+        print(f"arguments {arg / 1e9:.2f} GB, peak live above them "
+              f"{rec['meta_peak_live_bytes'] / 1e9:.2f} GB (meta)")
+    else:
+        dev = _device.resolve_device(device)
+        step, args, _ = dryrun._lower_cell(cfg, shape, microbatch,
+                                           device=dev)
+        _, cost = op_cost.count(step, *args)
+        if dev.type == "cuda":
+            if shape.kind == "decode":
+                dryrun._full_context(args[2], shape.seq_len)
+            kernels = _kernels(step, args)
+    records = cost.records()
+    if save_ops:
+        with open(save_ops, "w") as f:
+            for r in records:
+                f.write(json.dumps(r) + "\n")
+        print(f"wrote {save_ops}")
+    out = analyze_ops(records, top, kernels)
+    out["records"] = records
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch")
+    ap.add_argument("--shape")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--pod-compress", default=None, choices=("u16", "u8"))
+    ap.add_argument("--microbatch", type=int, default=None)
+    ap.add_argument("--ops", default=None, help="analyze saved op rows")
+    ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--save-ops", default=None)
+    ap.add_argument("--device", default="meta")
+    ap.add_argument("--reduce", action="store_true")
+    args = ap.parse_args(argv)
+
+    if args.ops:
+        with open(args.ops) as f:
+            analyze_ops([json.loads(line) for line in f if line.strip()],
+                        args.top)
+        return 0
+    if args.multi_pod:
+        from .mesh import make_production_mesh
+        make_production_mesh(multi_pod=True)
+    cfg = configs.get(args.arch)
+    if args.pod_compress:
+        from ..optim import OptConfig
+        from .steps import make_train_step
+        make_train_step(cfg, OptConfig(), pod_wire=args.pod_compress)
+    shape = SHAPES[args.shape]
+    if args.reduce:
+        from .dryrun import reduced_shape
+        cfg, shape = configs.reduce(cfg), reduced_shape(shape)
+    analyze_cell(args.arch, args.shape, top=args.top, device=args.device,
+                 microbatch=args.microbatch, cfg=cfg, shape=shape,
+                 save_ops=args.save_ops)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

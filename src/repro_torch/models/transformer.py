@@ -288,6 +288,45 @@ def load_reference_params(cfg: ModelConfig, tree, device=None,
     return params
 
 
+def _leaf_spec(path: tuple, ndim: int) -> tuple:
+    """The reference's ``PartitionSpec`` of the leaf at ``path`` as a
+    tuple, for one layer's ``ndim`` dims: ``"model"`` on the routed
+    experts' expert dim, on the input dim of a row-parallel product
+    (``wo``, ``out_proj``), nowhere on the norms' gains, the router, the
+    projector and Mamba2's float32 leaves, else on the last dim
+    (column-parallel products and biases, the embedding, the head,
+    Mamba2's conv and gated norm)."""
+    if path[0] == "projector" or path[-1] in ("g", "router", "A_log", "D",
+                                              "dt_bias"):
+        return (None,) * ndim
+    if path[-2] == "moe" and path[-1] in ("wi", "wg", "wo"):
+        return ("model",) + (None,) * (ndim - 1)
+    if path[-1] == "out_proj" or path[-2:] == ("wo", "w"):
+        return (None,) * (ndim - 2) + ("model", None)
+    return (None,) * (ndim - 1) + ("model",)
+
+
+def abstract_params(cfg: ModelConfig):
+    """``(parameters, specs)`` with no allocation (the dry-run path): a
+    :class:`Transformer` on the meta device in ``cfg.param_dtype``, and
+    the reference's spec tree as plain data, ``{path: spec}`` over
+    :func:`reference_leaves`' paths in their order, each spec a tuple of
+    mesh axis names or ``None`` per dim (a stacked leaf's first, the layer
+    dim, ``None``). The port shards nothing on one card: the specs are the
+    dry-run's record of the reference's layout."""
+    params = Transformer(cfg, device="meta")
+    named = dict(params.named_parameters())
+    specs = {}
+    for path, names in reference_leaves(params):
+        spec = _leaf_spec(path, named[names[0]].dim())
+        specs[path] = (None,) + spec if path[0] in _STACKED else spec
+    return params, specs
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    return abstract_params(cfg)[1]
+
+
 # ---------------------------------------------------------------------------
 # Serving: prefill + decode with caches
 # ---------------------------------------------------------------------------

@@ -9,8 +9,9 @@ default (``REPRO_OBS=0``); flip it with the env var or :func:`enable`.
     ...  # run solves, serve requests
     print(json.dumps(observe.report(), indent=1))
 
-The exporters and the span profiler are submodules, imported on demand:
-``from repro_torch.observe import export, profile``.
+The exporters, the span profiler and the BENCH trajectory gate are
+submodules, imported on demand:
+``from repro_torch.observe import export, profile, trajectory``.
 """
 from __future__ import annotations
 

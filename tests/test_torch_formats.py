@@ -203,8 +203,10 @@ def test_package_imports_no_jax_and_no_repro():
     the recorder (``observe``), the front end (``serving``), the
     distributed layer (``distributed``, ``parallel``), the LM serving
     path (``models`` with ``moe``, ``ssm`` and ``io_spec``, ``configs``,
-    ``serving.engine``, ``launch``) and the training side (``optim``,
-    ``data``, ``train``, ``launch.steps``, ``launch.train``)."""
+    ``serving.engine``, ``launch``), the training side (``optim``,
+    ``data``, ``train``, ``launch.steps``, ``launch.train``) and the
+    launchers (``launch.dryrun``, ``op_cost``, ``analyze``, ``roofline``,
+    ``mesh``; ``observe.trajectory``)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -225,7 +227,9 @@ def test_package_imports_no_jax_and_no_repro():
         "'repro_torch.launch.serve'] + ['repro_torch.' + m for m in "
         "('optim.adamw', 'optim.compression', 'data.synthetic', "
         "'train.checkpoint', 'train.fault', 'train.trainer', "
-        "'launch.steps', 'launch.train')]\n"
+        "'launch.steps', 'launch.train', 'launch.dryrun', 'launch.op_cost', "
+        "'launch.analyze', 'launch.roofline', 'launch.mesh', "
+        "'observe.trajectory')]\n"
         "assert all(k in sys.modules for k in need), need\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1555,3 +1555,49 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     card, m = step(card, _train_batch(cfg, cuda))
     assert int(card.step) == 1 and torch.isfinite(m["loss"])
     assert all(bool(torch.isfinite(p).all()) for p in card.master.parameters())
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_dryrun_cell_on_the_card_counts_its_meta_trace(cuda, arch, kind):
+    """A reduced dry-run cell run for real on the card: the same aten rows
+    (op, call site, count, FLOPs, bytes) as its trace on meta, FLOPs
+    equal to ``FlopCounterMode``'s on the card, the step's time and the
+    temporary bytes measured."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = configs.reduce(configs.get(arch))
+    shape = ShapeConfig(f"{kind}_test", 64, 2, kind)
+    rec = dryrun.run_cell(arch, shape.name, run=True, device=cuda, cfg=cfg,
+                          shape=shape)
+    assert rec["status"] == "ok", rec.get("traceback")
+    run = rec["run"]
+    assert run["fits"] and run["device"] == torch.cuda.get_device_name(0)
+    assert run["flops"] == run["flop_counter"] == rec["cost"]["flops"]
+    assert run["bytes"] == rec["cost"]["counted_unfused_bytes"]
+    assert len(run["step_ms_each"]) == dryrun.STEP_REPS    # a short step
+    assert run["step_ms"] > 0 and run["measured_roofline_fraction"] > 0
+    assert run["host_bound"] == \
+        (run["host_ms"] >= dryrun.HOST_BOUND_SHARE * run["step_ms"])
+    assert isinstance(rec["memory_analysis"]["temp_size_in_bytes"], int)
+    rows = []
+    for dev in ("meta", cuda):
+        step, args, _ = dryrun._lower_cell(cfg, shape, device=dev)
+        with FlopCounterMode(display=False) as fc:
+            _, oc = op_cost.count(step, *args)
+        assert oc.totals()["flops"] == fc.get_total_flops()
+        rows.append(oc.records())
+    assert rows[0] == rows[1]
+
+
+def test_stream_probe_within_band_of_hbm3(cuda):
+    """The STREAM triad on the card over arrays 16 times the L2 reads
+    within [0.5, 1.05] of the H100's 3.35 TB/s."""
+    from repro_torch.launch import roofline as rl
+
+    bw = rl.stream_probe_bandwidth(device=cuda)
+    assert 0.5 <= bw / rl.HW["hbm_bw"] <= 1.05, bw
