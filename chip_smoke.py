@@ -33,7 +33,11 @@ must equal the uninterrupted run bit for bit); then the launchers (a
 STREAM-triad probe against the H100's HBM3 constant, the dry run's cells
 counted on the meta device, the decode cells that fit the card run for
 real with their FLOPs held to the meta count, the hotspot analyzer on
-one real cell)
+one real cell); then distribution across processes (phase 13's matrix
+and tier ladder one rank per shard from the host dicts it built: one
+NCCL rank whose solve's graphs capture the collectives, four gloo ranks
+sharing the card against the stacked shards bit for bit, NCCL with one
+rank per card where the machine has cards enough)
 -- times the kernels, and ends with one JSON line. Every solve runs as the port runs
 it, through CUDA-graph replays (``repro_torch.solvers.graphs``), and in
 turns with its eager loop (eager, captured, captured, eager), which it
@@ -578,6 +582,197 @@ def f3r_layer_spmvs(cfg, cycles: int) -> dict:
                         + cfg.richardson_iters * cfg.ainv_terms)}
 
 
+# -- phase 22's ranks: module-level, so the spawned ranks import them -------
+
+
+def _rank_wrappers() -> dict:
+    from repro_torch.kernels import packsell_spmv as kpk
+    from repro_torch.kernels import sell_spmv as ksl
+
+    return {"K1": kpk.packsell_spmv_fused, "K2": ksl.sell_spmv_bucket,
+            "K3": kpk.packsell_spmm_fused, "K4": kpk.packsell_spmv_buckets,
+            "K5": kpk.packsell_spmm_buckets,
+            "K6": kpk.packsell_spmv_band_buckets}
+
+
+def _rank_raw() -> dict:
+    """This rank's wrapper counts (K2-f64: K2's float64 launches)."""
+    w = _rank_wrappers()
+    return {**{k: f.launches for k, f in w.items()},
+            "K2-f64": w["K2"].launches_f64}
+
+
+def _rank_k7() -> dict:
+    """This rank's K7 count (kept apart, as :meth:`Smoke.k7_counts`)."""
+    from repro_torch.kernels.row_dots import row_dots
+
+    return {"K7": row_dots.launches}
+
+
+def _rank_counts() -> dict:
+    """This rank's launches that ran: its counts and its graph replays'."""
+    from repro_torch.solvers import graphs
+
+    return graphs.LEDGER.ran(_rank_raw())
+
+
+def _rank_all() -> dict:
+    """:func:`_rank_counts` and K7's."""
+    from repro_torch.solvers import graphs
+
+    return {**_rank_counts(), **graphs.LEDGER.ran(_rank_k7())}
+
+
+def _rank_zero() -> None:
+    from repro_torch.kernels.row_dots import row_dots
+    from repro_torch.solvers import graphs
+
+    w = _rank_wrappers()
+    for f in (*w.values(), row_dots):
+        f.launches = 0
+    w["K2"].launches_f64 = 0
+    for k in (*_rank_raw(), "K7"):
+        graphs.LEDGER.net[k] = 0
+
+
+def _rank_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _rank_counts().items()
+            if v != before[k]}
+
+
+def _rank_ops(mesh, host_dir: str, meta):
+    from repro_torch import distributed as dist
+    from repro_torch.distributed.plan import read_host
+
+    return dist.DistOperands.from_host(read_host(host_dir), meta,
+                                       rank=mesh.rank, device=mesh.device)
+
+
+def rank_nccl(mesh, host_dir: str, meta, xi, b, diag, solve_kw: dict,
+              reps: int) -> dict:
+    """Phase 22 (a) and (c) on one NCCL rank (one card each): the rank's
+    operands from the parent's host dict, one matvec (its launches and
+    its y), ``jacobi_pcg_dist`` in the four turns (the graphs capture the
+    NCCL collectives), then a matvec's and the exchange's device time
+    (a CUDA graph of ``reps`` calls) and the rank's peak memory."""
+    from repro_torch import distributed as dist
+    from repro_torch.distributed import halo as dh
+    from repro_torch.solvers import cg, graphs
+
+    t_in = time.time()
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops, load_s = wall(lambda: _rank_ops(mesh, host_dir, meta))
+    plan = dist.DistSpMVPlan(ops, mesh)
+    xt, bt = torch.from_numpy(xi).to(dev), torch.from_numpy(b).to(dev)
+    out = {"rank": mesh.rank, "device": str(dev), "load_s": load_s,
+           "turns": {}}
+    with graphs.LEDGER.watch(_rank_raw), graphs.LEDGER.watch(_rank_k7):
+        _rank_zero()
+        before = _rank_counts()
+        out["y"] = plan.spmv_sharded(plan.shard_vector(xt)).cpu().numpy()
+        out["matvec"] = _rank_since(before)
+        for turn in TURNS:
+            before = _rank_counts()
+            with (graphs.eager() if turn.startswith("eager")
+                  else contextlib.nullcontext()):
+                (x, info), sec = wall(lambda: cg.jacobi_pcg_dist(
+                    plan, diag, bt, **solve_kw))
+            out["turns"][turn] = dict(x=x.cpu().numpy(), iters=info.iters,
+                                      relres=float(info.relres), s=sec,
+                                      launched=_rank_since(before))
+        out["launches"] = _rank_all()
+    xs = plan.shard_vector(xt)
+    out["ms"] = device_ms(lambda: plan.spmv_sharded(xs), reps)
+    out["exchange_ms"] = device_ms(lambda: dh.gather_halo_rank(
+        xs, ops.index, mesh=mesh, h_pad=ops.h_pad, mode=plan.exchange),
+        reps) if ops.h_pad else 0.0
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["span"] = (t_in, time.time())
+    return out
+
+
+def rank_gloo(mesh, dirs: dict, metas: dict, k: dict, reps: int) -> dict:
+    """Phase 22 (b) on one of four gloo ranks sharing the card (every
+    collective staged through the host): dist_fp16's y in both exchange
+    modes and the global y, Y at nb = 8, one matvec of every tier and of
+    the fp64 operator with its launches, ``jacobi_pcg_dist`` and
+    ``adaptive_pcg_dist`` (eager: gloo's collectives cannot be
+    captured), then a matvec's time by CUDA events, the exchange's wall
+    and the rank's peak memory."""
+    from repro_torch import distributed as dist
+    from repro_torch.distributed import halo as dh
+    from repro_torch.solvers import cg, graphs
+
+    t_in = time.time()
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    plan = dist.DistSpMVPlan(_rank_ops(mesh, dirs["dist_fp16"],
+                                       metas["dist_fp16"]), mesh)
+    tiers = [f"tier{i}" for i in range(len(k["labels"]))]
+    ladder = dist.DistTierLadder(
+        [_rank_ops(mesh, dirs[t], metas[t]) for t in tiers],
+        _rank_ops(mesh, dirs["hi"], metas["hi"]), mesh,
+        labels=k["labels"], sub32=k["sub32"])
+    torch.cuda.synchronize(dev)
+    out = {"rank": mesh.rank, "load_s": time.perf_counter() - t0,
+           "per": {}}
+    t0 = time.perf_counter()
+    xt = torch.from_numpy(k["xi"]).to(dev)
+    with graphs.LEDGER.watch(_rank_raw), graphs.LEDGER.watch(_rank_k7):
+        _rank_zero()
+        xs = plan.shard_vector(xt)
+        for mode in ("ppermute", "all_gather"):
+            before = _rank_counts()
+            out[f"y_{mode}"] = plan.spmv_sharded(xs, mode=mode).cpu().numpy()
+            out["per"]["dist_fp16"] = _rank_since(before)
+        out["y_global"] = plan.spmv(xt).cpu().numpy()
+        out["Y8"] = plan.spmv_sharded(plan.shard_vector(torch.from_numpy(
+            k["Xi"]).to(dev)), multi_rhs=True).cpu().numpy()
+        xis = ladder.shard_vector(xt.double())
+        for t, ops in zip(tiers + ["hi"], ladder.tiers + [ladder.hi]):
+            before = _rank_counts()
+            ops.run(xis, mode=ladder.exchange, shared=ladder.dev["shared"])
+            out["per"][t] = _rank_since(before)
+        diag = k["diag"]
+        out["checks_s"] = time.perf_counter() - t0
+        before = _rank_counts()
+        (x, info), out["jacobi_s"] = wall(lambda: cg.jacobi_pcg_dist(
+            plan, diag, torch.from_numpy(k["b"]).to(dev), **k["jacobi_kw"]))
+        out["jacobi"] = (x.cpu().numpy(), info.iters, float(info.relres),
+                         _rank_since(before))
+        before = _rank_counts()
+        (x, info), out["adaptive_s"] = wall(lambda: cg.adaptive_pcg_dist(
+            ladder, diag, torch.from_numpy(k["bn"]).to(dev),
+            **k["adaptive_kw"]))
+        out["adaptive"] = (x.cpu().numpy(), info.iters,
+                           info.tier_history[:info.iters].tolist(),
+                           info.promotions, info.tier_matvecs.tolist(),
+                           info.hi_matvecs, _rank_since(before))
+        out["launches"] = _rank_all()
+    out["ms"] = timed(lambda: plan.spmv_sharded(xs), reps)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dh.gather_halo_rank(xs, plan.ops.index, mesh=mesh,
+                            h_pad=plan.ops.h_pad, mode=plan.exchange)
+    torch.cuda.synchronize(dev)
+    out["exchange_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["span"] = (t_in, time.time())
+    return out
+
+
+def _spans(t_spawn: float, t_end: float, out: list) -> str:
+    """Where a spawn's wall went: the ranks' start (processes, imports,
+    the process group, the card), their work, and their teardown."""
+    t_in = min(r["span"][0] for r in out)
+    t_out = max(r["span"][1] for r in out)
+    return (f"start {t_in - t_spawn:.1f} s, work {t_out - t_in:.1f} s, "
+            f"teardown {t_end - t_out:.1f} s")
+
+
 class Smoke:
     """The phases; ``dev`` is the CUDA device, sizes are the full ones
     unless a caller shrinks them."""
@@ -587,6 +782,7 @@ class Smoke:
                  force_band="auto"):
         from repro_torch.core import testmats
         from repro_torch.kernels import packsell_spmv as kpk
+        from repro_torch.kernels import row_dots as krd
         from repro_torch.kernels import sell_spmv as ksl
 
         self.dev = dev
@@ -603,7 +799,12 @@ class Smoke:
         self.k4, self.k5, self.k6 = (kpk.packsell_spmv_buckets,
                                      kpk.packsell_spmm_buckets,
                                      kpk.packsell_spmv_band_buckets)
-        ids = ("K1", "K2", "K3", "K4", "K5", "K6", "K2-f64")
+        # K7, the distributed solvers' per-shard dots, runs in phases 13
+        # and 22 only: its count stays out of counts(), so the other
+        # phases' launch checks read K1-K6 alone
+        self.k7 = krd.row_dots
+        self.k7_row = None          # its times, from phase 13
+        ids = ("K1", "K2", "K3", "K4", "K5", "K6", "K2-f64", "K7")
         self.err = dict.fromkeys(ids, 0.0)
         self.cases = dict.fromkeys(ids, 0)
 
@@ -623,13 +824,24 @@ class Smoke:
 
         return graphs.LEDGER.ran(self.raw_counts())
 
+    def k7_counts(self) -> dict:
+        """K7's count, watched by ``graphs.LEDGER`` beside
+        :meth:`raw_counts`."""
+        return {"K7": self.k7.launches}
+
+    def k7_ran(self) -> int:
+        from repro_torch.solvers import graphs
+
+        return graphs.LEDGER.ran(self.k7_counts())["K7"]
+
     def zero_counts(self) -> None:
         from repro_torch.solvers import graphs
 
-        for k in (self.k1, self.k2, self.k3, self.k4, self.k5, self.k6):
+        for k in (self.k1, self.k2, self.k3, self.k4, self.k5, self.k6,
+                  self.k7):
             k.launches = 0
         self.k2.launches_f64 = 0
-        for k in self.raw_counts():
+        for k in (*self.raw_counts(), "K7"):
             graphs.LEDGER.net[k] = 0
 
     def in_turns(self, fn, label: str, each=None, start=None,
@@ -861,8 +1073,9 @@ class Smoke:
         for codec, D in (("e8m", 8), ("e8m", 12), ("fp16", 15)):
             self.check_bucket(f"{hn} {codec}/D{D}", h, codec, D, "uniform")
         for k in self.err:
-            print(f"  {k}: cases {self.cases[k]}, max |kernel - plain| "
-                  f"{self.err[k]!r}", flush=True)
+            if k != "K7":           # K7 is held to its plain version in 13
+                print(f"  {k}: cases {self.cases[k]}, max |kernel - plain| "
+                      f"{self.err[k]!r}", flush=True)
 
     # -- phase 4: the main path --------------------------------------------
     def main_path(self):
@@ -3009,6 +3222,7 @@ class Smoke:
             same_bits(y_pp.cpu(), y_cpu, f"dist_fp16 (integer x) vs the CPU "
                       f"replay ({mode})")
         replay_s = time.perf_counter() - t0
+        y_replay = y_cpu            # dist_fp16's replay, kept for phase 22
         y4r = d4.spmv(xr)
         same_bits(y4r, d4.spmv(xr, mode="all_gather"),
                   "dist_fp16 (N(0, 1) x): ppermute vs all_gather")
@@ -3219,8 +3433,19 @@ class Smoke:
                 fail(f"fault seed {seed}: y changed {changed} but the lane "
                      f"is {'neutral' if neutral else 'not neutral'}")
         torch.cuda.synchronize()
-        launches = self.counts()
+        launches = {**self.counts(), "K7": self.k7_ran()}
         print(f"  launches in this run: {launches}", flush=True)
+        if launches["K7"] < 1:
+            fail("the distributed solves never launched K7 (row_dots)")
+        # what phase 22 holds the ranks to (host copies, after this
+        # phase's launches were read)
+        self.keep13 = self.keep_for_ranks(
+            s=s, d4=d4, d1=d1, ladder=ladder, xi_h=xi_h, y_cpu=y_replay,
+            jacobi=(x, info, b), adaptive=(xa, ia, b_h),
+            per_rank={label: {k_: v // P for k_, v in per_matvec(o).items()}
+                      for label, o in [("dist_fp16", d4)]
+                      + list(zip(ladder.labels + ["fp64"],
+                                 ladder.tiers + [ladder.hi]))})
 
         # device time per matvec, the exchange's share, the device ops
         reps = self.reps
@@ -3258,7 +3483,316 @@ class Smoke:
         print(f"  its device ops (one P = {P} matvec, counted on the host): "
               f"{n_ops}: the kernels {ours} and {len(ops_aten)} aten ops "
               f"{dict(collections.Counter(ops_aten))}", flush=True)
+        self.k7_row = self.check_k7(d4.ops.n_pad, reps)
         return dict(launches=launches, t4=t4, t1=t1, ex=ex)
+
+    def check_k7(self, n_pad: int, reps: int):
+        """K7 at the distributed solves' shapes, ``[4, n_pad]`` and its
+        rows as ``[1, n_pad]``, in float64 (Jacobi-PCG, the outer steps)
+        and float32: each row's bits whatever the row count, the sums
+        within a rounding bound of the plain version's, and whether one
+        torch reduction over ``[4, n_pad]`` gives each row the bits of
+        that row reduced alone (why K7 exists). Then its time at
+        ``[4, n_pad]`` float64 against the plain loop, one
+        ``torch.linalg.vecdot`` over the stack (the library call) and the
+        bound. Returns the kernels line's row."""
+        from repro_torch.kernels.row_dots import row_dots_plain
+
+        rng = np.random.default_rng(13)
+        same_torch = {}
+        for dt in (torch.float64, torch.float32):
+            a, b = (torch.from_numpy(v).to(self.dev, dt) for v in
+                    rng.standard_normal((2, 4, n_pad)))
+            got = self.k7(a, b)
+            for p in range(4):
+                same_bits(got[p:p + 1], self.k7(a[p:p + 1], b[p:p + 1]),
+                          f"K7 {dt}: row {p} of [4, {n_pad}] vs the row "
+                          "alone")
+            ab = a.double() * b.double()
+            scale = (1e-6 if dt == torch.float32 else 1e-14) \
+                * ab.abs().sum(1)
+            plain = row_dots_plain(a, b)
+            if not bool(((got.double() - plain.double()).abs()
+                         <= scale).all()):
+                fail(f"K7 {dt}: |kernel - plain| {max_abs(got, plain)} "
+                     f"over the bound {scale.tolist()}")
+            self.note("K7", max_abs(got, plain))
+            whole = torch.linalg.vecdot(a, b)
+            same_torch[str(dt)] = [bool(torch.equal(
+                whole[p], torch.linalg.vecdot(a[p], b[p]))) for p in range(4)]
+        print(f"  K7 (row_dots) at [4, {n_pad}] and its rows, float64 and "
+              f"float32: each row bit-equal to the row alone; max |kernel - "
+              f"plain| {self.err['K7']!r} ({self.cases['K7']} cases, within "
+              f"1e-14 and 1e-6 of the sum of |a b|); one torch.linalg.vecdot "
+              f"over [4, {n_pad}] gives row p the bits of row p alone: "
+              f"{same_torch}", flush=True)
+        a, b = (torch.from_numpy(v).to(self.dev) for v in
+                rng.standard_normal((2, 4, n_pad)))
+        t = device_ms(lambda: self.k7(a, b), reps)
+        tp = timed(lambda: row_dots_plain(a, b), reps)
+        tl = timed(lambda: torch.linalg.vecdot(a, b), reps)
+        te = timed(lambda: self.k7(a, b), reps)
+        nbytes = 2 * a.numel() * 8 + 4 * 8
+        tb, by = bound_ms(nbytes, 2 * a.numel())
+        print(f"  K7 at [4, {n_pad}] float64: {t!r} ms (device, a CUDA "
+              f"graph of {reps} calls; eager {te!r} ms), the plain loop "
+              f"{tp!r} ms, one torch.linalg.vecdot {tl!r} ms, bound {tb!r} "
+              f"ms by {by} ({nbytes} B): {tb / t!r} of the bound; on "
+              f"{card_line()}", flush=True)
+        return (t, tp, tl, tb, by, te)
+
+    def keep_for_ranks(self, *, s, d4, d1, ladder, xi_h, y_cpu, jacobi,
+                       adaptive, per_rank) -> dict:
+        """Phase 13's matrix, host dicts and answers, on the host, for
+        phase 22 (which runs after the earlier phases' objects are
+        freed): the stacked P = 4 y on integer x (its rows) and its CPU
+        replay, Y at nb = 8, the P = 1 plan's y and a P = 1
+        ``jacobi_pcg_dist`` through the graphs, the P = 4 solves' x and
+        schedules, and each operand's launches per matvec and shard."""
+        from repro_torch.solvers import cg
+
+        x, info, b = jacobi
+        xa, ia, b_h = adaptive
+        n = s.shape[0]
+        xi = torch.from_numpy(xi_h).to(self.dev)
+        Xi = np.random.default_rng(22).integers(-8, 9, (n, 8)).astype(
+            np.float32)
+        jacobi_kw = dict(tol=1e-8, maxiter=2000)
+        x1, i1 = cg.jacobi_pcg_dist(d1, s.diagonal(), b, **jacobi_kw)
+        tiers = [f"tier{i}" for i in range(len(ladder.tiers))]
+        return dict(
+            s=s, diag=s.diagonal(), xi=xi_h, Xi=Xi, b=b.cpu().numpy(),
+            bn=b_h, y_cpu=y_cpu.numpy(),
+            y4=d4.spmv_sharded(d4.shard_vector(xi)).cpu().numpy(),
+            Y8=d4.spmv_sharded(d4.shard_vector(torch.from_numpy(Xi).to(
+                self.dev)), multi_rhs=True).cpu().numpy(),
+            y1=d1.spmv_sharded(d1.shard_vector(xi)).cpu().numpy(),
+            hosts={"p4": (d4.ops.host, d4.ops.meta),
+                   "p1": (d1.ops.host, d1.ops.meta),
+                   **{t: (o.host, o.meta) for t, o in zip(
+                       tiers + ["hi"], ladder.tiers + [ladder.hi])}},
+            labels=list(ladder.labels), sub32=ladder.sub32.tolist(),
+            jacobi_kw=jacobi_kw,
+            adaptive_kw=dict(tol=1e-8, maxiter=60, m_in=16),
+            jacobi4=(x.cpu().numpy(), info.iters),
+            jacobi1=(x1.cpu().numpy(), i1.iters, float(i1.relres)),
+            adaptive4=(xa.cpu().numpy(), ia.iters,
+                       ia.tier_history[:ia.iters].tolist(), ia.promotions),
+            per_rank=dict(zip(["dist_fp16"] + tiers + ["hi"],
+                              per_rank.values())),
+            members1=len(d1.ops.members))
+
+    # -- phase 22: distribution across processes ----------------------------
+    def ranks_path(self, reps: int = 20):
+        """Phase 13's matrix (HPCG 104^3, fp16/D15) and phase 5's ladder
+        (budget 1e-3) across processes, one rank per shard, from the
+        host dicts phase 13 built (:meth:`keep_for_ranks`), handed to the
+        ranks through files (``distributed.plan.write_host``): (a) one
+        NCCL rank on the card, y against phase 13's P = 1 plan and
+        ``jacobi_pcg_dist`` through graphs that capture the NCCL
+        collectives, in turns, against a P = 1 solve of the stacked form;
+        (b) four gloo ranks sharing the card (every collective staged
+        through the host): y in both modes against the stacked P = 4 rows
+        and the CPU replay, Y at nb = 8, each operand's launches per
+        matvec, ``jacobi_pcg_dist`` and ``adaptive_pcg_dist`` eagerly
+        against phase 13's P = 4 solves bit for bit; (c) NCCL with one
+        rank per card where the machine has two cards or more."""
+        import tempfile
+
+        from repro_torch.distributed.plan import write_host
+        from repro_torch.parallel.launch import spawn_ranks
+
+        k = self.keep13
+        card = card_line()
+        runs, totals = [], collections.Counter()
+        with tempfile.TemporaryDirectory(prefix="repro_ranks_host_") as tmp:
+            dirs, t0 = {}, time.perf_counter()
+            for key, (host, _) in k["hosts"].items():
+                dirs[key] = str(Path(tmp, key))
+                write_host(host, dirs[key])
+            metas = {key: meta for key, (_, meta) in k["hosts"].items()}
+            print(f"  host dicts of phase 13 ({len(dirs)} operand sets) "
+                  f"written for the ranks in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+            # (a) one NCCL rank on the card
+            t_spawn = time.time()
+            (a,), sec = wall(lambda: spawn_ranks(
+                rank_nccl, 1, backend="nccl", device=self.dev, timeout=300,
+                args=(dirs["p1"], metas["p1"], k["xi"], k["b"], k["diag"],
+                      k["jacobi_kw"], reps)))
+            spans = _spans(t_spawn, time.time(), [a])
+            same_bits(torch.from_numpy(a["y"][0]),
+                      torch.from_numpy(k["y1"][0]),
+                      "(a) one NCCL rank's y vs phase 13's P = 1 plan")
+            want = {"K1": k["members1"]}
+            if a["matvec"] != want:
+                fail(f"(a) one matvec launched {a['matvec']}, want {want}")
+            x1, i1, rel1 = k["jacobi1"]
+            for turn, r in a["turns"].items():
+                steps = r["iters"] if turn.startswith("eager") else \
+                    chunk_steps(r["iters"], 8)
+                if r["iters"] != i1:
+                    fail(f"(a) {turn}: {r['iters']} iterations, the "
+                         f"stacked P = 1 solve {i1}")
+                same_bits(torch.from_numpy(r["x"]), torch.from_numpy(x1),
+                          f"(a) {turn}: x vs the stacked P = 1 solve")
+                if r["launched"] != {"K1": k["members1"] * (steps + 1)}:
+                    fail(f"(a) {turn}: launched {r['launched']}, want K1 "
+                         f"{k['members1']} x {steps + 1}")
+            if a["launches"]["K7"] < 1:
+                fail("(a) the rank's solves never launched K7 (row_dots)")
+            runs.append(a["launches"])
+            print(f"  (a) one NCCL rank on {a['device']} ({sec:.1f} s with "
+                  f"the process: {spans}; operands uploaded in "
+                  f"{a['load_s']:.2f} s): "
+                  f"y equal to phase 13's P = 1 plan bit for bit; "
+                  f"jacobi_pcg_dist {i1} iterations (relres {rel1!r}) in "
+                  f"every turn, x equal to the stacked P = 1 solve's bit for "
+                  f"bit, the graphs capturing the NCCL collectives; walls "
+                  f"{ {t: r['s'] for t, r in a['turns'].items()} } s; one "
+                  f"matvec {a['ms']!r} ms on the device (a CUDA graph of "
+                  f"{reps}); peak {a['peak_bytes']} B; {card}", flush=True)
+
+            # (b) four gloo ranks sharing the card
+            P = 4
+            per, tiers = k["per_rank"], [f"tier{i}" for i in range(
+                len(k["labels"]))]
+            names = {"dist_fp16": "p4", **{t: t for t in tiers + ["hi"]}}
+            ours = {key: dirs[src] for key, src in names.items()}
+            mets = {key: metas[src] for key, src in names.items()}
+            sub = {key: k[key] for key in (
+                "xi", "Xi", "b", "bn", "diag", "labels", "sub32",
+                "jacobi_kw", "adaptive_kw")}
+            t_spawn = time.time()
+            out, sec = wall(lambda: spawn_ranks(
+                rank_gloo, P, backend="gloo", device=self.dev, timeout=300,
+                args=(ours, mets, sub, reps)))
+            spans = _spans(t_spawn, time.time(), out)
+            xj, ij = k["jacobi4"]
+            xa4, ia4, th4, prom4 = k["adaptive4"]
+            for p, r in enumerate(out):
+                for mode in ("ppermute", "all_gather"):
+                    same_bits(torch.from_numpy(r[f"y_{mode}"][0]),
+                              torch.from_numpy(k["y4"][p]),
+                              f"(b) rank {p} y ({mode}) vs row {p} of phase "
+                              "13's stacked P = 4 y")
+                same_bits(torch.from_numpy(r["y_global"]),
+                          torch.from_numpy(k["y_cpu"]),
+                          f"(b) rank {p}: global y vs the CPU replay")
+                same_bits(torch.from_numpy(r["Y8"][0]),
+                          torch.from_numpy(k["Y8"][p]),
+                          f"(b) rank {p}: Y at nb = 8 vs the stacked rows")
+                for key, got in r["per"].items():
+                    if got != per[key]:
+                        fail(f"(b) rank {p}: one matvec of {key} launched "
+                             f"{got}, want {per[key]}")
+                x, it, rel, jl = r["jacobi"]
+                if it != ij:
+                    fail(f"(b) rank {p}: jacobi_pcg_dist {it} iterations, "
+                         f"phase 13's P = 4 solve {ij}")
+                same_bits(torch.from_numpy(x), torch.from_numpy(xj),
+                          f"(b) rank {p}: jacobi_pcg_dist x vs phase 13's")
+                want = {key: v * (it + 1)
+                        for key, v in per["dist_fp16"].items()}
+                if jl != want:
+                    fail(f"(b) rank {p}: jacobi_pcg_dist launched {jl}, "
+                         f"want {want}")
+                x, it, th, prom, mvc, hic, al = r["adaptive"]
+                if (it, th, prom) != (ia4, th4, prom4):
+                    fail(f"(b) rank {p}: adaptive_pcg_dist {it} steps, "
+                         f"tiers {th}, {prom} promotions; phase 13: {ia4}, "
+                         f"{th4}, {prom4}")
+                same_bits(torch.from_numpy(x), torch.from_numpy(xa4),
+                          f"(b) rank {p}: adaptive_pcg_dist x vs phase 13's")
+                want = collections.Counter()
+                for t, m in zip(tiers + ["hi"], list(mvc) + [hic]):
+                    for key, v in per[t].items():
+                        want[key] += v * m
+                if al != dict(want):
+                    fail(f"(b) rank {p}: adaptive_pcg_dist launched {al}, "
+                         f"want {dict(want)}")
+                runs.append(r["launches"])
+            k7 = [r["launches"]["K7"] for r in out]
+            if min(k7) < 1 or len(set(k7)) != 1:
+                fail(f"(b) K7 launches per rank {k7}: want the same count, "
+                     "at least 1, on every rank")
+            print(f"  (b) K7 (row_dots) launches per rank {k7}", flush=True)
+            print(f"  (b) four gloo ranks sharing {self.dev} ({sec:.1f} s "
+                  f"with the processes: {spans}; operands uploaded in "
+                  f"{[round(r['load_s'], 2) for r in out]} s): y in both "
+                  f"exchange modes equal to the rows of phase 13's stacked "
+                  f"P = 4 y and the global y to its CPU replay, bit for bit "
+                  f"on integer x; Y at nb = 8 equal to the stacked rows; "
+                  f"launches per matvec and rank {out[0]['per']}; "
+                  f"jacobi_pcg_dist {ij} iterations and adaptive_pcg_dist "
+                  f"{ia4} steps (tiers {th4}, {prom4} promotions) with x "
+                  f"equal to phase 13's bit for bit, their launches "
+                  f"{out[0]['jacobi'][3]} and {out[0]['adaptive'][6]} per "
+                  f"rank; walls per rank: the matvec and tier checks "
+                  f"{[round(r['checks_s'], 3) for r in out]} s, jacobi "
+                  f"{[round(r['jacobi_s'], 3) for r in out]} s, adaptive "
+                  f"{[round(r['adaptive_s'], 3) for r in out]} s", flush=True)
+            print(f"  (b) four ranks share one card; the exchange goes "
+                  f"through the host; not a multi-GPU figure: one matvec "
+                  f"(CUDA events over {reps} eager calls) per rank "
+                  f"{[r['ms'] for r in out]!r} ms, the exchange's wall per "
+                  f"rank {[r['exchange_ms'] for r in out]!r} ms, peak memory "
+                  f"per rank {[r['peak_bytes'] for r in out]} B; {card}",
+                  flush=True)
+
+            # (c) NCCL with one rank per card
+            count = torch.cuda.device_count()
+            if count < 2:
+                print(f"  (c) did not run: NCCL with one rank per card needs "
+                      f"two cards or more, and this machine has {count}",
+                      flush=True)
+            else:
+                P = min(4, count)
+                if P == 4:
+                    host_dir, meta, y_rows = dirs["p4"], metas["p4"], k["y4"]
+                else:
+                    # another partition: its host dict, held to its replay
+                    from repro_torch import distributed as dist
+                    ops = dist.build_operands(k["s"], P, C=32, sigma=256,
+                                              D=15, codec="fp16", device="cpu")
+                    host_dir = str(Path(tmp, f"p{P}"))
+                    write_host(ops.host, host_dir)
+                    meta = ops.meta
+                    y_rows = ops.stack_vector(dist.reference_spmv(
+                        ops, k["xi"]))
+                t_spawn = time.time()
+                out, sec = wall(lambda: spawn_ranks(
+                    rank_nccl, P, backend="nccl", timeout=300,
+                    args=(host_dir, meta, k["xi"], k["b"], k["diag"],
+                          k["jacobi_kw"], reps)))
+                spans = _spans(t_spawn, time.time(), out)
+                for p, r in enumerate(out):
+                    same_bits(torch.from_numpy(r["y"][0]),
+                              torch.from_numpy(y_rows[p]),
+                              f"(c) rank {p}: y vs the stacked row {p}")
+                    first = r["turns"]["eager"]
+                    for turn, t in r["turns"].items():
+                        same_bits(torch.from_numpy(t["x"]),
+                                  torch.from_numpy(first["x"]),
+                                  f"(c) rank {p} {turn}: x vs the eager loop")
+                    if P == 4:
+                        same_bits(torch.from_numpy(first["x"]),
+                                  torch.from_numpy(xj),
+                                  f"(c) rank {p}: x vs phase 13's P = 4")
+                    runs.append(r["launches"])
+                print(f"  (c) NCCL with one rank per card, P = {P} "
+                      f"({sec:.1f} s: {spans}): jacobi_pcg_dist "
+                      f"{out[0]['turns']['eager']['iters']} iterations in "
+                      f"every turn, x equal across turns bit for bit; one "
+                      f"matvec per rank {[r['ms'] for r in out]!r} ms and the "
+                      f"exchange alone {[r['exchange_ms'] for r in out]!r} ms "
+                      f"(device, CUDA graphs of {reps}); {card}", flush=True)
+        for r in runs:
+            totals.update(r)
+        launches = dict(totals)
+        print(f"  launches in this run (every rank): {launches}", flush=True)
+        return dict(launches=launches)
 
     # -- phase 14: the LM serving path -------------------------------------
     def lm_path(self, seed: int = 0, cfg=None, max_len: int = 512,
@@ -4877,7 +5411,8 @@ def main(argv=None) -> int:
         return out[num]
 
     # graph replays make no Python call: the ledger counts their launches
-    with graphs.LEDGER.watch(smoke.raw_counts):
+    with graphs.LEDGER.watch(smoke.raw_counts), \
+            graphs.LEDGER.watch(smoke.k7_counts):
         phase(3, "kernels against their plain versions, on the card",
               smoke.kernels_vs_plain)
         mp = phase(4, "main path: HPCG 104^3, plan_fp16, Jacobi-PCG, eager "
@@ -4976,6 +5511,14 @@ def main(argv=None) -> int:
               "against the meta trace; analyze on one real cell",
               smoke.launch_path)
         runs.append(out[21]["launches"])
+        out.clear()
+        phase(22, "distribution across processes: phase 13's matrix and "
+              "phase 5's ladder, one rank per shard from the host dicts "
+              "phase 13 built; (a) one NCCL rank, its solve's graphs "
+              "capturing the collectives; (b) four gloo ranks sharing the "
+              "card; (c) NCCL with one rank per card where there are cards "
+              "enough", smoke.ranks_path)
+        runs.append(out[22]["launches"])
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -4993,9 +5536,13 @@ def main(argv=None) -> int:
                "src/repro/kernels/packsell_spmv.py:271"),
         "K2-f64": ("sell_spmv_bucket (float64 sum)", src + "sell_spmv.cu",
                    "src/repro/kernels/sell_spmv.py:47"),
+        # no Pallas kernel: the reference's per-shard jnp.vdot under psum
+        "K7": ("row_dots", src + "row_dots.cu",
+               "src/repro/solvers/cg.py:54"),
     }
-    print(f"== 22. done in {time.perf_counter() - t_start:.1f} s (phases "
-          f"3-21: {phase_s})", flush=True)
+    rows["K7"] = smoke.k7_row
+    print(f"== 23. done in {time.perf_counter() - t_start:.1f} s (phases "
+          f"3-22: {phase_s})", flush=True)
     print(f"card: {card_line()}", flush=True)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in meta}
     kernels = []

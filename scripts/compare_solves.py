@@ -9,8 +9,11 @@ the fp16 fused plan (``cg.jacobi_pcg_stored``, tol 1e-8, b = ones),
 Jacobi-PCG over the SELL operators ``fp32`` and ``fp64`` (``cg.pcg``),
 ``iocg.pcg_reference``, IO-CG (fp32, e8m8, fp16; m_in 50), F3R (fp16,
 packsell), ``cg.adaptive_pcg`` over the budget-1e-3 ladder (with a
-``jit_cache`` where the checkout takes one), and the e8m/D1 triangular
-solve of ``tril``. The checkout's kernels are built first. Each solve
+``jit_cache`` where the checkout takes one), the e8m/D1 triangular
+solve of ``tril``, and the distributed solves of the stacked form with
+four shards on the one card (``jacobi_pcg_dist`` over ``dist_fp16``,
+b = ones, tol 1e-8; ``adaptive_pcg_dist`` over the budget-1e-3 ladder,
+tol 1e-8, m_in 16). The checkout's kernels are built first. Each solve
 runs ``--reps`` times in one process, timed by the host clock around a
 call that ends in ``synchronize()``; the first run of a checkout whose
 solvers run as CUDA graphs captures them, the later ones replay.
@@ -46,7 +49,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 SOLVES = ("jacobi_fp16", "pcg_fp32", "pcg_fp64", "pcg_reference",
           "iocg_fp32", "iocg_e8m8", "iocg_fp16", "f3r_fp16", "f3r_packsell",
-          "adaptive", "trisolve")
+          "adaptive", "trisolve", "jacobi_dist4", "adaptive_dist4")
 
 
 def check(a: Path, b: Path) -> int:
@@ -111,6 +114,22 @@ def main() -> int:
     def solve_of(name):
         """Set-up (outside the timed runs) and the solve ``() -> (x,
         iterations)``."""
+        if name.endswith("_dist4"):
+            from repro_torch import distributed as dist
+            from repro_torch.parallel import make_shard_mesh
+
+            mesh = make_shard_mesh(4, devices=[dev] * 4)
+            diag = s.diagonal()
+            if name == "jacobi_dist4":
+                d4 = dist.build_dist_plan(s, mesh=mesh, codec="fp16", D=15,
+                                          C=32, sigma=256)
+                return lambda: cg.jacobi_pcg_dist(d4, diag, ones, tol=1e-8,
+                                                  maxiter=2000)
+            ladder = ops.dist_adaptive_tiers(1e-3, mesh=mesh, n_probes=2)
+            b = torch.from_numpy(np.random.default_rng(0).standard_normal(
+                n)).to(dev)
+            return lambda: cg.adaptive_pcg_dist(ladder, diag, b, tol=1e-8,
+                                                maxiter=60, m_in=16)
         if name == "jacobi_fp16":
             mat, plan = ops.plan_pair("plan_fp16")
             diag = s.diagonal()

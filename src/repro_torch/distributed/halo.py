@@ -22,6 +22,15 @@ buffers; ``'all_gather'`` is a reshape and one gather. Pad entries of a
 round land on slot ``h_pad`` of an ``[P, h_pad + 1]`` buffer, which is
 sliced off: the reference's ``mode="drop"``. No index is clamped. Both
 modes copy the same values, so they give the same bits.
+
+On a rank mesh (one process per shard, :class:`~repro_torch.parallel.
+sharding.RankMesh`) a rank holds its own ``[1, n_pad(, nb)]`` block, and
+:func:`gather_halo_rank` gives its row of what :func:`gather_halo` gives:
+``'all_gather'`` gathers every rank's block
+(``parallel.collectives.gather_blocks``) and takes this rank's halo
+entries; ``'ppermute'`` runs the P-1 rounds as rounds of the ring
+(``parallel.collectives.ring_exchange``), each scattered into the halo
+slots as above.
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ import numpy as np
 import torch
 
 from ..observe import metrics as _obs
+from ..parallel import collectives as _co
+from ..parallel.sharding import RankMesh
 from .partition import RowPartition, comm_counts
 
 EXCHANGE_MODES = ("ppermute", "all_gather")
@@ -132,17 +143,61 @@ def gather_halo(xs: torch.Tensor, index: dict, *, n_shards: int,
     return buf_h[:, :h_pad]
 
 
-def prestage(index: dict, *, n_shards: int, h_pad: int, mode: str):
+def rank_index(halo_src: torch.Tensor, send_idx: torch.Tensor,
+               recv_slot: torch.Tensor, h_pad: int) -> dict:
+    """A rank's exchange index from its ``[1, ...]`` rows of the stacked
+    maps: ``send``/``recv`` ``[P-1, k]`` (round s at ``[s-1]``; pad →
+    slot ``h_pad``) and ``src`` ``[h_pad]`` (into the gathered
+    ``[P * n_pad]`` x), as int64 on the rows' device."""
+    return {"send": send_idx[0].long(), "recv": recv_slot[0].long(),
+            "src": halo_src[0, :h_pad].long()}
+
+
+def gather_halo_rank(xs: torch.Tensor, index: dict, *, mesh: RankMesh,
+                     h_pad: int, mode: str) -> torch.Tensor:
+    """This rank's row of :func:`gather_halo`: ``xs`` is the rank's
+    ``[1, n_pad(, nb)]`` x, ``index`` what :func:`rank_index` returns.
+    Returns ``x_halo`` ``[1, h_pad(, nb)]``. Every rank of the mesh must
+    call it (it runs collectives)."""
+    tail = tuple(xs.shape[2:])
+    if h_pad == 0:
+        return xs.new_zeros((1, 0) + tail)
+    if mode == "all_gather":
+        flat = _co.gather_blocks(xs, mesh).reshape((-1,) + tail)
+        return flat[index["src"]][None]
+    if mode != "ppermute":
+        raise ValueError(f"mode={mode!r} not in {EXCHANGE_MODES}")
+    x = xs[0]
+    buf_h = xs.new_zeros((h_pad + 1,) + tail)
+    for s in range(1, mesh.size):
+        got = _co.ring_exchange(x[index["send"][s - 1]], s, mesh)
+        slot = index["recv"][s - 1]
+        if tail:
+            slot = slot[:, None].expand((-1,) + tail)
+        # pad entries carry recv_slot == h_pad: the slot sliced off below
+        buf_h.scatter_(0, slot, got)
+    return buf_h[None, :h_pad]
+
+
+def prestage(index: dict, *, n_shards: int, h_pad: int, mode: str,
+             mesh=None):
     """The halo exchange packaged as a **composite pre-stage**: a function
     mapping the stacked x to the tuple of extra input vectors,
     ``(x_halo,)``, or ``()`` for halo-free partitions, that remote
     members consume as input index 1. The distributed tier ladder
     (``cg.adaptive_pcg_dist``) runs it once per matvec, outside the tier
-    choice: every tier shares the maps."""
+    choice: every tier shares the maps. On a rank mesh (``mesh`` a
+    :class:`~repro_torch.parallel.sharding.RankMesh`) it maps the rank's
+    block through :func:`gather_halo_rank`."""
+    rank = isinstance(mesh, RankMesh)
+
     def pre(xs: torch.Tensor) -> tuple:
         if h_pad == 0:
             return ()
         with _obs.span("packsell.halo_prestage"):
+            if rank:
+                return (gather_halo_rank(xs, index, mesh=mesh, h_pad=h_pad,
+                                         mode=mode),)
             return (gather_halo(xs, index, n_shards=n_shards, h_pad=h_pad,
                                 mode=mode),)
     return pre

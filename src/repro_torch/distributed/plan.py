@@ -42,6 +42,22 @@ which is what makes ``dist_mixed:<budget>`` and ``cg.adaptive_pcg_dist``.
 :func:`reference_spmv` replays the stacked host arrays shard by shard on
 the CPU through the plain bodies (no mesh): the oracle the card is held
 to.
+
+**One process per shard.** On a :class:`~repro_torch.parallel.sharding.
+RankMesh` each rank holds only its own ``[1, ...]`` row of every stacked
+operand: :meth:`DistOperands.from_host` uploads row ``rank`` of the host
+dict (the reference's, or the port's ``host``, which equals it key for
+key) with the statics of :attr:`DistOperands.meta`, and builds the rank's
+member plans on its device (K1 for a fused stream on the card, K4 for a
+member without one, K2 for SELL; the plain bodies on the CPU). The shard
+body is the same template call on the rank's operands; the halo exchange
+is ``halo.gather_halo_rank`` and the reductions are
+``parallel.collectives.rank_sum``, so a rank's y is the stacked form's
+row ``rank`` bit for bit. ``build_dist_plan`` / ``build_dist_tiers`` with
+``mesh=rank_mesh`` build the host dict on every rank (deterministic
+numpy) and take the rank's row; a caller that has the host dict already
+(``chip_smoke.py``, ``python -m repro_torch.distributed.run``) builds it
+once and hands it to the ranks.
 """
 from __future__ import annotations
 
@@ -60,7 +76,8 @@ from ..kernels import composite as kc
 from ..kernels import packsell_spmv as _pk
 from ..kernels import plan as kplan
 from ..observe import metrics as _obs
-from ..parallel.sharding import _normal, make_shard_mesh
+from ..parallel import collectives as _co
+from ..parallel.sharding import RankMesh, _normal, make_shard_mesh
 from . import halo as dh
 from . import partition as dp
 
@@ -221,12 +238,136 @@ def _build_dist_member(idx: int, blocks, rows_local, codec: str, D: int, *,
                       rows_local=rows_local, arrays=arrays)
 
 
+@dataclasses.dataclass(frozen=True)
+class MemberMeta:
+    """The statics of one member that a rank cannot read from its row of
+    the host dict: the member's identity, each shard's block shape and
+    row map, the fused stream's layout (shard 0's, which every shard
+    shares: one layout mismatch demotes the member) and the per-bucket
+    tiles of its plans."""
+
+    key: str
+    fmt: str
+    codec: str
+    D: int
+    term: int
+    x_index: int
+    label: str
+    shapes: tuple              # per shard (n, m)
+    rows_local: tuple          # per shard: int64 row ids, or None
+    value_dtype: str | None    # SELL members
+    layout: kplan.FusedLayout | None
+    tiles: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class DistMeta:
+    """Everything :meth:`DistOperands.from_host` needs besides the host
+    dict: the partition, the halo maps and each member's statics. It
+    holds no tensor and pickles small."""
+
+    part: dp.RowPartition
+    maps: dh.HaloMaps
+    n: int
+    n_pad: int
+    h_pad: int
+    C: int
+    sigma: int
+    D: int
+    codec: str
+    classes: list
+    members: tuple
+
+
+def _member_meta(dm: DistMember) -> MemberMeta:
+    p0 = None if dm.plans is None else dm.plans[0]
+    return MemberMeta(
+        key=dm.key, fmt=dm.fmt, codec=dm.codec, D=dm.D, term=dm.term,
+        x_index=dm.x_index, label=dm.label,
+        shapes=tuple((int(m.n), int(m.m)) for m in dm.mats),
+        rows_local=tuple(dm.rows_local),
+        value_dtype=getattr(dm.mats[0], "value_dtype", None),
+        layout=None if p0 is None else p0.fused_layout,
+        tiles=() if p0 is None else tuple(p0.tiles))
+
+
+def _rank_member(mm: MemberMeta, arrays: dict, rank: int, C: int,
+                 sigma: int, dev: torch.device) -> DistMember:
+    """The rank's block and plan of one member over its rows of the
+    operands (``arrays``, ``[1, ...]`` on ``dev``): K1 over a fused stream
+    on the card, K4 for a member without one (its width-block checkpoints
+    built here from the rank's words), K2 for SELL; on the CPU the plain
+    bodies (the fused stream's, or the cursor cache's)."""
+    k = mm.key
+    n, m = mm.shapes[rank]
+    z = torch.zeros((1,), dtype=torch.int32, device=dev)
+    perm = torch.zeros((1,), dtype=torch.uint8, device=dev)
+    sub = {key: v for key, v in arrays.items() if key.startswith(k + "_")}
+    if mm.fmt == "sell":
+        mat = sl.SELLMatrix(
+            vals=(arrays[f"{k}_val"][0],), cols=(arrays[f"{k}_col"][0],),
+            outrows=(z,), perm=perm, slot=z, n=n, m=m, C=C, sigma=sigma,
+            value_dtype=mm.value_dtype, nnz=0, words_sell_padded=0,
+            words_bucketed=0)
+        return DistMember(key=k, fmt="sell", codec=mm.codec, D=mm.D,
+                          term=mm.term, x_index=mm.x_index, label=mm.label,
+                          mats=[mat], plans=None,
+                          rows_local=[mm.rows_local[rank]], arrays=sub)
+    on_cuda = dev.type == "cuda"
+    fw = arrays.get(f"{k}_fwords")
+    if fw is not None:
+        pack, d0 = torch.zeros((1, 1, 1), dtype=torch.int32, device=dev), z
+    else:
+        pack, d0 = arrays[f"{k}_pack"][0], arrays[f"{k}_d0"][0]
+    mat = pk.PackSELLMatrix(
+        packs=(pack,), d0s=(d0,), outrows=(z,), maxcols=(z,), perm=perm,
+        n=n, m=m, C=C, sigma=sigma, D=mm.D, codec_name=mm.codec, k_left=0,
+        nnz=0, n_dummy=0, words_sell_padded=0, words_bucketed=0)
+    common = dict(outrow_cat=torch.zeros((0,), dtype=torch.int32,
+                                         device=dev),
+                  n=n, m=m, device=dev, fused_trim=False, tiles=mm.tiles)
+    if fw is not None:
+        plan = kplan.SpMVPlan(
+            variant="fused" if on_cuda else "jnp",
+            policy="the rank's row of a fused member",
+            total_stored=sum(seg.stored for seg in mm.layout.segments),
+            fused=(fw[0], arrays[f"{k}_fckpt"][0]), fused_layout=mm.layout,
+            cache_mode="checkpoint", **common)
+    elif on_cuda:
+        kck = kplan._build_block_checkpoints(mat, mm.tiles)
+        plan = kplan.SpMVPlan(
+            variant="full", policy="the rank's row of a bucketed member",
+            total_stored=int(pack.shape[0]) * int(pack.shape[2]),
+            kckpts=kck, cache_mode="checkpoint",
+            ktable=_pk.bucket_table(mat.packs, mat.d0s, kck,
+                                    [wb for _, wb in mm.tiles],
+                                    sbs=[sb for sb, _ in mm.tiles]),
+            **common)
+    else:
+        cols = arrays.get(f"{k}_cols")
+        plan = kplan.SpMVPlan(
+            variant="jnp", policy="the rank's row of a bucketed member",
+            total_stored=int(pack.shape[0]) * int(pack.shape[2]),
+            cols=(kplan._build_cursor_cache(mat) if cols is None
+                  else (cols[0],)), cache_mode="full", **common)
+    return DistMember(key=k, fmt="packsell", codec=mm.codec, D=mm.D,
+                      term=mm.term, x_index=mm.x_index, label=mm.label,
+                      mats=[mat], plans=[plan],
+                      rows_local=[mm.rows_local[rank]], arrays=sub)
+
+
 @dataclasses.dataclass
 class DistOperands:
     """Distributed operands on one device: the partition, the halo maps,
     the per-shard member blocks, the shard-0 composite template, and every
     stacked operand the shard body reads (leading dim = shard): ``arrays``
-    as tensors on ``device``, ``host`` as the reference's numpy dict."""
+    as tensors on ``device``, ``host`` as the reference's numpy dict.
+
+    A rank's operands (:meth:`from_host`; ``rank`` is not None) hold one
+    shard: row ``rank`` of every array (leading dim 1), its members'
+    blocks and plans, and the template over them; ``mesh`` is the
+    :class:`~repro_torch.parallel.sharding.RankMesh` a plan binds them
+    to."""
 
     part: dp.RowPartition
     maps: dh.HaloMaps
@@ -242,7 +383,63 @@ class DistOperands:
     members: list              # list[DistMember]
     tpl: kc.CompositePlan      # shard-0 template (statics equal ∀ shards)
     device: torch.device
-    index: dict                # halo.exchange_index of the maps
+    index: dict                # halo.exchange_index (a rank: rank_index)
+    rank: int | None = None    # the one shard a rank's operands hold
+    mesh: object = None        # the RankMesh a rank's operands run on
+    _meta: DistMeta | None = dataclasses.field(default=None, repr=False)
+
+    @property
+    def held(self) -> int:
+        """Shards these operands hold: every one, or a rank's one."""
+        return len(self.members[0].mats)
+
+    @property
+    def meta(self) -> DistMeta:
+        """The statics :meth:`from_host` needs besides the host dict."""
+        if self._meta is None:
+            self._meta = DistMeta(
+                part=self.part, maps=self.maps, n=self.n, n_pad=self.n_pad,
+                h_pad=self.h_pad, C=self.C, sigma=self.sigma, D=self.D,
+                codec=self.codec, classes=self.classes,
+                members=tuple(_member_meta(dm) for dm in self.members))
+        return self._meta
+
+    @classmethod
+    def from_host(cls, host, meta: DistMeta, *, rank: int,
+                  device=None) -> "DistOperands":
+        """Rank ``rank``'s operands on ``device`` (``None``: the GPU) from
+        the stacked host dict ``host`` (numpy arrays or memory maps, under
+        the reference's keys; only row ``rank`` of each is read) and
+        ``meta`` (:attr:`meta` of the operands that made ``host``)."""
+        dev = _normal(_device.resolve_device(device))
+        P = meta.part.n_shards
+        if not 0 <= rank < P:
+            raise ValueError(f"rank {rank} not in [0, {P})")
+
+        def row(key):
+            v = np.array(host[key][rank])         # a copy: maps are read-only
+            t = (cd.words_to_torch(v, dev) if key.endswith(
+                ("_fwords", "_pack")) else torch.from_numpy(v).to(dev))
+            return t[None]
+
+        arrays = {key: row(key) for key in host}
+        members = [_rank_member(mm, arrays, rank, meta.C, meta.sigma, dev)
+                   for mm in meta.members]
+        n_terms = 1 + (1 if meta.h_pad > 0 else 0)
+        tpl = kc.CompositePlan(
+            [dm.shard_member(0) for dm in members], n=meta.n_pad,
+            m=meta.n_pad, allow_uncovered=True, name="dist",
+            invs=[arrays[f"inv{t}"][0].cpu().numpy()
+                  for t in range(n_terms)])
+        return cls(part=meta.part, maps=meta.maps, n=meta.n,
+                   n_pad=meta.n_pad, h_pad=meta.h_pad, C=meta.C,
+                   sigma=meta.sigma, D=meta.D, codec=meta.codec,
+                   classes=meta.classes, arrays=arrays, members=members,
+                   tpl=tpl, device=dev,
+                   index=dh.rank_index(arrays["halo_src"],
+                                       arrays["send_idx"],
+                                       arrays["recv_slot"], meta.h_pad),
+                   rank=rank, _meta=meta)
 
     @property
     def host(self) -> dict:
@@ -297,15 +494,21 @@ class DistOperands:
         ladder's hoisted pre-stage), then every shard's body on its own
         members' plans, then the row mask. ``shared`` supplies the halo
         index and row mask when this member set's own are not the ones to
-        use (the tier ladder)."""
+        use (the tier ladder). A rank's operands take and give its
+        ``[1, n_pad(, nb)]`` block, and exchange on the shared ``mesh``."""
         sh = self.shared() if shared is None else shared
-        P = self.part.n_shards
         if self.h_pad > 0 and x_halo is None:
-            x_halo = dh.gather_halo(xs, sh["index"], n_shards=P,
-                                    h_pad=self.h_pad, mode=mode)
+            if self.rank is None:
+                x_halo = dh.gather_halo(xs, sh["index"],
+                                        n_shards=self.part.n_shards,
+                                        h_pad=self.h_pad, mode=mode)
+            else:
+                x_halo = dh.gather_halo_rank(xs, sh["index"],
+                                             mesh=sh["mesh"],
+                                             h_pad=self.h_pad, mode=mode)
         invs = [self.arrays[f"inv{t}"] for t in range(self.tpl.n_terms)]
         ys = []
-        for p in range(P):
+        for p in range(self.held):
             ys.append(self.shard_body(
                 p, tuple(dm.mats[p] for dm in self.members),
                 tuple(dm.shard_dev(p) for dm in self.members),
@@ -319,7 +522,13 @@ class DistOperands:
     def shared(self) -> dict:
         """The halo index and the row mask: what every member set over
         this partition shares."""
-        return {"index": self.index, "rowmask": self.arrays["rowmask"]}
+        sh = {"index": self.index, "rowmask": self.arrays["rowmask"]}
+        if self.rank is not None:
+            if self.mesh is None:
+                raise ValueError("a rank's operands run on a RankMesh: "
+                                 "bind them first (DistSpMVPlan(ops, mesh))")
+            sh["mesh"] = self.mesh
+        return sh
 
     # -- the host replay ----------------------------------------------------
     def _member_view(self, dm: DistMember, ops: dict):
@@ -490,12 +699,36 @@ def build_operands(a: sp.csr_matrix, n_shards: int, *, C: int = 32,
                                     C=C, sigma=sigma, device=device)
 
 
+def write_host(host: dict, directory) -> None:
+    """The host dict as one ``<key>.npy`` per array under ``directory``:
+    how a parent hands the ranks it spawns the operands it built once
+    (:func:`read_host` maps them back, and each rank's
+    :meth:`DistOperands.from_host` reads only its row)."""
+    import os
+
+    os.makedirs(directory, exist_ok=True)
+    for key, v in host.items():
+        np.save(os.path.join(directory, f"{key}.npy"), np.asarray(v))
+
+
+def read_host(directory) -> dict:
+    """The host dict :func:`write_host` wrote, as read-only memory maps."""
+    import os
+
+    return {f[:-4]: np.load(os.path.join(directory, f), mmap_mode="r")
+            for f in sorted(os.listdir(directory)) if f.endswith(".npy")}
+
+
 def reference_spmv(ops: DistOperands, x, mode: str = "all_gather",
                    multi_rhs: bool = False) -> np.ndarray:
     """Host oracle: replay the stacked host arrays shard by shard on the
     CPU, with the host-side exchange reference and every kernel's plain
     version (no mesh). Validates the partition, the maps and the padded
-    member blocks, and is what the card's distributed SpMV is held to."""
+    member blocks, and is what the card's distributed SpMV is held to.
+    It needs every shard's operands (the stacked form)."""
+    if ops.rank is not None:
+        raise ValueError("reference_spmv replays every shard: pass the "
+                         "stacked operands, not a rank's")
     xs = ops.stack_vector(np.asarray(x, np.float32))
     xh = (dh.gather_halo_reference(xs, ops.maps, mode)
           if ops.h_pad > 0 else None)
@@ -524,23 +757,38 @@ def reference_spmv(ops: DistOperands, x, mode: str = "all_gather",
 class _MeshBound:
     """Shared mesh-binding plumbing: the mesh check, vector shard/unshard,
     and the build-once cache of dispatches (``DistSpMVPlan`` and the tier
-    ladder both use it)."""
+    ladder both use it). On a rank mesh the vectors a rank holds are its
+    ``[1, n_pad(, nb)]`` blocks, and unsharding gathers every rank's."""
 
-    def _bind(self, ops_like: DistOperands, mesh, dev: dict) -> None:
+    def _bind(self, ops_like: DistOperands, mesh, dev: dict,
+              operands=()) -> None:
         if len(mesh.axis_names) != 1:
             raise ValueError(f"need a 1-D mesh, got axes {mesh.axis_names}")
         if mesh.size != ops_like.part.n_shards:
             raise ValueError(
                 f"mesh has {mesh.size} devices but operands were "
                 f"built for {ops_like.part.n_shards} shards")
+        ranked = isinstance(mesh, RankMesh)
+        if ranked != (ops_like.rank is not None):
+            raise ValueError(
+                "a RankMesh runs one rank's operands "
+                "(DistOperands.from_host(ops.host, ops.meta, rank=...)); "
+                "a ShardMesh the stacked operands of every shard")
+        if ranked and mesh.rank != ops_like.rank:
+            raise ValueError(f"operands of rank {ops_like.rank} on rank "
+                             f"{mesh.rank} of the mesh")
         if mesh.device != ops_like.device:
             raise ValueError(f"operands live on {ops_like.device}, the "
                              f"mesh's shards on {mesh.device}")
         self._ops0 = ops_like
         self.mesh = mesh
+        self.rank = mesh.rank if ranked else None
         self.axis_name = mesh.axis_names[0]
         self.dev = dev
         self._fns: dict = {}
+        if ranked:
+            for o in (ops_like,) + tuple(operands):
+                o.mesh = mesh
         # global row r <-> flat stacked slot p * n_pad + (r - starts[p])
         part = ops_like.part
         owner = part.owner(np.arange(ops_like.n))
@@ -567,10 +815,20 @@ class _MeshBound:
 
     def shard_vector(self, v) -> torch.Tensor:
         """Global [n(, nb)] → stacked [P, n_pad(, nb)] on the mesh's
-        device, zeros in the pad rows. A tensor stays on the device (one
-        zero fill and one ``index_copy_``, nothing read on the host), so
-        ``dist_<codec>`` matvecs drop into the solvers' graphs."""
+        device, zeros in the pad rows (a rank: its [1, n_pad(, nb)]
+        block). A tensor stays on the device (one zero fill and one
+        ``index_copy_``, or a rank's slice copy: nothing read on the
+        host), so ``dist_<codec>`` matvecs drop into the solvers'
+        graphs."""
         ops = self._ops0
+        if self.rank is not None:
+            r0, r1 = ops.part.rows_of(self.rank)
+            if not torch.is_tensor(v):
+                v = torch.from_numpy(np.asarray(v))
+            v = v.to(self.mesh.device)
+            out = v.new_zeros((1, ops.n_pad) + tuple(v.shape[1:]))
+            out[0, :r1 - r0] = v[r0:r1]
+            return out
         if not torch.is_tensor(v):
             return torch.from_numpy(ops.stack_vector(v)).to(self.mesh.device)
         tail = tuple(v.shape[1:])
@@ -579,7 +837,11 @@ class _MeshBound:
         return out.reshape((self.n_shards, ops.n_pad) + tail)
 
     def unshard_vector(self, ys: torch.Tensor) -> torch.Tensor:
-        """Stacked [P, n_pad(, nb)] → global [n(, nb)] (one gather)."""
+        """Stacked [P, n_pad(, nb)] → global [n(, nb)] (one gather; a
+        rank gathers every rank's block first, so every rank gets the
+        global vector)."""
+        if self.rank is not None:
+            ys = _co.gather_blocks(ys, self.mesh)
         tail = tuple(ys.shape[2:])
         return torch.index_select(ys.reshape((-1,) + tail), 0, self._slot)
 
@@ -591,7 +853,9 @@ class DistSpMVPlan(_MeshBound):
     Entry points take and return **global** vectors (``spmv`` / ``spmm``)
     or stay in the stacked layout (``spmv_sharded``: solvers chain
     matvecs with no host round trip). ``shard_vector`` /
-    ``unshard_vector`` convert between the two.
+    ``unshard_vector`` convert between the two. On a rank mesh every rank
+    calls every entry point (they run collectives); ``spmv_sharded``
+    takes and gives the rank's ``[1, n_pad(, nb)]`` block.
     """
 
     def __init__(self, ops: DistOperands, mesh, *,
@@ -649,8 +913,23 @@ class DistSpMVPlan(_MeshBound):
         """Fleet memory and communication profile via the composite blend
         (:func:`repro_torch.kernels.composite.composite_memory_stats`):
         per-member breakdown over every shard's blocks, plus halo traffic
-        and per-shard footprint extremes (load-balance signal)."""
+        and per-shard footprint extremes (load-balance signal). On a rank
+        mesh: the bytes of the operand rows this rank holds, every rank's
+        (one gather) and their sum, with the halo's figures."""
         ops = self.ops
+        if self.rank is not None:
+            mine = sum(t.numel() * t.element_size()
+                       for t in ops.arrays.values())
+            every = [int(v) for v in
+                     _co.gather_values([mine], self.mesh)[:, 0]]
+            return {"rank": self.rank, "shards": self.n_shards,
+                    "n_pad": ops.n_pad, "h_pad": ops.h_pad,
+                    "halo_entries": int(ops.maps.counts.sum()),
+                    "halo_k_max": ops.maps.k_max, "exchange": self.exchange,
+                    "rank_bytes": mine, "bytes_per_rank": every,
+                    "total_bytes": sum(every),
+                    "max_shard_bytes": max(every),
+                    "min_shard_bytes": min(every)}
         st = kc.composite_memory_stats(
             [(dm.label, dm.codec, dm.D, dm.n_rows(), dm.mats)
              for dm in ops.members],
@@ -673,6 +952,20 @@ def _mesh_for(mesh, n_shards, axis_name, devices, device):
     return mesh
 
 
+def _operands_for(mesh, a, classes, *, C, sigma, ctx=None) -> DistOperands:
+    """The operands a mesh runs: every shard's, stacked on a shard mesh's
+    device; on a rank mesh the rank's row of the host dict built here on
+    the CPU (deterministic numpy, the same on every rank)."""
+    if not isinstance(mesh, RankMesh):
+        return build_composite_operands(a, mesh.size, classes=classes, C=C,
+                                        sigma=sigma, ctx=ctx,
+                                        device=mesh.device)
+    full = build_composite_operands(a, mesh.size, classes=classes, C=C,
+                                    sigma=sigma, ctx=ctx, device="cpu")
+    return DistOperands.from_host(full.host, full.meta, rank=mesh.rank,
+                                  device=mesh.device)
+
+
 def build_dist_plan(a: sp.csr_matrix, n_shards: int | None = None, *,
                     mesh=None, axis_name: str = "shards",
                     exchange: str = "ppermute", C: int = 32,
@@ -682,7 +975,9 @@ def build_dist_plan(a: sp.csr_matrix, n_shards: int | None = None, *,
     """Partition ``a`` across a shard mesh and build the distributed plan
     (the slow path, once per matrix). With no mesh,
     ``make_shard_mesh(n_shards, devices=devices, device=device)``: one
-    shard per visible device of ``device`` (``None``: the GPU).
+    shard per visible device of ``device`` (``None``: the GPU). With a
+    :class:`~repro_torch.parallel.sharding.RankMesh`, every rank calls it
+    and gets the plan over its own shard.
 
     ``classes`` (or ``pplan``, a rows-mode
     :class:`~repro_torch.precision.select.PrecisionPlan`) builds a
@@ -696,8 +991,7 @@ def build_dist_plan(a: sp.csr_matrix, n_shards: int | None = None, *,
         classes = [(c.codec, c.D, c.rows) for c in pplan.classes]
     if classes is None:
         classes = [(codec, D, None)]
-    ops = build_composite_operands(a, mesh.size, classes=classes, C=C,
-                                   sigma=sigma, device=mesh.device)
+    ops = _operands_for(mesh, a, classes, C=C, sigma=sigma)
     return DistSpMVPlan(ops, mesh, exchange=exchange)
 
 
@@ -739,7 +1033,10 @@ class DistTierLadder(_MeshBound):
             "tiers": [member_only(o) for o in self.tiers],
             "hi": member_only(hi_ops),
         }
-        self._bind(self.tiers[0], mesh, dev)
+        self._bind(self.tiers[0], mesh, dev,
+                   operands=tuple(self.tiers[1:]) + (hi_ops,))
+        if self.rank is not None:
+            dev["shared"]["mesh"] = mesh
 
     @property
     def h_pad(self) -> int:
@@ -755,17 +1052,17 @@ def build_dist_tiers(a: sp.csr_matrix, ladder, *, mesh=None,
     """Materialize a whole-operator codec ladder (e.g.
     ``precision.select.tier_ladder``) as distributed member sets sharing
     one partition, plus the exact fp64 member set for the refinement
-    outer step."""
+    outer step. A rank mesh gives each rank its own rows of every member
+    set (:func:`build_dist_plan`)."""
     mesh = _mesh_for(mesh, n_shards, axis_name, devices, device)
     ncls = _normalize_classes(ladder)
     a = a.tocsr()
     ctx = _partition_context(a, mesh.size, C)
-    tiers_ops = [build_composite_operands(
-        a, mesh.size, classes=[(codec, D, None)], C=C, sigma=sigma, ctx=ctx,
-        device=mesh.device) for codec, D, _ in ncls]
-    hi_ops = build_composite_operands(
-        a, mesh.size, classes=[("fp64", 0, None)], C=C, sigma=sigma,
-        ctx=ctx, device=mesh.device)
+    tiers_ops = [_operands_for(mesh, a, [(codec, D, None)], C=C,
+                               sigma=sigma, ctx=ctx)
+                 for codec, D, _ in ncls]
+    hi_ops = _operands_for(mesh, a, [("fp64", 0, None)], C=C, sigma=sigma,
+                           ctx=ctx)
     labels = [codec if codec in kc.SELL_CODECS else f"{codec}/D={D}"
               for codec, D, _ in ncls]
     sub32 = [codec not in kc.SELL_CODECS for codec, D, _ in ncls]

@@ -258,7 +258,8 @@ class CompositePlan:
     appended all-zero pad slot instead of raising."""
 
     def __init__(self, members: Sequence[CompositeMember], n: int, m: int,
-                 *, allow_uncovered: bool = False, name: str = "composite"):
+                 *, allow_uncovered: bool = False, name: str = "composite",
+                 invs: Optional[Sequence[np.ndarray]] = None):
         self.members = list(members)
         if not self.members:
             raise ValueError("composite needs at least one member")
@@ -271,7 +272,10 @@ class CompositePlan:
             raise ValueError(f"member terms must be 0..T-1, got {terms}")
         self.n_terms = len(terms)
         self.n_inputs = 1 + max(mem.x_index for mem in self.members)
-        self._invs_np = tuple(
+        # ``invs``: the per-term inverses, built elsewhere (a rank's own
+        # rows of the distributed operands, whose members carry no
+        # stored-row map)
+        self._invs_np = tuple(invs) if invs is not None else tuple(
             term_inverse(self.n,
                          [mm for mm in self.members if mm.term == t],
                          allow_uncovered=allow_uncovered, term=t)

@@ -2,11 +2,13 @@
 
 The reference builds its production mesh over TPU pods (16 × 16 chips in
 ``("data", "model")``, or 2 × 16 × 16 with a leading ``"pod"`` axis) and
-a debug mesh over the local devices. The port runs on one device: the
-debug mesh of size 1 × 1 is the only mesh it builds, and any other size,
-and the production mesh, raise ``NotImplementedError`` naming the
-multi-card item (``parallel.sharding.MULTI_DEVICE``), as ``Trainer``
-does for ``data_axis`` / ``model_axis`` > 1.
+a debug mesh over the local devices. The port's training and serving
+launchers run on one device: the debug mesh of size 1 × 1 is the only
+mesh built here, and any other size, and the production mesh, raise
+``NotImplementedError`` naming the data × model mesh still to port
+(``parallel.sharding.MULTI_DEVICE``), as ``Trainer`` does for
+``data_axis`` / ``model_axis`` > 1. The solve path's mesh across
+processes is ``parallel.sharding.RankMesh``.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ def make_production_mesh(*, multi_pod: bool = False):
     shape = "2x16x16" if multi_pod else "16x16"
     raise NotImplementedError(
         f"the production mesh ({shape} chips) spans many devices: "
-        f"{MULTI_DEVICE}; the port runs a cell on one device "
+        f"{MULTI_DEVICE}; a launcher cell runs on one device "
         "(make_debug_mesh())")
 
 
@@ -50,7 +52,7 @@ def make_debug_mesh(*, data: int = 1, model: int = 1, device=None) -> Mesh:
     if (data, model) != (1, 1):
         raise NotImplementedError(
             f"a {data}x{model} (data, model) mesh: {MULTI_DEVICE}; the "
-            "port builds the 1x1 mesh")
+            "launchers build the 1x1 mesh")
     dev = _device.resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -1,2 +1,5 @@
-"""Parallelism substrate: the shard mesh of the distributed layer."""
-from .sharding import ShardMesh, make_shard_mesh  # noqa: F401
+"""Parallelism substrate: the shard meshes of the distributed layer (one
+device, or one process per shard), their collectives and the launcher of
+the ranks."""
+from .sharding import (RankMesh, ShardMesh, make_rank_mesh,  # noqa: F401
+                       make_shard_mesh)

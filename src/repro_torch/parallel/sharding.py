@@ -1,19 +1,26 @@
-"""The shard mesh: the device axis the distributed layer partitions
+"""The shard meshes: the device axis the distributed layer partitions
 matrices across (the port of ``repro.parallel.sharding``'s
-``make_shard_mesh``).
+``make_shard_mesh``), in two forms.
 
 The reference is single-controller: one process jits one ``shard_map``
 over a 1-D mesh of local devices, and on the CPU its tests get several
-devices from ``XLA_FLAGS=--xla_force_host_platform_device_count=N``. The
-port keeps that shape: a :class:`ShardMesh` is a list of devices in one
-process, and the list may repeat a device. Repeating a device is the
-port's form of the XLA flag: ``devices=["cuda:0"] * 4`` places four shards
-on one card (or ``["cpu"] * 4`` on the host), and the distributed layer
-runs their blocks, the halo exchange and the reductions there.
+devices from ``XLA_FLAGS=--xla_force_host_platform_device_count=N``.
 
-A mesh whose shards sit on more than one device (one shard per GPU, with
-peer copies or NCCL between them) is not ported: it raises
-``NotImplementedError`` naming the ROADMAP item that tracks it.
+* :class:`ShardMesh` keeps that shape in one process: a list of devices
+  that must all be one device, named once per shard. ``devices=["cuda:0"]
+  * 4`` places four shards on one card (or ``["cpu"] * 4`` on the host),
+  and the distributed layer runs their blocks, the halo exchange and the
+  reductions there on stacked ``[P, ...]`` tensors. It is the reference's
+  layout, and the form every other form is held to.
+* :class:`RankMesh` is PyTorch's way across GPUs: one process per shard
+  over a ``torch.distributed`` process group (NCCL with one GPU per rank,
+  gloo on the CPU or with ranks sharing a card), each rank holding its own
+  ``[1, ...]`` row of every stacked operand. The collectives it runs are
+  in :mod:`.collectives`, the launcher in :mod:`.launch`.
+
+A :class:`ShardMesh` over more than one device raises
+``NotImplementedError``: one shard per GPU is the rank mesh's job, and the
+training side's data × model mesh is still to port (:data:`MULTI_DEVICE`).
 """
 from __future__ import annotations
 
@@ -23,10 +30,11 @@ import torch
 
 from .. import _device
 
-#: where the mesh over several devices is tracked
-MULTI_DEVICE = ("ROADMAP.md queue 1: a shard mesh over several devices "
-                "(one shard per GPU) waits for a machine with more than "
-                "one card")
+#: where the meshes over several devices stand
+MULTI_DEVICE = ("ROADMAP.md queue 1: the training side's data x model mesh "
+                "over several devices (one rank per GPU) is the next slice "
+                "to port; the solve path already runs one rank per shard "
+                "(parallel.sharding.RankMesh)")
 
 
 def _normal(device) -> torch.device:
@@ -52,9 +60,11 @@ class ShardMesh:
             raise ValueError("a shard mesh needs at least one device")
         if len(set(devs)) > 1:
             raise NotImplementedError(
-                f"shard mesh over {sorted({str(d) for d in devs})}: "
-                f"{MULTI_DEVICE}; place every shard on one device "
-                f"(devices=[dev] * n)")
+                f"shard mesh over {sorted({str(d) for d in devs})}: a "
+                f"ShardMesh holds every shard on one device "
+                f"(devices=[dev] * n); for one shard per GPU run one "
+                f"process per shard on a RankMesh (make_rank_mesh, "
+                f"parallel.launch.spawn_ranks); {MULTI_DEVICE}")
         object.__setattr__(self, "devices", devs)
 
     @property
@@ -93,3 +103,81 @@ def make_shard_mesh(n_shards: int | None = None, *,
                              f"devices=[dev] * n)")
         devs = devs[:n_shards]
     return ShardMesh(tuple(devs), axis_name)
+
+
+#: the backends a rank mesh runs on
+BACKENDS = ("nccl", "gloo")
+
+
+@dataclasses.dataclass(frozen=True)
+class RankMesh:
+    """A 1-D mesh of ``size`` shards, one per process of a
+    ``torch.distributed`` process group: this process is shard ``rank``
+    and holds its tensors on ``device``. ``group`` is the process group
+    (None: the default one); every collective of the mesh goes through
+    :mod:`.collectives` on it."""
+
+    group: object
+    size: int
+    rank: int
+    device: torch.device
+    backend: str
+    axis_name: str = "shards"
+
+    @property
+    def axis_names(self) -> tuple:
+        return (self.axis_name,)
+
+    @property
+    def stages(self) -> bool:
+        """Whether collectives stage through host buffers: gloo's
+        transport reads host memory, so a gloo mesh whose ranks hold CUDA
+        tensors copies them to the host and back (four ranks sharing one
+        card)."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+
+def make_rank_mesh(group=None, *, axis_name: str = "shards",
+                   device=None) -> RankMesh:
+    """The rank mesh of this process over ``group`` (None: the default
+    process group, which must be initialised). Under NCCL the device is
+    ``cuda:<local rank>`` (``LOCAL_RANK``, else the global rank modulo the
+    visible cards), or the card ``device`` names; NCCL refuses a CPU
+    device. Under gloo it is ``device``, or the CPU. Under NCCL the
+    communicator is warmed up here, so that no graph captures its
+    creation."""
+    import os
+
+    import torch.distributed as dist
+
+    from . import collectives
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_rank_mesh needs an initialised process "
+                           "group (torch.distributed.init_process_group, "
+                           "or parallel.launch.spawn_ranks)")
+    backend = str(dist.get_backend(group)).lower()
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    rank = dist.get_rank(group)
+    if rank < 0:
+        raise ValueError("this process is not a member of the group")
+    if backend == "nccl":
+        if device is None:
+            local = int(os.environ.get(
+                "LOCAL_RANK", dist.get_rank() % max(
+                    torch.cuda.device_count(), 1)))
+            device = torch.device("cuda", local)
+        dev = _normal(device)
+        if dev.type != "cuda":
+            raise ValueError(f"NCCL runs on CUDA devices, not {dev}")
+        torch.cuda.set_device(dev)
+    else:
+        dev = _normal("cpu" if device is None else device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+    mesh = RankMesh(group=group, size=dist.get_world_size(group), rank=rank,
+                    device=dev, backend=backend, axis_name=axis_name)
+    if backend == "nccl":
+        collectives.warm_up(mesh)
+    return mesh

@@ -313,21 +313,41 @@ def corrupt_dist_checkpoint(dplan, seed: int) -> Injection:
     reads row p of that tensor, so the corruption reaches the shard's
     kernel and every graph captured over it. The key, index and delta are
     drawn as the reference draws them (no neutrality oracle: as there,
-    ``value_neutral`` is False)."""
+    ``value_neutral`` is False).
+
+    On a rank mesh every rank calls it with the same seed and draws the
+    same index into the stacked tensor; the rank that owns that row
+    writes its own row (and ``undo()`` restores it), and the others learn
+    the old value through one gather, so every rank returns the same
+    ``detail``. The other ranks meet the damage through the exchange, as
+    the stacked form's other shards do."""
     keys = sorted(k for k in dplan.dev if k.endswith("_fckpt"))
     if not keys:
         raise ValueError("dist plan has no fused checkpoint operands")
     rng = np.random.default_rng(seed)
     key = keys[int(rng.integers(len(keys)))]
     flat = dplan.dev[key].view(-1)
-    i = int(rng.integers(flat.numel()))
+    rank = getattr(dplan, "rank", None)
+    i = int(rng.integers(flat.numel() * (1 if rank is None
+                                         else dplan.n_shards)))
     delta = int(rng.integers(1, max(int(dplan.m) if hasattr(dplan, "m")
                                     else 2 ** 15, 2)))
-    old = int(flat[i])
-    _put(flat, (i,), old + delta)
+    if rank is None:
+        mine, j = True, i
+        old = int(flat[i])
+    else:
+        from ..parallel import collectives as _co
+
+        owner, j = divmod(i, flat.numel())
+        mine = owner == rank
+        old = int(_co.gather_values([int(flat[j]) if mine else 0],
+                                    dplan.mesh)[owner, 0])
+    if mine:
+        _put(flat, (j,), old + delta)
     return Injection("dist_ckpt", dict(key=key, index=i, old=old,
                                        delta=delta, seed=seed),
-                     False, lambda: _put(flat, (i,), old))
+                     False, (lambda: _put(flat, (j,), old)) if mine
+                     else (lambda: None))
 
 
 def corrupt_composite_word(comp, member: int, seed: int) -> Injection:

@@ -1,8 +1,9 @@
 """Preconditioned CG, Jacobi-PCG in stored-row order, the
 residual-adaptive mixed-precision PCG, flexible CG and fixed-iteration
 PCG (the outer and inner loops of IO-CG), and the distributed Jacobi-PCG
-and adaptive PCG over stacked shard vectors (:func:`jacobi_pcg_dist`,
-:func:`adaptive_pcg_dist`, with :func:`dist_dot` / :func:`dist_norm`).
+and adaptive PCG over shard vectors (:func:`jacobi_pcg_dist`,
+:func:`adaptive_pcg_dist`, with :func:`dist_dot` / :func:`dist_norm`):
+stacked on one device, or one rank's block per process on a rank mesh.
 
 The convergence criterion is the paper's eq. (6), ``||b - A x||_2 /
 ||b||_2 < tol``, tracked through the CG recurrence residual. Outer
@@ -55,7 +56,9 @@ import numpy as np
 import torch
 
 from .. import observe as _observe
+from ..kernels.row_dots import row_dots
 from ..observe import metrics as _obs
+from ..parallel import collectives as _co
 from . import graphs
 
 Matvec = Callable[[torch.Tensor], torch.Tensor]
@@ -98,27 +101,31 @@ def _prep(b, x0, dtype, norm=torch.linalg.vector_norm):
     return b, x, _nonzero(norm(b)), dtype
 
 
-def _shard_sum(parts: torch.Tensor) -> torch.Tensor:
-    """``[P]`` per-shard partials summed in rank order, the reference's
-    ``psum`` (one add per shard, so the order is fixed)."""
-    total = parts[0]
-    for p in range(1, parts.shape[0]):
-        total = total + parts[p]
-    return total
+def _shard_total(parts: torch.Tensor, mesh) -> torch.Tensor:
+    """The held shards' partials ``[P]`` (a rank: ``[1]``) summed over
+    every shard in rank order: in place, or across the ranks of ``mesh``
+    (``parallel.collectives.rank_sum``)."""
+    if mesh is None:
+        return _co.shard_sum(parts)
+    return _co.rank_sum(parts[0], mesh)
 
 
-def dist_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """⟨a, b⟩ of two stacked ``[P, n_pad]`` vectors: each shard's dot,
+def dist_dot(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:
+    """⟨a, b⟩ of two stacked ``[P, n_pad]`` vectors (with ``mesh``, a
+    rank mesh: this rank's ``[1, n_pad]`` blocks): each shard's dot,
     summed over the shards in rank order (the reference's ``psum`` of
     per-shard ``vdot``s; shard pad slots must be zero, which the row mask
-    guarantees for the distributed layer's vectors)."""
-    return _shard_sum(torch.linalg.vecdot(a, b))
+    guarantees for the distributed layer's vectors). Each shard's partial
+    is :func:`~repro_torch.kernels.row_dots.row_dots` of its row, which
+    sums a row in an order set by its length alone, so a rank's partial
+    is the stacked shard's bit for bit."""
+    return _shard_total(row_dots(a, b), mesh)
 
 
-def dist_norm(a: torch.Tensor) -> torch.Tensor:
-    """‖a‖₂ of a stacked vector: the square root of the rank-order sum of
-    per-shard squared sums."""
-    return torch.sqrt(_shard_sum((a * a).sum(dim=-1)))
+def dist_norm(a: torch.Tensor, mesh=None) -> torch.Tensor:
+    """‖a‖₂ of a stacked vector (``mesh``: as in :func:`dist_dot`): the
+    square root of the rank-order sum of per-shard squared sums."""
+    return torch.sqrt(_shard_total(row_dots(a, a), mesh))
 
 
 def _masked(go: torch.Tensor, bufs, vals) -> None:
@@ -622,6 +629,31 @@ def _dist_setup(bound, diag, b, dtype, mode):
             mode or bound.exchange, dtype)
 
 
+def _rank_rules(bound):
+    """``(dot, norm, loop context)`` of a solve over ``bound``'s mesh: the
+    stacked forms; on a rank mesh the rank-sum forms, and on a gloo mesh
+    the eager loops (gloo's collectives run on the host: no graph
+    captures them)."""
+    if bound.rank is None:
+        return dist_dot, dist_norm, contextlib.nullcontext()
+    mesh = bound.mesh
+    return (functools.partial(dist_dot, mesh=mesh),
+            functools.partial(dist_norm, mesh=mesh),
+            graphs.eager() if mesh.backend == "gloo"
+            else contextlib.nullcontext())
+
+
+def _rank_done(bound, solver: str, info, values) -> None:
+    """After a solve: on a rank mesh, check that every rank took the same
+    branches (``values``), and record the solve on rank 0 only, as the
+    reference's one controller records it; stacked, record it."""
+    if bound.rank is not None:
+        _co.same_on_every_rank(values, bound.mesh, f"{solver}'s schedule")
+        if bound.rank != 0:
+            return
+    _observe.record_solve(solver, info, shards=bound.n_shards)
+
+
 def jacobi_pcg_dist(dplan, diag, b: torch.Tensor, *, tol: float = 1e-9,
                     maxiter: int = 1000, dtype=None, mode: str | None = None
                     ) -> tuple[torch.Tensor, SolveInfo]:
@@ -640,7 +672,16 @@ def jacobi_pcg_dist(dplan, diag, b: torch.Tensor, *, tol: float = 1e-9,
     ``diag``: the matrix diagonal in global row order (numpy or tensor);
     ``b``: the global right-hand side; ``mode`` overrides the plan's
     exchange mode.
+
+    On a rank mesh every rank calls it with the same arguments: each
+    holds its block of every vector, every dot and norm is a
+    ``rank_sum`` (the same bits on every rank, and the stacked solve's),
+    and the returned x is global on every rank. Under NCCL the loop runs
+    through the graphs with the collectives captured; under gloo it runs
+    under ``graphs.eager()`` (host collectives). At the end every rank's
+    iterations and relres are checked equal.
     """
+    dot, norm, loop = _rank_rules(dplan)
     bs, ds, mode, dtype = _dist_setup(dplan, diag, b, dtype, mode)
     key = ("pcg", float(tol), int(maxiter), _dtype_name(dtype), mode)
     ent = dplan._fns.get(key)
@@ -651,11 +692,12 @@ def jacobi_pcg_dist(dplan, diag, b: torch.Tensor, *, tol: float = 1e-9,
             functools.partial(dplan.ops.run, mode=mode), {})
     dinv_buf, matvec, cache = ent
     dinv_buf.copy_(ds)
-    with _obs.quiet():
+    with _obs.quiet(), loop:
         xs, info = pcg(matvec, bs, M=lambda r: r * dinv_buf, tol=tol,
-                       maxiter=maxiter, dtype=dtype, dot=dist_dot,
-                       norm=dist_norm, jit_cache=cache, jit_key=key)
-    _observe.record_solve("jacobi_pcg_dist", info, shards=dplan.n_shards)
+                       maxiter=maxiter, dtype=dtype, dot=dot, norm=norm,
+                       jit_cache=cache, jit_key=key)
+    _rank_done(dplan, "jacobi_pcg_dist", info,
+               [info.iters, float(info.relres)])
     return dplan.unshard_vector(xs), info
 
 
@@ -681,9 +723,15 @@ def adaptive_pcg_dist(ladder, diag, b: torch.Tensor, *, tol: float = 1e-9,
 
     The tier is chosen on the host, as in :func:`adaptive_pcg`; the graphs
     are cached on ``ladder._fns`` under the reference's key.
+
+    On a rank mesh, as :func:`jacobi_pcg_dist`: every rank gets the same
+    scalars, so every rank chooses the same tiers (checked at the end,
+    with the iterations and relres); under gloo the loops run under
+    ``graphs.eager()``.
     """
     from ..distributed import halo as dh
 
+    dot, norm, loop = _rank_rules(ladder)
     bs, ds, mode, dtype = _dist_setup(ladder, diag, b, dtype, mode)
     key = ("adaptive", float(tol), int(maxiter), int(m_in),
            float(stag_factor), int(start_tier), _dtype_name(dtype), mode)
@@ -699,19 +747,22 @@ def adaptive_pcg_dist(ladder, diag, b: torch.Tensor, *, tol: float = 1e-9,
             return matvec
 
         pre = dh.prestage(shared["index"], n_shards=ladder.n_shards,
-                          h_pad=ladder.h_pad, mode=mode)
+                          h_pad=ladder.h_pad, mode=mode,
+                          mesh=shared.get("mesh"))
         ent = ladder._fns[key] = (
             torch.empty_like(ds), [tier_fn(o) for o in ladder.tiers],
             tier_fn(ladder.hi), pre, {})
     dinv_buf, tiers, hi, pre, cache = ent
     dinv_buf.copy_(ds)
-    with _obs.quiet():
+    with _obs.quiet(), loop:
         xs, info = adaptive_pcg(
             tiers, bs, M=lambda r: r * dinv_buf, matvec_hi=hi, tol=tol,
             maxiter=maxiter, m_in=m_in, dtype=dtype,
             stag_factor=stag_factor, start_tier=start_tier,
-            dot=dist_dot, norm=dist_norm, prestage=pre, jit_cache=cache,
+            dot=dot, norm=norm, prestage=pre, jit_cache=cache,
             jit_key=key)
-    _observe.record_solve("adaptive_pcg_dist", info,
-                          shards=ladder.n_shards)
+    k = info.iters
+    _rank_done(ladder, "adaptive_pcg_dist", info,
+               [k, info.promotions, float(info.relres)]
+               + info.tier_history[:k].tolist())
     return ladder.unshard_vector(xs), info

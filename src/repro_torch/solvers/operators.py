@@ -15,7 +15,8 @@ codec, or a ``MixedPackSELL`` composite of row classes), the
 :class:`~repro_torch.precision.store.PrecisionStore`, and the distributed
 kinds ``dist_<codec>``, ``dist_auto:`` and ``dist_mixed:`` (a
 :class:`~repro_torch.distributed.plan.DistSpMVPlan` over the default shard
-mesh of the set's device; global vectors in and out) with
+mesh of the set's device, or over the set's ``mesh``: a rank mesh runs
+them one process per shard; global vectors in and out) with
 :meth:`OperatorSet.dist_plan` and :meth:`OperatorSet.dist_adaptive_tiers`
 for ``cg.jacobi_pcg_dist`` and ``cg.adaptive_pcg_dist``.
 """
@@ -155,7 +156,11 @@ class OperatorSet:
     (``kernels.plan.build_plan``); ``"jnp"`` also gives the dense kinds
     the plain SELL body instead of K2. ``store`` — an optional
     :class:`~repro_torch.precision.store.PrecisionStore` (or a path to
-    one) that every budget-driven kind consults."""
+    one) that every budget-driven kind consults. ``mesh`` — the shard
+    mesh of the distributed kinds (None: ``make_shard_mesh`` on the set's
+    device); with a :class:`~repro_torch.parallel.sharding.RankMesh`
+    every rank builds the set and its distributed kinds run over the
+    ranks (the set's device is the rank's)."""
 
     csr: sp.csr_matrix
     C: int = 32
@@ -163,6 +168,7 @@ class OperatorSet:
     device: object = None
     force: str = "auto"
     store: object = None
+    mesh: object = None
     _cache: dict = dataclasses.field(default_factory=dict)
     #: the solvers' graphs and static buffers (``iocg``, ``f3r``), kept
     #: per solver, kinds, inner iterations and shape
@@ -170,6 +176,8 @@ class OperatorSet:
                                      compare=False)
 
     def __post_init__(self):
+        if self.mesh is not None and self.device is None:
+            self.device = self.mesh.device
         self.device = _device.resolve_device(self.device)
 
     @property
@@ -227,12 +235,13 @@ class OperatorSet:
         :class:`~repro_torch.distributed.plan.DistTierLadder` for
         ``cg.adaptive_pcg_dist``: per-tier stacked member sets over one
         shared partition plus the exact fp64 outer operator, on ``mesh``
-        (default: ``make_shard_mesh(n_shards)`` on the set's device)."""
+        (default: the set's ``mesh``, else ``make_shard_mesh(n_shards)`` on
+        the set's device)."""
         from ..distributed import build_dist_tiers
 
         plan = self.precision_plan(error_budget, store=store, **select_kw)
         return build_dist_tiers(self.csr, psel.tier_ladder(plan),
-                                n_shards=n_shards, mesh=mesh,
+                                n_shards=n_shards, mesh=mesh or self.mesh,
                                 exchange=exchange, C=self.C,
                                 sigma=self.sigma, device=self.device)
 
@@ -310,7 +319,8 @@ class OperatorSet:
         ``dist_mixed:`` kind."""
         from ..distributed import build_dist_plan
 
-        kw = dict(C=self.C, sigma=self.sigma, device=self.device)
+        kw = dict(C=self.C, sigma=self.sigma, device=self.device,
+                  mesh=self.mesh)
         if spec.family == "dist":
             return build_dist_plan(self.csr, D=spec.D, codec=spec.codec,
                                    **kw)
@@ -330,7 +340,10 @@ class OperatorSet:
         raise ValueError(spec.raw)  # pragma: no cover: parse_kind is total
 
     def _dist_shards(self) -> int:
-        """Shards of the default mesh on the set's device."""
+        """Shards of the set's mesh (a rank mesh: the world size), else of
+        the default mesh on the set's device."""
+        if self.mesh is not None:
+            return self.mesh.size
         from ..parallel import make_shard_mesh
         return make_shard_mesh(device=self.device).size
 

@@ -73,8 +73,9 @@ class Trainer:
         if tcfg.data_axis != 1 or tcfg.model_axis != 1:
             raise NotImplementedError(
                 f"data_axis={tcfg.data_axis}, model_axis={tcfg.model_axis}: "
-                "more than one shard needs the multi-card mesh, which the "
-                "port does not have yet")
+                "more than one shard needs the multi-card mesh of the "
+                "training side (data x model), which the port does not have "
+                "yet")
         self.cfg = model_cfg
         self.opt = opt_cfg
         self.tcfg = tcfg

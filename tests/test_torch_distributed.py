@@ -478,6 +478,32 @@ def test_shard_mesh_rules():
         td.DistSpMVPlan(ops, m4, exchange="ring")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dist_dot_partials_do_not_depend_on_the_shard_count(dtype):
+    """A shard's partial has the same bits in a [4, n] stack as in its own
+    [1, n] row (the rank form), at the row length of HPCG 104^3 in four
+    shards, and the sums agree with float64 numpy."""
+    from repro_torch.kernels.row_dots import row_dots
+
+    rng = np.random.default_rng(5)
+    a_h, b_h = rng.standard_normal((2, 4, 281_216))
+    a = torch.from_numpy(a_h).to(dtype)
+    b = torch.from_numpy(b_h).to(dtype)
+    stacked = row_dots(a, b)
+    for p in range(4):
+        one = row_dots(a[p:p + 1], b[p:p + 1])
+        assert torch.equal(stacked[p:p + 1], one), p
+        assert torch.equal(tcg.dist_dot(a[p:p + 1], b[p:p + 1]), one[0])
+    # within a rounding bound of the terms' magnitude (other orders)
+    ab = a_h * b_h
+    eps = 1e-6 if dtype == torch.float32 else 1e-14
+    bound = eps * np.abs(ab).sum(1)
+    assert (np.abs(stacked.double().numpy() - ab.sum(1)) <= bound).all()
+    assert abs(float(tcg.dist_dot(a, b)) - ab.sum()) <= bound.sum()
+    sq = (a.double().numpy() ** 2).sum()
+    assert abs(float(tcg.dist_norm(a)) ** 2 - sq) <= 4 * eps * sq
+
+
 # ---------------------------------------------------------------------------
 # the distributed solvers
 # ---------------------------------------------------------------------------

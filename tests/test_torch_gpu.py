@@ -186,6 +186,33 @@ def test_wrappers_reject_bad_operands(cuda):
             (3, mat.m), device=cuda).t(), **kw)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 255, 4096, 4097, 281_216])
+def test_k7_rows_do_not_depend_on_the_row_count(cuda, dtype, n):
+    from repro_torch.kernels import row_dots as krd
+
+    rng = np.random.default_rng(n)
+    a, b = (torch.from_numpy(v).to(cuda, dtype)
+            for v in rng.standard_normal((2, 4, n)))
+    before = krd.row_dots.launches
+    stacked = krd.row_dots(a, b)
+    assert krd.row_dots.launches == before + 1
+    for p in range(4):
+        assert torch.equal(stacked[p:p + 1],
+                           krd.row_dots(a[p:p + 1], b[p:p + 1]))
+    # each sum within a rounding bound of its terms' magnitude (the sums
+    # are taken in other orders)
+    ab = a.double() * b.double()
+    scale = (1e-6 if dtype == torch.float32 else 1e-14) * ab.abs().sum(1)
+    assert bool(((stacked.double() - ab.sum(1)).abs() <= scale).all())
+    plain = krd.row_dots_plain(a, b).double()
+    assert bool(((stacked.double() - plain).abs() <= scale).all())
+    with pytest.raises(TypeError, match="float32"):
+        krd.row_dots(a.half(), b.half())
+    with pytest.raises(ValueError, match="unit stride"):
+        krd.row_dots(torch.stack([a, a], -1)[..., 0], b)
+
+
 def _k1_launches():
     return {"K1": kpk.packsell_spmv_fused.launches}
 
@@ -1601,3 +1628,34 @@ def test_stream_probe_within_band_of_hbm3(cuda):
 
     bw = rl.stream_probe_bandwidth(device=cuda)
     assert 0.5 <= bw / rl.HW["hbm_bw"] <= 1.05, bw
+
+
+def _nccl_rank_solve(mesh):
+    """One NCCL rank: ``jacobi_pcg_dist`` on ``_spd_system`` eagerly and
+    through the graphs (the capture, then a replay), the collectives
+    inside the captured loop."""
+    from repro_torch.distributed import build_dist_plan
+
+    s, b = _spd_system()
+    plan = build_dist_plan(s, mesh=mesh, C=32, sigma=64, codec="fp16", D=15)
+    bd = torch.from_numpy(b).to(mesh.device)
+    with graphs.eager():
+        xe, ie = cg.jacobi_pcg_dist(plan, s.diagonal(), bd, tol=1e-8,
+                                    maxiter=300)
+    runs = [cg.jacobi_pcg_dist(plan, s.diagonal(), bd, tol=1e-8,
+                               maxiter=300) for _ in range(2)]
+    return ((xe.cpu().numpy(), ie.iters),
+            [(x.cpu().numpy(), i.iters, float(i.relres)) for x, i in runs])
+
+
+def test_nccl_one_rank_captures_the_solve(cuda):
+    """One NCCL rank on the card (``parallel.launch.spawn_ranks``): the
+    graphs of ``jacobi_pcg_dist`` capture its NCCL collectives, and the
+    capture and a replay equal the eager loop bit for bit."""
+    from repro_torch.parallel.launch import spawn_ranks
+
+    (xe, ie), runs = spawn_ranks(_nccl_rank_solve, 1, backend="nccl",
+                                 timeout=120)[0]
+    for x, iters, relres in runs:
+        assert iters == ie and relres < 1e-8
+        np.testing.assert_array_equal(x, xe)
