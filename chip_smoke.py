@@ -138,6 +138,24 @@ TRAIN_PEAK_RATIO = 1.5
 #: with steps scattered by about 0.005 about the trend; a step that learns
 #: nothing stays within that scatter
 LEARN_DROP = 0.01
+#: phase 23 (b): two ranks' losses against one rank's, (a), on the same
+#: master and batches. Each rank's products hold half the rows (4,096
+#: tokens against 8,192): the microbatch check's difference
+#: (``MB_LOSS_TOL``). The gradient's sum over two ranks rounds in float32,
+#: far below the bf16 flips, over three steps at lr 3e-4
+DP_LOSS_TOL = MB_LOSS_TOL
+#: phase 23 (b): the layers of qwen2-0.5b kept in the compressed and the
+#: pod-wire runs (full width; the plain run keeps all 24)
+DP_CUT_LAYERS = 4
+#: phase 23 (b): the plain run's steps, after which phase 20 keeps its
+#: master for the master check
+DP_STEPS = 3
+#: phase 23 (b): two ranks' master after ``DP_STEPS`` steps against one
+#: rank's, |b1 - a| over |a - initial| (the 2-norms over every element):
+#: the share of (a)'s update that the second rank's bf16 rounding moves.
+#: A planted fault, each rank's slices updated from its own gradient
+#: alone, is measured beside it in every run and must lie above the limit
+DP_MASTER_TOL = 0.25
 
 
 def card_line() -> str:
@@ -764,6 +782,230 @@ def rank_gloo(mesh, dirs: dict, metas: dict, k: dict, reps: int) -> dict:
     return out
 
 
+def fingerprint(t: torch.Tensor) -> tuple:
+    """Two int64 sums of ``t``'s 32-bit patterns, plain and weighted by
+    position (mod 65,521): equal tensors give equal pairs, a changed bit
+    changes the first. Summed in chunks on ``t``'s device."""
+    b = t.detach().contiguous().reshape(-1).view(torch.int32)
+    s1 = torch.zeros((), dtype=torch.int64, device=b.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=b.device)
+    step = 1 << 24
+    for lo in range(0, b.numel(), step):
+        c = b[lo:lo + step].to(torch.int64)
+        w = torch.arange(lo, lo + c.numel(), device=b.device) % 65521 + 1
+        s1 += c.sum()
+        s2 += (c * w).sum()
+    return int(s1), int(s2)
+
+
+def state_fps(state, layout=None) -> dict:
+    """:func:`fingerprint`s of a train state by reference leaf and layer:
+    the master; m and v per shard held, a ``TrainState``'s modules as one
+    shard, a ``ZeroState``'s slices (``layout``: its ``ZeroLeaf`` list; a
+    stacked leaf's slice by its dim 0, which at one shard is its
+    layers)."""
+    from repro_torch.models import transformer as tfm
+
+    def module(mod):
+        named = dict(mod.named_parameters())
+        return [[fingerprint(named[n]) for n in names]
+                for _, names in tfm.reference_leaves(mod)]
+
+    out = {"master": module(state.master)}
+    for key in ("m", "v"):
+        held = getattr(state, key)
+        out[key] = [module(held)] if layout is None else [
+            [[fingerprint(x[i]) for i in range(x.shape[0])] if leaf.stacked
+             else [fingerprint(x)] for leaf, x in zip(layout, sl)]
+            for sl in held]
+    return out
+
+
+def master_gap(params, ref: list, base=None) -> tuple:
+    """(|params - ref|, |ref - base|): 2-norms over every element, summed
+    in float64. ``params`` and ``base``: tensors on the card (``base``
+    None: the second is 0.0); ``ref``: host tensors in the same order."""
+    d1 = d0 = 0.0
+    for i, p in enumerate(params):
+        r = ref[i].to(p.device)
+        d1 += float(torch.sum(torch.square((p.detach() - r).double())))
+        if base is not None:
+            d0 += float(torch.sum(torch.square((r - base[i]).double())))
+    return d1 ** 0.5, d0 ** 0.5
+
+
+def own_gradient_alone(reduce):
+    """A planted fault for phase 23 (b)'s master check: ``reduce``
+    (``launch.steps.reduce_gradients``) on a stacked mesh as if every
+    shard had received its own gradient from each shard in place of the
+    others', so each shard's slices come from its gradient alone."""
+    def faulty(mesh, layout, grads, *, mean=True):
+        return [reduce(mesh, layout, [g] * len(grads), mean=mean)[i]
+                for i, g in enumerate(grads)]
+    return faulty
+
+
+def _train_cfg(spec: dict, run: dict):
+    import dataclasses
+
+    cfg = spec["cfg"]
+    return cfg if run.get("layers") is None else dataclasses.replace(
+        cfg, n_layers=run["layers"])
+
+
+def _train_tcfg(spec: dict, run: dict, ckpt_dir: str):
+    from repro_torch.train import TrainerConfig
+
+    return TrainerConfig(
+        steps=run["steps"], ckpt_dir=ckpt_dir,
+        ckpt_every=run.get("ckpt_every") or 10 ** 9, log_every=10 ** 9,
+        seed=spec["seed"], seq_len=spec["seq_len"],
+        global_batch=spec["batch"], data_axis=run["data"],
+        pods=run["pods"], pod_wire=run.get("pod_wire"),
+        grad_compression=run.get("grad_compression"))
+
+
+def _timed_exchange(trainer, rec: dict):
+    """Wrap ``trainer``'s step and the collectives its mesh calls: per step
+    the host wall and CUDA-event time, and the exchange's wall and the
+    bytes this rank sends to the others by wire dtype (the 16-bit
+    patterns travel as bfloat16). Returns the undo."""
+    from repro_torch.parallel import collectives as co
+
+    stat = {"s": 0.0, "b": collections.Counter(), "depth": 0}
+    orig = {name: getattr(co, name) for name in ("all_to_all", "all_gather")}
+
+    def wrap(name):
+        fn = orig[name]
+
+        def call(x, mesh, members=None):
+            if stat["depth"]:
+                return fn(x, mesh, members)
+            n = mesh.size if members is None else len(members)
+            stat["depth"] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn(x, mesh, members)
+                torch.cuda.synchronize()
+            finally:
+                stat["depth"] -= 1
+            stat["s"] += time.perf_counter() - t0
+            nbytes = x.numel() * x.element_size()
+            stat["b"][str(x.dtype).removeprefix("torch.")] += (
+                nbytes * (n - 1) // n if name == "all_to_all"
+                else nbytes * (n - 1))
+            return out
+        return call
+
+    step_fn = trainer._step_fn
+
+    def step(state, errs, batches):
+        stat["s"], stat["b"] = 0.0, collections.Counter()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        out = step_fn(state, errs, batches)
+        e1.record()
+        torch.cuda.synchronize()
+        rec["wall"].append(time.perf_counter() - t0)
+        rec["ev"].append(e0.elapsed_time(e1))
+        rec["xchg_s"].append(stat["s"])
+        rec["wire_bytes"].append(dict(stat["b"]))
+        return out
+
+    step.layout, step.buckets = step_fn.layout, step_fn.buckets
+    trainer._step_fn = step
+    co.all_to_all, co.all_gather = wrap("all_to_all"), wrap("all_gather")
+
+    def undo():
+        co.all_to_all, co.all_gather = orig["all_to_all"], orig["all_gather"]
+        trainer._step_fn = step_fn
+    return undo
+
+
+def _rank_train_run(mesh, spec: dict, key: str) -> dict:
+    """One of phase 23's runs on this rank's mesh: the trainer from the
+    seed's initial master, timed (:func:`_timed_exchange`), its losses,
+    state fingerprints and peak memory."""
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import Trainer
+
+    run = spec["runs"][key]
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    ckpt_dir = str(Path(spec["root"], key))
+    t = Trainer(_train_cfg(spec, run), OptConfig(**spec["opt"]),
+                _train_tcfg(spec, run, ckpt_dir), mesh=mesh,
+                log_fn=lambda _: None)
+    rec = {"wall": [], "ev": [], "xchg_s": [], "wire_bytes": []}
+    undo = _timed_exchange(t, rec)
+    try:
+        state, sec = wall(t.run)
+    finally:
+        undo()
+    rec.update(losses=[h["loss"] for h in t.history], run_s=sec,
+               fps=state_fps(state, t._step_fn.layout),
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               ckpts=t.ckpt.steps(), backend=mesh.backend,
+               n_par=sum(p.numel() for p in state.master.parameters()))
+    return rec
+
+
+def _warm_up(spec: dict, dev) -> None:
+    """This process's first training step on the card (a process's first
+    one takes 13-16 s), on one row: the first step of a run over both
+    ranks then waits for no rank's."""
+    from repro_torch.data import DataConfig, SyntheticTokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+
+    cfg = spec["cfg"]
+    master = tfm.init_params(cfg, spec["seed"], device=dev,
+                             dtype=torch.float32).requires_grad_(True)
+    batch = SyntheticTokenStream(DataConfig(
+        vocab=cfg.vocab, seq_len=spec["seq_len"], global_batch=1,
+        seed=spec["seed"])).next_batch(dev)
+    steps.value_and_grad(cfg, master, batch)
+    torch.cuda.synchronize(dev)
+
+
+def rank_train(mesh, spec: dict) -> dict:
+    """Phase 23 on one rank of a gloo group sharing the card (every
+    collective staged through the host): (a) on rank 0 alone, over a
+    one-rank group of ``spec["a_backend"]`` (NCCL), while the other warms
+    up (:func:`_warm_up`) and waits; then each run of ``spec["order"]``
+    over both ranks. With ``spec["order"]`` alone and no ``"a"`` run: the
+    runs on whatever group spawned the ranks ((c): NCCL, one rank per
+    card)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel import collectives as co
+
+    t_in = time.time()
+    out = {"rank": mesh.rank, "device": str(mesh.device)}
+    if "a" in spec["runs"]:
+        one = dist.new_group([0], backend=spec["a_backend"])
+        if mesh.rank == 0:
+            out["a"] = _rank_train_run(make_debug_mesh(
+                data=1, device=mesh.device, group=one), spec, "a")
+        else:
+            out["warm_s"] = wall(lambda: _warm_up(spec, mesh.device))[1]
+            gc.collect()
+            torch.cuda.empty_cache()
+        co.gather_values([0], mesh)        # the other rank waits here
+    for key in spec["order"]:
+        run = spec["runs"][key]
+        out[key] = _rank_train_run(make_debug_mesh(
+            data=run["data"], pods=run["pods"], device=mesh.device),
+            spec, key)
+    out["span"] = (t_in, time.time())
+    return out
+
+
 def _spans(t_spawn: float, t_end: float, out: list) -> str:
     """Where a spawn's wall went: the ranks' start (processes, imports,
     the process group, the card), their work, and their teardown."""
@@ -804,6 +1046,7 @@ class Smoke:
         # phases' launch checks read K1-K6 alone
         self.k7 = krd.row_dots
         self.k7_row = None          # its times, from phase 13
+        self.keep20 = None          # phase 20's first steps, for phase 23
         ids = ("K1", "K2", "K3", "K4", "K5", "K6", "K2-f64", "K7")
         self.err = dict.fromkeys(ids, 0.0)
         self.cases = dict.fromkeys(ids, 0)
@@ -3047,9 +3290,14 @@ class Smoke:
             real = entry.rebuild
 
             def sabotaged(kind):
-                real(kind)
-                if kind == "plan_fp16" and len(flips) == 1:
-                    flip(*entry.bind(kind)[:2])
+                # under the entry's lock, as the rebuild itself: no slot
+                # binds the repaired plan before the second flip lands (a
+                # success between the trips would reset the breaker's
+                # count of consecutive failures)
+                with entry.lock:
+                    real(kind)
+                    if kind == "plan_fp16" and len(flips) == 1:
+                        flip(*entry.bind(kind)[:2])
 
             entry.rebuild = sabotaged
             snap0 = observe.snapshot()["counters"]
@@ -3531,14 +3779,16 @@ class Smoke:
         t = device_ms(lambda: self.k7(a, b), reps)
         tp = timed(lambda: row_dots_plain(a, b), reps)
         tl = timed(lambda: torch.linalg.vecdot(a, b), reps)
+        tlg = device_ms(lambda: torch.linalg.vecdot(a, b), reps)
         te = timed(lambda: self.k7(a, b), reps)
         nbytes = 2 * a.numel() * 8 + 4 * 8
         tb, by = bound_ms(nbytes, 2 * a.numel())
         print(f"  K7 at [4, {n_pad}] float64: {t!r} ms (device, a CUDA "
               f"graph of {reps} calls; eager {te!r} ms), the plain loop "
-              f"{tp!r} ms, one torch.linalg.vecdot {tl!r} ms, bound {tb!r} "
-              f"ms by {by} ({nbytes} B): {tb / t!r} of the bound; on "
-              f"{card_line()}", flush=True)
+              f"{tp!r} ms, one torch.linalg.vecdot {tl!r} ms eager and "
+              f"{tlg!r} ms on the device (a CUDA graph of {reps} calls, as "
+              f"K7), bound {tb!r} ms by {by} ({nbytes} B): {tb / t!r} of "
+              f"the bound; on {card_line()}", flush=True)
         return (t, tp, tl, tb, by, te)
 
     def keep_for_ranks(self, *, s, d4, d1, ladder, xi_h, y_cpu, jacobi,
@@ -5112,8 +5362,10 @@ class Smoke:
         if not (bl <= BF16_LOSS_TOL and bg <= BF16_GNORM_TOL):
             fail(f"{cfg.dtype} vs float32: loss {bl}, norm {bg} apart")
 
-        def timed_trainer(tr):
-            """``tr`` with its step and checkpoint save timed."""
+        def timed_trainer(tr, keep_at=None, master_at=None):
+            """``tr`` with its step and checkpoint save timed; the state's
+            fingerprints after step ``keep_at`` and a host copy of its
+            master after step ``master_at`` (for phase 23)."""
             rec = {"wall": [], "ev": [], "save": []}
             step_fn, save = tr._step_fn, tr.ckpt.save
 
@@ -5128,6 +5380,11 @@ class Smoke:
                 torch.cuda.synchronize()
                 rec["wall"].append(time.perf_counter() - t0)
                 rec["ev"].append(e0.elapsed_time(e1))
+                if len(rec["wall"]) == keep_at:
+                    rec["fps"] = state_fps(out[0])
+                if len(rec["wall"]) == master_at:
+                    rec["master"] = [p.detach().to("cpu", copy=True)
+                                     for p in out[0].master.parameters()]
                 return out
 
             def timed_save(*a, **kw):
@@ -5148,7 +5405,8 @@ class Smoke:
                              seq_len=seq_len, global_batch=batch)
         logs = []
         ta = Trainer(cfg, opt, tcfg, device=dev, log_fn=logs.append)
-        rec = timed_trainer(ta)
+        rec = timed_trainer(ta, keep_at=min(4, steps),
+                            master_at=min(DP_STEPS, steps))
         sa, t_run = wall(ta.run)
         peak = torch.cuda.max_memory_allocated() - base
         losses = [h["loss"] for h in ta.history]
@@ -5241,10 +5499,279 @@ class Smoke:
             fail(f"training peak memory {peak} B > {TRAIN_PEAK_RATIO} x "
                  f"{pred} B")
         shutil.rmtree(root, ignore_errors=True)
+        self.keep20 = dict(cfg=cfg, opt=dataclasses.asdict(opt), seed=seed,
+                           seq_len=seq_len, batch=batch,
+                           losses=losses[:min(4, steps)], fps=rec["fps"],
+                           master=rec["master"],
+                           master_at=min(DP_STEPS, steps),
+                           step_wall=wall_s, step_ms=ev_ms)
         return dict(launches=launches, losses=losses, step_wall=wall_s,
                     step_ms=ev_ms, tokens_per_s=T / wall_s, share=share,
                     peak=peak, pred=pred, save=rec["save"] + rec_b["save"],
                     restore=t_restore, ops=n_ops)
+
+    # -- phase 23: the training data axis across processes -----------------
+    def _stacked_train(self, spec: dict, key: str, tag: str = ""):
+        """Run ``key`` of phase 23 in the stacked form: its shards one
+        after another in this process, on the card (its directory named
+        ``key + tag``). Returns (losses, fingerprints, trainer, state)."""
+        from repro_torch.launch.mesh import make_stacked_mesh
+        from repro_torch.optim import OptConfig
+        from repro_torch.train import Trainer
+
+        run = spec["runs"][key]
+        t = Trainer(_train_cfg(spec, run), OptConfig(**spec["opt"]),
+                    _train_tcfg(spec, dict(run, ckpt_every=None),
+                                str(Path(spec["root"], "stacked",
+                                         key + tag))),
+                    mesh=make_stacked_mesh(data=run["data"],
+                                           pods=run["pods"], device=self.dev),
+                    log_fn=lambda _: None)
+        state = t.run()
+        return ([h["loss"] for h in t.history],
+                state_fps(state, t._step_fn.layout), t, state)
+
+    def _master_gaps(self, spec: dict, master) -> tuple:
+        """Phase 23 (b)'s master check: |b1 - a| / |a - initial| for b1's
+        master (``master``, the stacked form's, bit-equal to the ranks')
+        and for a planted fault's (the stacked b1 with each shard's slices
+        from its own gradient alone, :func:`own_gradient_alone`); ``a``
+        is phase 20's in-process master after as many steps (bit-equal to
+        (a)'s)."""
+        from repro_torch.launch import steps as tsteps
+        from repro_torch.models import transformer as tfm
+
+        k = self.keep20
+        base = [p.float() for p in tfm.init_params(
+            k["cfg"], k["seed"], device=self.dev).parameters()]
+        sound, update = master_gap(master.parameters(), k["master"], base)
+        del base
+        reduce = tsteps.reduce_gradients
+        tsteps.reduce_gradients = own_gradient_alone(reduce)
+        try:
+            _, _, t, state = self._stacked_train(spec, "b1", "_fault")
+        finally:
+            tsteps.reduce_gradients = reduce
+        fault, _ = master_gap(state.master.parameters(), k["master"])
+        del t, state
+        return sound / update, fault / update
+
+    def _codec_ms(self, mesh, n: int, reps: int = 3) -> float:
+        """Mean device ms of one stacked ``compressed_wire_reduce`` (u16,
+        across ``mesh``'s pods) of ``n`` float32 values a shard: the
+        codec's passes and the stacked form's copies, no transport."""
+        from repro_torch.optim.compression import compressed_wire_reduce
+
+        g = torch.Generator(device=self.dev).manual_seed(0)
+        xs = [torch.randn(n, generator=g, device=self.dev)
+              for _ in mesh.local]
+        t = timed(lambda: compressed_wire_reduce(xs, mesh, "pod", "u16"),
+                  reps, warmup=1)
+        del xs
+        return t
+
+    def train_ranks_path(self, steps_a: int = 4, steps_b: int = DP_STEPS,
+                         steps_cut: int = 2, cut: int = DP_CUT_LAYERS,
+                         root: str = "build/train_ranks_smoke",
+                         a_backend: str = "nccl"):
+        """Phase 20's model, seed, batches and schedule across processes,
+        in one spawn of two gloo ranks sharing the card (every collective
+        staged through the host): (a) on rank 0, one NCCL rank,
+        ``Trainer(data_axis=1)`` over a one-rank process group for
+        ``steps_a`` steps, its losses, master, m and v bit-equal to phase
+        20's in-process trainer after as many steps; (b) over both ranks,
+        ``data_axis=2`` at full depth for ``steps_b`` steps, then
+        ``grad_compression=10`` and a (pod 2, data 1) mesh with
+        ``pod_wire='u16'`` (checkpointed at its last step) at ``cut``
+        layers for ``steps_cut`` steps: each rank's losses, master, m and
+        v bit-equal to the stacked form run here after the spawn, the
+        plain run's losses within ``DP_LOSS_TOL`` of (a)'s and its master
+        within ``DP_MASTER_TOL`` of (a)'s update from (a)'s, a planted
+        fault's beyond that limit (:meth:`_master_gaps`), and the
+        checkpoint restored at P = 1 by a one-device trainer equal to the
+        stacked form's state bit for bit; (c) NCCL with one rank per card
+        where the machine has two cards or more. Prints each rank's step
+        walls, CUDA-event times, exchange walls, bytes on the wire and
+        peak memory, and the spawn's start, work and teardown."""
+        import shutil
+
+        from repro_torch.optim import adamw
+        from repro_torch.parallel.launch import spawn_ranks
+        from repro_torch.train import Trainer
+
+        k = self.keep20
+        card = card_line()
+        root = Path(root)
+        shutil.rmtree(root, ignore_errors=True)
+        spec = dict(cfg=k["cfg"], opt=k["opt"], seed=k["seed"],
+                    seq_len=k["seq_len"], batch=k["batch"], root=str(root),
+                    a_backend=a_backend, order=("b1", "b2", "b3"), runs={
+                        "a": dict(data=1, pods=1, steps=steps_a),
+                        "b1": dict(data=2, pods=1, steps=steps_b),
+                        "b2": dict(data=2, pods=1, steps=steps_cut,
+                                   layers=cut, grad_compression=10),
+                        "b3": dict(data=1, pods=2, steps=steps_cut,
+                                   layers=cut, pod_wire="u16",
+                                   ckpt_every=steps_cut)})
+        cfg = k["cfg"]
+        T = k["batch"] * k["seq_len"]
+        # phases 14-22 leave tens of GB cached: two full-width ranks need
+        # the card
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_spawn = time.time()
+        out, sec = wall(lambda: spawn_ranks(
+            rank_train, 2, backend="gloo", device=self.dev, timeout=600,
+            args=(spec,)))
+        spans = _spans(t_spawn, time.time(), out)
+
+        # (a) against phase 20
+        a = out[0]["a"]
+        if a["losses"] != k["losses"][:steps_a]:
+            fail(f"(a) one NCCL rank's losses {a['losses']}, phase 20's "
+                 f"{k['losses'][:steps_a]}")
+        for key in ("master", "m", "v"):
+            if a["fps"][key] != k["fps"][key]:
+                fail(f"(a) one NCCL rank's {key} after {steps_a} steps "
+                     f"differs from phase 20's in-process trainer")
+        print(f"  (a) one NCCL rank ({a['backend']}, a one-rank group inside "
+              f"the spawn), {cfg.name} at full width and depth, "
+              f"{k['batch']} x {k['seq_len']} tokens, {steps_a} steps: "
+              f"losses {a['losses']} and master, m and v equal to phase "
+              f"20's in-process Trainer bit for bit; step walls "
+              f"{a['wall']} s, CUDA events {a['ev']} ms, exchange walls "
+              f"{a['xchg_s']} s, bytes sent per step {a['wire_bytes']} "
+              f"(one rank: none leave it), peak {a['peak_bytes']} B; phase "
+              f"20's step {k['step_wall']!r} s, {k['step_ms']!r} ms; {card}",
+              flush=True)
+
+        # (b) against the stacked forms, run here
+        gc.collect()
+        torch.cuda.empty_cache()
+        stacked = {}
+        for key in spec["order"]:
+            (losses, fps, t, state), st_s = wall(
+                lambda: self._stacked_train(spec, key))
+            stacked[key] = (losses, fps, st_s)
+            for r in out:
+                got = r[key]
+                if got["losses"] != losses:
+                    fail(f"(b) {key} rank {r['rank']}: losses "
+                         f"{got['losses']}, the stacked form's {losses}")
+                if got["fps"]["master"] != fps["master"]:
+                    fail(f"(b) {key} rank {r['rank']}: the master differs "
+                         "from the stacked form's")
+                for mv in ("m", "v"):
+                    if got["fps"][mv][0] != fps[mv][r["rank"]]:
+                        fail(f"(b) {key} rank {r['rank']}: its {mv} slices "
+                             "differ from the stacked form's shard")
+            if key == "b1":
+                if steps_b != k["master_at"]:
+                    fail(f"(b) b1 runs {steps_b} steps, phase 20 kept its "
+                         f"master after {k['master_at']}")
+                gaps = self._master_gaps(spec, state.master)
+            if key == "b3":
+                # the checkpoint the ranks wrote at P = 2, restored at P = 1
+                full = {mv: adamw.gather_moments(
+                    t.mesh, t._step_fn.layout, getattr(state, mv),
+                    t._step_fn.buckets) for mv in ("m", "v")}
+                one = Trainer(_train_cfg(spec, spec["runs"]["b3"]),
+                              t.opt, _train_tcfg(
+                                  spec, dict(data=1, pods=1, steps=steps_cut),
+                                  str(root / "b3")), device=self.dev,
+                              log_fn=lambda _: None)
+                restored, restore_s = wall(one.init_or_restore)
+                rfp = state_fps(restored)
+                want = {"master": fps["master"], **{
+                    mv: [[[fingerprint(x[i]) for i in range(x.shape[0])]
+                          if leaf.stacked else [fingerprint(x)]
+                          for leaf, x in zip(t._step_fn.layout, full[mv])]]
+                    for mv in ("m", "v")}}
+                if int(restored.step) != steps_cut or rfp != want:
+                    fail("(b) the P = 2 checkpoint restored at P = 1 differs "
+                         "from the stacked form's state")
+                del one, restored, full
+                n_b3 = sum(p.numel() for p in state.master.parameters())
+                codec_ms = self._codec_ms(t.mesh, n_b3)
+            del t, state
+            gc.collect()
+            torch.cuda.empty_cache()
+        b1 = out[0]["b1"]["losses"]
+        rel = [abs(x - y) / y for x, y in zip(b1, a["losses"])]
+        if not max(rel) <= DP_LOSS_TOL:
+            fail(f"(b) two ranks' losses {b1} against one rank's "
+                 f"{a['losses'][:steps_b]}: {rel} apart, over {DP_LOSS_TOL}")
+        gap, fault = gaps
+        print(f"  (b) b1's master after {steps_b} steps against (a)'s "
+              f"(phase 20's, the same bits): {gap!r} of (a)'s update "
+              f"(2-norms); a planted fault, each rank's slices from its own "
+              f"gradient alone: {fault!r} (limit {DP_MASTER_TOL!r}, between "
+              f"them); {card}", flush=True)
+        if not gap <= DP_MASTER_TOL < fault:
+            fail(f"(b) b1's master {gap} of (a)'s update from (a)'s, the "
+                 f"planted fault's {fault}: the limit {DP_MASTER_TOL} must "
+                 "lie between them")
+        print(f"  (b) two gloo ranks sharing {self.dev} ({sec:.1f} s with "
+              f"the processes: {spans}; rank 1's first training step, on "
+              f"one row while rank 0 ran (a): {out[1]['warm_s']!r} s); "
+              f"each rank's losses, master, m and "
+              f"v equal to the stacked form's bit for bit in every run "
+              f"(stacked runs {[round(v[2], 2) for v in stacked.values()]} "
+              f"s); data_axis 2 losses {b1}, {rel} apart from (a)'s "
+              f"(limit {DP_LOSS_TOL!r}); the pod-wire run's checkpoint "
+              f"(step {steps_cut}, P = 2) restored by a one-device trainer "
+              f"in {restore_s!r} s equal to the stacked form's master, m "
+              f"and v bit for bit; {card}", flush=True)
+        for key, what in (("b1", f"plain, {cfg.n_layers} layers"),
+                          ("b2", f"grad_compression 10, {cut} layers"),
+                          ("b3", f"pod 2 x data 1, pod_wire u16, {cut} "
+                                 f"layers")):
+            r0, r1 = out[0][key], out[1][key]
+            print(f"  (b) {key} ({what}; {r0['n_par']} parameters, {T} "
+                  f"tokens a step over 2 ranks): step walls per rank "
+                  f"{r0['wall']} / {r1['wall']} s, CUDA events {r0['ev']} / "
+                  f"{r1['ev']} ms, the exchange's wall {r0['xchg_s']} / "
+                  f"{r1['xchg_s']} s, bytes each rank sends per step "
+                  f"{r0['wire_bytes']} / {r1['wire_bytes']} "
+                  f"({sum(r0['wire_bytes'][-1].values()) / r0['n_par']!r} "
+                  f"B a parameter), "
+                  f"peak {r0['peak_bytes']} / {r1['peak_bytes']} B; "
+                  f"losses {r0['losses']}; {card}", flush=True)
+        print(f"  (b) two ranks share one card and every exchange goes "
+              f"through the host: not a multi-GPU figure", flush=True)
+        print(f"  (b) the u16 wire's codec, stacked (2 shards in one process, "
+              f"no transport): compressed_wire_reduce over 2 x {n_b3} "
+              f"float32 values, the b3 gradient as one flat leaf: "
+              f"{codec_ms!r} ms a call (CUDA events, mean of 3), against "
+              f"the ranks' exchange walls {out[0]['b3']['xchg_s']} s a "
+              f"step; {card}", flush=True)
+
+        # (c) NCCL with one rank per card
+        count = torch.cuda.device_count()
+        if count < 2:
+            print(f"  (c) did not run: NCCL with one rank per card needs two "
+                  f"cards or more, and this machine has {count}", flush=True)
+        else:
+            spec_c = dict(spec, order=("b1",), runs={"b1": spec["runs"]["b1"]},
+                          root=str(root / "c"))
+            t_spawn = time.time()
+            outc, sec = wall(lambda: spawn_ranks(
+                rank_train, 2, backend="nccl", timeout=600, args=(spec_c,)))
+            spans = _spans(t_spawn, time.time(), outc)
+            losses, fps, _ = stacked["b1"]
+            for r in outc:
+                if r["b1"]["losses"] != losses or \
+                        r["b1"]["fps"]["master"] != fps["master"]:
+                    fail(f"(c) rank {r['rank']}: losses {r['b1']['losses']} "
+                         f"or master differ from the stacked form's")
+            print(f"  (c) NCCL with one rank per card, P = 2 ({sec:.1f} s: "
+                  f"{spans}): losses and master equal to the stacked form's "
+                  f"bit for bit; step walls {[r['b1']['wall'] for r in outc]}"
+                  f" s, CUDA events {[r['b1']['ev'] for r in outc]} ms, "
+                  f"exchange {[r['b1']['xchg_s'] for r in outc]} s; {card}",
+                  flush=True)
+        shutil.rmtree(root, ignore_errors=True)
+        return dict(launches={})
 
     def launch_path(self, jobs: int = 7, reduce: bool = False):
         """The launchers: (c) the STREAM-triad probe on the card, within
@@ -5519,6 +6046,14 @@ def main(argv=None) -> int:
               "card; (c) NCCL with one rank per card where there are cards "
               "enough", smoke.ranks_path)
         runs.append(out[22]["launches"])
+        out.clear()
+        phase(23, "the training data axis across processes: qwen2-0.5b at "
+              "full width, phase 20's seed and batches; (a) one NCCL rank, "
+              "bit-equal to phase 20; (b) two gloo ranks sharing the card: "
+              "data_axis 2, grad_compression 10, a pod-wire u16 mesh, each "
+              "bit-equal to its stacked form, a P = 2 checkpoint restored "
+              "at P = 1; (c) NCCL with one rank per card where there are "
+              "cards enough", smoke.train_ranks_path)
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -5541,8 +6076,8 @@ def main(argv=None) -> int:
                "src/repro/solvers/cg.py:54"),
     }
     rows["K7"] = smoke.k7_row
-    print(f"== 23. done in {time.perf_counter() - t_start:.1f} s (phases "
-          f"3-22: {phase_s})", flush=True)
+    print(f"== 24. done in {time.perf_counter() - t_start:.1f} s (phases "
+          f"3-23: {phase_s})", flush=True)
     print(f"card: {card_line()}", flush=True)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in meta}
     kernels = []

@@ -8,10 +8,14 @@ from the seed (``branch`` likely successors per token plus a uniform
 tail of mass ``noise``), so a model that learns the table goes below the
 uniform entropy ``ln(vocab)``: a learning curve that can fail.
 
-``next_batch(device)`` takes the place of the reference's
-``next_placed_batch(mesh)``: the global batch as tensors on one device.
-``place_batch`` (a global array sharded over a mesh from per-shard
-callbacks) has no counterpart on one card.
+``next_batch(device)`` gives the global batch as tensors on one device.
+On a mesh of data-parallel shards (``launch.mesh``) ``next_placed_batch``
+gives each shard this process holds only its own rows, generated alone,
+as the reference's per-shard callback does: :func:`place_batch` places
+them by the batch spec of ``launch.steps.batch_spec_tree``, so shard
+``r`` of ``P`` gets rows ``[r B / P, (r + 1) B / P)`` of the global
+batch (all of them where ``P`` does not divide ``B``, the spec's
+sanitising rule).
 """
 from __future__ import annotations
 
@@ -99,8 +103,32 @@ class SyntheticTokenStream:
         self._step += 1
         return b
 
+    def next_placed_batch(self, mesh) -> list:
+        """The next global batch's rows of each shard this process holds
+        (``mesh.local``), one dict of tensors on ``mesh.device`` per shard;
+        each shard's rows are generated alone."""
+        step = self._step
+        self._step += 1
+        return [place_batch(lambda lo, hi: self.batch_rows(step, lo, hi),
+                            self.cfg.global_batch, mesh, s)
+                for s in mesh.local]
+
     def next_batch(self, device=None) -> dict:
         """The next global batch as tensors on ``device`` (None: the GPU)."""
         dev = _device.resolve_device(device)
         return {k: torch.from_numpy(v).to(dev)
                 for k, v in self.next_host_batch().items()}
+
+
+def place_batch(row_fn, global_batch: int, mesh, index: int) -> dict:
+    """The rows of data-parallel shard ``index`` of ``mesh`` under the
+    batch spec (``launch.steps.batch_spec_tree``, sanitised for the mesh),
+    ``row_fn(lo, hi) -> {name: array}`` generating only them, as tensors
+    on ``mesh.device``."""
+    from ..parallel.sharding import sanitize_spec, shard_range
+
+    (entry,) = sanitize_spec((("pod", "data"),), (global_batch,), mesh)
+    lo, hi = (shard_range(global_batch, entry, mesh, index)
+              if entry is not None else (0, global_batch))
+    return {k: torch.from_numpy(v).to(mesh.device)
+            for k, v in row_fn(lo, hi).items()}

@@ -21,8 +21,8 @@ device time.
 saved rows (the reference's ``--save-hlo`` / ``--hlo``). ``--device
 meta`` (the default) counts on meta; ``cpu`` and ``cuda`` count one real
 step there (``--reduce`` for the reduced configs on the host).
-``--multi-pod`` and ``--pod-compress`` raise, as ``launch.mesh`` and
-``make_train_step``'s ``pod_wire`` do.
+``--multi-pod`` and ``--pod-compress`` raise: both analyze the 2 × 16 ×
+16 production mesh, whose model axis is still to port (``launch.mesh``).
 """
 from __future__ import annotations
 
@@ -154,9 +154,10 @@ def main(argv=None) -> int:
         make_production_mesh(multi_pod=True)
     cfg = configs.get(args.arch)
     if args.pod_compress:
-        from ..optim import OptConfig
-        from .steps import make_train_step
-        make_train_step(cfg, OptConfig(), pod_wire=args.pod_compress)
+        from ..parallel.sharding import MULTI_DEVICE
+        raise NotImplementedError(
+            f"--pod-compress analyzes the pod_wire step on the 2x16x16 "
+            f"production mesh: {MULTI_DEVICE}")
     shape = SHAPES[args.shape]
     if args.reduce:
         from .dryrun import reduced_shape

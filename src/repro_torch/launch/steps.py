@@ -1,17 +1,45 @@
 """The train, prefill and decode steps.
 
-The port of ``repro.launch.steps`` on one device. ``make_train_step``
-gives the step the trainer runs: the loss of :func:`loss_fn` (the
-non-block leaves cast to the compute dtype once, the blocks one layer at
-a time inside ``forward_train``), its float32 gradients by autograd with
-respect to the master, and one AdamW update in place. With
-``microbatch`` the batch's rows go through in consecutive slices of that
-many and the step takes the exact mean: float32 sums of the slices'
-losses and gradients, divided by their number, as the reference's scan.
+The port of ``repro.launch.steps``. ``make_train_step`` gives the step
+the trainer runs: the loss of :func:`loss_fn` (the non-block leaves cast
+to the compute dtype once, the blocks one layer at a time inside
+``forward_train``), its float32 gradients by autograd with respect to
+the master, and one AdamW update in place. With ``microbatch`` the
+batch's rows go through in consecutive slices of that many and the step
+takes the exact mean: float32 sums of the slices' losses and gradients,
+divided by their number, as the reference's scan.
 
-Not copied: the sharding specs (``batch_spec_tree``, ``cache_spec_tree``,
-the steps' spec trees) and ``pod_wire``, the per-pod step with the
-integer-wire gradient reduction: both need the multi-card mesh.
+**On a mesh of data-parallel shards** (``launch.mesh``: one rank per
+shard, or the stacked form, every shard in one process one after
+another), ``make_train_step(..., mesh=)`` gives the ZeRO step. Each
+shard computes the loss and gradients of its rows; the gradients are
+reduced over the ``("pod", "data")`` shards, and each shard takes the
+ZeRO update of its slices (``optim.adamw.apply_zero_updates``):
+
+* plain: a reduce-scatter in buckets of :data:`BUCKET` elements (an
+  all-to-all of equal chunks, each shard's chunk summed over the shards
+  in rank order by ``collectives.shard_sum``, never ``all_reduce``: NCCL's
+  ring and tree orders are not rank order), then ``/ P``;
+* ``grad_compression=bits``: ``optim.compression.compressed_psum`` of
+  ``g / P`` with each shard's own error buffer: the quantised values go
+  through the same reduce-scatter (the reference's compressed step);
+* ``pod_wire='u16'|'u8'``: the mean over the data axis inside a pod (a
+  rank-order all-reduce, ``launch.mesh.all_sum``), then across the pod
+  axis through ``optim.compression.compressed_wire_reduce``, leaf by
+  reference leaf; each shard then takes its slices. The reference
+  hard-codes 2 pods, and so does the port.
+
+The loss is the rank-order mean of the shards' losses. The rank form and
+the stacked form run one code path over the mesh's exchanges, so the
+stacked form is the bit reference of every rank run; on one shard the
+step gives the one-device step's bits.
+
+:func:`batch_spec_tree` and :func:`cache_spec_tree` are the reference's
+logical specs, kept as data (``parallel.sharding``); the synthetic
+stream places batches with the first (``data.synthetic.place_batch``).
+
+Not copied yet: the model axis (tensor-parallel layers over ``"model"``;
+``launch.mesh`` raises for model > 1).
 """
 from __future__ import annotations
 
@@ -20,6 +48,46 @@ import torch
 from ..models import transformer as tfm
 from ..models.config import ModelConfig
 from ..optim import OptConfig, TrainState, apply_updates
+from ..optim import adamw
+from ..optim.compression import compressed_psum, compressed_wire_reduce
+from ..parallel import collectives as co
+from .mesh import Mesh, all_sum
+
+#: elements of float32 gradient per exchange bucket (256 MiB): a staged
+#: exchange holds one bucket on the host, not a rank's whole gradient
+BUCKET = 1 << 26
+#: the pod counts ``pod_wire`` runs over (the reference's 2)
+WIRE_PODS = 2
+
+
+def batch_spec_tree(batch_tree: dict) -> dict:
+    """Every batch leaf's leading dim over the data-parallel axes."""
+    return {k: (("pod", "data"),) + (None,) * (len(v.shape) - 1)
+            for k, v in batch_tree.items()}
+
+
+def cache_spec_tree(cfg: ModelConfig, cache_tree: dict) -> dict:
+    """The reference's cache specs: batch over the data-parallel axes; the
+    KV-head axis over ``"model"`` when the head count divides 16, else the
+    head dim (GQA models with few KV heads); SSM states' heads and
+    channels over ``"model"``. ``cache_tree``: ``{name: tensor}``
+    (``transformer.init_cache``)."""
+    kv_on_heads = cfg.n_kv_heads % 16 == 0
+    dp = ("pod", "data")
+
+    def spec(name, leaf):
+        if name in ("k", "v", "ek", "ev"):          # [L, B, S, KV, hd]
+            return (None, dp, None, "model", None) if kv_on_heads else \
+                (None, dp, None, None, "model")
+        if name == "conv":                          # [L, B, K-1, ch]
+            return (None, dp, None, "model")
+        if name == "ssm":                           # [L, B, H, N, P]
+            return (None, dp, "model", None, None)
+        if name == "len":
+            return (dp,)
+        return (None,) * len(leaf.shape)
+
+    return {k: spec(k, v) for k, v in cache_tree.items()}
 
 
 def loss_fn(cfg: ModelConfig, master, batch) -> torch.Tensor:
@@ -57,17 +125,134 @@ def grads_of(cfg: ModelConfig, master, batch, microbatch: int | None = None):
     return loss_sum / n_micro, [g / n_micro for g in gsum]
 
 
+def buckets(layout: list, limit: int = BUCKET) -> list:
+    """The leaves' indices in runs of consecutive leaves of at most
+    ``limit`` elements (a larger leaf alone)."""
+    out, cur, size = [], [], 0
+    for j, leaf in enumerate(layout):
+        n = leaf.slice_numel * leaf.n
+        if cur and size + n > limit:
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(j)
+        size += n
+    return out + ([cur] if cur else [])
+
+
+def reduce_gradients(mesh, layout: list, grads: list, *,
+                     mean: bool = True) -> list:
+    """The shards' gradients (``grads``: per shard this process holds, in
+    ``master.parameters()`` order) summed over every shard in rank order
+    (divided by the shard count where ``mean``), as each held shard's
+    slices, one per leaf of ``layout``: a reduce-scatter per bucket for
+    the split leaves, an all-reduce for the others."""
+    P = mesh.size
+    out = [[None] * len(layout) for _ in grads]
+    split = [j for j, leaf in enumerate(layout) if leaf.dim is not None]
+    for bucket in buckets([layout[j] for j in split]):
+        idx = [split[k] for k in bucket]
+        sends = [torch.cat([layout[j].chunks(layout[j].full(g))
+                            for j in idx], dim=1) for g in grads]
+        for i, tot in enumerate(mesh.reduce_scatter("dp", sends)):
+            tot = tot / P if mean else tot
+            off = 0
+            for j in idx:
+                c = layout[j].slice_numel
+                out[i][j] = tot[off:off + c].view(layout[j].slice_shape)
+                off += c
+    for j, leaf in enumerate(layout):
+        if leaf.dim is None:
+            tot = all_sum(mesh, "dp", [leaf.full(g) for g in grads])
+            for i, t in enumerate(tot):
+                out[i][j] = t / P if mean else t
+    return out
+
+
+def pod_wire_gradients(mesh, layout: list, grads: list, wire: str) -> list:
+    """The shards' gradients as each held shard's slices: the mean over
+    the data axis inside each pod, then ``compressed_wire_reduce`` across
+    the pods, per reference leaf."""
+    D = mesh.data
+    out = [[None] * len(layout) for _ in grads]
+    for j, leaf in enumerate(layout):
+        fulls = [leaf.full(g) for g in grads]
+        if D > 1:
+            fulls = [t / D for t in all_sum(mesh, "data", fulls)]
+        fulls = compressed_wire_reduce(fulls, mesh, "pod", wire)
+        for i, s in enumerate(mesh.local):
+            out[i][j] = leaf.take(fulls[i], s)
+    return out
+
+
+def mean_loss(mesh, losses: list) -> torch.Tensor:
+    """The rank-order mean of the shards' losses (the same bits on every
+    shard)."""
+    got = mesh.all_gather("dp", [l.reshape(1) for l in losses])[0]
+    return co.shard_sum(got.reshape(-1)) / mesh.size
+
+
+def _mesh_step(cfg: ModelConfig, opt: OptConfig, mesh, *, pod_wire,
+               microbatch, grad_compression):
+    """The step on a mesh of data-parallel shards (module docstring):
+    ``train_step(state, errs, batches) -> (state, errs, {"loss"})`` with a
+    ``ZeroState``, the error buffers per shard held (None without
+    compression) and one batch per shard held."""
+    if pod_wire is not None:
+        if pod_wire not in ("u16", "u8"):
+            raise ValueError(f"pod_wire {pod_wire!r} not in ('u16', 'u8')")
+        if mesh.pods != WIRE_PODS:
+            raise ValueError(f"pod_wire runs over {WIRE_PODS} pods (the "
+                             f"reference's), the mesh has {mesh.pods}")
+        if grad_compression is not None:
+            raise ValueError("pod_wire and grad_compression are two ways to "
+                             "compress the gradient exchange: pick one")
+    layout = adamw.zero_layout(cfg, mesh)
+    bks = buckets(layout)
+    P = mesh.size
+
+    def train_step(state, errs, batches):
+        losses, grads = [], []
+        for b in batches:
+            loss, g = grads_of(cfg, state.master, b, microbatch)
+            losses.append(loss)
+            grads.append(g)
+        if pod_wire is not None:
+            slices = pod_wire_gradients(mesh, layout, grads, pod_wire)
+        elif grad_compression is not None:
+            slices, errs = compressed_psum(
+                [[x / P for x in g] for g in grads], errs, grad_compression,
+                mesh=mesh, layout=layout)
+        else:
+            slices = reduce_gradients(mesh, layout, grads)
+        del grads
+        state = adamw.apply_zero_updates(state, slices, opt, mesh, layout,
+                                         bks)
+        return state, errs, {"loss": mean_loss(mesh, losses)}
+
+    train_step.layout = layout
+    train_step.buckets = bks
+    return train_step
+
+
 def make_train_step(cfg: ModelConfig, opt: OptConfig,
                     pod_wire: str | None = None,
-                    microbatch: int | None = None):
-    """``train_step(state, batch) -> (state, {"loss"})``: the gradients of
+                    microbatch: int | None = None, *, mesh=None,
+                    grad_compression: int | None = None):
+    """Without a mesh (or on the one-device :class:`~.mesh.Mesh`):
+    ``train_step(state, batch) -> (state, {"loss"})``, the gradients of
     :func:`grads_of`, then ``apply_updates`` with the global norm summed
-    in the reference's leaf order."""
+    in the reference's leaf order. On a mesh of data-parallel shards: the
+    ZeRO step of the module docstring, ``train_step(state, errs,
+    batches)``, with ``microbatch`` rows per slice of each shard's
+    batch."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        return _mesh_step(cfg, opt, mesh, pod_wire=pod_wire,
+                          microbatch=microbatch,
+                          grad_compression=grad_compression)
     if pod_wire is not None:
-        raise NotImplementedError(
-            "pod_wire (the per-pod step with the integer-wire gradient "
-            "reduction) needs the multi-card mesh, which the port does not "
-            "have yet")
+        raise ValueError(
+            "pod_wire reduces the gradients across the pod axis: it needs "
+            "a mesh with 2 pods (launch.mesh.make_debug_mesh(pods=2, ...))")
     groups = tfm.reference_groups(tfm.Transformer(cfg, device="meta"))
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:

@@ -36,7 +36,9 @@ interval, so ``traced_wall_s`` is the per-call wall under the trace.
 **No fallback on the card.** The reference falls back to a wall clock
 when its profiler fails. On the CPU the port keeps that fallback and its
 ``profiler_unavailable`` marker; on the card it raises, since a wall
-clock would hide the device.
+clock would hide the device. A trace on the card that holds no kernel
+event is taken again, up to :data:`TRACE_ATTEMPTS` traces, before it
+raises.
 """
 from __future__ import annotations
 
@@ -68,6 +70,11 @@ SPAN_NAMES = (
 
 #: marker interval bracketing each measured call
 _MARKER = "packsell.profile_dispatch"
+
+#: traces of the same calls taken on the card before a trace without any
+#: kernel event fails: CUPTI has delivered no kernel activity for one
+#: trace on the H100 in a process whose other traces held theirs
+TRACE_ATTEMPTS = 3
 
 #: host events that launch device work; the kernels they launch carry the
 #: same correlation id
@@ -219,7 +226,11 @@ def profile_dispatch(fn, *args, spans=SPAN_NAMES, repeats: int = 10,
         _sync(dev)
         wall_clean = (time.perf_counter() - t0) / max(repeats, 1)
         try:
-            events, t_wall = _trace_events(fn, args, repeats, dev)
+            for _ in range(TRACE_ATTEMPTS if backend == "cuda" else 1):
+                events, t_wall = _trace_events(fn, args, repeats, dev)
+                dev_events = _device_events(events, backend)
+                if dev_events:
+                    break
         except Exception as e:
             if backend == "cuda":
                 raise RuntimeError(f"profile_dispatch: the profiler failed "
@@ -227,7 +238,6 @@ def profile_dispatch(fn, *args, spans=SPAN_NAMES, repeats: int = 10,
             return _wallclock(fn, args, repeats, dev, f"trace failed: {e!r}")
     finally:
         _obs.enable(prev)
-    dev_events = _device_events(events, backend)
     if not dev_events:
         if backend == "cuda":
             raise RuntimeError("profile_dispatch: the trace holds no kernel "

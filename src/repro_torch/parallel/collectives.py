@@ -15,6 +15,17 @@ place the port calls ``torch.distributed``'s collectives.
   shape from rank ``(p - shift) % P``.
 * :func:`gather_values`: a few float64 values of every rank on the host
   (the solvers' end-of-solve cross-check, the memory sums).
+* :func:`all_to_all`: equal chunks ``[n, ...]``, row i to rank
+  ``members[i]`` (``all_to_all_single``; a subset of the ranks through
+  zero-size chunks to the others); :func:`all_gather`: every member's
+  block, stacked. The training side's meshes build the reduce-scatter
+  (the received rows summed by :func:`shard_sum`, in rank order) and
+  ``pmax`` on these (``launch.mesh``).
+
+**Wire dtypes.** Gloo refuses ``int16``/``uint16`` and NCCL has no
+16-bit unsigned type, so a 16-bit pattern travels as the same bits viewed
+as ``bfloat16`` (:func:`u16_wire`), a byte as ``uint8``. No collective
+sums on the wire: the sums are :func:`shard_sum`'s, after the exchange.
 
 **The staging rule.** Gloo's transport reads and writes host memory.
 Where a gloo mesh's ranks hold CUDA tensors (four ranks sharing one
@@ -115,6 +126,57 @@ def ring_exchange(buf: torch.Tensor, shift: int, mesh) -> torch.Tensor:
 
     buf = buf.contiguous()
     return _staged(mesh, torch.empty_like(buf), (buf,), call)
+
+
+def all_to_all(chunks: torch.Tensor, mesh, members=None) -> torch.Tensor:
+    """``chunks`` ``[n, ...]``: row i goes to rank ``members[i]``; returns
+    the rows those ranks sent this one, ``[n, ...]`` in their order (every
+    rank sends the same shape). ``members``: ascending ranks of the
+    mesh's group, this one among them (None: every rank). A subset
+    exchanges over the whole group with zero-size chunks to the others
+    (``all_to_all_single``'s split sizes), so an axis of a mesh needs no
+    process group of its own: every rank of the group calls together."""
+    import torch.distributed as dist
+
+    members = list(range(mesh.size)) if members is None else list(members)
+    if chunks.shape[0] != len(members):
+        raise ValueError(f"all_to_all of {chunks.shape[0]} chunks to "
+                         f"{len(members)} ranks")
+    if members != sorted(members) or mesh.rank not in members:
+        raise ValueError(f"members {members} must ascend and hold rank "
+                         f"{mesh.rank}")
+    chunks = chunks.contiguous()
+    if len(members) == mesh.size:
+        return _staged(mesh, torch.empty_like(chunks), (chunks,),
+                       lambda o, c: dist.all_to_all_single(
+                           o, c, group=mesh.group))
+    splits = [0] * mesh.size
+    for m in members:
+        splits[m] = 1
+    return _staged(mesh, torch.empty_like(chunks), (chunks,),
+                   lambda o, c: dist.all_to_all_single(
+                       o, c, output_split_sizes=splits,
+                       input_split_sizes=splits, group=mesh.group))
+
+
+def all_gather(block: torch.Tensor, mesh, members=None) -> torch.Tensor:
+    """This rank's ``block`` and every other member's (None: every rank),
+    ``[n, *block.shape]`` in rank order."""
+    if members is None or len(members) == mesh.size:
+        return _all_gather(mesh, block)
+    return all_to_all(block.unsqueeze(0).expand(
+        (len(members),) + tuple(block.shape)), mesh, members)
+
+
+def u16_wire(u: torch.Tensor) -> torch.Tensor:
+    """16-bit patterns (int64 or int32 holding 0..65535) as ``bfloat16``
+    tensors of the same bits, the form they travel in."""
+    return u.to(torch.int32).to(torch.int16).view(torch.bfloat16)
+
+
+def u16_from_wire(w: torch.Tensor) -> torch.Tensor:
+    """:func:`u16_wire`'s inverse: the patterns as int64 in 0..65535."""
+    return w.view(torch.int16).to(torch.int64) & 0xFFFF
 
 
 def gather_values(values, mesh) -> np.ndarray:

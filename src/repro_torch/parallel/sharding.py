@@ -19,22 +19,111 @@ devices from ``XLA_FLAGS=--xla_force_host_platform_device_count=N``.
   in :mod:`.collectives`, the launcher in :mod:`.launch`.
 
 A :class:`ShardMesh` over more than one device raises
-``NotImplementedError``: one shard per GPU is the rank mesh's job, and the
-training side's data × model mesh is still to port (:data:`MULTI_DEVICE`).
+``NotImplementedError``: one shard per GPU is the rank mesh's job.
+
+The training side's logical specs (the reference's ``PartitionSpec``s
+over ``"pod"``, ``"data"`` and ``"model"``) are kept as data: a spec is a
+tuple with one entry per dim, ``None``, an axis name or a tuple of names.
+:func:`batch_axes`, :func:`filter_spec` and :func:`sanitize_spec` are the
+reference's rules over a mesh's axes and sizes, and :func:`shard_range` /
+:func:`take_shard` give the slice of a leaf that one shard of the
+data-parallel axes holds under such a spec: the port's stand-in for
+``named_sharding``/``tree_shardings_shaped``, as slicing rules rather than
+GSPMD. A mesh here is anything with ``axis_names`` and a ``shape`` dict
+(``launch.mesh``). The model axis is still to port (:data:`MULTI_DEVICE`).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from .. import _device
 
 #: where the meshes over several devices stand
-MULTI_DEVICE = ("ROADMAP.md queue 1: the training side's data x model mesh "
-                "over several devices (one rank per GPU) is the next slice "
-                "to port; the solve path already runs one rank per shard "
+MULTI_DEVICE = ("ROADMAP.md queue 1: the model axis (tensor-parallel layers "
+                "over \"model\" for the six families), the production mesh "
+                "and dryrun --multi-pod/--both-meshes are the next slice to "
+                "port; the data-parallel axes (\"pod\", \"data\") already "
+                "run one rank per shard (launch.mesh.make_debug_mesh over a "
+                "process group), as the solve path does "
                 "(parallel.sharding.RankMesh)")
+
+#: the data-parallel axes, outermost first
+DP_AXES = ("pod", "data")
+
+
+def batch_axes(mesh) -> tuple:
+    """The data-parallel axes of ``mesh``: ``("pod", "data")`` on a
+    multi-pod mesh, ``("data",)`` else, ``()`` without a mesh."""
+    if mesh is None:
+        return ()
+    return tuple(a for a in DP_AXES if a in mesh.axis_names)
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def filter_spec(spec, mesh) -> tuple:
+    """``spec`` with the axis names ``mesh`` lacks dropped (an entry left
+    with none is ``None``, with one the name, as ``PartitionSpec`` writes
+    it), so one logical spec fits any mesh."""
+    names = set(mesh.axis_names) if mesh is not None else set()
+
+    def keep(entry):
+        if isinstance(entry, (tuple, list)):
+            kept = tuple(a for a in entry if a in names)
+            return (kept if len(kept) > 1 else kept[0]) if kept else None
+        return entry if entry in names else None
+
+    return tuple(keep(e) for e in spec)
+
+
+def sanitize_spec(spec, shape, mesh) -> tuple:
+    """:func:`filter_spec`, then no sharding on a dim the entry's axes do
+    not divide evenly (the reference's rule for jit argument shardings);
+    entries past ``len(shape)`` go."""
+    sizes = mesh.shape
+    out = []
+    for i, e in enumerate(filter_spec(spec, mesh)[:len(shape)]):
+        n = math.prod(sizes.get(a, 1) for a in _names(e))
+        out.append(e if e is not None and shape[i] % n == 0 else None)
+    return tuple(out)
+
+
+def shard_coords(mesh, index: int) -> dict:
+    """The ``("pod", "data")`` coordinates of data-parallel shard
+    ``index``, pods outermost (``index = pod * data + data_index``)."""
+    d = mesh.shape.get("data", 1)
+    return {"pod": index // d, "data": index % d}
+
+
+def shard_range(size: int, entry, mesh, index: int) -> tuple:
+    """``(lo, hi)``: the part of a dim of ``size`` that data-parallel shard
+    ``index`` holds under the spec ``entry`` (its axes row-major, the
+    first outermost; an axis the coordinates lack, ``"model"``, at 0 of
+    its size)."""
+    coords, sizes = shard_coords(mesh, index), mesh.shape
+    k, n = 0, 1
+    for a in _names(entry):
+        k, n = k * sizes.get(a, 1) + coords.get(a, 0), n * sizes.get(a, 1)
+    step = size // n
+    return k * step, (k + 1) * step
+
+
+def take_shard(x, spec, mesh, index: int):
+    """The block of ``x`` (a tensor or array) that data-parallel shard
+    ``index`` holds under the logical ``spec``, sanitised for ``mesh``
+    (a view where slicing gives one)."""
+    for dim, e in enumerate(sanitize_spec(spec, tuple(x.shape), mesh)):
+        if e is not None:
+            lo, hi = shard_range(x.shape[dim], e, mesh, index)
+            x = x[(slice(None),) * dim + (slice(lo, hi),)]
+    return x
 
 
 def _normal(device) -> torch.device:

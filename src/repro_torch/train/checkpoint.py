@@ -15,9 +15,16 @@ other. Everything is written into ``<dir>/.tmp_step_<k>`` and renamed
 into place; ``latest_step`` sees committed directories only; older
 checkpoints beyond ``keep`` go after a commit, never before.
 
-The specs are written as replicated (``[]``): the port runs on one card,
-and ``restore`` places every leaf on one device, where the reference's
-``restore_resharded`` re-shards onto a mesh.
+**Elastic re-shard restore.** Leaves are stored as global arrays with
+their logical spec (the trainer's ZeRO specs, ``optim.adamw.zero_spec``),
+as the reference stores them. :func:`restore_resharded` places each leaf
+on the current mesh (``launch.mesh``): every data-parallel shard takes
+its slice by the stored spec, filtered and sanitised for that mesh
+(``parallel.sharding.take_shard``), so a checkpoint written on P shards
+restores on any other P, or on one device, and in the other package.
+On a mesh, the leaves are gathered to every rank and only the lead rank
+writes (``train.trainer``). Not copied yet: the model axis (a spec's
+``"model"`` entries slice nothing while ``launch.mesh`` has model = 1).
 """
 from __future__ import annotations
 
@@ -64,6 +71,14 @@ def unflatten(flat: dict, prefix: str) -> dict:
     return out
 
 
+def _spec_to_json(spec) -> list:
+    return [list(e) if isinstance(e, (tuple, list)) else e for e in spec]
+
+
+def _spec_from_json(entries) -> tuple:
+    return tuple(tuple(e) if isinstance(e, list) else e for e in entries)
+
+
 def _host(leaf) -> np.ndarray:
     if torch.is_tensor(leaf):
         return leaf.detach().cpu().numpy()
@@ -91,9 +106,11 @@ class CheckpointManager:
         return s[-1] if s else None
 
     # -- save ---------------------------------------------------------------
-    def save(self, step: int, leaves: dict, extra: dict | None = None):
+    def save(self, step: int, leaves: dict, extra: dict | None = None,
+             specs: dict | None = None):
         """Write checkpoint ``step`` of ``leaves`` (``{path: tensor or
-        array}``, :func:`flatten_with_paths`)."""
+        array}``, :func:`flatten_with_paths`), each with its logical spec
+        from ``specs`` (``{path: spec}``; replicated where missing)."""
         t0 = time.time()
         tmp = os.path.join(self.dir, f".tmp_step_{step}")
         final = os.path.join(self.dir, f"step_{step}")
@@ -101,8 +118,10 @@ class CheckpointManager:
             shutil.rmtree(tmp)
         os.makedirs(tmp)
         arrays = {k: _host(v) for k, v in leaves.items()}
+        specs = specs or {}
         meta_leaves = {k: {"dtype": str(a.dtype), "shape": list(a.shape),
-                           "spec": []} for k, a in arrays.items()}
+                           "spec": _spec_to_json(specs.get(k, ()))}
+                       for k, a in arrays.items()}
         np.savez(os.path.join(tmp, "arrays.npz"),
                  **{k.replace(_SEP, "__"): v for k, v in arrays.items()})
         meta = {
@@ -138,20 +157,45 @@ class CheckpointManager:
             arrays = {k.replace("__", _SEP): z[k] for k in z.files}
         return arrays, meta
 
-    def restore(self, template: dict, step: int | None = None, device=None):
-        """(``{path: tensor}`` on ``device`` (None: the host) for every
-        leaf of ``template`` (``{path: tensor}``, whose shapes and dtypes
-        are wanted; the meta device will do), metadata)."""
+    def restore(self, template: dict, step: int | None = None, device=None,
+                *, mesh=None, index: int | None = None,
+                specs: dict | None = None):
+        """(:func:`restore_resharded` of committed step ``step`` (None: the
+        latest), metadata)."""
         arrays, meta = self.load_raw(step)
-        out = {}
-        for key, leaf in template.items():
-            if key not in arrays:
-                raise KeyError(f"checkpoint missing leaf {key!r}")
-            arr = arrays[key]
-            if tuple(arr.shape) != tuple(leaf.shape):
-                raise ValueError(
-                    f"shape mismatch for {key}: ckpt {arr.shape} vs "
-                    f"template {tuple(leaf.shape)}")
-            out[key] = torch.as_tensor(arr).to(device=device,
-                                               dtype=leaf.dtype)
-        return out, meta
+        return restore_resharded(template, arrays, meta, mesh=mesh,
+                                 device=device, index=index,
+                                 specs=specs), meta
+
+
+def restore_resharded(template: dict, arrays: dict, meta: dict, mesh=None,
+                      *, device=None, index: int | None = None,
+                      specs: dict | None = None) -> dict:
+    """``{path: tensor}`` for every leaf of ``template`` (``{path:
+    tensor}``, whose shapes and dtypes are wanted; the meta device will
+    do) from the stored global ``arrays``: on ``device`` (None: the host;
+    ``mesh.device`` on a mesh) and, on a mesh of data-parallel shards,
+    the block data-parallel shard ``index`` (None: this process's first,
+    ``mesh.local[0]``) holds under the leaf's stored spec (or ``specs[path]``
+    where given), filtered and sanitised for ``mesh``."""
+    from ..parallel.sharding import take_shard
+
+    sharded = mesh is not None and hasattr(mesh, "local")
+    if sharded:
+        device = mesh.device if device is None else device
+        index = mesh.local[0] if index is None else index
+    out = {}
+    for key, leaf in template.items():
+        if key not in arrays:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        arr = arrays[key]
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(
+                f"shape mismatch for {key}: ckpt {arr.shape} vs "
+                f"template {tuple(leaf.shape)}")
+        if sharded:
+            spec = (specs[key] if specs is not None and key in specs
+                    else _spec_from_json(meta["leaves"][key]["spec"]))
+            arr = np.ascontiguousarray(take_shard(arr, spec, mesh, index))
+        out[key] = torch.as_tensor(arr).to(device=device, dtype=leaf.dtype)
+    return out

@@ -1,19 +1,36 @@
 """The training loop: data + step + checkpoints + fault handling.
 
-The port of ``repro.train.trainer`` on one device (``device=``; None is
-the GPU, and raises without one). The state is a float32 master, m and v
+The port of ``repro.train.trainer``. On one device (``device=``; None is
+the GPU, and raises without one) the state is a float32 master, m and v
 (``optim.adamw.TrainState``) on the device; each step runs eagerly
 (``launch.steps.make_train_step``, the reference's jitted step), reads
 its loss back to the host (the reference's ``device_get``), checks the
 preemption flag and the straggler monitor, and every ``ckpt_every``
 steps writes a checkpoint in the reference's layout
-(``train.checkpoint``), from which a new trainer on the same directory
-goes on. With ``grad_compression`` the step quantizes each gradient to
-E8M<bits> with error feedback before the update (the reference's
-``shard_map`` step over one data shard, whose sum is the identity).
+(``train.checkpoint``, with the reference's ZeRO specs), from which a new
+trainer on the same directory goes on. With ``grad_compression`` the
+step quantizes each gradient to E8M<bits> with error feedback before the
+update (the reference's ``shard_map`` step over one data shard, whose sum
+is the identity).
 
-Not copied: the mesh (``data_axis``/``model_axis`` other than 1 raise),
-the ZeRO specs, and the placement of the batch over data shards.
+**The data-parallel axes.** With ``data_axis × pods`` > 1, or a mesh
+passed in, the trainer runs on a mesh of data-parallel shards
+(``launch.mesh``): a ``ProcessMesh`` (one rank per shard; without a mesh
+it is built over the initialised default process group) or its stacked
+form (every shard in this process, the bit reference). The state is a
+``ZeroState`` (``m`` and ``v`` sliced by the ZeRO specs), each shard takes
+its own rows of every batch (``next_placed_batch``), the step is the ZeRO
+step of ``launch.steps`` (compressed over the data axes with
+``grad_compression``, across pods with ``pod_wire``), and the loss is the
+rank-order mean. Only the lead rank logs and writes checkpoints (``m``
+and ``v`` gathered whole first, every rank taking part); the straggler
+monitor runs on every rank and reports on the lead; the lead's
+preemption flag is shared with every rank each step, so all ranks stop
+after the same step and no rank waits in a collective the others left.
+A restore takes the master whole and each shard's slices of ``m`` and
+``v`` by this mesh's ZeRO specs, whatever mesh wrote the checkpoint.
+
+Not copied yet: the model axis (``model_axis`` other than 1 raises).
 """
 from __future__ import annotations
 
@@ -27,11 +44,15 @@ import torch
 from .. import _device
 from ..data import DataConfig, SyntheticTokenStream
 from ..launch import steps
+from ..launch.mesh import Mesh, ProcessMesh, make_debug_mesh
 from ..models import transformer as tfm
 from ..models.config import ModelConfig
-from ..optim import OptConfig, TrainState, apply_updates, init_state
+from ..optim import OptConfig, TrainState, adamw, apply_updates, init_state
 from ..optim.compression import compressed_psum
-from .checkpoint import CheckpointManager, flatten_with_paths, unflatten
+from ..parallel import collectives as co
+from ..parallel.sharding import MULTI_DEVICE
+from .checkpoint import (CheckpointManager, flatten_with_paths,
+                         restore_resharded, unflatten)
 from .fault import PreemptionGuard, StepMonitor
 
 
@@ -49,6 +70,8 @@ class TrainerConfig:
     # distribution
     data_axis: int = 1            # debug-mesh DP size (examples/tests)
     model_axis: int = 1
+    pods: int = 1                 # a leading pod axis (the port's knob)
+    pod_wire: str | None = None   # 'u16' | 'u8' across the pods
     # gradient accumulation: microbatch size per step (None = full batch)
     microbatch: int | None = None
     # fault tolerance
@@ -66,29 +89,75 @@ def state_leaves(state: TrainState) -> dict:
         for t in (state.master, state.m, state.v)))
 
 
+def state_specs(cfg: ModelConfig, data_size: int = 1) -> dict:
+    """The checkpoint's specs, as the reference's trainer writes them: the
+    step replicated, master, m and v by their ZeRO specs at ``data_size``
+    (``{path: spec}``, :func:`state_leaves`' paths)."""
+    params, specs = tfm.abstract_params(cfg)
+    z = adamw.zero_spec_tree(specs, adamw.leaf_shapes(params), data_size)
+    out = {"0": ()}
+    for i in (1, 2, 3):
+        out.update({f"{i}/" + "/".join(k): v for k, v in z.items()})
+    return out
+
+
+def _tree(layout: list, leaves: list) -> dict:
+    """The reference's nested tree of ``leaves`` (one per layout leaf)."""
+    tree = {}
+    for leaf, t in zip(layout, leaves):
+        *head, last = leaf.key.split("/")
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = t
+    return tree
+
+
 class Trainer:
     def __init__(self, model_cfg: ModelConfig, opt_cfg: OptConfig,
-                 tcfg: TrainerConfig, *, device=None,
+                 tcfg: TrainerConfig, *, device=None, mesh=None,
                  log_fn: Callable[[str], None] = print):
-        if tcfg.data_axis != 1 or tcfg.model_axis != 1:
+        if tcfg.model_axis != 1:
             raise NotImplementedError(
-                f"data_axis={tcfg.data_axis}, model_axis={tcfg.model_axis}: "
-                "more than one shard needs the multi-card mesh of the "
-                "training side (data x model), which the port does not have "
-                "yet")
+                f"model_axis={tcfg.model_axis}: {MULTI_DEVICE}")
         self.cfg = model_cfg
         self.opt = opt_cfg
         self.tcfg = tcfg
         self.log = log_fn
-        self.dev = _device.resolve_device(device)
+        if mesh is None and tcfg.data_axis * tcfg.pods > 1:
+            mesh = make_debug_mesh(data=tcfg.data_axis, pods=tcfg.pods,
+                                   device=device)
+        if isinstance(mesh, Mesh):
+            device = mesh.devices[0][0] if device is None else device
+            mesh = None
+        self.mesh = mesh
+        if self.mesh is not None and (self.mesh.data, self.mesh.pods) != (
+                tcfg.data_axis, tcfg.pods):
+            raise ValueError(
+                f"a {self.mesh.pods}x{self.mesh.data} (pod, data) mesh for "
+                f"pods={tcfg.pods}, data_axis={tcfg.data_axis}")
+        self.dev = (self.mesh.device if self.mesh is not None
+                    else _device.resolve_device(device))
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
         self.monitor = StepMonitor(threshold=tcfg.straggler_threshold)
         self.data = SyntheticTokenStream(DataConfig(
             vocab=model_cfg.vocab, seq_len=tcfg.seq_len,
             global_batch=tcfg.global_batch, seed=tcfg.seed))
         self.history: list[dict] = []
-        self._step_fn = (self._make_step() if tcfg.grad_compression is None
-                         else self._make_compressed_step())
+        if self.mesh is not None:
+            self._step_fn = self._make_mesh_step()
+        elif tcfg.pod_wire is not None:
+            raise ValueError("pod_wire needs a mesh of 2 pods (pods=2)")
+        else:
+            self._step_fn = (self._make_step()
+                             if tcfg.grad_compression is None
+                             else self._make_compressed_step())
+        self.specs = state_specs(model_cfg, tcfg.data_axis)
+
+    @property
+    def lead(self) -> bool:
+        """Whether this process logs and writes the checkpoints."""
+        return self.mesh is None or self.mesh.lead
 
     # ------------------------------------------------------------------
     def _make_step(self):
@@ -97,6 +166,22 @@ class Trainer:
             raise ValueError(f"microbatch {mb} must divide global batch "
                              f"{gb} and be smaller")
         return steps.make_train_step(self.cfg, self.opt, microbatch=mb)
+
+    def _make_mesh_step(self):
+        """The ZeRO step over the mesh's data-parallel shards, each shard's
+        microbatch ``microbatch / P`` rows."""
+        P, gb, mb = self.mesh.size, self.tcfg.global_batch, \
+            self.tcfg.microbatch
+        if gb % P:
+            raise ValueError(f"global batch {gb} over {P} data-parallel "
+                             "shards: each shard needs the same rows")
+        if mb is not None and (gb % mb != 0 or mb >= gb or mb % P):
+            raise ValueError(f"microbatch {mb} must divide global batch "
+                             f"{gb}, be smaller, and split over {P} shards")
+        return steps.make_train_step(
+            self.cfg, self.opt, self.tcfg.pod_wire,
+            None if mb is None else mb // P, mesh=self.mesh,
+            grad_compression=self.tcfg.grad_compression)
 
     def _make_compressed_step(self):
         """The step with E8M<bits> gradient compression and error feedback
@@ -120,8 +205,10 @@ class Trainer:
             (torch.empty((), dtype=torch.int32, device="meta"),
              tree, tree, tree))
 
-    def init_or_restore(self) -> TrainState:
+    def init_or_restore(self):
         latest = self.ckpt.latest_step()
+        if latest is not None and self.mesh is not None:
+            return self._restore_mesh()
         if latest is not None:
             arrays, meta = self.ckpt.restore(self._template(),
                                              device=self.dev)
@@ -133,18 +220,81 @@ class Trainer:
             self.log(f"[trainer] restored step {meta['step']} "
                      f"from {self.tcfg.ckpt_dir}")
             return TrainState(arrays["0"], master, m, v)
-        params = tfm.init_params(self.cfg, self.tcfg.seed, device=self.dev)
+        return self.initial_state(tfm.init_params(self.cfg, self.tcfg.seed,
+                                                  device=self.dev))
+
+    def initial_state(self, params):
+        """The step-0 state of ``params`` (a ``Transformer``) for this
+        trainer: a ``TrainState``, or on a mesh a ``ZeroState`` sliced by
+        its ZeRO layout."""
+        if self.mesh is not None:
+            return adamw.init_zero_state(params, self._step_fn.layout,
+                                         self.mesh)
         return init_state(params)
 
-    def _save(self, state: TrainState, step: int):
-        info = self.ckpt.save(
-            step, state_leaves(state),
-            extra={"data_state": self.data.state(), "model": self.cfg.name})
-        self.log(f"[trainer] checkpoint step {step} "
-                 f"({info['save_s']:.2f}s) -> {info['path']}")
+    def _restore_mesh(self):
+        """The latest checkpoint on the mesh: the step and the master
+        whole, each held shard's slices of m and v by this mesh's ZeRO
+        specs (``train.checkpoint.restore_resharded``)."""
+        layout, template = self._step_fn.layout, self._template()
+        arrays, meta = self.ckpt.load_raw()
+        moment = {k: v for k, v in template.items()
+                  if k.startswith(("2/", "3/"))}
+        zspecs = {f"{i}/{leaf.key}": leaf.spec for leaf in layout
+                  for i in (2, 3)}
+        m, v = [], []
+        for s in self.mesh.local:
+            got = restore_resharded(moment, arrays, meta, mesh=self.mesh,
+                                    index=s, specs=zspecs)
+            m.append([got[f"2/{leaf.key}"] for leaf in layout])
+            v.append([got[f"3/{leaf.key}"] for leaf in layout])
+        rest = {k: v for k, v in template.items() if k not in moment}
+        whole = restore_resharded(rest, arrays, meta, mesh=self.mesh,
+                                  specs={k: () for k in rest})
+        master = tfm.load_reference_params(
+            self.cfg, unflatten(whole, "1"), device=self.dev,
+            dtype=torch.float32)
+        master.requires_grad_(True)
+        self.data.restore(meta["extra"]["data_state"])
+        if self.lead:
+            self.log(f"[trainer] restored step {meta['step']} "
+                     f"from {self.tcfg.ckpt_dir}")
+        return adamw.ZeroState(whole["0"], master, m, v)
+
+    def _leaves(self, state) -> dict:
+        """The checkpoint's leaves of ``state`` (on a mesh, m and v
+        gathered whole: a collective every rank takes part in)."""
+        if self.mesh is None:
+            return state_leaves(state)
+        layout, bks = self._step_fn.layout, self._step_fn.buckets
+        m, v = (_tree(layout, adamw.gather_moments(self.mesh, layout, mo,
+                                                   bks))
+                for mo in (state.m, state.v))
+        return flatten_with_paths((state.step, tfm.to_reference_params(
+            state.master, host=False), m, v))
+
+    def _save(self, state, step: int):
+        leaves = self._leaves(state)
+        if self.lead:
+            info = self.ckpt.save(
+                step, leaves, specs=self.specs,
+                extra={"data_state": self.data.state(),
+                       "model": self.cfg.name})
+            self.log(f"[trainer] checkpoint step {step} "
+                     f"({info['save_s']:.2f}s) -> {info['path']}")
+        del leaves
+        if self.mesh is not None:
+            # no rank reads the directory before the lead has committed
+            self._shared(0.0)
+
+    def _shared(self, value: float) -> float:
+        """The lead shard's ``value``, on every shard (a collective)."""
+        if not isinstance(self.mesh, ProcessMesh):
+            return value
+        return float(co.gather_values([value], self.mesh.rank_mesh)[0, 0])
 
     # ------------------------------------------------------------------
-    def run(self, state: TrainState | None = None) -> TrainState:
+    def run(self, state=None):
         tcfg = self.tcfg
         if state is None:
             state = self.init_or_restore()
@@ -153,18 +303,26 @@ class Trainer:
         if tcfg.grad_compression is not None:
             err = [torch.zeros_like(p, dtype=torch.float32)
                    for p in state.master.parameters()]
+            if self.mesh is not None:
+                err = [err] + [[torch.zeros_like(e) for e in err]
+                               for _ in self.mesh.local[1:]]
 
         with PreemptionGuard() as guard:
             for step in range(start, tcfg.steps):
                 self.monitor.start()
-                batch = self.data.next_batch(self.dev)
-                if tcfg.grad_compression is None:
-                    state, metrics = self._step_fn(state, batch)
-                else:
+                if self.mesh is not None:
+                    batch = self.data.next_placed_batch(self.mesh)
                     state, err, metrics = self._step_fn(state, err, batch)
+                else:
+                    batch = self.data.next_batch(self.dev)
+                    if tcfg.grad_compression is None:
+                        state, metrics = self._step_fn(state, batch)
+                    else:
+                        state, err, metrics = self._step_fn(state, err,
+                                                            batch)
                 loss = float(metrics["loss"])
                 ev = self.monitor.stop(step)
-                if ev is not None:
+                if ev is not None and self.lead:
                     self.log(f"[straggler] step {ev.step}: "
                              f"{ev.step_time:.3f}s = {ev.ratio:.1f}x "
                              f"EWMA {ev.ewma:.3f}s"
@@ -173,14 +331,18 @@ class Trainer:
                                 else ""))
                 rec = {"step": step + 1, "loss": loss}
                 self.history.append(rec)
-                if (step + 1) % tcfg.log_every == 0 or step == start:
+                if self.lead and ((step + 1) % tcfg.log_every == 0
+                                  or step == start):
                     self.log(f"[train] step {step + 1:5d}  "
                              f"loss {loss:.4f}")
                 if (step + 1) % tcfg.ckpt_every == 0:
                     self._save(state, step + 1)
-                if guard.fired:
-                    self.log("[trainer] preemption signal — saving and "
-                             "exiting cleanly")
+                fired = guard.fired if self.mesh is None else bool(
+                    self._shared(float(guard.fired)))
+                if fired:
+                    if self.lead:
+                        self.log("[trainer] preemption signal — saving and "
+                                 "exiting cleanly")
                     self._save(state, step + 1)
                     break
         return state

@@ -26,7 +26,9 @@ which leaves ``ek``/``ev`` as they were; a prompt holding out-of-range
 token ids leaves the CUDA context working and the other requests' tokens
 as a clean engine's. The training side: a reduced float32 step of each
 family on the card against the same step on the CPU, its gradients
-repeated bit for bit.
+repeated bit for bit; the data axis: two gloo ranks sharing the card
+(plain, compressed, pod-wire u16 and u8 steps) against the stacked form,
+and the wire codecs against the CPU's bits.
 
 Run on a machine with a CUDA device:
 
@@ -1090,6 +1092,39 @@ def test_profile_dispatch_credits_k1_to_its_span_and_raises_on_failure(
                                  device=cuda)
 
 
+def test_profile_dispatch_traces_again_when_a_trace_holds_no_kernel(
+        cuda, monkeypatch):
+    """A trace whose kernel activity was dropped is taken again; one that
+    never holds a kernel raises after ``TRACE_ATTEMPTS`` traces."""
+    from repro_torch.observe import profile
+
+    s, b = _spd_system()
+    mat = pk.from_csr(s, C=8, sigma=32, D=15, codec="fp16", device=cuda)
+    plan = kplan.get_plan(mat)
+    x = torch.from_numpy(b.astype(np.float32)).to(cuda)
+    real, calls = profile._trace_events, []
+
+    def dropped_once(*a, **k):
+        events, t = real(*a, **k)
+        calls.append(1)
+        if len(calls) == 1:
+            events = [e for e in events if e.get("cat") != "kernel"]
+        return events, t
+
+    monkeypatch.setattr(profile, "_trace_events", dropped_once)
+    prof = profile.profile_dispatch(lambda v: plan.spmv(mat, v), x,
+                                    repeats=2, device=cuda)
+    assert len(calls) == 2
+    assert prof.spans["packsell.fused_kernel"]["device_s"] > 0
+    calls.clear()
+    monkeypatch.setattr(profile, "_trace_events",
+                        lambda *a, **k: (calls.append(1), ([], 0.0))[1])
+    with pytest.raises(RuntimeError, match="no kernel event on the card"):
+        profile.profile_dispatch(lambda v: plan.spmv(mat, v), x, repeats=2,
+                                 device=cuda)
+    assert len(calls) == profile.TRACE_ATTEMPTS
+
+
 def test_worker_rebuilds_while_guarded_solve_captures(cuda):
     """The worker rebuilds a tier again and again while the dispatching
     thread runs ``guarded_solve``, whose correction solves capture
@@ -1659,3 +1694,81 @@ def test_nccl_one_rank_captures_the_solve(cuda):
     for x, iters, relres in runs:
         assert iters == ie and relres < 1e-8
         np.testing.assert_array_equal(x, xe)
+
+
+# -- the training data axis across processes ---------------------------------
+
+#: the data-axis runs on the card: (pods, data, TrainerConfig keywords)
+DP_RUNS = {"plain": (1, 2, {}), "comp": (1, 2, {"grad_compression": 10}),
+           "u16": (2, 1, {"pod_wire": "u16"}),
+           "u8": (2, 1, {"pod_wire": "u8"})}
+
+
+def _dp_trainer(key, mesh, root):
+    from repro_torch import configs
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    pods, data, kw = DP_RUNS[key]
+    tcfg = TrainerConfig(steps=2, ckpt_dir=f"{root}/{key}", ckpt_every=100,
+                         seq_len=32, global_batch=8, data_axis=data,
+                         pods=pods, **kw)
+    return Trainer(configs.reduce(configs.get("qwen2-0.5b")),
+                   OptConfig(warmup=1, total_steps=2), tcfg, mesh=mesh,
+                   log_fn=lambda _: None)
+
+
+def _dp_rank_runs(mesh, root):
+    """Every run of ``DP_RUNS`` on this rank: losses and the master."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    out = {}
+    for key, (pods, data, _) in DP_RUNS.items():
+        t = _dp_trainer(key, make_debug_mesh(data=data, pods=pods,
+                                             device=mesh.device), root)
+        s = t.run()
+        out[key] = ([h["loss"] for h in t.history],
+                    [p.detach().cpu() for p in s.master.parameters()])
+    return out
+
+
+def test_data_axis_ranks_sharing_the_card_match_the_stacked_form(
+        cuda, tmp_path):
+    """Two gloo ranks sharing the card (every collective staged through
+    the host): the plain, compressed and pod-wire (u16, u8) data-parallel
+    steps of reduced qwen2-0.5b equal the stacked form on the card (both
+    shards in this process) bit for bit."""
+    from repro_torch.launch.mesh import make_stacked_mesh
+    from repro_torch.parallel.launch import spawn_ranks
+
+    ranks = spawn_ranks(_dp_rank_runs, 2, backend="gloo", device=cuda,
+                        timeout=300, args=(str(tmp_path / "ranks"),))
+    for key, (pods, data, _) in DP_RUNS.items():
+        t = _dp_trainer(key, make_stacked_mesh(data=data, pods=pods,
+                                               device=cuda),
+                        str(tmp_path / "stacked"))
+        s = t.run()
+        for losses, master in (r[key] for r in ranks):
+            assert losses == [h["loss"] for h in t.history], key
+            for a, b in zip(master, s.master.parameters()):
+                _bits_equal(a, b.detach().cpu())
+
+
+def test_wire_codec_on_the_card_matches_the_cpu(cuda):
+    """``compressed_wire_reduce`` over two pods (the stacked form) gives
+    the CPU's bits on the card, for both wires: the codecs are integer and
+    element-wise, the sums in rank order."""
+    from repro_torch.launch.mesh import make_stacked_mesh
+    from repro_torch.optim.compression import compressed_wire_reduce
+
+    rng = np.random.default_rng(3)
+    xs = [torch.from_numpy(rng.standard_normal((37, 129)).astype(np.float32))
+          for _ in range(2)]
+    for wire in ("u16", "u8"):
+        host = compressed_wire_reduce(xs, make_stacked_mesh(
+            pods=2, device="cpu"), "pod", wire)
+        card = compressed_wire_reduce([x.to(cuda) for x in xs],
+                                      make_stacked_mesh(pods=2, device=cuda),
+                                      "pod", wire)
+        for a, b in zip(card, host):
+            _bits_equal(a.cpu(), b)

@@ -367,7 +367,10 @@ def test_mesh_one_device_only():
     assert m.axis_names == ("data", "model")
     assert m.shape == {"data": 1, "model": 1} and m.size == 1
     assert m.devices == ((torch.device("cpu"),),)
-    for kw in ({"data": 2}, {"model": 16}, {"data": 16, "model": 16}):
+    # more than one data shard runs one rank per shard (a process group)
+    with pytest.raises(RuntimeError, match="initialised process group"):
+        mesh.make_debug_mesh(device="cpu", data=2)
+    for kw in ({"model": 16}, {"data": 16, "model": 16}):
         with pytest.raises(NotImplementedError) as e:
             mesh.make_debug_mesh(device="cpu", **kw)
         assert MULTI_DEVICE in str(e.value)
