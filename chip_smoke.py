@@ -138,24 +138,36 @@ TRAIN_PEAK_RATIO = 1.5
 #: with steps scattered by about 0.005 about the trend; a step that learns
 #: nothing stays within that scatter
 LEARN_DROP = 0.01
-#: phase 23 (b): two ranks' losses against one rank's, (a), on the same
-#: master and batches. Each rank's products hold half the rows (4,096
+#: phase 23 (b): two ranks' losses against one device's on the same
+#: model, master and batches. Each rank's products hold half the rows (4,096
 #: tokens against 8,192): the microbatch check's difference
 #: (``MB_LOSS_TOL``). The gradient's sum over two ranks rounds in float32,
 #: far below the bf16 flips, over three steps at lr 3e-4
 DP_LOSS_TOL = MB_LOSS_TOL
-#: phase 23 (b): the layers of qwen2-0.5b kept in the compressed and the
-#: pod-wire runs (full width; the plain run keeps all 24)
+#: phases 23 (b) and 24 (b, c): the layers of qwen2-0.5b kept in the
+#: ranks' runs (full width; phase 23 (a) and phase 24 (a) keep all 24)
 DP_CUT_LAYERS = 4
-#: phase 23 (b): the plain run's steps, after which phase 20 keeps its
-#: master for the master check
+#: phase 23 (b1)'s steps, and phase 24 (a)'s, after which phase 20 keeps
+#: its master for phase 24 (a)'s master check
 DP_STEPS = 3
 #: phase 23 (b): two ranks' master after ``DP_STEPS`` steps against one
-#: rank's, |b1 - a| over |a - initial| (the 2-norms over every element):
-#: the share of (a)'s update that the second rank's bf16 rounding moves.
+#: device's on the same model, |b1 - a| over |a - initial| (the 2-norms
+#: over every element): the share of a's update that the second rank's
+#: bf16 rounding moves.
 #: A planted fault, each rank's slices updated from its own gradient
 #: alone, is measured beside it in every run and must lie above the limit
 DP_MASTER_TOL = 0.25
+#: phase 24 (a): the stacked (1, 2) model axis's master after
+#: ``DP_STEPS`` steps against phase 20's, |tp - a| over |a - initial| (the
+#: 2-norms over every element): the share of the update that the model
+#: shards' other bf16 roundings move. A planted fault, a row-parallel
+#: reduce-scatter that keeps each shard's own partial alone
+#: (:func:`own_partial_alone`), is measured beside it and must lie above
+TP_MASTER_TOL = 0.25
+#: phase 24 (a): the stacked model axis's losses against phase 20's on the
+#: same master and batches: the model shards round their bf16 partial sums
+#: in another order (the microbatch check's limit)
+TP_LOSS_TOL = MB_LOSS_TOL
 
 
 def card_line() -> str:
@@ -845,6 +857,14 @@ def own_gradient_alone(reduce):
     return faulty
 
 
+def own_partial_alone(mesh, rows):
+    """A planted fault for phase 24 (a)'s master check, in place of
+    ``launch.mesh._scatter_rows`` (the row-parallel products'
+    reduce-scatter): each shard keeps its own row of its own partial, the
+    other model shards' partials dropped."""
+    return [x[mesh.model_index(s)] for x, s in zip(rows, mesh.local)]
+
+
 def _train_cfg(spec: dict, run: dict):
     import dataclasses
 
@@ -917,6 +937,7 @@ def _timed_exchange(trainer, rec: dict):
         return out
 
     step.layout, step.buckets = step_fn.layout, step_fn.buckets
+    step.ctx = getattr(step_fn, "ctx", None)
     trainer._step_fn = step
     co.all_to_all, co.all_gather = wrap("all_to_all"), wrap("all_gather")
 
@@ -973,13 +994,17 @@ def _warm_up(spec: dict, dev) -> None:
 
 
 def rank_train(mesh, spec: dict) -> dict:
-    """Phase 23 on one rank of a gloo group sharing the card (every
+    """Phases 23 and 24 on one rank of a gloo group sharing the card (every
     collective staged through the host): (a) on rank 0 alone, over a
-    one-rank group of ``spec["a_backend"]`` (NCCL), while the other warms
-    up (:func:`_warm_up`) and waits; then each run of ``spec["order"]``
-    over both ranks. With ``spec["order"]`` alone and no ``"a"`` run: the
-    runs on whatever group spawned the ranks ((c): NCCL, one rank per
-    card)."""
+    one-rank group of ``spec["a_backend"]`` (NCCL), while the others take
+    their first training step (:func:`_warm_up`; rank 1 on phase 23's
+    model, the others on phase 24's) and wait; then each run of
+    ``spec["order"]`` over ranks 0 and 1 (a subgroup every rank makes,
+    where the group has more); then, with ``spec["model"]``, phase 24's
+    runs over the same processes (:func:`rank_model`), so that their start
+    and first steps are paid once. With ``spec["order"]`` alone and no
+    ``"a"`` run: the runs on whatever group spawned the ranks ((c): NCCL,
+    one rank per card)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_debug_mesh
@@ -987,22 +1012,99 @@ def rank_train(mesh, spec: dict) -> dict:
 
     t_in = time.time()
     out = {"rank": mesh.rank, "device": str(mesh.device)}
+    pair = dist.new_group([0, 1]) if mesh.size > 2 else None
     if "a" in spec["runs"]:
         one = dist.new_group([0], backend=spec["a_backend"])
         if mesh.rank == 0:
             out["a"] = _rank_train_run(make_debug_mesh(
                 data=1, device=mesh.device, group=one), spec, "a")
         else:
-            out["warm_s"] = wall(lambda: _warm_up(spec, mesh.device))[1]
+            m = spec.get("model")
+            warm = spec if mesh.rank == 1 or m is None else dict(
+                m, cfg=_train_cfg(m, m["runs"]["b"]))
+            out["warm_s"] = wall(lambda: _warm_up(warm, mesh.device))[1]
             gc.collect()
             torch.cuda.empty_cache()
-        co.gather_values([0], mesh)        # the other rank waits here
+        co.gather_values([0], mesh)        # the other ranks wait here
+    if mesh.rank < 2:
+        for key in spec["order"]:
+            run = spec["runs"][key]
+            out[key] = _rank_train_run(make_debug_mesh(
+                data=run["data"], pods=run["pods"], device=mesh.device,
+                group=pair), spec, key)
+    if "model" in spec:
+        co.gather_values([0], mesh)        # ranks 2 and 3 wait here
+        out["model"] = rank_model(mesh, spec["model"], pair)
+    out["span"] = (t_in, time.time())
+    return out
+
+
+def tp_fps(state) -> dict:
+    """:func:`fingerprint`s of a model-sharded ``ZeroState``: each held
+    shard's master pieces, m and v slices."""
+    return {k: [[fingerprint(x) for x in sh] for sh in getattr(state, k)]
+            for k in ("master", "m", "v")}
+
+
+def _model_tcfg(spec: dict, run: dict, ckpt_dir: str):
+    from repro_torch.train import TrainerConfig
+
+    return TrainerConfig(
+        steps=run["steps"], ckpt_dir=ckpt_dir, ckpt_every=10 ** 9,
+        log_every=10 ** 9, seed=spec["seed"], seq_len=spec["seq_len"],
+        global_batch=spec["batch"], data_axis=run["data"],
+        model_axis=run["model"])
+
+
+def _rank_model_run(mesh, spec: dict, key: str) -> dict:
+    """One of phase 24's runs on this rank's mesh: the trainer from the
+    seed's initial master, timed (:func:`_timed_exchange`), its losses,
+    state fingerprints and peak memory."""
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import Trainer
+
+    run = spec["runs"][key]
+    dev = mesh.device
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = Trainer(_train_cfg(spec, run), OptConfig(**spec["opt"]),
+                _model_tcfg(spec, run, str(Path(spec["root"], key))),
+                mesh=mesh, log_fn=lambda _: None)
+    rec = {"wall": [], "ev": [], "xchg_s": [], "wire_bytes": []}
+    undo = _timed_exchange(t, rec)
+    try:
+        state, sec = wall(t.run)
+    finally:
+        undo()
+    rec.update(losses=[h["loss"] for h in t.history], run_s=sec,
+               fps=tp_fps(state),
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               backend=mesh.backend,
+               n_par=sum(p.numel() for p in state.master[0]))
+    return rec
+
+
+def rank_model(mesh, spec: dict, pair=None) -> dict:
+    """Phase 24's runs of ``spec["order"]`` on one rank, one after another,
+    each over the ranks its mesh needs (the first two: ``pair``, a
+    subgroup every rank made; all: the whole group), the others waiting
+    for it: (b) and (c) over four gloo ranks sharing the card, in phase
+    23's spawn (:func:`rank_train`); (d) over two NCCL ranks, one per
+    card, spawned alone."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel import collectives as co
+
+    out = {"rank": mesh.rank, "span": [time.time()]}
     for key in spec["order"]:
         run = spec["runs"][key]
-        out[key] = _rank_train_run(make_debug_mesh(
-            data=run["data"], pods=run["pods"], device=mesh.device),
-            spec, key)
-    out["span"] = (t_in, time.time())
+        n = run["data"] * run["model"]
+        if mesh.rank < n:
+            out[key] = _rank_model_run(make_debug_mesh(
+                data=run["data"], model=run["model"], device=mesh.device,
+                group=None if n == mesh.size else pair), spec, key)
+        co.gather_values([0], mesh)        # the next run starts together
+    out["span"].append(time.time())
     return out
 
 
@@ -5535,16 +5637,28 @@ class Smoke:
         """Phase 23 (b)'s master check: |b1 - a| / |a - initial| for b1's
         master (``master``, the stacked form's, bit-equal to the ranks')
         and for a planted fault's (the stacked b1 with each shard's slices
-        from its own gradient alone, :func:`own_gradient_alone`); ``a``
-        is phase 20's in-process master after as many steps (bit-equal to
-        (a)'s)."""
+        from its own gradient alone, :func:`own_gradient_alone`); ``a`` is
+        a one-device trainer's master after as many steps on b1's model
+        (its ``layers``), from the same seed and batches. Returns (the two
+        ratios, a's losses)."""
         from repro_torch.launch import steps as tsteps
         from repro_torch.models import transformer as tfm
+        from repro_torch.optim import OptConfig
+        from repro_torch.train import Trainer
 
-        k = self.keep20
+        run = spec["runs"]["b1"]
+        cfg = _train_cfg(spec, run)
+        one = Trainer(cfg, OptConfig(**spec["opt"]), _train_tcfg(
+            spec, dict(run, data=1, pods=1, ckpt_every=None),
+            str(Path(spec["root"], "one_b1"))), device=self.dev,
+            log_fn=lambda _: None)
+        sa = one.run()
+        ref = [p.detach().to("cpu", copy=True) for p in sa.master.parameters()]
+        losses = [h["loss"] for h in one.history]
+        del one, sa
         base = [p.float() for p in tfm.init_params(
-            k["cfg"], k["seed"], device=self.dev).parameters()]
-        sound, update = master_gap(master.parameters(), k["master"], base)
+            cfg, spec["seed"], device=self.dev).parameters()]
+        sound, update = master_gap(master.parameters(), ref, base)
         del base
         reduce = tsteps.reduce_gradients
         tsteps.reduce_gradients = own_gradient_alone(reduce)
@@ -5552,9 +5666,9 @@ class Smoke:
             _, _, t, state = self._stacked_train(spec, "b1", "_fault")
         finally:
             tsteps.reduce_gradients = reduce
-        fault, _ = master_gap(state.master.parameters(), k["master"])
+        fault, _ = master_gap(state.master.parameters(), ref)
         del t, state
-        return sound / update, fault / update
+        return (sound / update, fault / update), losses
 
     def _codec_ms(self, mesh, n: int, reps: int = 3) -> float:
         """Mean device ms of one stacked ``compressed_wire_reduce`` (u16,
@@ -5579,15 +5693,16 @@ class Smoke:
         staged through the host): (a) on rank 0, one NCCL rank,
         ``Trainer(data_axis=1)`` over a one-rank process group for
         ``steps_a`` steps, its losses, master, m and v bit-equal to phase
-        20's in-process trainer after as many steps; (b) over both ranks,
-        ``data_axis=2`` at full depth for ``steps_b`` steps, then
+        20's in-process trainer after as many steps; (b) over both ranks at
+        ``cut`` layers, ``data_axis=2`` for ``steps_b`` steps, then
         ``grad_compression=10`` and a (pod 2, data 1) mesh with
-        ``pod_wire='u16'`` (checkpointed at its last step) at ``cut``
-        layers for ``steps_cut`` steps: each rank's losses, master, m and
-        v bit-equal to the stacked form run here after the spawn, the
-        plain run's losses within ``DP_LOSS_TOL`` of (a)'s and its master
-        within ``DP_MASTER_TOL`` of (a)'s update from (a)'s, a planted
-        fault's beyond that limit (:meth:`_master_gaps`), and the
+        ``pod_wire='u16'`` (checkpointed at its last step) for
+        ``steps_cut`` steps: each rank's losses, master, m and v bit-equal
+        to the stacked form run here after the spawn, the plain run's
+        losses within ``DP_LOSS_TOL`` of a one-device trainer's on the same
+        model and its master within ``DP_MASTER_TOL`` of that trainer's
+        update from its master, a planted fault's beyond that limit
+        (:meth:`_master_gaps`), and the
         checkpoint restored at P = 1 by a one-device trainer equal to the
         stacked form's state bit for bit; (c) NCCL with one rank per card
         where the machine has two cards or more. Prints each rank's step
@@ -5607,7 +5722,8 @@ class Smoke:
                     seq_len=k["seq_len"], batch=k["batch"], root=str(root),
                     a_backend=a_backend, order=("b1", "b2", "b3"), runs={
                         "a": dict(data=1, pods=1, steps=steps_a),
-                        "b1": dict(data=2, pods=1, steps=steps_b),
+                        "b1": dict(data=2, pods=1, steps=steps_b,
+                                   layers=cut),
                         "b2": dict(data=2, pods=1, steps=steps_cut,
                                    layers=cut, grad_compression=10),
                         "b3": dict(data=1, pods=2, steps=steps_cut,
@@ -5615,15 +5731,20 @@ class Smoke:
                                    ckpt_every=steps_cut)})
         cfg = k["cfg"]
         T = k["batch"] * k["seq_len"]
-        # phases 14-22 leave tens of GB cached: two full-width ranks need
-        # the card
+        # phase 24's rank runs go in this spawn (its start and first
+        # steps paid once); phase 24 checks them
+        spec["model"] = self._model_spec()
+        # phases 14-22 leave tens of GB cached: four ranks need the card
         gc.collect()
         torch.cuda.empty_cache()
         t_spawn = time.time()
         out, sec = wall(lambda: spawn_ranks(
-            rank_train, 2, backend="gloo", device=self.dev, timeout=600,
+            rank_train, 4, backend="gloo", device=self.dev, timeout=900,
             args=(spec,)))
         spans = _spans(t_spawn, time.time(), out)
+        self.model_ranks = [r["model"] for r in out]
+        warm = [r["warm_s"] for r in out[1:]]
+        out = out[:2]
 
         # (a) against phase 20
         a = out[0]["a"]
@@ -5666,10 +5787,7 @@ class Smoke:
                         fail(f"(b) {key} rank {r['rank']}: its {mv} slices "
                              "differ from the stacked form's shard")
             if key == "b1":
-                if steps_b != k["master_at"]:
-                    fail(f"(b) b1 runs {steps_b} steps, phase 20 kept its "
-                         f"master after {k['master_at']}")
-                gaps = self._master_gaps(spec, state.master)
+                gaps, one_losses = self._master_gaps(spec, state.master)
             if key == "b3":
                 # the checkpoint the ranks wrote at P = 2, restored at P = 1
                 full = {mv: adamw.gather_moments(
@@ -5697,32 +5815,33 @@ class Smoke:
             gc.collect()
             torch.cuda.empty_cache()
         b1 = out[0]["b1"]["losses"]
-        rel = [abs(x - y) / y for x, y in zip(b1, a["losses"])]
+        rel = [abs(x - y) / y for x, y in zip(b1, one_losses)]
         if not max(rel) <= DP_LOSS_TOL:
-            fail(f"(b) two ranks' losses {b1} against one rank's "
-                 f"{a['losses'][:steps_b]}: {rel} apart, over {DP_LOSS_TOL}")
+            fail(f"(b) two ranks' losses {b1} against one device's "
+                 f"{one_losses}: {rel} apart, over {DP_LOSS_TOL}")
         gap, fault = gaps
-        print(f"  (b) b1's master after {steps_b} steps against (a)'s "
-              f"(phase 20's, the same bits): {gap!r} of (a)'s update "
-              f"(2-norms); a planted fault, each rank's slices from its own "
-              f"gradient alone: {fault!r} (limit {DP_MASTER_TOL!r}, between "
-              f"them); {card}", flush=True)
+        print(f"  (b) b1's master after {steps_b} steps at {cut} layers "
+              f"against a one-device trainer's on the same model, seed and "
+              f"batches: {gap!r} of its update (2-norms); a planted fault, "
+              f"each rank's slices from its own gradient alone: {fault!r} "
+              f"(limit {DP_MASTER_TOL!r}, between them); {card}", flush=True)
         if not gap <= DP_MASTER_TOL < fault:
-            fail(f"(b) b1's master {gap} of (a)'s update from (a)'s, the "
-                 f"planted fault's {fault}: the limit {DP_MASTER_TOL} must "
-                 "lie between them")
-        print(f"  (b) two gloo ranks sharing {self.dev} ({sec:.1f} s with "
-              f"the processes: {spans}; rank 1's first training step, on "
-              f"one row while rank 0 ran (a): {out[1]['warm_s']!r} s); "
+            fail(f"(b) b1's master {gap} of the one-device update from the "
+                 f"one-device master, the planted fault's {fault}: the "
+                 f"limit {DP_MASTER_TOL} must lie between them")
+        print(f"  (b) two gloo ranks sharing {self.dev}, in a spawn of four "
+              f"({sec:.1f} s with the processes and phase 24's rank runs: "
+              f"{spans}; ranks 1-3's first training step, on one row while "
+              f"rank 0 ran (a): {warm!r} s); "
               f"each rank's losses, master, m and "
               f"v equal to the stacked form's bit for bit in every run "
               f"(stacked runs {[round(v[2], 2) for v in stacked.values()]} "
-              f"s); data_axis 2 losses {b1}, {rel} apart from (a)'s "
-              f"(limit {DP_LOSS_TOL!r}); the pod-wire run's checkpoint "
+              f"s); data_axis 2 losses {b1}, {rel} apart from the one-device "
+              f"trainer's (limit {DP_LOSS_TOL!r}); the pod-wire run's checkpoint "
               f"(step {steps_cut}, P = 2) restored by a one-device trainer "
               f"in {restore_s!r} s equal to the stacked form's master, m "
               f"and v bit for bit; {card}", flush=True)
-        for key, what in (("b1", f"plain, {cfg.n_layers} layers"),
+        for key, what in (("b1", f"plain, {cut} layers"),
                           ("b2", f"grad_compression 10, {cut} layers"),
                           ("b3", f"pod 2 x data 1, pod_wire u16, {cut} "
                                  f"layers")):
@@ -5754,6 +5873,7 @@ class Smoke:
         else:
             spec_c = dict(spec, order=("b1",), runs={"b1": spec["runs"]["b1"]},
                           root=str(root / "c"))
+            del spec_c["model"]
             t_spawn = time.time()
             outc, sec = wall(lambda: spawn_ranks(
                 rank_train, 2, backend="nccl", timeout=600, args=(spec_c,)))
@@ -5772,6 +5892,210 @@ class Smoke:
                   flush=True)
         shutil.rmtree(root, ignore_errors=True)
         return dict(launches={})
+
+    # -- phase 24: the model axis ---------------------------------------------
+    def _stacked_model(self, spec: dict, key: str, fault: bool = False):
+        """Run ``key`` of phase 24 in the stacked form (its shards one after
+        another in this process, on the card), each step's wall timed; with
+        ``fault`` the row-parallel reduce-scatter keeps each shard's own
+        partial (:func:`own_partial_alone`). Returns (losses, trainer,
+        state, step walls)."""
+        from repro_torch.launch import mesh as lm
+        from repro_torch.optim import OptConfig
+        from repro_torch.train import Trainer
+
+        run = spec["runs"][key]
+        t = Trainer(_train_cfg(spec, run), OptConfig(**spec["opt"]),
+                    _model_tcfg(spec, run, str(Path(spec["root"], "stacked",
+                                                    key))),
+                    mesh=lm.make_stacked_mesh(data=run["data"],
+                                              model=run["model"],
+                                              device=self.dev),
+                    log_fn=lambda _: None)
+        walls, step_fn = [], t._step_fn
+
+        def step(state, errs, batches):
+            out, sec = wall(lambda: step_fn(state, errs, batches))
+            walls.append(sec)
+            return out
+
+        step.layout, step.buckets = step_fn.layout, step_fn.buckets
+        step.ctx = step_fn.ctx
+        t._step_fn = step
+        keep = lm._scatter_rows
+        if fault:
+            lm._scatter_rows = own_partial_alone
+        try:
+            state = t.run()
+        finally:
+            lm._scatter_rows = keep
+            t._step_fn = step_fn
+        return [h["loss"] for h in t.history], t, state, walls
+
+    def _model_spec(self, steps_a: int = DP_STEPS, steps_b: int = 3,
+                    steps_c: int = 2, cut: int = DP_CUT_LAYERS,
+                    root: str = "build/model_axis_smoke") -> dict:
+        """Phase 24's runs on phase 20's model, seed, batches and schedule:
+        (a) (data 1, model 2) at full depth, ``steps_a`` steps; (b) (1, 2)
+        and (c) (2, 2) at ``cut`` layers, ``steps_b`` and ``steps_c``
+        steps."""
+        k = self.keep20
+        return dict(cfg=k["cfg"], opt=k["opt"], seed=k["seed"],
+                    seq_len=k["seq_len"], batch=k["batch"], root=root,
+                    order=("b", "c"), runs={
+                        "a": dict(data=1, model=2, steps=steps_a),
+                        "b": dict(data=1, model=2, steps=steps_b, layers=cut),
+                        "c": dict(data=2, model=2, steps=steps_c,
+                                  layers=cut)})
+
+    def model_axis_path(self):
+        """Phase 20's model, seed, batches and schedule over a model axis
+        (tensor-parallel layers, ``models.tensor_parallel``; the runs of
+        :meth:`_model_spec`): (a) the stacked (data 1, model 2) form at full
+        width and depth on the card, its losses within ``TP_LOSS_TOL`` of
+        phase 20's and its master within ``TP_MASTER_TOL`` of phase 20's
+        update from phase 20's master, a planted fault's
+        (:func:`own_partial_alone`) beyond it; (b) two gloo ranks at (1,
+        2) and (c) four at (2, 2), sharing the card, run in phase 23's
+        spawn (``self.model_ranks``), each rank's losses, master pieces, m
+        and v bit-equal to the stacked form run here; (d) NCCL with one
+        rank per card at (1, 2) where the machine has two cards or more.
+        Prints each rank's step walls, the exchange's wall, the bytes it
+        sends and its peak memory."""
+        import shutil
+
+        from repro_torch.models import tensor_parallel as tp
+        from repro_torch.models import transformer as tfm
+        from repro_torch.parallel.launch import spawn_ranks
+
+        k = self.keep20
+        card = card_line()
+        self.zero_counts()
+        spec = self._model_spec()
+        root = Path(spec["root"])
+        shutil.rmtree(root, ignore_errors=True)
+        steps_a, cut = spec["runs"]["a"]["steps"], spec["runs"]["b"]["layers"]
+        cfg = k["cfg"]
+        T = k["batch"] * k["seq_len"]
+
+        # (a) the stacked form at full depth against phase 20
+        gc.collect()
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (losses, t, state, walls), sec_a = wall(
+            lambda: self._stacked_model(spec, "a"))
+        peak_a = torch.cuda.max_memory_allocated() - base_mem
+        want = k["losses"][:steps_a]
+        rel = [abs(x - y) / abs(y) for x, y in zip(losses, want)]
+        if len(losses) != steps_a or not max(rel) <= TP_LOSS_TOL:
+            fail(f"(a) the stacked model axis's losses {losses}, phase 20's "
+                 f"{want}: {rel} apart, over {TP_LOSS_TOL}")
+        if steps_a != k["master_at"]:
+            fail(f"(a) runs {steps_a} steps, phase 20 kept its master after "
+                 f"{k['master_at']}")
+        layout = t._step_fn.ctx.layout
+        initial = [p.float() for p in tfm.init_params(
+            cfg, k["seed"], device=self.dev).parameters()]
+        gap, update = master_gap(tp.whole_params(layout, state.master),
+                                 k["master"], initial)
+        del t, state, initial
+        gc.collect()
+        torch.cuda.empty_cache()
+        (f_losses, t, state, _), sec_f = wall(
+            lambda: self._stacked_model(spec, "a", fault=True))
+        fault, _ = master_gap(tp.whole_params(layout, state.master),
+                              k["master"])
+        del t, state
+        print(f"  (a) the stacked (data 1, model 2) form on {self.dev}, "
+              f"{cfg.name} at full width and depth, {T} tokens a step, rule "
+              f"{layout.plan.rule!r}: losses {losses}, {rel} from phase 20's "
+              f"{want} (limit {TP_LOSS_TOL!r}); master after {steps_a} steps "
+              f"{gap / update!r} of phase 20's update from phase 20's "
+              f"(2-norms); a planted fault, each row-parallel "
+              f"reduce-scatter keeping its own partial: {fault / update!r}, "
+              f"losses {f_losses} (limit {TP_MASTER_TOL!r}, between them); "
+              f"step walls {walls} s against phase 20's {k['step_wall']!r} "
+              f"s; peak {peak_a} B above the phase's start; {sec_a:.1f} s "
+              f"and {sec_f:.1f} s with the fault; {card}", flush=True)
+        if not gap / update <= TP_MASTER_TOL < fault / update:
+            fail(f"(a) master {gap / update} of phase 20's update from phase "
+                 f"20's, the planted fault's {fault / update}: the limit "
+                 f"{TP_MASTER_TOL} must lie between them")
+
+        # (b), (c): four gloo ranks sharing the card, in phase 23's spawn
+        out = self.model_ranks
+        gc.collect()
+        torch.cuda.empty_cache()
+        stacked = {}
+        for key, ranks in (("b", out[:2]), ("c", out)):
+            (s_losses, t, state, s_walls), s_sec = wall(
+                lambda: self._stacked_model(spec, key))
+            fps = tp_fps(state)
+            stacked[key] = (s_losses, fps, s_walls)
+            del t, state
+            gc.collect()
+            torch.cuda.empty_cache()
+            for r in ranks:
+                got = r[key]
+                if got["losses"] != s_losses:
+                    fail(f"({key}) rank {r['rank']}: losses {got['losses']}, "
+                         f"the stacked form's {s_losses}")
+                for mv in ("master", "m", "v"):
+                    if got["fps"][mv][0] != fps[mv][r["rank"]]:
+                        fail(f"({key}) rank {r['rank']}: its {mv} differs "
+                             f"from the stacked form's shard")
+            print(f"  ({key}) {len(ranks)} gloo ranks sharing {self.dev}, "
+                  f"(data {spec['runs'][key]['data']}, model "
+                  f"{spec['runs'][key]['model']}), {cut} of "
+                  f"{cfg.n_layers} layers at full width, {T} tokens a step: "
+                  f"each rank's losses, master pieces, m and v equal to the "
+                  f"stacked form's bit for bit (stacked {s_sec:.1f} s, its "
+                  f"step walls {s_walls} s); losses {s_losses}; {card}",
+                  flush=True)
+            for r in ranks:
+                g = r[key]
+                print(f"  ({key}) rank {r['rank']} ({g['n_par']} parameters "
+                      f"held): step walls {g['wall']} s, CUDA events "
+                      f"{g['ev']} ms, the exchange's wall {g['xchg_s']} s, "
+                      f"bytes it sends per step {g['wire_bytes']}, peak "
+                      f"{g['peak_bytes']} B; {card}", flush=True)
+        work = max(r["span"][1] for r in out) - min(r["span"][0] for r in out)
+        print(f"  (b), (c): in phase 23's spawn of four ranks, after its "
+              f"runs ({work:.1f} s of its work; the ranks' first training "
+              f"steps taken there); the ranks share one card and every "
+              f"exchange goes through the host: not a multi-GPU figure",
+              flush=True)
+
+        # (d) NCCL with one rank per card
+        count = torch.cuda.device_count()
+        if count < 2:
+            print(f"  (d) did not run: NCCL with one rank per card needs two "
+                  f"cards or more, and this machine has {count}", flush=True)
+        else:
+            spec_d = dict(spec, order=("b",), root=str(root / "d"))
+            t_spawn = time.time()
+            outd, sec = wall(lambda: spawn_ranks(
+                rank_model, 2, backend="nccl", timeout=600, args=(spec_d,)))
+            spans = _spans(t_spawn, time.time(), outd)
+            s_losses, fps, _ = stacked["b"]
+            for r in outd:
+                if r["b"]["losses"] != s_losses or \
+                        r["b"]["fps"]["master"][0] != fps["master"][r["rank"]]:
+                    fail(f"(d) rank {r['rank']}: losses {r['b']['losses']} "
+                         f"or master differ from the stacked form's")
+            print(f"  (d) NCCL with one rank per card, (1, 2) ({sec:.1f} s: "
+                  f"{spans}): losses and master equal to the stacked form's "
+                  f"bit for bit; step walls {[r['b']['wall'] for r in outd]}"
+                  f" s, exchange {[r['b']['xchg_s'] for r in outd]} s; "
+                  f"{card}", flush=True)
+        shutil.rmtree(root, ignore_errors=True)
+        launches = self.counts()
+        if any(launches.values()):
+            fail(f"phase 24 launched kernels of this repository: {launches}")
+        print(f"  launches in this run: {launches} (no kernel of this "
+              f"repository lies on the model-axis path)", flush=True)
+        return dict(launches=launches)
 
     def launch_path(self, jobs: int = 7, reduce: bool = False):
         """The launchers: (c) the STREAM-triad probe on the card, within
@@ -5792,9 +6116,11 @@ class Smoke:
         from repro_torch.launch import roofline as rl
         from repro_torch.models import SHAPES, cell_applicable
 
-        cells = [(a, s) for s in ("decode_32k", "long_500k")
-                 for a in configs.ARCH_IDS]
-        cells += [("qwen2-0.5b", s) for s in ("train_4k", "prefill_32k")]
+        # the longest traces first: the pool takes the cells in order, and
+        # prefill_32k's trace alone is most of the counting's wall
+        cells = [("qwen2-0.5b", s) for s in ("prefill_32k", "train_4k")]
+        cells += [(a, s) for s in ("decode_32k", "long_500k")
+                  for a in configs.ARCH_IDS]
         analyzed = ("mamba2-1.3b", "decode_32k")
         self.zero_counts()
         card = card_line()
@@ -6049,11 +6375,22 @@ def main(argv=None) -> int:
         out.clear()
         phase(23, "the training data axis across processes: qwen2-0.5b at "
               "full width, phase 20's seed and batches; (a) one NCCL rank, "
-              "bit-equal to phase 20; (b) two gloo ranks sharing the card: "
-              "data_axis 2, grad_compression 10, a pod-wire u16 mesh, each "
+              "bit-equal to phase 20; (b) two gloo ranks sharing the card at "
+              "4 layers: data_axis 2, grad_compression 10, a pod-wire u16 "
+              "mesh, each "
               "bit-equal to its stacked form, a P = 2 checkpoint restored "
               "at P = 1; (c) NCCL with one rank per card where there are "
               "cards enough", smoke.train_ranks_path)
+        out.clear()
+        phase(24, "the training model axis: qwen2-0.5b at full width, phase "
+              "20's seed and batches, tensor-parallel layers; (a) the "
+              "stacked (data 1, model 2) form at full depth against phase "
+              "20, a planted fault beside it; one spawn of four gloo ranks "
+              "sharing the card: (b) (1, 2) and (c) (2, 2) at 4 layers, "
+              "each bit-equal to its stacked form; (d) NCCL with one rank "
+              "per card where there are cards enough",
+              smoke.model_axis_path)
+        runs.append(out[24]["launches"])
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -6076,8 +6413,8 @@ def main(argv=None) -> int:
                "src/repro/solvers/cg.py:54"),
     }
     rows["K7"] = smoke.k7_row
-    print(f"== 24. done in {time.perf_counter() - t_start:.1f} s (phases "
-          f"3-23: {phase_s})", flush=True)
+    print(f"== 25. done in {time.perf_counter() - t_start:.1f} s (phases "
+          f"3-24: {phase_s})", flush=True)
     print(f"card: {card_line()}", flush=True)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in meta}
     kernels = []

@@ -22,7 +22,7 @@ saved rows (the reference's ``--save-hlo`` / ``--hlo``). ``--device
 meta`` (the default) counts on meta; ``cpu`` and ``cuda`` count one real
 step there (``--reduce`` for the reduced configs on the host).
 ``--multi-pod`` and ``--pod-compress`` raise: both analyze the 2 × 16 ×
-16 production mesh, whose model axis is still to port (``launch.mesh``).
+16 production mesh, which is still to port (``launch.mesh``).
 """
 from __future__ import annotations
 

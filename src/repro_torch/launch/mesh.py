@@ -6,18 +6,20 @@ a debug mesh over the local devices. The port has three meshes:
 
 * :class:`Mesh`, the one-device 1 × 1 mesh (``make_debug_mesh()`` with
   no process group): every single-process caller, as before.
-* :class:`ProcessMesh`, the data-parallel axes across processes:
-  ``("data", "model")``, or ``("pod", "data", "model")`` with a leading pod
-  axis, over a ``torch.distributed`` process group of ``pods × data``
-  ranks, one data-parallel shard per rank (NCCL with one GPU per rank,
-  gloo on the CPU or with ranks sharing a card). The rank knows its
-  shard (its rank in the group; pods outermost) and holds the group's
+* :class:`ProcessMesh`: ``("data", "model")``, or ``("pod", "data",
+  "model")`` with a leading pod axis, over a ``torch.distributed`` process
+  group of ``pods × data × model`` ranks, one shard per rank (NCCL with one
+  GPU per rank, gloo on the CPU or with ranks sharing a card). Shard ``s``
+  sits at model index ``s % model`` of data-parallel shard ``s // model``
+  (pods outermost, the model index innermost, as ``jax.make_mesh`` orders
+  its devices): ``s = (pod · data + data_index) · model + model_index``.
+  The rank knows its shard (its rank in the group) and holds the group's
   :class:`~..parallel.sharding.RankMesh`, on which
-  :mod:`..parallel.collectives` run. An exchange along the pod or data
-  axis runs over the whole group with zero-size chunks to the ranks off
-  the axis, so an axis needs no process group of its own (and none is
-  made: a subgroup made by its members alone hangs gloo where other
-  groups were made before it).
+  :mod:`..parallel.collectives` run. An exchange along one axis runs over
+  the whole group with zero-size chunks to the ranks off the axis, so an
+  axis needs no process group of its own (and none is made: a subgroup
+  made by its members alone hangs gloo where other groups were made
+  before it).
 * :class:`StackedMesh`, the same shards in one process, one after
   another: the bit reference every rank run is held to, as the stacked
   ``[P, ...]`` form is for the solve path.
@@ -25,15 +27,31 @@ a debug mesh over the local devices. The port has three meshes:
 Both multi-shard meshes offer the two exchanges the training step is
 written in, over lists with one entry per shard this process holds
 (``local``): :meth:`~ProcessMesh.all_to_all` and
-:meth:`~ProcessMesh.all_gather` along ``"dp"``, ``"pod"`` or ``"data"``.
-The rank form calls the collectives; the stacked form moves the rows in
-memory. On them sit the reduce-scatter (the rows summed by
+:meth:`~ProcessMesh.all_gather` along ``"world"`` (every shard), ``"dp"``
+(the data-parallel shards of one model index), ``"pod"``, ``"data"`` or
+``"model"``. The rank form calls the collectives; the stacked form moves
+the rows in memory. On them sit the reduce-scatter (the rows summed by
 :func:`~..parallel.collectives.shard_sum`, in rank order), ``pmax`` and
 :func:`all_sum`, one code for both forms.
 
-Not copied yet (:data:`~..parallel.sharding.MULTI_DEVICE`): a model axis
-other than 1 and the production mesh (model = 16) raise
-``NotImplementedError``.
+**The model axis's exchanges** are autograd functions over those lists
+(tensor-parallel layers, ``models.tensor_parallel``): :func:`gather_seq`
+(an all-gather along ``"model"`` whose backward is the rank-order
+reduce-scatter), :func:`scatter_seq` (the reduce-scatter, whose backward
+is the all-gather) and :func:`model_sum` (a rank-order all-reduce whose
+backward is another, or the identity where every shard goes on with the
+same computation). Every rank runs every exchange, in one order: an
+exchange along one axis is a collective of the whole group, so no
+rank's graph may skip one another runs (a gradient a rank must not take
+is multiplied by zero, not detached). In the stacked form each shard gets its own output
+tensor, and every cross-shard sum, forward and backward, is
+``shard_sum``'s: autograd never adds two shards' gradients itself, whose
+order would not be rank order. :func:`fanout` gives a tensor's uses
+copies of their own whose gradients it sums in a fixed order, where
+autograd's order of accumulation could differ between the two forms.
+
+Not copied yet (:data:`~..parallel.sharding.MULTI_DEVICE`): the
+production mesh raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,8 +63,9 @@ from .. import _device
 from ..parallel import collectives as co
 from ..parallel.sharding import MULTI_DEVICE
 
-#: the exchanges' axes: the whole data-parallel domain, then each axis
-AXES = ("dp", "pod", "data")
+#: the exchanges' axes: every shard, the data-parallel shards of one model
+#: index, then each axis
+AXES = ("world", "dp", "pod", "data", "model")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,12 +88,15 @@ class Mesh:
 
 @dataclasses.dataclass(frozen=True)
 class _DataMesh:
-    """``pods × data`` data-parallel shards (model = 1) on ``device``;
-    shard ``s`` sits at pod ``s // data``, data index ``s % data``."""
+    """``pods × data × model`` shards on ``device``; shard ``s`` sits at
+    model index ``s % model`` of data-parallel shard ``s // model``, which
+    sits at pod ``(s // model) // data``, data index ``(s // model) %
+    data``."""
 
     pods: int
     data: int
     device: torch.device
+    model: int = 1
 
     @property
     def axis_names(self) -> tuple:
@@ -84,27 +106,46 @@ class _DataMesh:
     def shape(self) -> dict:
         return dict(zip(self.axis_names,
                         ((self.pods,) if self.pods > 1 else ())
-                        + (self.data, 1)))
+                        + (self.data, self.model)))
 
     @property
     def size(self) -> int:
+        """The number of shards."""
+        return self.pods * self.data * self.model
+
+    @property
+    def dp_size(self) -> int:
         """The number of data-parallel shards."""
         return self.pods * self.data
+
+    def dp_index(self, index: int) -> int:
+        """The data-parallel shard of shard ``index``."""
+        return index // self.model
+
+    def model_index(self, index: int) -> int:
+        """The model index of shard ``index``."""
+        return index % self.model
 
     def members(self, axis: str, index: int) -> list:
         """The shards along ``axis`` through shard ``index``, in axis
         order."""
-        D = self.data
-        if axis == "dp":
+        D, M = self.data, self.model
+        q, r = divmod(index, M)
+        if axis == "world":
             return list(range(self.size))
+        if axis == "dp":
+            return [p * M + r for p in range(self.dp_size)]
         if axis == "data":
-            return [index // D * D + d for d in range(D)]
+            return [(q // D * D + d) * M + r for d in range(D)]
         if axis == "pod":
-            return [p * D + index % D for p in range(self.pods)]
+            return [(p * D + q % D) * M + r for p in range(self.pods)]
+        if axis == "model":
+            return [q * M + m for m in range(M)]
         raise ValueError(f"axis {axis!r} not in {AXES}")
 
     def axis_size(self, axis: str) -> int:
-        return {"dp": self.size, "pod": self.pods, "data": self.data}[axis]
+        return {"world": self.size, "dp": self.dp_size, "pod": self.pods,
+                "data": self.data, "model": self.model}[axis]
 
     def reduce_scatter(self, axis: str, xs: list) -> list:
         """Row ``i`` of every member's ``xs[s]`` (``[n, ...]``) summed over
@@ -202,30 +243,37 @@ def all_sum(mesh, axis: str, xs: list) -> list:
 def make_production_mesh(*, multi_pod: bool = False):
     shape = "2x16x16" if multi_pod else "16x16"
     raise NotImplementedError(
-        f"the production mesh ({shape} chips) spans several devices with a "
-        f"model axis of 16: "
+        f"the production mesh ({shape} chips) spans several devices: "
         f"{MULTI_DEVICE}; a launcher cell runs on one device "
         "(make_debug_mesh())")
 
 
-def _process_mesh(pods: int, data: int, group, device) -> ProcessMesh:
+def _process_mesh(pods: int, data: int, model: int, group,
+                  device) -> ProcessMesh:
     """The :class:`ProcessMesh` of this rank over ``group``."""
     import torch.distributed as dist
 
     from ..parallel.sharding import make_rank_mesh
 
+    n = pods * data * model
     if not dist.is_initialized():
         raise RuntimeError(
-            f"a {pods}x{data}x1 (pod, data, model) mesh runs one process per "
-            f"shard and needs an initialised process group of {pods * data} "
-            "ranks (torch.distributed.init_process_group, or "
+            f"a {pods}x{data}x{model} (pod, data, model) mesh runs one "
+            f"process per shard and needs an initialised process group of "
+            f"{n} ranks (torch.distributed.init_process_group, or "
             "parallel.launch.spawn_ranks)")
-    base = make_rank_mesh(group, axis_name="dp", device=device)
-    if base.size != pods * data:
-        raise ValueError(f"a {pods}x{data}x1 mesh needs {pods * data} ranks, "
+    base = make_rank_mesh(group, axis_name="world", device=device)
+    if base.size != n:
+        raise ValueError(f"a {pods}x{data}x{model} mesh needs {n} ranks, "
                          f"the process group has {base.size}")
-    return ProcessMesh(pods, data, base.device, index=base.rank,
+    return ProcessMesh(pods, data, base.device, model, index=base.rank,
                        rank_mesh=base)
+
+
+def _check_sizes(data: int, model: int, pods: int) -> None:
+    if min(data, model, pods) < 1:
+        raise ValueError(f"data={data}, model={model}, pods={pods}: each "
+                         "must be >= 1")
 
 
 def make_debug_mesh(*, data: int = 1, model: int = 1, pods: int = 1,
@@ -233,29 +281,159 @@ def make_debug_mesh(*, data: int = 1, model: int = 1, pods: int = 1,
     """The mesh of ``pods × data × model`` shards. With no ``group`` and one
     shard: the one-device :class:`Mesh` on ``device`` (None: the GPU).
     Else a :class:`ProcessMesh` over ``group`` (None: the default process
-    group, which must be initialised and hold ``pods × data`` ranks), this
-    rank's tensors on ``device`` (:func:`~..parallel.sharding.
-    make_rank_mesh`'s rule). ``model`` other than 1 raises."""
-    if model != 1:
-        raise NotImplementedError(
-            f"a {data}x{model} (data, model) mesh: {MULTI_DEVICE}")
-    if min(data, pods) < 1:
-        raise ValueError(f"data={data}, pods={pods}: each must be >= 1")
-    if group is None and data * pods == 1:
+    group, which must be initialised and hold ``pods × data × model``
+    ranks), this rank's tensors on ``device`` (:func:`~..parallel.
+    sharding.make_rank_mesh`'s rule)."""
+    _check_sizes(data, model, pods)
+    if group is None and data * pods * model == 1:
         dev = _device.resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         return Mesh(("data", "model"), ((dev,),))
-    return _process_mesh(pods, data, group, device)
+    return _process_mesh(pods, data, model, group, device)
 
 
-def make_stacked_mesh(*, data: int = 1, pods: int = 1,
+def make_stacked_mesh(*, data: int = 1, model: int = 1, pods: int = 1,
                       device=None) -> StackedMesh:
-    """``pods × data`` shards in this process on ``device`` (None: the
-    GPU): the stacked form of :class:`ProcessMesh`."""
-    if min(data, pods) < 1:
-        raise ValueError(f"data={data}, pods={pods}: each must be >= 1")
+    """``pods × data × model`` shards in this process on ``device`` (None:
+    the GPU): the stacked form of :class:`ProcessMesh`."""
+    _check_sizes(data, model, pods)
     dev = _device.resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return StackedMesh(pods, data, dev)
+    return StackedMesh(pods, data, dev, model)
+
+
+# ---------------------------------------------------------------------------
+# the model axis's exchanges, as autograd functions over per-shard lists
+# ---------------------------------------------------------------------------
+
+
+def _rows(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` cut into ``n`` equal chunks along ``dim``, stacked ``[n, ...]``
+    (row i to member i)."""
+    return x.unflatten(dim, (n, -1)).movedim(dim, 0)
+
+
+def _joined(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """:func:`_rows`' inverse: a new tensor of the ``[n, ...]`` rows
+    concatenated along ``dim``."""
+    return torch.cat(g.unbind(0), dim)
+
+
+def _grads(gs, like) -> list:
+    """The output gradients, zeros where autograd passes none (``like``:
+    the outputs' ``(shape, dtype)``)."""
+    return [g if g is not None else torch.zeros(
+        shape, dtype=dt, device=dev) for g, (shape, dt, dev) in zip(gs, like)]
+
+
+def _like(outs) -> list:
+    return [(o.shape, o.dtype, o.device) for o in outs]
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, dim, *xs):
+        ctx.mesh, ctx.dim = mesh, dim
+        out = tuple(_joined(g, dim) for g in mesh.all_gather(
+            "model", [x.contiguous() for x in xs]))
+        ctx.like = _like(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, dim = ctx.mesh, ctx.dim
+        rows = [_rows(g, dim, mesh.model) for g in _grads(gs, ctx.like)]
+        return (None, None) + tuple(mesh.reduce_scatter("model", rows))
+
+
+def _scatter_rows(mesh, rows: list) -> list:
+    """The row-parallel products' reduce-scatter (:func:`scatter_seq`'s
+    forward): row ``i`` of each model shard's ``rows`` summed over them in
+    rank order, for model index ``i`` (``mesh.reduce_scatter`` along
+    ``"model"``)."""
+    return mesh.reduce_scatter("model", rows)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, dim, *xs):
+        ctx.mesh, ctx.dim = mesh, dim
+        out = tuple(_scatter_rows(mesh, [_rows(x, dim, mesh.model)
+                                         for x in xs]))
+        ctx.like = _like(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, *gs):
+        got = ctx.mesh.all_gather("model", [g.contiguous() for g in
+                                            _grads(gs, ctx.like)])
+        return (None, None) + tuple(_joined(g, ctx.dim) for g in got)
+
+
+class _AxisSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, summed, *xs):
+        ctx.mesh, ctx.axis, ctx.summed = mesh, axis, summed
+        out = tuple(t.clone() for t in all_sum(mesh, axis, list(xs)))
+        ctx.like = _like(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = _grads(gs, ctx.like)
+        if not ctx.summed:
+            return (None, None, None) + tuple(gs)
+        return (None, None, None) + tuple(
+            t.clone() for t in all_sum(ctx.mesh, ctx.axis, gs))
+
+
+class _Fanout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, n, x):
+        return tuple(x.clone() for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        total = None
+        for g in gs:
+            if g is not None:
+                total = g if total is None else total + g
+        return None, total
+
+
+def gather_seq(mesh, xs: list, dim: int = 1) -> list:
+    """Every model shard's ``xs[s]`` concatenated along ``dim`` in model
+    order, one new tensor per shard held; backward: the rank-order
+    reduce-scatter of the gradients along ``dim``."""
+    return list(_GatherSeq.apply(mesh, dim, *xs))
+
+
+def scatter_seq(mesh, xs: list, dim: int = 1) -> list:
+    """The model shards' partial ``xs[s]`` summed in rank order, each shard
+    keeping its chunk along ``dim``; backward: the all-gather."""
+    return list(_ScatterSeq.apply(mesh, dim, *xs))
+
+
+def model_sum(mesh, xs: list, *, replicated: bool = False,
+              axis: str = "model") -> list:
+    """The partial ``xs[s]`` of the shards along ``axis`` (the model shards)
+    summed in rank order, on every one. Backward: the rank-order sum of the
+    gradients (each shard goes on with its own computation), or with
+    ``replicated`` the gradient as it is (every shard goes on with the
+    same computation, so each holds the whole gradient)."""
+    return list(_AxisSum.apply(mesh, axis, not replicated, *xs))
+
+
+def model_max(mesh, xs: list) -> list:
+    """The elementwise largest of the model shards' ``xs[s]`` (no
+    gradient; exact in any order)."""
+    return [g.amax(0) for g in mesh.all_gather(
+        "model", [x.detach().contiguous() for x in xs])]
+
+
+def fanout(x: torch.Tensor, n: int) -> tuple:
+    """``n`` copies of ``x``, one per use, whose gradients the backward sums
+    in their order."""
+    return _Fanout.apply(n, x)

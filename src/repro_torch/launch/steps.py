@@ -38,8 +38,15 @@ step gives the one-device step's bits.
 logical specs, kept as data (``parallel.sharding``); the synthetic
 stream places batches with the first (``data.synthetic.place_batch``).
 
-Not copied yet: the model axis (tensor-parallel layers over ``"model"``;
-``launch.mesh`` raises for model > 1).
+**With a model axis** (``mesh.model`` > 1) each shard computes the
+tensor-parallel loss of its data shard's rows (``models.
+tensor_parallel``: every model shard of a data shard reads the same rows)
+and the gradients of its pieces; a piece's gradient sums over the data
+shards of its model index, or over every shard for a piece each model
+shard holds (``ZeroLeaf.over``), before the ZeRO update within the model
+shard. ``grad_compression`` and ``pod_wire`` raise there: the reference
+runs its compressed step replicated over ``"model"``, and the port has
+not copied that yet.
 """
 from __future__ import annotations
 
@@ -142,27 +149,33 @@ def buckets(layout: list, limit: int = BUCKET) -> list:
 def reduce_gradients(mesh, layout: list, grads: list, *,
                      mean: bool = True) -> list:
     """The shards' gradients (``grads``: per shard this process holds, in
-    ``master.parameters()`` order) summed over every shard in rank order
-    (divided by the shard count where ``mean``), as each held shard's
-    slices, one per leaf of ``layout``: a reduce-scatter per bucket for
-    the split leaves, an all-reduce for the others."""
-    P = mesh.size
+    the order ``layout``'s indices read) summed in rank order over the
+    shards each leaf's ``over`` names (divided by the data-parallel shard
+    count where ``mean``), as each held shard's slices, one per leaf of
+    ``layout``: a reduce-scatter per bucket for the split leaves (over
+    every shard, each data shard's slice to all its model shards), an
+    all-reduce for the others."""
+    P = mesh.dp_size
     out = [[None] * len(layout) for _ in grads]
-    split = [j for j, leaf in enumerate(layout) if leaf.dim is not None]
-    for bucket in buckets([layout[j] for j in split]):
-        idx = [split[k] for k in bucket]
-        sends = [torch.cat([layout[j].chunks(layout[j].full(g))
-                            for j in idx], dim=1) for g in grads]
-        for i, tot in enumerate(mesh.reduce_scatter("dp", sends)):
-            tot = tot / P if mean else tot
-            off = 0
-            for j in idx:
-                c = layout[j].slice_numel
-                out[i][j] = tot[off:off + c].view(layout[j].slice_shape)
-                off += c
+    for axis in ("dp", "world"):
+        split = [j for j, leaf in enumerate(layout)
+                 if leaf.dim is not None and leaf.over == axis]
+        for bucket in buckets([layout[j] for j in split]):
+            idx = [split[k] for k in bucket]
+            sends = [torch.cat([layout[j].chunks(layout[j].full(g))
+                                for j in idx], dim=1) for g in grads]
+            if axis == "world":
+                sends = [x.repeat_interleave(mesh.model, 0) for x in sends]
+            for i, tot in enumerate(mesh.reduce_scatter(axis, sends)):
+                tot = tot / P if mean else tot
+                off = 0
+                for j in idx:
+                    c = layout[j].slice_numel
+                    out[i][j] = tot[off:off + c].view(layout[j].slice_shape)
+                    off += c
     for j, leaf in enumerate(layout):
         if leaf.dim is None:
-            tot = all_sum(mesh, "dp", [leaf.full(g) for g in grads])
+            tot = all_sum(mesh, leaf.over, [leaf.full(g) for g in grads])
             for i, t in enumerate(tot):
                 out[i][j] = t / P if mean else t
     return out
@@ -188,7 +201,7 @@ def mean_loss(mesh, losses: list) -> torch.Tensor:
     """The rank-order mean of the shards' losses (the same bits on every
     shard)."""
     got = mesh.all_gather("dp", [l.reshape(1) for l in losses])[0]
-    return co.shard_sum(got.reshape(-1)) / mesh.size
+    return co.shard_sum(got.reshape(-1)) / mesh.dp_size
 
 
 def _mesh_step(cfg: ModelConfig, opt: OptConfig, mesh, *, pod_wire,
@@ -197,6 +210,10 @@ def _mesh_step(cfg: ModelConfig, opt: OptConfig, mesh, *, pod_wire,
     ``train_step(state, errs, batches) -> (state, errs, {"loss"})`` with a
     ``ZeroState``, the error buffers per shard held (None without
     compression) and one batch per shard held."""
+    if mesh.model > 1:
+        return _model_step(cfg, opt, mesh, pod_wire=pod_wire,
+                           microbatch=microbatch,
+                           grad_compression=grad_compression)
     if pod_wire is not None:
         if pod_wire not in ("u16", "u8"):
             raise ValueError(f"pod_wire {pod_wire!r} not in ('u16', 'u8')")
@@ -208,7 +225,7 @@ def _mesh_step(cfg: ModelConfig, opt: OptConfig, mesh, *, pod_wire,
                              "compress the gradient exchange: pick one")
     layout = adamw.zero_layout(cfg, mesh)
     bks = buckets(layout)
-    P = mesh.size
+    P = mesh.dp_size
 
     def train_step(state, errs, batches):
         losses, grads = [], []
@@ -231,6 +248,37 @@ def _mesh_step(cfg: ModelConfig, opt: OptConfig, mesh, *, pod_wire,
 
     train_step.layout = layout
     train_step.buckets = bks
+    return train_step
+
+
+def _model_step(cfg: ModelConfig, opt: OptConfig, mesh, *, pod_wire,
+                microbatch, grad_compression):
+    """The step on a mesh with a model axis (module docstring): the
+    tensor-parallel loss and gradients of each held shard's pieces
+    (``models.tensor_parallel``), then the ZeRO update of its slices."""
+    from ..models import tensor_parallel as tp
+    from ..parallel.sharding import MULTI_DEVICE
+
+    for what, v in (("pod_wire", pod_wire),
+                    ("grad_compression", grad_compression)):
+        if v is not None:
+            raise NotImplementedError(
+                f"{what} at model = {mesh.model}: {MULTI_DEVICE}")
+    ctx = tp.make_ctx(cfg, mesh)
+    layout = tp.zero_layout(cfg, mesh, ctx.layout)
+    bks = buckets(layout)
+
+    def train_step(state, errs, batches):
+        losses, grads = tp.grads_of(ctx, state.master, batches, microbatch)
+        slices = reduce_gradients(mesh, layout, grads)
+        del grads
+        state = adamw.apply_zero_updates(state, slices, opt, mesh, layout,
+                                         bks)
+        return state, errs, {"loss": mean_loss(mesh, losses)}
+
+    train_step.layout = layout
+    train_step.buckets = bks
+    train_step.ctx = ctx
     return train_step
 
 

@@ -5,18 +5,22 @@ runs the fault-tolerant Trainer: on the GPU unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         [--reduce] [--device cpu] [--steps 20 --seq-len 128 --global-batch 4]
 
-With ``--data-axis N`` (and ``--pods 2``, ``--pod-wire u16|u8``) it
-starts ``pods × N`` ranks through ``parallel.launch.spawn_ranks``, one
-data-parallel shard each, on a ``launch.mesh.ProcessMesh``. The backend is
-chosen before the run and printed, and nothing is tried and caught:
+With ``--data-axis N`` (and ``--pods 2``, ``--pod-wire u16|u8``) and
+``--model-axis M`` it starts ``pods × N × M`` ranks through
+``parallel.launch.spawn_ranks``, one shard each (the model index
+innermost), on a ``launch.mesh.ProcessMesh``: tensor-parallel layers over
+the M model shards (``models.tensor_parallel``), ZeRO over the data
+shards within each. The backend is chosen before the run and printed, and
+nothing is tried and caught:
 
 * NCCL where the ranks run on the card and there is one card per rank;
 * gloo otherwise: on the CPU (``--device cpu``), with ranks sharing one
   card (every collective staged through the host), or when ``--backend
   gloo`` asks for it. ``--backend nccl`` with too few cards raises.
 
-Rank 0 logs and writes the checkpoints. ``--model-axis`` other than 1
-raises: the model axis is still to port.
+Rank 0 logs and writes the checkpoints. ``--grad-compression`` and
+``--pod-wire`` with ``--model-axis`` above 1 raise: the compressed steps
+over a model axis are still to port (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -76,8 +80,8 @@ def _trainer(args, device, mesh=None) -> Trainer:
                     total_steps=args.steps)
     if mesh is None or mesh.lead:
         where = device if mesh is None else (
-            f"{mesh.size} ranks ({mesh.pods} x {mesh.data} pod x data, "
-            f"{mesh.backend}) on {device}")
+            f"{mesh.size} ranks ({mesh.pods} x {mesh.data} x {mesh.model} "
+            f"pod x data x model, {mesh.backend}) on {device}")
         print(f"[launch] {cfg.name} ({cfg.family}) "
               f"~{cfg.param_count() / 1e6:.1f}M params on {where}",
               flush=True)
@@ -90,7 +94,7 @@ def _rank(rank_mesh, args) -> list:
     from repro_torch.launch.mesh import make_debug_mesh
 
     mesh = make_debug_mesh(data=args.data_axis, pods=args.pods,
-                           device=rank_mesh.device)
+                           model=args.model_axis, device=rank_mesh.device)
     trainer = _trainer(args, mesh.device, mesh)
     trainer.run()
     if mesh.lead:
@@ -123,8 +127,8 @@ def _backend(world: int, device: torch.device, backend: str | None) -> tuple:
 def main(argv=None):
     args = _parse(argv)
     dev = _device.resolve_device(args.device)
-    world = args.data_axis * args.pods
-    if args.model_axis == 1 and world > 1:
+    world = args.data_axis * args.pods * args.model_axis
+    if world > 1:
         from repro_torch.parallel.launch import spawn_ranks
 
         if dev.type == "cuda" and dev.index is None:

@@ -62,11 +62,16 @@ def _pad_seq(t, n: int):
 
 
 def flash_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
-                    q_chunk: int = 512, kv_chunk: int = 1024):
+                    q_chunk: int = 512, kv_chunk: int = 1024,
+                    skip_offset: int = 0):
     """Online-softmax attention.
 
     q: [B, Sq, H, hd]; k,v: [B, Sk, KV, hd] (GQA: H % KV == 0).
     q_offset: absolute position of q[0] (causal masking with a cache).
+    skip_offset: the position the causal chunk skip counts q[0] at (the
+    reference's skip counts from 0 whatever ``q_offset`` is; the model
+    axis's query rows pass their offset, so that no chunk they see is
+    skipped).
     kv_len: optional [B] valid KV lengths (decode with ragged cache).
     """
     B, Sq, H, hd = q.shape
@@ -93,8 +98,8 @@ def flash_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
         acc = torch.zeros((B, q_chunk, G, KV, hd), dtype=f32, device=dev)
         # causal chunk skip: kv chunks strictly above the diagonal are
         # fully masked, so they are not computed
-        nk_i = min(nk, (qi * q_chunk + q_chunk - 1) // kv_chunk + 1) \
-            if causal else nk
+        nk_i = min(nk, (skip_offset + qi * q_chunk + q_chunk - 1)
+                   // kv_chunk + 1) if causal else nk
         for ki in range(nk_i):
             kc = kp[:, ki].to(f32)            # [B, kc, KV, hd]
             vc = vp[:, ki].to(f32)

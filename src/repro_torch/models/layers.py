@@ -5,7 +5,8 @@ The port of ``repro.models.layers``. Parameters live in small
 :class:`SwiGLU`, :class:`Embed`) whose tensors carry the reference's
 names and layouts (a dense kernel ``w`` is ``[d_in, d_out]``); the
 ``*_apply`` functions are the reference's. There are no sharding specs:
-the port runs on one card.
+the model axis calls them on each shard's parts
+(``models.tensor_parallel``).
 
 The ``*_init`` functions draw from an explicit ``torch.Generator`` (None
 leaves the tensors uninitialised, for a copy to fill). They give other

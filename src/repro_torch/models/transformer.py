@@ -30,8 +30,9 @@ sequence; :func:`to_reference_params` gives any tree of this structure
 (a master, Adam's moments, gradients) as the reference's.
 
 Not copied from the reference: the sharding constraints (``constrain``;
-the port runs on one card), ``lax.scan`` (a Python loop over the
-layers, the encoder's too), ``lax.cond`` for the hybrid's shared block
+the model axis is ``models.tensor_parallel``'s forward), ``lax.scan`` (a
+Python loop over the layers, the encoder's too), ``lax.cond`` for the
+hybrid's shared block
 (a Python ``if`` on the static layer index), and the functional cache. The port's ``forward_decode`` writes the new K/V,
 conv and SSM states and ``len`` into the cache it is given, in place, so
 a decode step over static buffers captures into one CUDA graph
@@ -312,8 +313,8 @@ def abstract_params(cfg: ModelConfig):
     the reference's spec tree as plain data, ``{path: spec}`` over
     :func:`reference_leaves`' paths in their order, each spec a tuple of
     mesh axis names or ``None`` per dim (a stacked leaf's first, the layer
-    dim, ``None``). The port shards nothing on one card: the specs are the
-    dry-run's record of the reference's layout."""
+    dim, ``None``): the dry-run's record of the reference's layout, and the
+    ZeRO dims of ``models.tensor_parallel``'s pieces."""
     params = Transformer(cfg, device="meta")
     named = dict(params.named_parameters())
     specs = {}

@@ -34,8 +34,16 @@ over the shards in rank order, then the leaves in the reference's order.
 On one shard every slice is the whole leaf and each sum is
 ``global_norm``'s, so the one-shard mesh gives ``apply_updates``' bits.
 
-Not copied yet: the model axis (the reference shards master, m and v over
-``"model"`` too; ``launch.mesh`` raises for model > 1).
+**Over the model axis too** (``models.tensor_parallel``): each shard's
+master is a list of its pieces (its index set of each leaf), and a
+:class:`ZeroLeaf` is a piece, split by the ZeRO spec over the data shards
+within it. A piece only one model shard holds (``model_split``) sums its
+gradient over the data shards of that model index (``over="dp"``); one
+that every model shard holds, over every shard (``over="world"``, each
+data shard taking its slice). The clip norm counts each element once:
+per-slice partials summed in rank order over the shards that hold
+different elements (:attr:`ZeroLeaf.norm_over`), then the leaves in the
+reference's order.
 """
 from __future__ import annotations
 
@@ -113,6 +121,19 @@ class ZeroLeaf:
     spec: tuple
     dim: int | None
     n: int
+    #: the shards whose partial gradients sum: the data-parallel shards of
+    #: one model index (``"dp"``), or every shard (``"world"``)
+    over: str = "dp"
+    #: whether the model shards hold different elements of the leaf
+    model_split: bool = False
+
+    @property
+    def norm_over(self) -> str | None:
+        """The shards whose sums of squares add up to the leaf's (None:
+        each shard holds all of it)."""
+        if self.model_split:
+            return "world" if self.dim is not None else "model"
+        return "dp" if self.dim is not None else None
 
     @property
     def slice_shape(self) -> tuple:
@@ -355,14 +376,19 @@ def zero_norm(mesh, layout: list, slices: list) -> torch.Tensor:
     """The global norm of the gradients whose slices ``slices`` (per shard
     held, per leaf) the shards hold (module docstring): float32, the same
     bits on every shard."""
-    split = [j for j, leaf in enumerate(layout) if leaf.dim is not None]
-    vecs = [torch.stack([_partial(layout[j], sl[j]) for j in split])
-            if split else torch.zeros(0, device=mesh.device)
-            for sl in slices]
-    total = co.shard_sum(mesh.all_gather("dp", vecs)[0])
-    pos = {j: k for k, j in enumerate(split)}
-    leaf = [total[pos[j]] if j in pos else _partial(layout[j], slices[0][j])
-            for j in range(len(layout))]
+    terms = [None] * len(layout)
+    for axis in ("dp", "world", "model"):
+        idx = [j for j, leaf in enumerate(layout) if leaf.norm_over == axis]
+        if axis != "dp" and not idx:
+            continue
+        vecs = [torch.stack([_partial(layout[j], sl[j]) for j in idx])
+                if idx else torch.zeros(0, device=mesh.device)
+                for sl in slices]
+        total = co.shard_sum(mesh.all_gather(axis, vecs)[0])
+        for k, j in enumerate(idx):
+            terms[j] = total[k]
+    leaf = [terms[j] if terms[j] is not None
+            else _partial(layout[j], slices[0][j]) for j in range(len(layout))]
     return torch.sqrt(sum(leaf))
 
 
@@ -372,31 +398,41 @@ def apply_zero_updates(state: ZeroState, slices: list, opt: OptConfig,
     slice of each leaf from its gradient slice (``slices``, per shard held,
     per leaf) and its m and v (in place), the clip scale from
     :func:`zero_norm`; the new slices of the leaves of each bucket
-    (``buckets``: lists of leaf indices) are all-gathered over the shards
-    and written into the master, so every shard's master is the same."""
+    (``buckets``: lists of leaf indices) are all-gathered over the
+    data-parallel shards and written into the master, so every shard's
+    master is the same (one module every held shard shares, or each held
+    shard's list of pieces)."""
     coeffs = _coefficients(state.step, opt, zero_norm(mesh, layout, slices))
-    params = list(state.master.parameters())
+    if isinstance(state.master, nn.Module):
+        masters = [list(state.master.parameters())]
+        own = [masters[0]] * len(mesh.local)
+    else:
+        masters = own = state.master
     with torch.no_grad():
         for bucket in buckets:
             news = []
             for i, s in enumerate(mesh.local):
+                q = mesh.dp_index(s)
                 news.append([_adam(slices[i][j], layout[j].take(
-                    layout[j].full(params), s), state.m[i][j],
+                    layout[j].full(own[i]), q), state.m[i][j],
                     state.v[i][j], opt, coeffs) for j in bucket])
             split = [k for k, j in enumerate(bucket)
                      if layout[j].dim is not None]
             if split:
                 got = mesh.all_gather("dp", [torch.cat(
-                    [n[k].reshape(-1) for k in split]) for n in news])[0]
-                off = 0
-                for k in split:
-                    leaf = layout[bucket[k]]
-                    c = leaf.slice_numel
-                    leaf.write(leaf.unchunk(got[:, off:off + c]), params)
-                    off += c
-            for k, j in enumerate(bucket):
-                if layout[j].dim is None:
-                    layout[j].write(news[0][k], params)
+                    [n[k].reshape(-1) for k in split]) for n in news])
+                for i, params in enumerate(masters):
+                    off = 0
+                    for k in split:
+                        leaf = layout[bucket[k]]
+                        c = leaf.slice_numel
+                        leaf.write(leaf.unchunk(got[i][:, off:off + c]),
+                                   params)
+                        off += c
+            for i, params in enumerate(masters):
+                for k, j in enumerate(bucket):
+                    if layout[j].dim is None:
+                        layout[j].write(news[i][k], params)
     return ZeroState(coeffs[0], state.master, state.m, state.v)
 
 

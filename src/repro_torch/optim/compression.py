@@ -35,7 +35,8 @@ both reductions take one value per shard this process holds
   integers and NCCL has no unsigned 16-bit type.
 
 Without a mesh ``compressed_psum`` sums over one shard, the identity.
-Not copied yet: the model axis (``launch.mesh`` raises for model > 1).
+Not copied yet: either over a model axis (the training step raises for
+model > 1, ``launch.steps``).
 """
 from __future__ import annotations
 

@@ -30,7 +30,10 @@ reference's rules over a mesh's axes and sizes, and :func:`shard_range` /
 data-parallel axes holds under such a spec: the port's stand-in for
 ``named_sharding``/``tree_shardings_shaped``, as slicing rules rather than
 GSPMD. A mesh here is anything with ``axis_names`` and a ``shape`` dict
-(``launch.mesh``). The model axis is still to port (:data:`MULTI_DEVICE`).
+(``launch.mesh``); a shard's ``"model"`` coordinate is its index modulo
+the model size. The tensor-parallel layers keep their own slicing rules
+(``models.tensor_parallel``); what is still to port is
+:data:`MULTI_DEVICE`.
 """
 from __future__ import annotations
 
@@ -42,11 +45,13 @@ import torch
 from .. import _device
 
 #: where the meshes over several devices stand
-MULTI_DEVICE = ("ROADMAP.md queue 1: the model axis (tensor-parallel layers "
-                "over \"model\" for the six families), the production mesh "
-                "and dryrun --multi-pod/--both-meshes are the next slice to "
-                "port; the data-parallel axes (\"pod\", \"data\") already "
-                "run one rank per shard (launch.mesh.make_debug_mesh over a "
+MULTI_DEVICE = ("ROADMAP.md queue 1: the production mesh (16 x 16 and 2 x "
+                "16 x 16, counted per device), dryrun --multi-pod/"
+                "--both-meshes, analyze --multi-pod/--pod-compress, "
+                "grad_compression and pod_wire at model > 1 and the "
+                "tensor-parallel decode path are still to port; the "
+                "training mesh (\"pod\", \"data\", \"model\") already runs "
+                "one rank per shard (launch.mesh.make_debug_mesh over a "
                 "process group), as the solve path does "
                 "(parallel.sharding.RankMesh)")
 
@@ -96,17 +101,18 @@ def sanitize_spec(spec, shape, mesh) -> tuple:
 
 
 def shard_coords(mesh, index: int) -> dict:
-    """The ``("pod", "data")`` coordinates of data-parallel shard
-    ``index``, pods outermost (``index = pod * data + data_index``)."""
-    d = mesh.shape.get("data", 1)
-    return {"pod": index // d, "data": index % d}
+    """The ``("pod", "data", "model")`` coordinates of shard ``index``, pods
+    outermost, the model index innermost (``index = (pod * data +
+    data_index) * model + model_index``)."""
+    d, m = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+    q = index // m
+    return {"pod": q // d, "data": q % d, "model": index % m}
 
 
 def shard_range(size: int, entry, mesh, index: int) -> tuple:
-    """``(lo, hi)``: the part of a dim of ``size`` that data-parallel shard
-    ``index`` holds under the spec ``entry`` (its axes row-major, the
-    first outermost; an axis the coordinates lack, ``"model"``, at 0 of
-    its size)."""
+    """``(lo, hi)``: the part of a dim of ``size`` that shard ``index``
+    holds under the spec ``entry`` (its axes row-major, the first
+    outermost)."""
     coords, sizes = shard_coords(mesh, index), mesh.shape
     k, n = 0, 1
     for a in _names(entry):
@@ -116,8 +122,8 @@ def shard_range(size: int, entry, mesh, index: int) -> tuple:
 
 
 def take_shard(x, spec, mesh, index: int):
-    """The block of ``x`` (a tensor or array) that data-parallel shard
-    ``index`` holds under the logical ``spec``, sanitised for ``mesh``
+    """The block of ``x`` (a tensor or array) that shard ``index`` holds
+    under the logical ``spec``, sanitised for ``mesh``
     (a view where slicing gives one)."""
     for dim, e in enumerate(sanitize_spec(spec, tuple(x.shape), mesh)):
         if e is not None:

@@ -23,8 +23,9 @@ its slice by the stored spec, filtered and sanitised for that mesh
 (``parallel.sharding.take_shard``), so a checkpoint written on P shards
 restores on any other P, or on one device, and in the other package.
 On a mesh, the leaves are gathered to every rank and only the lead rank
-writes (``train.trainer``). Not copied yet: the model axis (a spec's
-``"model"`` entries slice nothing while ``launch.mesh`` has model = 1).
+writes (``train.trainer``). A mesh with a model axis restores the whole
+leaves (``specs`` of ``()``) and takes its own index sets of them
+(``models.tensor_parallel.restore``).
 """
 from __future__ import annotations
 

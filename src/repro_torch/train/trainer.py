@@ -30,7 +30,15 @@ after the same step and no rank waits in a collective the others left.
 A restore takes the master whole and each shard's slices of ``m`` and
 ``v`` by this mesh's ZeRO specs, whatever mesh wrote the checkpoint.
 
-Not copied yet: the model axis (``model_axis`` other than 1 raises).
+**The model axis.** With ``model_axis`` > 1 the mesh gains a model axis
+(``pods × data_axis × model_axis`` shards, the model index innermost) and
+the step is tensor-parallel (``models.tensor_parallel``): the model shards
+of one data shard read the same rows; each shard's ``ZeroState`` master
+is a list of its pieces of the leaves, and m and v its ZeRO slices of
+them. A checkpoint holds the reference's whole leaves (gathered over both
+axes before the lead writes), so it restores on any (data, model) shape,
+and in either package. ``grad_compression`` and ``pod_wire`` at
+``model_axis`` > 1 raise (``parallel.sharding.MULTI_DEVICE``).
 """
 from __future__ import annotations
 
@@ -45,12 +53,12 @@ from .. import _device
 from ..data import DataConfig, SyntheticTokenStream
 from ..launch import steps
 from ..launch.mesh import Mesh, ProcessMesh, make_debug_mesh
+from ..models import tensor_parallel as tp
 from ..models import transformer as tfm
 from ..models.config import ModelConfig
 from ..optim import OptConfig, TrainState, adamw, apply_updates, init_state
 from ..optim.compression import compressed_psum
 from ..parallel import collectives as co
-from ..parallel.sharding import MULTI_DEVICE
 from .checkpoint import (CheckpointManager, flatten_with_paths,
                          restore_resharded, unflatten)
 from .fault import PreemptionGuard, StepMonitor
@@ -117,25 +125,24 @@ class Trainer:
     def __init__(self, model_cfg: ModelConfig, opt_cfg: OptConfig,
                  tcfg: TrainerConfig, *, device=None, mesh=None,
                  log_fn: Callable[[str], None] = print):
-        if tcfg.model_axis != 1:
-            raise NotImplementedError(
-                f"model_axis={tcfg.model_axis}: {MULTI_DEVICE}")
         self.cfg = model_cfg
         self.opt = opt_cfg
         self.tcfg = tcfg
         self.log = log_fn
-        if mesh is None and tcfg.data_axis * tcfg.pods > 1:
+        if mesh is None and tcfg.data_axis * tcfg.pods * tcfg.model_axis > 1:
             mesh = make_debug_mesh(data=tcfg.data_axis, pods=tcfg.pods,
-                                   device=device)
+                                   model=tcfg.model_axis, device=device)
         if isinstance(mesh, Mesh):
             device = mesh.devices[0][0] if device is None else device
             mesh = None
         self.mesh = mesh
-        if self.mesh is not None and (self.mesh.data, self.mesh.pods) != (
-                tcfg.data_axis, tcfg.pods):
+        if self.mesh is not None and (
+                self.mesh.data, self.mesh.pods, self.mesh.model) != (
+                tcfg.data_axis, tcfg.pods, tcfg.model_axis):
             raise ValueError(
-                f"a {self.mesh.pods}x{self.mesh.data} (pod, data) mesh for "
-                f"pods={tcfg.pods}, data_axis={tcfg.data_axis}")
+                f"a {self.mesh.pods}x{self.mesh.data}x{self.mesh.model} (pod, "
+                f"data, model) mesh for pods={tcfg.pods}, data_axis="
+                f"{tcfg.data_axis}, model_axis={tcfg.model_axis}")
         self.dev = (self.mesh.device if self.mesh is not None
                     else _device.resolve_device(device))
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
@@ -170,7 +177,7 @@ class Trainer:
     def _make_mesh_step(self):
         """The ZeRO step over the mesh's data-parallel shards, each shard's
         microbatch ``microbatch / P`` rows."""
-        P, gb, mb = self.mesh.size, self.tcfg.global_batch, \
+        P, gb, mb = self.mesh.dp_size, self.tcfg.global_batch, \
             self.tcfg.microbatch
         if gb % P:
             raise ValueError(f"global batch {gb} over {P} data-parallel "
@@ -227,10 +234,18 @@ class Trainer:
         """The step-0 state of ``params`` (a ``Transformer``) for this
         trainer: a ``TrainState``, or on a mesh a ``ZeroState`` sliced by
         its ZeRO layout."""
+        if self.model_sharded:
+            return tp.init_state(params, self._step_fn.ctx.layout,
+                                 self._step_fn.layout, self.mesh)
         if self.mesh is not None:
             return adamw.init_zero_state(params, self._step_fn.layout,
                                          self.mesh)
         return init_state(params)
+
+    @property
+    def model_sharded(self) -> bool:
+        """Whether the state is split over a model axis."""
+        return self.mesh is not None and self.mesh.model > 1
 
     def _restore_mesh(self):
         """The latest checkpoint on the mesh: the step and the master
@@ -238,6 +253,15 @@ class Trainer:
         specs (``train.checkpoint.restore_resharded``)."""
         layout, template = self._step_fn.layout, self._template()
         arrays, meta = self.ckpt.load_raw()
+        if self.model_sharded:
+            whole = restore_resharded(template, arrays, meta, mesh=self.mesh,
+                                      specs={k: () for k in template})
+            self.data.restore(meta["extra"]["data_state"])
+            if self.lead:
+                self.log(f"[trainer] restored step {meta['step']} "
+                         f"from {self.tcfg.ckpt_dir}")
+            return tp.restore(self.mesh, self._step_fn.ctx.layout, layout,
+                              whole)
         moment = {k: v for k, v in template.items()
                   if k.startswith(("2/", "3/"))}
         zspecs = {f"{i}/{leaf.key}": leaf.spec for leaf in layout
@@ -267,6 +291,9 @@ class Trainer:
         if self.mesh is None:
             return state_leaves(state)
         layout, bks = self._step_fn.layout, self._step_fn.buckets
+        if self.model_sharded:
+            return tp.checkpoint_leaves(self.mesh, self._step_fn.ctx.layout,
+                                        layout, state)
         m, v = (_tree(layout, adamw.gather_moments(self.mesh, layout, mo,
                                                    bks))
                 for mo in (state.m, state.v))

@@ -615,14 +615,14 @@ def test_checkpoint_keep_and_errors(tmp_path):
 
 
 def test_trainer_needs_one_shard_and_a_device(monkeypatch, tmp_path):
-    """More than one data shard needs a process group (or a mesh); the
-    model axis and ``pod_wire`` without pods raise."""
+    """More than one data or model shard needs a process group (or a
+    mesh); ``pod_wire`` without pods raises."""
     cfg, _ = _cfgs()
     opt = adamw.OptConfig()
     with pytest.raises(RuntimeError, match="initialised process group"):
         trainer_mod.Trainer(cfg, opt, _tcfg(tmp_path, data_axis=2),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="model axis"):
+    with pytest.raises(RuntimeError, match="initialised process group"):
         trainer_mod.Trainer(cfg, opt, _tcfg(tmp_path, model_axis=2),
                             device="cpu")
     with pytest.raises(ValueError, match="2 pods"):

@@ -654,7 +654,7 @@ def test_mesh_and_step_rules(tmp_path):
     cfg, _ = _cfgs()
     with pytest.raises(RuntimeError, match="initialised process group"):
         tmesh.make_debug_mesh(data=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="model axis"):
+    with pytest.raises(RuntimeError, match="initialised process group"):
         tmesh.make_debug_mesh(data=2, model=2, device="cpu")
     m = tmesh.make_stacked_mesh(data=2, pods=2, device="cpu")
     assert m.axis_names == ("pod", "data", "model")
