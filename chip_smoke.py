@@ -50,10 +50,13 @@ nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
+import functools
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -170,6 +173,57 @@ TP_MASTER_TOL = 0.25
 TP_LOSS_TOL = MB_LOSS_TOL
 
 
+def _count_cell(cell) -> tuple:
+    """A spawned counter's job: ``dryrun.count_cell`` of ``(arch, shape)``
+    on meta, and when it ended (host clock, seconds since the epoch)."""
+    from repro_torch.launch import dryrun
+
+    return dryrun.count_cell(*cell), time.time()
+
+
+def _count_mesh_cell(cell) -> tuple:
+    """A spawned counter's job: qwen2-0.5b x train_4k per device on the
+    production mesh ``cell = (name, pod_wire)``, and when it ended."""
+    from repro_torch.launch import dryrun
+
+    name, wire = cell
+    return (dryrun.count_mesh_cell("qwen2-0.5b", "train_4k", name,
+                                   pod_wire=wire), time.time())
+
+
+class MetaCounts:
+    """Phase 21's dry-run cells (:data:`RUN_CELLS`) and phase 24 (h)'s
+    production-mesh cells (:data:`MESH_CELLS`), counted on meta in
+    ``jobs`` spawned processes started before phase 14: host work, so it
+    runs beside the card's phases and phases 21 and 24 read the records
+    when they come (the pool re-imports this module as ``__mp_main__``: its work
+    stays under ``main()``)."""
+
+    def __init__(self, jobs: int = 2):
+        import multiprocessing as mp
+
+        self.t0 = time.time()
+        self.pool = mp.get_context("spawn").Pool(jobs)
+        self.cells = self.pool.map_async(_count_cell, RUN_CELLS,
+                                         chunksize=1)
+        self.mesh = self.pool.map_async(_count_mesh_cell, MESH_CELLS,
+                                        chunksize=1)
+
+    def get(self, jobs) -> tuple:
+        """``(records, seconds from the counters' start to the last
+        one)``."""
+        got = jobs.get()
+        return [r for r, _ in got], max(t for _, t in got) - self.t0
+
+    def close(self) -> None:
+        """Stop the counters (at the run's end, or at exit on a failure:
+        ``main`` registers it with ``atexit``)."""
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+            self.pool = None
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -193,6 +247,32 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
+#: the running phase's sub-walls: ``t`` where the current one began,
+#: ``walls`` the closed ones by label (:func:`mark`)
+MARKS = {"t": 0.0, "walls": {}}
+
+
+def mark(label: str) -> None:
+    """Close the running phase's current sub-wall under ``label``: the
+    host seconds since the phase began or since the mark before (a label
+    marked again adds up). ``main`` prints them after the phase's wall, so
+    that a run cut by its time limit still shows where each phase's time
+    went."""
+    now = time.perf_counter()
+    walls = MARKS["walls"]
+    walls[label] = walls.get(label, 0.0) + now - MARKS["t"]
+    MARKS["t"] = now
+
+
+#: phase 21's dry-run cells: the decode cells that fit one H100, counted on
+#: meta and run for real (``dryrun --all`` counts the rest)
+RUN_CELLS = (("qwen2-0.5b", "decode_32k"), ("mamba2-1.3b", "decode_32k"),
+             ("zamba2-2.7b", "long_500k"), ("mamba2-1.3b", "long_500k"))
+#: phase 9's scattered matrix for the mixed: kind through a precision store
+SCATTERED_ROWS = 262_144
+#: phase 24 (h): qwen2-0.5b x train_4k per device on each production mesh,
+#: the 2 x 16 x 16 one with the u16 pod wire
+MESH_CELLS = (("16x16", None), ("2x16x16", "u16"))
 #: the four turns of every solve, in order: the eager loop, the graphs'
 #: first solve (warm-up and capture), later ones (replays only), eager
 TURNS = ("eager", "capture", "replay", "eager again")
@@ -936,8 +1016,7 @@ def _timed_exchange(trainer, rec: dict):
         rec["wire_bytes"].append(dict(stat["b"]))
         return out
 
-    step.layout, step.buckets = step_fn.layout, step_fn.buckets
-    step.ctx = getattr(step_fn, "ctx", None)
+    functools.update_wrapper(step, step_fn)
     trainer._step_fn = step
     co.all_to_all, co.all_gather = wrap("all_to_all"), wrap("all_gather")
 
@@ -1039,11 +1118,44 @@ def rank_train(mesh, spec: dict) -> dict:
     return out
 
 
-def tp_fps(state) -> dict:
-    """:func:`fingerprint`s of a model-sharded ``ZeroState``: each held
-    shard's master pieces, m and v slices."""
-    return {k: [[fingerprint(x) for x in sh] for sh in getattr(state, k)]
-            for k in ("master", "m", "v")}
+def rank_all(mesh, nccl_args: tuple, gloo_args: tuple, spec: dict) -> dict:
+    """Phases 22, 23 and 24 on one of four gloo ranks sharing the card, in
+    one spawn: 22 (a) on rank 0 over a one-rank NCCL group made inside the
+    gloo world (:func:`rank_nccl`), the others waiting; 22 (b) on all four
+    (:func:`rank_gloo`); then, their operands freed, the training runs of
+    phases 23 and 24 (:func:`rank_train`)."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import collectives as co
+    from repro_torch.parallel.sharding import make_rank_mesh
+
+    t_in = time.time()
+    one = dist.new_group([0], backend="nccl")
+    out = {}
+    if mesh.rank == 0:
+        out["a"] = rank_nccl(make_rank_mesh(one, device=mesh.device),
+                             *nccl_args)
+    co.gather_values([0], mesh)            # the other ranks wait here
+    out["b"] = rank_gloo(mesh, *gloo_args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = rank_train(mesh, spec)
+    out["span"] = (t_in, time.time())
+    return out
+
+
+def tp_fps(state, errors=None) -> dict:
+    """:func:`fingerprint`s of a mesh ``ZeroState``: each held shard's
+    master (its pieces, or the whole model's parameters where every model
+    shard holds it), m and v slices, and its error-feedback buffers where
+    ``errors`` (``Trainer.errors``) holds them."""
+    out = {"master": [[fingerprint(x) for x in sh]
+                      for sh in state.held_masters()],
+           **{k: [[fingerprint(x) for x in sh] for sh in getattr(state, k)]
+              for k in ("m", "v")}}
+    if errors is not None:
+        out["errors"] = [[fingerprint(x) for x in sh] for sh in errors]
+    return out
 
 
 def _model_tcfg(spec: dict, run: dict, ckpt_dir: str):
@@ -1053,7 +1165,26 @@ def _model_tcfg(spec: dict, run: dict, ckpt_dir: str):
         steps=run["steps"], ckpt_dir=ckpt_dir, ckpt_every=10 ** 9,
         log_every=10 ** 9, seed=spec["seed"], seq_len=spec["seq_len"],
         global_batch=spec["batch"], data_axis=run["data"],
-        model_axis=run["model"])
+        model_axis=run["model"], pods=run.get("pods", 1),
+        pod_wire=run.get("pod_wire"),
+        grad_compression=run.get("grad_compression"))
+
+
+def _flop_step(t) -> int:
+    """``FlopCounterMode``'s FLOPs of one step of trainer ``t`` on a fresh
+    state and the next batch, every rank of its mesh taking part. Counted
+    apart from the run: the counter decomposes the ops it has no formula
+    for, which can move the bits."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    state = t.init_or_restore()
+    errs = None if t.tcfg.grad_compression is None else [
+        [torch.zeros_like(p) for p in state.master.parameters()]
+        for _ in t.mesh.local]
+    batches = t.data.next_placed_batch(t.mesh)
+    with FlopCounterMode(display=False) as fc:
+        t._step_fn(state, errs, batches)
+    return int(fc.get_total_flops())
 
 
 def _rank_model_run(mesh, spec: dict, key: str) -> dict:
@@ -1077,11 +1208,14 @@ def _rank_model_run(mesh, spec: dict, key: str) -> dict:
         state, sec = wall(t.run)
     finally:
         undo()
+    held = state.held_masters()[0]
     rec.update(losses=[h["loss"] for h in t.history], run_s=sec,
-               fps=tp_fps(state),
+               fps=tp_fps(state, t.errors),
                peak_bytes=torch.cuda.max_memory_allocated(dev),
-               backend=mesh.backend,
-               n_par=sum(p.numel() for p in state.master[0]))
+               backend=mesh.backend, n_par=sum(p.numel() for p in held))
+    if run.get("count_flops"):
+        del state
+        rec["flop_counter"], rec["flop_step_s"] = wall(lambda: _flop_step(t))
     return rec
 
 
@@ -1098,11 +1232,13 @@ def rank_model(mesh, spec: dict, pair=None) -> dict:
     out = {"rank": mesh.rank, "span": [time.time()]}
     for key in spec["order"]:
         run = spec["runs"][key]
-        n = run["data"] * run["model"]
+        pods = run.get("pods", 1)
+        n = pods * run["data"] * run["model"]
         if mesh.rank < n:
             out[key] = _rank_model_run(make_debug_mesh(
-                data=run["data"], model=run["model"], device=mesh.device,
-                group=None if n == mesh.size else pair), spec, key)
+                data=run["data"], model=run["model"], pods=pods,
+                device=mesh.device, group=None if n == mesh.size else pair),
+                spec, key)
         co.gather_values([0], mesh)        # the next run starts together
     out["span"].append(time.time())
     return out
@@ -1573,6 +1709,7 @@ class Smoke:
             print(f"  tier {kind:10s} built in {built:.1f} s (host): {desc}",
                   flush=True)
         tiers, labels, sub32, hi = ops_k.adaptive_tiers(1e-3, n_probes=2)
+        mark("analysis and tier builds (host)")
         diag = torch.as_tensor(a_s.diagonal(), device=self.dev)
         dinv = torch.where(diag == 0, torch.ones_like(diag), 1.0 / diag)
         M = lambda r: r * dinv                              # noqa: E731
@@ -1630,6 +1767,7 @@ class Smoke:
         if not rel <= 1e-8:
             fail(f"true relres {rel} > 1e-8")
 
+        mark("adaptive_pcg in turns")
         # K5: the multi-RHS product on the e8m/D8 tier's plan, one launch
         mat8, plan8 = ops_k.plan_pair("plan_e8m8")
         rng = np.random.default_rng(13)
@@ -1667,6 +1805,7 @@ class Smoke:
                  "times, not once")
         same_bits(yb, full.spmv(mat_u, xb),
                   "band plan vs full plan, uniform e8m/D8")
+        mark("K5; e8m/D8 uniform build (host); K6")
         torch.cuda.synchronize()
         launches = self.counts()
         print(f"  launches in this run (solve, spmm, band and full spmv): "
@@ -1700,6 +1839,7 @@ class Smoke:
                 or not torch.equal(info_p.tier_matvecs, info.tier_matvecs):
             fail("the plain solve's schedule differs from the kernels'")
 
+        mark("the plain bodies' solve")
         # the paper's comparison: fp32 Jacobi-PCG through K2 to 1e-8
         mv32 = ops_k.matvec("fp32")
         cache32 = {}
@@ -2073,6 +2213,7 @@ class Smoke:
               f"phase 5's); each solve's wall below includes its "
               f"preconditioner's set-up from that diagonal; walls in the "
               f"order {', '.join(TURNS)}", flush=True)
+        mark("operator builds (host)")
         variants = {}
         for kind in kinds[3:]:
             mat = ops_k.stored(kind)
@@ -2137,6 +2278,7 @@ class Smoke:
                   f"launches {self.seen['pcg_reference']}", flush=True)
             if not rel <= 5e-9:
                 fail(f"pcg_reference true relres {rel} > 5e-9")
+            mark("pcg_reference in turns")
             iocg_walls = {}
 
             def iocg_turns(name, m, turns=TURNS, replays=3):
@@ -2176,6 +2318,7 @@ class Smoke:
                 if not rel <= bound:
                     fail(f"IO-CG {name}: true relres {rel} > {bound}")
 
+            mark("IO-CG's five variants in turns")
             cycles, x3, f3r_walls = {}, {}, {}
             for name in ("fp64", "fp16", "packsell"):
                 cfg = f3r.presets(name)
@@ -2253,6 +2396,7 @@ class Smoke:
                 fail(f"FP16-F3R took {cycles['fp16']} cycles, PackSELL-F3R "
                      f"{cycles['packsell']}")
 
+            mark("F3R's presets")
             # the paper's settings of m_in: eager, then the graphs' capture
             # and replay-only solves
             for m in (20, 50, 80):
@@ -2271,6 +2415,7 @@ class Smoke:
                           f"replay {ref['replay'][2] / runs['replay'][2]!r}",
                           flush=True)
 
+        mark("m_in 20, 50 and 80")
         # the e8m8 IO-CG again on the plain bodies, on the card
         plain = CountedOps(plain_twin(ops_k, ["fp64", "packsell_e8m8"]))
         before = self.counts()
@@ -2287,8 +2432,11 @@ class Smoke:
         if info_p.iters != iters["e8m8"]:
             fail(f"plain IO-CG e8m8 took {info_p.iters} outer iterations, "
                  f"the kernels {iters['e8m8']}")
+        mark("IO-CG e8m8 on the plain bodies")
         self.sync_free(a_s, ops_k, m_in)
+        mark("the fixed-iteration solvers, sync-free")
         self.tri_solve(a_s)
+        mark("the triangular solve")
         launches = self.counts()
         print(f"  launches in this run: {launches}", flush=True)
         path = {"K2", "K2-f64", *(PLAN_KERNEL[v] for v in variants.values())}
@@ -2604,8 +2752,10 @@ class Smoke:
               f"{[(c, nm[:60]) for _, c, nm in kern]}", flush=True)
 
         # the mixed: kind through a precision store, on a scattered matrix
+        # (262,144 rows: the store's miss, hit and retile do not depend on
+        # the size, and 1,048,576 rows took 41 s of host builds)
         t0 = time.perf_counter()
-        sc, _ = row_scale(testmats.scattered(1_048_576, nnz_per_row=17))
+        sc, _ = row_scale(testmats.scattered(SCATTERED_ROWS, nnz_per_row=17))
         sc = sc.tocsr()
         gen_s = time.perf_counter() - t0
         x2 = torch.from_numpy(rng.standard_normal(sc.shape[1]).astype(
@@ -2627,7 +2777,8 @@ class Smoke:
             classes = [(c.codec, c.D, c.n_rows()) for c in p_hit.classes]
             plans = [None if m.plan is None else m.plan.variant
                      for m in mix2.blocks]
-            print(f"  mixed:1e-3 on row-scaled scattered(1048576, 17): "
+            print(f"  mixed:1e-3 on row-scaled scattered({SCATTERED_ROWS}, "
+                  f"17): "
                   f"n={sc.shape[0]} nnz={sc.nnz} (generated in {gen_s:.1f} "
                   f"s); classes {classes}, plans {plans}; store miss (the "
                   f"selection) {miss_s!r} s, hit {hit_s!r} s, operator "
@@ -3192,6 +3343,7 @@ class Smoke:
                 return [rng.standard_normal(m).astype(np.float32)
                         for _ in range(k)]
 
+            mark("register and warmup")
             # steady traffic: bursts of 12, a third per class
             xs = vectors(96)
             before = self.counts()
@@ -3249,6 +3401,7 @@ class Smoke:
                   "column vs the SELL matvec)", flush=True)
             nb_ok = budget_ok(steady)
 
+            mark("steady traffic and y per tier")
             # one slot's wall, its copies (rows of the [slots, m] staging
             # block each way) and its full guard
             xs = vectors(5 * cfg.slots)
@@ -3303,6 +3456,7 @@ class Smoke:
                       "no device events)", flush=True)
             drop_payloads(steady)
 
+            mark("slot walls, copies, a burst's profile")
             # one solve request, standard class, b = ones
             b = np.ones(n)
             rs = f.submit(fp, b, klass="standard", op="solve")
@@ -3327,6 +3481,7 @@ class Smoke:
                   f"{'missed' if rs.missed_deadline else 'met'}); equal bit "
                   f"for bit to guarded_solve called directly", flush=True)
 
+            mark("a solve request")
             # overload: a burst over the shed watermark, max_queue 32. Cold,
             # as a front end meets it: register warmed only the classes'
             # own tiers, so the first demoted slot builds plan_bf16 on the
@@ -3374,6 +3529,7 @@ class Smoke:
             nb_ok += budget_ok(over)
             drop_payloads(over)
 
+            mark("overload")
             # a fault: one word of plan_fp16's stream flipped in place; as in
             # the reference's chaos campaign it survives the first repair
             # (flipped again once after the first rebuild), so the breaker
@@ -3470,9 +3626,10 @@ class Smoke:
         P = 1; ``jacobi_pcg_dist`` and ``adaptive_pcg_dist`` (phase 5's
         tier ladder, ``OperatorSet.dist_adaptive_tiers``, each tier's and
         the fp64 operator's shard bodies held to the CPU replay first) in
-        turns; ``dist_mixed:1e-3`` and ``dist_auto:1e-3`` at P = shards
-        (the calls those kinds make) and at P = 1 through ``OperatorSet``,
-        and three classes per shard through ``dist_mixed:``'s call;
+        turns; ``dist_auto:1e-3`` at P = shards (the call that kind
+        makes) and ``dist_mixed:1e-3`` at P = 1 through ``OperatorSet``,
+        and three classes per shard through ``dist_mixed:``'s call at P =
+        shards;
         ``corrupt_dist_checkpoint`` over 5 seeds, reaching a captured
         graph and undone; then the device time of a matvec, the exchange's
         share and the device ops."""
@@ -3499,6 +3656,7 @@ class Smoke:
             s, mesh=mesh1, codec="fp16", D=15, **kw))
         st = d4.memory_stats()
 
+        mark("dist_fp16 builds, P = 4 and 1 (host)")
         def variants(ops):
             """Each member's label and its shards' plan variants (SELL
             members run K2), of a plan's or a tier's operands."""
@@ -3566,12 +3724,14 @@ class Smoke:
         y_pp = d4.spmv(xi, mode="ppermute")
         y_ag = d4.spmv(xi, mode="all_gather")
         same_bits(y_pp, y_ag, "dist_fp16: ppermute vs all_gather")
+        mark("spmv/spmm launches, the two modes")
         t0 = time.perf_counter()
         for mode in dh.EXCHANGE_MODES:
             y_cpu = torch.from_numpy(dist.reference_spmv(d4.ops, xi_h, mode))
             same_bits(y_pp.cpu(), y_cpu, f"dist_fp16 (integer x) vs the CPU "
                       f"replay ({mode})")
         replay_s = time.perf_counter() - t0
+        mark("dist_fp16's CPU replays")
         y_replay = y_cpu            # dist_fp16's replay, kept for phase 22
         y4r = d4.spmv(xr)
         same_bits(y4r, d4.spmv(xr, mode="all_gather"),
@@ -3595,6 +3755,7 @@ class Smoke:
         print("  spmm nb = 4 (K3 per member and shard): every column equal "
               "to the spmv of that column bit for bit", flush=True)
 
+        mark("y and spmm checks")
         # jacobi_pcg_dist, as phase 4's solve
         b = torch.ones(n, dtype=torch.float64, device=self.dev)
         diag = s.diagonal()
@@ -3633,6 +3794,7 @@ class Smoke:
         if not dx <= 1e-4:         # the reference's rule (rtol 1e-4)
             fail(f"jacobi_pcg_dist: x {dx} from phase 4's x")
 
+        mark("jacobi_pcg_dist in turns")
         # adaptive_pcg_dist over phase 5's ladder
         ops_k = mx["ops"]
         ladder, lb = wall(lambda: ops_k.dist_adaptive_tiers(
@@ -3642,6 +3804,7 @@ class Smoke:
               f"{[variants(o) for o in ladder.tiers]}", flush=True)
         # every tier's and the fp64 operator's shard bodies on the card,
         # at the solve's dtype, against the CPU replay (the plain bodies)
+        mark("the ladder at P = 4 (host)")
         xis = ladder.shard_vector(xi.double())
         t0 = time.perf_counter()
         for label, t in zip(ladder.labels + ["fp64"],
@@ -3664,6 +3827,7 @@ class Smoke:
                   flush=True)
         print(f"  (the ladder's {len(ladder.tiers) + 1} CPU replays: "
               f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        mark("the tiers' launches and CPU replays")
         b_h = np.random.default_rng(0).standard_normal(n)
         bn = torch.from_numpy(b_h).to(self.dev)
         runs = self.in_turns(lambda: cg.adaptive_pcg_dist(
@@ -3682,26 +3846,27 @@ class Smoke:
         if not rel <= 1e-8:
             fail(f"adaptive_pcg_dist: true relres {rel} > 1e-8")
 
-        # dist_mixed:1e-3 and dist_auto:1e-3
+        mark("adaptive_pcg_dist in turns")
+        # dist_mixed:1e-3 and dist_auto:1e-3: each kind once and each P
+        # once (at 1e-3 both select fp16/D15 alone on HPCG, the same
+        # members); the pplan build at P = 4 runs below (three classes)
         want = s @ xr_h.astype(np.float64)
         pplan, sel_s = wall(lambda: ops_k.precision_plan(1e-3, mode="rows"))
         (_, fleet), fleet_s = wall(lambda: select_codec_per_shard(
             s, P, 1e-3, sigma=256))
         kinds = {
-            f"dist_mixed:1e-3, P = {P}": lambda: dist.build_dist_plan(
-                s, pplan=pplan, mesh=mesh, **kw),
             f"dist_auto:1e-3, P = {P}": lambda: dist.build_dist_plan(
                 s, classes=[(fleet.codec, fleet.D, None)], mesh=mesh, **kw),
             "dist_mixed:1e-3, P = 1": lambda: ops_k.dist_plan(
-                "dist_mixed:1e-3"),
-            "dist_auto:1e-3, P = 1": lambda: ops_k.dist_plan(
-                "dist_auto:1e-3")}
+                "dist_mixed:1e-3")}
         print(f"  selection: rows mode {sel_s:.1f} s ({len(pplan.classes)} "
               f"classes {[(c.codec, c.D) for c in pplan.classes]}), per "
               f"shard at P = {P} {fleet_s:.1f} s (fleet {fleet.codec}/D"
               f"{fleet.D})", flush=True)
+        mark("selection (host)")
         for what, build in kinds.items():
             dp, bs = wall(build)
+            mark("dist_mixed: and dist_auto: builds (host)")
             y = dp.spmv(xr).double().cpu().numpy()
             err = float(np.abs(y - want).max() / np.abs(want).max())
             yi = dp.spmv(xi)
@@ -3711,6 +3876,7 @@ class Smoke:
                   f"members {variants(dp)}; "
                   f"max |y - s x| / max |s x| {err!r} (budget 1e-3); equal "
                   f"to its CPU replay bit for bit on integer x", flush=True)
+            mark("dist_mixed: and dist_auto: checks and CPU replays")
             if not err <= 1e-3:
                 fail(f"{what}: error {err} over its budget 1e-3")
 
@@ -3729,6 +3895,7 @@ class Smoke:
             error_budget=1e-3, rationale={"classes": "shard thirds, by hand"})
         d3, b3 = wall(lambda: dist.build_dist_plan(
             s, pplan=pp3, mesh=mesh, **kw))
+        mark("three classes: build (host)")
         ys, got = launched(lambda: d3.spmv_sharded(d3.shard_vector(xi)))
         if got != per_matvec(d3):
             fail(f"three classes: one matvec launched {got}, want "
@@ -3749,6 +3916,7 @@ class Smoke:
         if not err <= 1e-3:
             fail(f"three classes: error {err} over its budget 1e-3")
 
+        mark("three classes: checks and CPU replays")
         # the fault: a shifted checkpoint, in place, reaching a graph
         xs = d4.shard_vector(xr)
         g = graphs.Graph(lambda: d4.spmv_sharded(xs), self.dev)
@@ -3782,6 +3950,7 @@ class Smoke:
             if changed == neutral:
                 fail(f"fault seed {seed}: y changed {changed} but the lane "
                      f"is {'neutral' if neutral else 'not neutral'}")
+        mark("corrupt_dist_checkpoint")
         torch.cuda.synchronize()
         launches = {**self.counts(), "K7": self.k7_ran()}
         print(f"  launches in this run: {launches}", flush=True)
@@ -3797,6 +3966,7 @@ class Smoke:
                       + list(zip(ladder.labels + ["fp64"],
                                  ladder.tiers + [ladder.hi]))})
 
+        mark("keep for phase 22")
         # device time per matvec, the exchange's share, the device ops
         reps = self.reps
         xs1 = d1.shard_vector(xr)
@@ -3833,6 +4003,7 @@ class Smoke:
         print(f"  its device ops (one P = {P} matvec, counted on the host): "
               f"{n_ops}: the kernels {ours} and {len(ops_aten)} aten ops "
               f"{dict(collections.Counter(ops_aten))}", flush=True)
+        mark("device times and ops")
         self.k7_row = self.check_k7(d4.ops.n_pad, reps)
         return dict(launches=launches, t4=t4, t1=t1, ex=ex)
 
@@ -3949,6 +4120,7 @@ class Smoke:
         matvec, ``jacobi_pcg_dist`` and ``adaptive_pcg_dist`` eagerly
         against phase 13's P = 4 solves bit for bit; (c) NCCL with one
         rank per card where the machine has two cards or more."""
+        import shutil
         import tempfile
 
         from repro_torch.distributed.plan import write_host
@@ -3967,13 +4139,40 @@ class Smoke:
                   f"written for the ranks in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-            # (a) one NCCL rank on the card
+            # one spawn of four gloo ranks sharing the card: (a) on rank 0
+            # over a one-rank NCCL group, (b) on all four, then phases 23
+            # and 24's rank runs (their start and first steps paid once)
+            P = 4
+            per, tiers = k["per_rank"], [f"tier{i}" for i in range(
+                len(k["labels"]))]
+            names = {"dist_fp16": "p4", **{t: t for t in tiers + ["hi"]}}
+            ours = {key: dirs[src] for key, src in names.items()}
+            mets = {key: metas[src] for key, src in names.items()}
+            sub = {key: k[key] for key in (
+                "xi", "Xi", "b", "bn", "diag", "labels", "sub32",
+                "jacobi_kw", "adaptive_kw")}
+            spec = self._train_spec()
+            shutil.rmtree(spec["root"], ignore_errors=True)
+            # phases 14-21 leave tens of GB cached: four ranks need the card
+            gc.collect()
+            torch.cuda.empty_cache()
             t_spawn = time.time()
-            (a,), sec = wall(lambda: spawn_ranks(
-                rank_nccl, 1, backend="nccl", device=self.dev, timeout=300,
-                args=(dirs["p1"], metas["p1"], k["xi"], k["b"], k["diag"],
-                      k["jacobi_kw"], reps)))
-            spans = _spans(t_spawn, time.time(), [a])
+            got, sec = wall(lambda: spawn_ranks(
+                rank_all, P, backend="gloo", device=self.dev, timeout=1200,
+                args=((dirs["p1"], metas["p1"], k["xi"], k["b"], k["diag"],
+                       k["jacobi_kw"], reps), (ours, mets, sub, reps),
+                      spec)))
+            t_end = time.time()
+            a, out = got[0]["a"], [r["b"] for r in got]
+            self.train_ranks = dict(out=[r["train"] for r in got], spec=spec,
+                                    sec=sec, spans=_spans(t_spawn, t_end,
+                                                          got))
+            print(f"  one spawn of four gloo ranks sharing {self.dev}: "
+                  f"{sec:.1f} s ({_spans(t_spawn, t_end, got)}); (a) "
+                  f"{a['span'][1] - a['span'][0]:.1f} s of it, (b) "
+                  f"{max(r['span'][1] for r in out) - min(r['span'][0] for r in out):.1f}"
+                  f" s, then phases 23 and 24's runs", flush=True)
+            mark("the spawn (phases 22-24's ranks)")
             same_bits(torch.from_numpy(a["y"][0]),
                       torch.from_numpy(k["y1"][0]),
                       "(a) one NCCL rank's y vs phase 13's P = 1 plan")
@@ -3995,8 +4194,8 @@ class Smoke:
             if a["launches"]["K7"] < 1:
                 fail("(a) the rank's solves never launched K7 (row_dots)")
             runs.append(a["launches"])
-            print(f"  (a) one NCCL rank on {a['device']} ({sec:.1f} s with "
-                  f"the process: {spans}; operands uploaded in "
+            print(f"  (a) one NCCL rank on {a['device']} (a one-rank "
+                  f"group inside the spawn; operands uploaded in "
                   f"{a['load_s']:.2f} s): "
                   f"y equal to phase 13's P = 1 plan bit for bit; "
                   f"jacobi_pcg_dist {i1} iterations (relres {rel1!r}) in "
@@ -4007,20 +4206,6 @@ class Smoke:
                   f"{reps}); peak {a['peak_bytes']} B; {card}", flush=True)
 
             # (b) four gloo ranks sharing the card
-            P = 4
-            per, tiers = k["per_rank"], [f"tier{i}" for i in range(
-                len(k["labels"]))]
-            names = {"dist_fp16": "p4", **{t: t for t in tiers + ["hi"]}}
-            ours = {key: dirs[src] for key, src in names.items()}
-            mets = {key: metas[src] for key, src in names.items()}
-            sub = {key: k[key] for key in (
-                "xi", "Xi", "b", "bn", "diag", "labels", "sub32",
-                "jacobi_kw", "adaptive_kw")}
-            t_spawn = time.time()
-            out, sec = wall(lambda: spawn_ranks(
-                rank_gloo, P, backend="gloo", device=self.dev, timeout=300,
-                args=(ours, mets, sub, reps)))
-            spans = _spans(t_spawn, time.time(), out)
             xj, ij = k["jacobi4"]
             xa4, ia4, th4, prom4 = k["adaptive4"]
             for p, r in enumerate(out):
@@ -4070,8 +4255,8 @@ class Smoke:
                 fail(f"(b) K7 launches per rank {k7}: want the same count, "
                      "at least 1, on every rank")
             print(f"  (b) K7 (row_dots) launches per rank {k7}", flush=True)
-            print(f"  (b) four gloo ranks sharing {self.dev} ({sec:.1f} s "
-                  f"with the processes: {spans}; operands uploaded in "
+            print(f"  (b) four gloo ranks sharing {self.dev} (in the "
+                  f"spawn; operands uploaded in "
                   f"{[round(r['load_s'], 2) for r in out]} s): y in both "
                   f"exchange modes equal to the rows of phase 13's stacked "
                   f"P = 4 y and the global y to its CPU replay, bit for bit "
@@ -5464,6 +5649,7 @@ class Smoke:
         if not (bl <= BF16_LOSS_TOL and bg <= BF16_GNORM_TOL):
             fail(f"{cfg.dtype} vs float32: loss {bl}, norm {bg} apart")
 
+        mark("first-batch checks (microbatch, float32)")
         def timed_trainer(tr, keep_at=None, master_at=None):
             """``tr`` with its step and checkpoint save timed; the state's
             fingerprints after step ``keep_at`` and a host copy of its
@@ -5510,6 +5696,7 @@ class Smoke:
         rec = timed_trainer(ta, keep_at=min(4, steps),
                             master_at=min(DP_STEPS, steps))
         sa, t_run = wall(ta.run)
+        mark("the run with its checkpoints")
         peak = torch.cuda.max_memory_allocated() - base
         losses = [h["loss"] for h in ta.history]
         n4 = min(4, len(losses) // 2)
@@ -5531,7 +5718,10 @@ class Smoke:
 
         # the resume: the last checkpoint removed, the one before restored
         shutil.rmtree(root / f"step_{steps}")
-        tb = Trainer(cfg, opt, tcfg, device=dev, log_fn=logs.append)
+        # it writes no checkpoint: its save at the last step would repeat
+        # the uninterrupted run's (phase 20's cut for time)
+        tb = Trainer(cfg, opt, dataclasses.replace(tcfg, ckpt_every=10 ** 9),
+                     device=dev, log_fn=logs.append)
         rec_b = timed_trainer(tb)
         sb0, t_restore = wall(tb.init_or_restore)
         if int(sb0.step) != steps - ckpt_every:
@@ -5553,6 +5743,7 @@ class Smoke:
               f"for bit, and its losses", flush=True)
         del sa, sb0
 
+        mark("the resume")
         # the ops of one step, counted on the host
         step_fn = tsteps.make_train_step(cfg, opt)
         bx = tb.data.next_batch(dev)
@@ -5684,20 +5875,38 @@ class Smoke:
         del xs
         return t
 
-    def train_ranks_path(self, steps_a: int = 4, steps_b: int = DP_STEPS,
-                         steps_cut: int = 2, cut: int = DP_CUT_LAYERS,
-                         root: str = "build/train_ranks_smoke",
-                         a_backend: str = "nccl"):
+    def _train_spec(self, steps_a: int = 4, steps_b: int = DP_STEPS,
+                    steps_cut: int = 2, cut: int = DP_CUT_LAYERS,
+                    root: str = "build/train_ranks_smoke",
+                    a_backend: str = "nccl") -> dict:
+        """Phase 23's rank runs on phase 20's model, seed, batches and
+        schedule (:meth:`train_ranks_path`), phase 24's under
+        ``"model"``."""
+        k = self.keep20
+        return dict(cfg=k["cfg"], opt=k["opt"], seed=k["seed"],
+                    seq_len=k["seq_len"], batch=k["batch"], root=root,
+                    a_backend=a_backend, order=("b1", "b3"), runs={
+                        "a": dict(data=1, pods=1, steps=steps_a),
+                        "b1": dict(data=2, pods=1, steps=steps_b,
+                                   layers=cut),
+                        "b3": dict(data=1, pods=2, steps=steps_cut,
+                                   layers=cut, pod_wire="u16",
+                                   ckpt_every=steps_cut)},
+                    model=self._model_spec())
+
+    def train_ranks_path(self):
         """Phase 20's model, seed, batches and schedule across processes,
-        in one spawn of two gloo ranks sharing the card (every collective
-        staged through the host): (a) on rank 0, one NCCL rank,
+        in phase 22's spawn of four gloo ranks sharing the card (every
+        collective staged through the host; the runs of
+        :meth:`_train_spec`): (a) on rank 0, one NCCL rank,
         ``Trainer(data_axis=1)`` over a one-rank process group for
         ``steps_a`` steps, its losses, master, m and v bit-equal to phase
         20's in-process trainer after as many steps; (b) over both ranks at
-        ``cut`` layers, ``data_axis=2`` for ``steps_b`` steps, then
-        ``grad_compression=10`` and a (pod 2, data 1) mesh with
-        ``pod_wire='u16'`` (checkpointed at its last step) for
-        ``steps_cut`` steps: each rank's losses, master, m and v bit-equal
+        ``cut`` layers, ``data_axis=2`` for ``steps_b`` steps, then a
+        (pod 2, data 1) mesh with ``pod_wire='u16'`` (checkpointed at its
+        last step) for ``steps_cut`` steps (``grad_compression`` runs in
+        phase 24 (e), at (2, 2): the same step with the model shards
+        replicated): each rank's losses, master, m and v bit-equal
         to the stacked form run here after the spawn, the plain run's
         losses within ``DP_LOSS_TOL`` of a one-device trainer's on the same
         model and its master within ``DP_MASTER_TOL`` of that trainer's
@@ -5716,32 +5925,15 @@ class Smoke:
 
         k = self.keep20
         card = card_line()
-        root = Path(root)
-        shutil.rmtree(root, ignore_errors=True)
-        spec = dict(cfg=k["cfg"], opt=k["opt"], seed=k["seed"],
-                    seq_len=k["seq_len"], batch=k["batch"], root=str(root),
-                    a_backend=a_backend, order=("b1", "b2", "b3"), runs={
-                        "a": dict(data=1, pods=1, steps=steps_a),
-                        "b1": dict(data=2, pods=1, steps=steps_b,
-                                   layers=cut),
-                        "b2": dict(data=2, pods=1, steps=steps_cut,
-                                   layers=cut, grad_compression=10),
-                        "b3": dict(data=1, pods=2, steps=steps_cut,
-                                   layers=cut, pod_wire="u16",
-                                   ckpt_every=steps_cut)})
+        ranks = self.train_ranks
+        out, spec, sec, spans = (ranks["out"], ranks["spec"], ranks["sec"],
+                                 ranks["spans"])
+        root = Path(spec["root"])
+        runs = spec["runs"]
+        steps_a, steps_b = runs["a"]["steps"], runs["b1"]["steps"]
+        steps_cut, cut = runs["b3"]["steps"], runs["b1"]["layers"]
         cfg = k["cfg"]
         T = k["batch"] * k["seq_len"]
-        # phase 24's rank runs go in this spawn (its start and first
-        # steps paid once); phase 24 checks them
-        spec["model"] = self._model_spec()
-        # phases 14-22 leave tens of GB cached: four ranks need the card
-        gc.collect()
-        torch.cuda.empty_cache()
-        t_spawn = time.time()
-        out, sec = wall(lambda: spawn_ranks(
-            rank_train, 4, backend="gloo", device=self.dev, timeout=900,
-            args=(spec,)))
-        spans = _spans(t_spawn, time.time(), out)
         self.model_ranks = [r["model"] for r in out]
         warm = [r["warm_s"] for r in out[1:]]
         out = out[:2]
@@ -5774,6 +5966,7 @@ class Smoke:
             (losses, fps, t, state), st_s = wall(
                 lambda: self._stacked_train(spec, key))
             stacked[key] = (losses, fps, st_s)
+            mark("stacked runs")
             for r in out:
                 got = r[key]
                 if got["losses"] != losses:
@@ -5788,6 +5981,7 @@ class Smoke:
                              "differ from the stacked form's shard")
             if key == "b1":
                 gaps, one_losses = self._master_gaps(spec, state.master)
+                mark("b1's master check (one device, the fault)")
             if key == "b3":
                 # the checkpoint the ranks wrote at P = 2, restored at P = 1
                 full = {mv: adamw.gather_moments(
@@ -5809,8 +6003,10 @@ class Smoke:
                     fail("(b) the P = 2 checkpoint restored at P = 1 differs "
                          "from the stacked form's state")
                 del one, restored, full
+                mark("b3's checkpoint restored at P = 1")
                 n_b3 = sum(p.numel() for p in state.master.parameters())
                 codec_ms = self._codec_ms(t.mesh, n_b3)
+            mark("the u16 codec's time")
             del t, state
             gc.collect()
             torch.cuda.empty_cache()
@@ -5829,8 +6025,9 @@ class Smoke:
             fail(f"(b) b1's master {gap} of the one-device update from the "
                  f"one-device master, the planted fault's {fault}: the "
                  f"limit {DP_MASTER_TOL} must lie between them")
-        print(f"  (b) two gloo ranks sharing {self.dev}, in a spawn of four "
-              f"({sec:.1f} s with the processes and phase 24's rank runs: "
+        print(f"  (b) two gloo ranks sharing {self.dev}, in phase 22's "
+              f"spawn of four ({sec:.1f} s with the processes, phase 22's "
+              f"and phase 24's rank runs: "
               f"{spans}; ranks 1-3's first training step, on one row while "
               f"rank 0 ran (a): {warm!r} s); "
               f"each rank's losses, master, m and "
@@ -5842,7 +6039,6 @@ class Smoke:
               f"in {restore_s!r} s equal to the stacked form's master, m "
               f"and v bit for bit; {card}", flush=True)
         for key, what in (("b1", f"plain, {cut} layers"),
-                          ("b2", f"grad_compression 10, {cut} layers"),
                           ("b3", f"pod 2 x data 1, pod_wire u16, {cut} "
                                  f"layers")):
             r0, r1 = out[0][key], out[1][key]
@@ -5910,6 +6106,7 @@ class Smoke:
                                                     key))),
                     mesh=lm.make_stacked_mesh(data=run["data"],
                                               model=run["model"],
+                                              pods=run.get("pods", 1),
                                               device=self.dev),
                     log_fn=lambda _: None)
         walls, step_fn = [], t._step_fn
@@ -5919,8 +6116,7 @@ class Smoke:
             walls.append(sec)
             return out
 
-        step.layout, step.buckets = step_fn.layout, step_fn.buckets
-        step.ctx = step_fn.ctx
+        functools.update_wrapper(step, step_fn)
         t._step_fn = step
         keep = lm._scatter_rows
         if fault:
@@ -5932,23 +6128,29 @@ class Smoke:
             t._step_fn = step_fn
         return [h["loss"] for h in t.history], t, state, walls
 
-    def _model_spec(self, steps_a: int = DP_STEPS, steps_b: int = 3,
+    def _model_spec(self, steps_a: int = DP_STEPS, steps_b: int = 2,
                     steps_c: int = 2, cut: int = DP_CUT_LAYERS,
                     root: str = "build/model_axis_smoke") -> dict:
         """Phase 24's runs on phase 20's model, seed, batches and schedule:
         (a) (data 1, model 2) at full depth, ``steps_a`` steps; (b) (1, 2)
         and (c) (2, 2) at ``cut`` layers, ``steps_b`` and ``steps_c``
-        steps."""
+        steps; (e) ``grad_compression`` 10 at (2, 2) and (f) ``pod_wire``
+        u16 at (pod 2, data 1, model 2), ``steps_c`` steps each at ``cut``
+        layers."""
         k = self.keep20
         return dict(cfg=k["cfg"], opt=k["opt"], seed=k["seed"],
                     seq_len=k["seq_len"], batch=k["batch"], root=root,
-                    order=("b", "c"), runs={
+                    order=("b", "c", "e", "f"), runs={
                         "a": dict(data=1, model=2, steps=steps_a),
                         "b": dict(data=1, model=2, steps=steps_b, layers=cut),
                         "c": dict(data=2, model=2, steps=steps_c,
-                                  layers=cut)})
+                                  layers=cut, count_flops=True),
+                        "e": dict(data=2, model=2, steps=steps_c,
+                                  layers=cut, grad_compression=10),
+                        "f": dict(pods=2, data=1, model=2, steps=steps_c,
+                                  layers=cut, pod_wire="u16")})
 
-    def model_axis_path(self):
+    def model_axis_path(self, counts: MetaCounts):
         """Phase 20's model, seed, batches and schedule over a model axis
         (tensor-parallel layers, ``models.tensor_parallel``; the runs of
         :meth:`_model_spec`): (a) the stacked (data 1, model 2) form at full
@@ -5956,9 +6158,13 @@ class Smoke:
         phase 20's and its master within ``TP_MASTER_TOL`` of phase 20's
         update from phase 20's master, a planted fault's
         (:func:`own_partial_alone`) beyond it; (b) two gloo ranks at (1,
-        2) and (c) four at (2, 2), sharing the card, run in phase 23's
-        spawn (``self.model_ranks``), each rank's losses, master pieces, m
-        and v bit-equal to the stacked form run here; (d) NCCL with one
+        2), (c) four at (2, 2), (e) four with ``grad_compression`` 10 at
+        (2, 2) (replicated over the model shards) and (f) four with
+        ``pod_wire`` u16 at (pod 2, data 1, model 2), sharing the card,
+        run in phase 22's spawn (``self.model_ranks``), each rank's losses,
+        master, m, v (and (e)'s error buffers) bit-equal to the stacked
+        form run here, (e)'s model shards of one data shard bit-equal to
+        each other; (g) and (h), :meth:`meta_counts`; (d) NCCL with one
         rank per card at (1, 2) where the machine has two cards or more.
         Prints each rank's step walls, the exchange's wall, the bytes it
         sends and its peak memory."""
@@ -6023,15 +6229,23 @@ class Smoke:
                  f"20's, the planted fault's {fault / update}: the limit "
                  f"{TP_MASTER_TOL} must lie between them")
 
-        # (b), (c): four gloo ranks sharing the card, in phase 23's spawn
+        # (b), (c), (e), (f): four gloo ranks sharing the card, in phase
+        # 22's spawn
         out = self.model_ranks
         gc.collect()
         torch.cuda.empty_cache()
+        mark("(a) the stacked form at full depth, the fault")
         stacked = {}
-        for key, ranks in (("b", out[:2]), ("c", out)):
+        what = {"b": "tensor-parallel", "c": "tensor-parallel",
+                "e": "grad_compression 10, replicated over the model shards",
+                "f": "pod_wire u16 across the pods, tensor-parallel inside"}
+        for key in spec["order"]:
+            run = spec["runs"][key]
+            shape = (run.get("pods", 1), run["data"], run["model"])
+            ranks = out[:math.prod(shape)]
             (s_losses, t, state, s_walls), s_sec = wall(
                 lambda: self._stacked_model(spec, key))
-            fps = tp_fps(state)
+            fps = tp_fps(state, t.errors)
             stacked[key] = (s_losses, fps, s_walls)
             del t, state
             gc.collect()
@@ -6041,18 +6255,25 @@ class Smoke:
                 if got["losses"] != s_losses:
                     fail(f"({key}) rank {r['rank']}: losses {got['losses']}, "
                          f"the stacked form's {s_losses}")
-                for mv in ("master", "m", "v"):
+                for mv in fps:
                     if got["fps"][mv][0] != fps[mv][r["rank"]]:
                         fail(f"({key}) rank {r['rank']}: its {mv} differs "
                              f"from the stacked form's shard")
+            if run.get("grad_compression"):
+                # replicated over "model": the model shards of a data shard
+                # hold the same bits
+                for a, b in ((0, 1), (2, 3)):
+                    if ranks[a][key]["fps"] != ranks[b][key]["fps"]:
+                        fail(f"({key}) ranks {a} and {b}, the model shards of "
+                             "one data shard, differ")
             print(f"  ({key}) {len(ranks)} gloo ranks sharing {self.dev}, "
-                  f"(data {spec['runs'][key]['data']}, model "
-                  f"{spec['runs'][key]['model']}), {cut} of "
+                  f"(pod, data, model) {shape}, {what[key]}, {cut} of "
                   f"{cfg.n_layers} layers at full width, {T} tokens a step: "
-                  f"each rank's losses, master pieces, m and v equal to the "
-                  f"stacked form's bit for bit (stacked {s_sec:.1f} s, its "
-                  f"step walls {s_walls} s); losses {s_losses}; {card}",
-                  flush=True)
+                  f"each rank's losses, {', '.join(fps)} equal to the "
+                  f"stacked form's bit for bit"
+                  f"{'; ranks 0 = 1 and 2 = 3 bit for bit' if key == 'e' else ''}"
+                  f" (stacked {s_sec:.1f} s, its step walls {s_walls} s); "
+                  f"losses {s_losses}; {card}", flush=True)
             for r in ranks:
                 g = r[key]
                 print(f"  ({key}) rank {r['rank']} ({g['n_par']} parameters "
@@ -6060,12 +6281,14 @@ class Smoke:
                       f"{g['ev']} ms, the exchange's wall {g['xchg_s']} s, "
                       f"bytes it sends per step {g['wire_bytes']}, peak "
                       f"{g['peak_bytes']} B; {card}", flush=True)
+            mark(f"({key}) the stacked form and the checks")
         work = max(r["span"][1] for r in out) - min(r["span"][0] for r in out)
-        print(f"  (b), (c): in phase 23's spawn of four ranks, after its "
-              f"runs ({work:.1f} s of its work; the ranks' first training "
-              f"steps taken there); the ranks share one card and every "
-              f"exchange goes through the host: not a multi-GPU figure",
-              flush=True)
+        print(f"  (b), (c), (e), (f): in phase 22's spawn of four ranks, after "
+              f"phases 22 and 23's runs ({work:.1f} s of its work; the ranks' "
+              f"first training steps taken there); the ranks share one card "
+              f"and every exchange goes through the host: not a multi-GPU "
+              f"figure", flush=True)
+        self.meta_counts(spec, out, counts)
 
         # (d) NCCL with one rank per card
         count = torch.cuda.device_count()
@@ -6097,30 +6320,100 @@ class Smoke:
               f"repository lies on the model-axis path)", flush=True)
         return dict(launches=launches)
 
-    def launch_path(self, jobs: int = 7, reduce: bool = False):
+    def meta_counts(self, spec: dict, ranks: list,
+                    counts: MetaCounts) -> None:
+        """Phase 24 (g), (h): the training step counted on one rank of a
+        meta process group (``launch.mesh.MetaMesh``; nothing allocated,
+        no process made). (g) At (1, 2) and (2, 2), phase 20's batch, runs
+        (b) and (c)'s model: its wire bytes by dtype equal, byte for byte,
+        what every rank of (b) and (c) sent in each step, and its FLOPs
+        the ``FlopCounterMode`` count of one more step of each rank
+        (:func:`_flop_step`). (h)
+        qwen2-0.5b x train_4k per device on the 16 x 16 and the 2 x 16 x
+        16 production meshes (``pod_wire`` u16 across the pods), each
+        "ok", with its per-device terms."""
+        from repro_torch.launch import dryrun
+        from repro_torch.launch import mesh as lm
+        from repro_torch.models.config import ShapeConfig
+
+        card = card_line()
+        shape = ShapeConfig("phase 20", spec["seq_len"], spec["batch"],
+                            "train")
+        for key in ("b", "c"):
+            run = spec["runs"][key]
+            mesh = lm.make_meta_mesh(data=run["data"], model=run["model"])
+            (got, _), sec = wall(lambda: dryrun.count_on_mesh(
+                _train_cfg(spec, run), shape, mesh))
+            want = got["collective_bytes_by_dtype"]
+            for r in ranks[:run["data"] * run["model"]]:
+                g = r[key]
+                if any(dict(w) != want for w in g["wire_bytes"]):
+                    fail(f"(g) ({key}) rank {r['rank']} sent "
+                         f"{g['wire_bytes']} a step, the meta count {want}")
+                if "flop_counter" in g and \
+                        g["flop_counter"] != got["cost"]["flops"]:
+                    fail(f"(g) ({key}) rank {r['rank']}: FlopCounterMode "
+                         f"{g['flop_counter']} FLOPs in a step, the meta "
+                         f"count {got['cost']['flops']}")
+            counted = [r[key]["flop_step_s"] for r in
+                       ranks[:run["data"] * run["model"]]
+                       if "flop_step_s" in r[key]]
+            flops = (f"equal to FlopCounterMode on one more step of each "
+                     f"rank (on a fresh state: the counter moves bits; "
+                     f"{[round(t_, 2) for t_ in counted]} s)" if counted
+                     else "(held to the ranks at (2, 2))")
+            print(f"  (g) ({key}) counted on rank 0 of a {mesh.name} meta "
+                  f"process group in {sec:.1f} s: wire bytes a step {want} "
+                  f"(by kind {got['collectives']}) equal to what every rank "
+                  f"sent in every step, byte for byte; FLOPs "
+                  f"{got['cost']['flops']!r} {flops}; parameters "
+                  f"{got['param_bytes_per_device']} B and optimizer state "
+                  f"{got['opt_state_bytes_per_device']} B a rank", flush=True)
+        mark("(g) the meta counts at (1, 2) and (2, 2)")
+        recs, done = counts.get(counts.mesh)
+        print(f"  (h) counted in a spawned counter started before phase 14, "
+              f"done {done:.1f} s after its start", flush=True)
+        for (name, wire), rec in zip(MESH_CELLS, recs):
+            sec = rec["trace_s"]
+            if rec["status"] != "ok":
+                fail(f"(h) qwen2-0.5b x train_4k on {name}: {rec['status']} "
+                     f"{rec.get('error', '')}\n{rec.get('traceback', '')}")
+            r, c = rec["roofline"], rec["cost"]
+            print(f"  (h) qwen2-0.5b x train_4k per device of "
+                  f"{rec['n_chips']} on the {name} mesh"
+                  f"{'' if wire is None else ', pod_wire ' + wire} (meta, "
+                  f"its trace {sec:.1f} s): FLOPs {c['flops']!r}, needed bytes "
+                  f"{c['needed_bytes']!r}, meta peak "
+                  f"{rec['meta_peak_live_bytes']} B, parameters "
+                  f"{rec['param_bytes_per_device']} B, optimizer state "
+                  f"{rec['opt_state_bytes_per_device']} B; collectives "
+                  f"{rec['collectives']}, by dtype "
+                  f"{rec['collective_bytes_by_dtype']}; roofline t_compute "
+                  f"{r['t_compute_s']!r} s, t_memory {r['t_memory_s']!r} s, "
+                  f"t_collective {r['t_collective_s']!r} s (at "
+                  f"{dryrun.rl.HW['ici_bw']!r} B/s), dominant "
+                  f"{r['dominant']}, roofline_fraction "
+                  f"{r['roofline_fraction']!r}; counted on the host of "
+                  f"{card}", flush=True)
+        mark("(h) qwen2-0.5b x train_4k on the production meshes")
+
+    def launch_path(self, counts: MetaCounts):
         """The launchers: (c) the STREAM-triad probe on the card, within
-        [0.5, 1.05] of the H100's 3.35 TB/s; (a) every decode_32k and
-        long_500k cell, and qwen2-0.5b's train_4k and prefill_32k, counted
-        on meta by ``launch.dryrun`` in ``jobs`` processes, each applicable
-        cell "ok" and each skipped one skipped as ``cell_applicable``
-        says; (b) the decode cells among them that fit the card run for
+        [0.5, 1.05] of the H100's 3.35 TB/s; (a) the decode cells that fit
+        the card (:data:`RUN_CELLS`) counted on meta by ``launch.dryrun``
+        in ``counts``, each applicable cell "ok" and each skipped one
+        skipped as ``cell_applicable`` says; (b) the decode cells among them that fit the card run for
         real, each step's FLOPs counted on the card equal to its meta
         trace's and to ``FlopCounterMode``'s, with its step ms (median of
         ``dryrun.STEP_REPS``), host ms, temporary bytes and measured share
         of the roofline bound; (d) ``launch.analyze`` on mamba2-1.3b x
         decode_32k on the card, its sections summing to the totals and the
-        profiler's kernels ranked. ``reduce``: the reduced configs at
-        ``dryrun.reduced_shape`` (a rehearsal). Launches none of K1-K6."""
+        profiler's kernels ranked. Launches none of K1-K6."""
         from repro_torch import configs
         from repro_torch.launch import analyze, dryrun
         from repro_torch.launch import roofline as rl
         from repro_torch.models import SHAPES, cell_applicable
 
-        # the longest traces first: the pool takes the cells in order, and
-        # prefill_32k's trace alone is most of the counting's wall
-        cells = [("qwen2-0.5b", s) for s in ("prefill_32k", "train_4k")]
-        cells += [(a, s) for s in ("decode_32k", "long_500k")
-                  for a in configs.ARCH_IDS]
         analyzed = ("mamba2-1.3b", "decode_32k")
         self.zero_counts()
         card = card_line()
@@ -6134,17 +6427,18 @@ class Smoke:
         if not 0.5 <= share <= 1.05:
             fail(f"STREAM probe {bw} B/s is {share} of {rl.HW['hbm_bw']}")
 
+        mark("the STREAM probe")
+
         def cfg_shape(rec):
-            cfg, shape = configs.get(rec["arch"]), SHAPES[rec["shape"]]
-            if reduce:
-                cfg, shape = configs.reduce(cfg), dryrun.reduced_shape(shape)
-            return cfg, shape
+            return configs.get(rec["arch"]), SHAPES[rec["shape"]]
 
         t0 = time.perf_counter()
-        recs = dryrun.run_cells(cells, jobs=jobs, reduce=reduce)
+        recs, done = counts.get(counts.cells)
         t_count = time.perf_counter() - t0
-        print(f"  (a) {len(recs)} cells counted on meta in {jobs} processes "
-              f"in {t_count:.1f} s", flush=True)
+        mark("counting on meta")
+        print(f"  (a) {len(recs)} cells counted on meta in a spawned counter "
+              f"started before phase 14, done {done:.1f} s after its start; "
+              f"waited {t_count:.1f} s for them here", flush=True)
         for rec in recs:
             print("  " + dryrun._line(rec).replace("\n", "\n  "),
                   flush=True)
@@ -6165,9 +6459,9 @@ class Smoke:
             run = rec["run"]
             tag = f"{rec['arch']} x {rec['shape']}"
             if not run["fits"]:
-                print(f"  (b) {tag}: needs {run['need_bytes']} B of "
-                      f"{run['free_bytes']} B free: counted only", flush=True)
-                continue
+                fail(f"(b) {tag}: needs {run['need_bytes']} B of "
+                     f"{run['free_bytes']} B free: it fits one H100 and "
+                     "runs for real here")
             if not run["flops"] == run["flop_counter"] == \
                     rec["cost"]["flops"]:
                 fail(f"{tag}: FLOPs on the card {run['flops']}, "
@@ -6191,6 +6485,7 @@ class Smoke:
                   f"{r['t_unfused_memory_s']!r} s): measured share "
                   f"{run['measured_roofline_fraction']!r}; {card}", flush=True)
             real.append(rec)
+        mark("real decode steps")
         if not real:
             fail("no dry-run cell fits the card")
         print(f"  (d) analyze {analyzed[0]} x {analyzed[1]} on the card:",
@@ -6252,15 +6547,21 @@ def main(argv=None) -> int:
         fail(f"kernels that spill registers: {spilled}")
 
     smoke = Smoke(dev)
-    phase_s = {}
+    phase_s, sub_s = {}, {}
     out = {}
 
     def phase(num: int, title: str, fn):
         print(f"== {num}. {title}", flush=True)
         t0 = time.perf_counter()
+        MARKS.update(t=t0, walls={})
         out[num] = fn()
         phase_s[num] = time.perf_counter() - t0
-        print(f"  phase {num}: {phase_s[num]:.1f} s", flush=True)
+        subs = ""
+        if MARKS["walls"]:
+            mark("the rest")
+            sub_s[num] = {k: round(v, 1) for k, v in MARKS["walls"].items()}
+            subs = f" ({sub_s[num]})"
+        print(f"  phase {num}: {phase_s[num]:.1f} s{subs}", flush=True)
         return out[num]
 
     # graph replays make no Python call: the ledger counts their launches
@@ -6302,6 +6603,11 @@ def main(argv=None) -> int:
               "jacobi_pcg_dist and adaptive_pcg_dist through CUDA graphs, "
               "dist_mixed: and dist_auto:, a checkpoint fault",
               lambda: smoke.dist_path(mp, mx, rows["K1"][0]))
+        # host work on meta for phases 21 and 24, beside the LM phases:
+        # started after the kernel build and the solve phases, whose host
+        # walls PERF.md quotes
+        counts = MetaCounts()
+        atexit.register(counts.close)
         phase(14, "the LM serving path: granite-3-2b at full width and "
               "depth, DecodeEngine with the decode step as one CUDA graph, "
               "8 requests, the PackSELL head through K1 and K3",
@@ -6358,26 +6664,25 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase(21, "the launchers: the STREAM probe against the H100's HBM3 "
-              "constant; the dry run of every decode_32k and long_500k cell "
-              "and of qwen2-0.5b's train_4k and prefill_32k counted on "
-              "meta; the decode cells that fit run for real, their FLOPs "
-              "against the meta trace; analyze on one real cell",
-              smoke.launch_path)
+              "constant; the decode cells that fit the card counted on "
+              "meta and run for real, their FLOPs against the meta trace; "
+              "analyze on one real cell",
+              lambda: smoke.launch_path(counts))
         runs.append(out[21]["launches"])
         out.clear()
         phase(22, "distribution across processes: phase 13's matrix and "
               "phase 5's ladder, one rank per shard from the host dicts "
-              "phase 13 built; (a) one NCCL rank, its solve's graphs "
-              "capturing the collectives; (b) four gloo ranks sharing the "
-              "card; (c) NCCL with one rank per card where there are cards "
-              "enough", smoke.ranks_path)
+              "phase 13 built, in one spawn of four gloo ranks sharing the "
+              "card that goes on to phases 23 and 24's runs; (a) one NCCL "
+              "rank, its solve's graphs capturing the collectives; (b) the "
+              "four gloo ranks; (c) NCCL with one rank per card where there "
+              "are cards enough", smoke.ranks_path)
         runs.append(out[22]["launches"])
         out.clear()
         phase(23, "the training data axis across processes: qwen2-0.5b at "
               "full width, phase 20's seed and batches; (a) one NCCL rank, "
               "bit-equal to phase 20; (b) two gloo ranks sharing the card at "
-              "4 layers: data_axis 2, grad_compression 10, a pod-wire u16 "
-              "mesh, each "
+              "4 layers: data_axis 2 and a pod-wire u16 mesh, each "
               "bit-equal to its stacked form, a P = 2 checkpoint restored "
               "at P = 1; (c) NCCL with one rank per card where there are "
               "cards enough", smoke.train_ranks_path)
@@ -6385,11 +6690,14 @@ def main(argv=None) -> int:
         phase(24, "the training model axis: qwen2-0.5b at full width, phase "
               "20's seed and batches, tensor-parallel layers; (a) the "
               "stacked (data 1, model 2) form at full depth against phase "
-              "20, a planted fault beside it; one spawn of four gloo ranks "
-              "sharing the card: (b) (1, 2) and (c) (2, 2) at 4 layers, "
-              "each bit-equal to its stacked form; (d) NCCL with one rank "
-              "per card where there are cards enough",
-              smoke.model_axis_path)
+              "20, a planted fault beside it; in phase 22's spawn of four "
+              "gloo ranks sharing the card, at 4 layers: (b) (1, 2), (c) "
+              "(2, 2), (e) grad_compression 10 at (2, 2), (f) pod_wire u16 "
+              "at (2, 1, 2), each bit-equal to its stacked form; (g) the "
+              "meta process group's count against (b) and (c)'s bytes and "
+              "FLOPs; (h) qwen2-0.5b x train_4k on the 16x16 and 2x16x16 "
+              "meshes; (d) NCCL with one rank per card where there are "
+              "cards enough", lambda: smoke.model_axis_path(counts))
         runs.append(out[24]["launches"])
 
     src = "src/repro_torch/kernels/csrc/"
@@ -6413,8 +6721,9 @@ def main(argv=None) -> int:
                "src/repro/solvers/cg.py:54"),
     }
     rows["K7"] = smoke.k7_row
+    counts.close()
     print(f"== 25. done in {time.perf_counter() - t_start:.1f} s (phases "
-          f"3-24: {phase_s})", flush=True)
+          f"3-24: {phase_s}; sub-walls {sub_s})", flush=True)
     print(f"card: {card_line()}", flush=True)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in meta}
     kernels = []

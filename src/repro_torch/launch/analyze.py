@@ -21,12 +21,22 @@ device time.
 saved rows (the reference's ``--save-hlo`` / ``--hlo``). ``--device
 meta`` (the default) counts on meta; ``cpu`` and ``cuda`` count one real
 step there (``--reduce`` for the reduced configs on the host).
-``--multi-pod`` and ``--pod-compress`` raise: both analyze the 2 × 16 ×
-16 production mesh, which is still to port (``launch.mesh``).
+
+``--multi-pod`` analyzes a train cell per device on the 2 × 16 × 16
+production mesh (rank 0 of ``launch.mesh.make_production_mesh``, on
+meta: ``dryrun.count_on_mesh``), with ``--pod-compress u16|u8`` the
+``pod_wire`` step. The collectives section then lists the bytes the rank
+puts on the wire by kind, as the reference lists them, and a section
+ranks them by kind, axis and dtype, closed like the others so that it
+sums to the total.
+
+    PYTHONPATH=src python -m repro_torch.launch.analyze --arch qwen2-0.5b \\
+        --shape train_4k --multi-pod --pod-compress u16 [--reduce]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import torch
@@ -48,19 +58,46 @@ def _ranked(records, key: str, top: int) -> list:
     return shown
 
 
-def analyze_ops(records, top: int = 20, kernels=None) -> dict:
+def _wire_rows(tally: dict) -> list:
+    """One row per (kind, axis, dtype) of a rank's tally
+    (``launch.mesh``), with its bytes and exchanges."""
+    return [{"op": kind, "site": f"axis {axis}, {dtype}", "count": n,
+             "wire": nbytes}
+            for (kind, axis, dtype), (nbytes, n) in tally.items()]
+
+
+def analyze_ops(records, top: int = 20, kernels=None, wire=None) -> dict:
     """Print the sections (module docstring) for op records (``op_cost``'s
     ``records()``) and, when given, ``kernels``: ``(ms, count, name)``
-    from the profiler. Returns them: ``totals``, ``bytes``, ``flops`` and
+    from the profiler, and ``wire``: a mesh rank's tally. Returns them:
+    ``totals``, ``collectives``, ``bytes``, ``flops`` (and ``wire``) and
     ``device_ms``."""
     agg = op_cost.totals(records)
+    rows = _wire_rows(wire or {})
+    kinds = {}
+    for r in rows:
+        k = kinds.setdefault(r["op"], {"bytes": 0, "count": 0})
+        k["bytes"] += r["wire"]
+        k["count"] += r["count"]
+    agg["collectives"] = kinds
+    agg["collective_bytes"] = float(sum(r["wire"] for r in rows))
     print(f"ops={agg['ops']}  flops={agg['flops']:.3e}  "
           f"bytes={agg['bytes']:.3e}  "
           f"transcendentals={agg['transcendentals']:.3e}  "
           f"coll_wire={agg['collective_bytes']:.3e}")
-    print("  collectives: none on one device")
+    if wire is None:
+        print("  collectives: none on one device")
+    for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]["bytes"]):
+        print(f"  {k:20s} wire={v['bytes']:.3e}  count={v['count']}")
     out = {"totals": agg}
-    for title, key in (("memory bytes", "bytes"), ("flops", "flops")):
+    sections = [("memory bytes", "bytes"), ("flops", "flops")]
+    if wire is not None:
+        print(f"\n--- top {top} by collective wire bytes ---")
+        out["wire"] = _ranked(rows, "wire", top)
+        for r in out["wire"]:
+            print(f"{r['wire']:11.3e}  x{r['count']:<6d} {r['op']:24s} "
+                  f"{r['site']}")
+    for title, key in sections:
         print(f"\n--- top {top} by {title} (x count) ---")
         out[key] = _ranked(records, key, top)
         for r in out[key]:
@@ -94,17 +131,35 @@ def _kernels(step, args) -> list:
 
 def analyze_cell(arch: str, shape_name: str, *, top: int = 20,
                  device="meta", microbatch=None, cfg=None, shape=None,
-                 save_ops: str | None = None) -> dict:
+                 save_ops: str | None = None, mesh=None,
+                 pod_wire=None) -> dict:
     """Count one cell's step on ``device`` (meta: the dry-run's trace;
     else one real step, and on the card the profiler's kernels) and
     print its sections; returns :func:`analyze_ops`' dict with the
-    records under ``records``."""
+    records under ``records``. ``mesh``: a ``launch.mesh.MetaMesh`` (the
+    production mesh's rank 0) to count the train step on, per device,
+    with ``pod_wire`` across its pods."""
     from . import dryrun
 
     cfg = cfg or configs.get(arch)
     shape = shape or SHAPES[shape_name]
-    kernels = None
-    if torch.device(device or "cuda").type == "meta":
+    kernels = wire = None
+    if mesh is not None:
+        if torch.device(device or "meta").type != "meta":
+            raise ValueError(f"a {mesh.name} mesh is counted on meta, not "
+                             f"on {device}")
+        fields, cost = dryrun.count_on_mesh(cfg, shape, mesh,
+                                            pod_wire=pod_wire,
+                                            microbatch=microbatch)
+        wire = mesh.tally.get(mesh.index, {})
+        print(f"{mesh.name} mesh, per device of {mesh.size}: arguments "
+              f"{fields['memory_analysis']['argument_size_in_bytes'] / 1e9:.3f}"
+              f" GB (parameters {fields['param_bytes_per_device'] / 1e9:.3f}"
+              f" GB, optimizer state "
+              f"{fields['opt_state_bytes_per_device'] / 1e9:.3f} GB), peak "
+              f"live above them {fields['meta_peak_live_bytes'] / 1e9:.2f} "
+              f"GB (meta){'' if pod_wire is None else f'; pod wire {pod_wire}'}")
+    elif torch.device(device or "cuda").type == "meta":
         rec, cost = dryrun.compile_cell(arch, shape_name, cfg=cfg,
                                         shape=shape, microbatch=microbatch)
         arg = rec["memory_analysis"]["argument_size_in_bytes"]
@@ -125,7 +180,7 @@ def analyze_cell(arch: str, shape_name: str, *, top: int = 20,
             for r in records:
                 f.write(json.dumps(r) + "\n")
         print(f"wrote {save_ops}")
-    out = analyze_ops(records, top, kernels)
+    out = analyze_ops(records, top, kernels, wire)
     out["records"] = records
     return out
 
@@ -149,22 +204,26 @@ def main(argv=None) -> int:
             analyze_ops([json.loads(line) for line in f if line.strip()],
                         args.top)
         return 0
+    if args.pod_compress and not args.multi_pod:
+        raise ValueError("--pod-compress compresses the gradient across the "
+                         "pods: it needs --multi-pod (2x16x16)")
+    mesh = None
     if args.multi_pod:
         from .mesh import make_production_mesh
-        make_production_mesh(multi_pod=True)
+        mesh = make_production_mesh(multi_pod=True)
     cfg = configs.get(args.arch)
-    if args.pod_compress:
-        from ..parallel.sharding import MULTI_DEVICE
-        raise NotImplementedError(
-            f"--pod-compress analyzes the pod_wire step on the 2x16x16 "
-            f"production mesh: {MULTI_DEVICE}")
     shape = SHAPES[args.shape]
     if args.reduce:
         from .dryrun import reduced_shape
         cfg, shape = configs.reduce(cfg), reduced_shape(shape)
+        if mesh is not None:
+            # one row a data-parallel shard at least
+            shape = dataclasses.replace(shape, global_batch=max(
+                shape.global_batch, mesh.dp_size))
     analyze_cell(args.arch, args.shape, top=args.top, device=args.device,
                  microbatch=args.microbatch, cfg=cfg, shape=shape,
-                 save_ops=args.save_ops)
+                 save_ops=args.save_ops, mesh=mesh,
+                 pod_wire=args.pod_compress)
     return 0
 
 

@@ -40,8 +40,29 @@ the device to meta.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --reduce --run \\
         --device cpu        # the reduced configs, run on the host
 
-``--multi-pod`` and ``--both-meshes`` raise ``NotImplementedError``: the
-production mesh spans many devices (``launch.mesh``).
+**The production mesh.** ``--multi-pod`` counts the cells on the 2 × 16
+× 16 mesh, ``--both-meshes`` on 16 × 16 and 2 × 16 × 16 (the reference's
+two meshes), per device: the step of ``launch.steps`` on rank 0 of
+``launch.mesh.make_production_mesh`` (a ``MetaMesh``: its exchanges
+return meta tensors and count the bytes the rank sends), traced on meta
+under ``op_cost`` like a one-device cell, with nothing allocated and no
+process made. A ``train_4k`` cell runs the tensor-parallel step (ZeRO
+over data × model, the plain rank-order sum across the pods;
+``count_mesh_cell(pod_wire=)`` and ``analyze --pod-compress`` count the
+integer wire there). Its record holds the mesh, the per-device
+FLOPs, needed bytes and meta peak, the parameter bytes (the rank's master
+pieces) and optimizer-state bytes (its m and v slices), the collective
+bytes by kind (and by axis and dtype), and the roofline terms at
+``n_chips`` = 256 or 512, the collective term the wire bytes over
+``roofline.HW["ici_bw"]``. The prefill and decode cells need the
+tensor-parallel prefill and decode, which are still to port
+(:data:`NOT_PORTED`): one such cell raises ``NotImplementedError``; under
+``--all`` each is recorded with status ``"not_ported"`` and printed as
+``[todo]``. ``--arch`` and ``--shape`` (comma-separated) narrow
+``--all``.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes \\
+        --arch qwen2-0.5b --shape train_4k
 """
 from __future__ import annotations
 
@@ -63,8 +84,9 @@ from ..models.config import ShapeConfig
 from ..optim import OptConfig, init_state
 from . import op_cost
 from . import roofline as rl
-from .mesh import make_debug_mesh, make_production_mesh
-from .steps import make_decode_step, make_prefill_step, make_train_step
+from .mesh import make_debug_mesh, make_production_mesh, tally_bytes
+from .steps import (init_mesh_state, make_decode_step, make_prefill_step,
+                    make_train_step)
 
 #: the share of the device's free memory a cell may take to run for real
 FIT_SHARE = 0.9
@@ -79,6 +101,12 @@ TIMED_S = 20.0
 #: a real step whose host call takes this share of its CUDA-event interval
 #: is host-bound: the interval measures dispatch
 HOST_BOUND_SHARE = 0.9
+#: the one-device mesh and the production meshes, by name
+ONE_DEVICE = "1x1"
+PRODUCTION_MESHES = ("16x16", "2x16x16")
+#: why a prefill or decode cell has no count on a production mesh
+NOT_PORTED = ("the tensor-parallel prefill and decode on the production "
+              "mesh are still to port (ROADMAP.md queue 1)")
 
 
 def _tensors(tree):
@@ -173,6 +201,65 @@ def _mesh_name() -> str:
     mesh, ``"1x1"``."""
     return "x".join(str(n) for n in
                     make_debug_mesh(device="meta").shape.values())
+
+
+def _shard_batch(spec: dict, rows: int) -> dict:
+    """``spec``'s meta tensors cut to ``rows`` rows: one shard's batch."""
+    return {k: torch.empty((rows,) + tuple(v.shape[1:]), dtype=v.dtype,
+                           device="meta") for k, v in spec.items()}
+
+
+def count_on_mesh(cfg, shape, mesh, *, pod_wire=None, microbatch=None,
+                  grad_compression=None):
+    """Trace one train step of ``cfg`` at ``shape`` on the meta mesh
+    ``mesh`` (``launch.mesh.MetaMesh``, rank ``mesh.index``) under
+    ``op_cost``; returns ``(fields, cost)``: the per-device counts of
+    the module docstring and the trace's ``OpCost``."""
+    if shape.kind != "train":
+        raise NotImplementedError(f"{shape.kind} on a {mesh.name} mesh: "
+                                  f"{NOT_PORTED}")
+    P = mesh.dp_size
+    if shape.global_batch % P:
+        raise ValueError(f"global batch {shape.global_batch} over {P} "
+                         "data-parallel shards")
+    t0 = time.time()
+    step = make_train_step(cfg, OptConfig(), pod_wire,
+                           None if microbatch is None else microbatch // P,
+                           mesh=mesh, grad_compression=grad_compression)
+    params = tfm.abstract_params(cfg)[0]
+    state = init_mesh_state(step, params, mesh)
+    errs = None if grad_compression is None else [
+        [torch.zeros_like(p) for p in state.master.parameters()]]
+    batch = _shard_batch(io_spec.train_batch_spec(cfg, shape),
+                         shape.global_batch // P)
+    args = (state, errs, [batch])
+    out, cost = op_cost.count(step, *args)
+    mem = _mem_dict(_tree_bytes(args), _tree_bytes(out), _tree_bytes(state),
+                    NOT_MEASURED)
+    agg = cost.totals()
+    by_kind = {}
+    for (kind, _, _), (nbytes, n) in mesh.tally.get(mesh.index,
+                                                    {}).items():
+        row = by_kind.setdefault(kind, {"bytes": 0, "count": 0})
+        row["bytes"] += nbytes
+        row["count"] += n
+    fields = {
+        "trace_s": round(time.time() - t0, 1), "memory_analysis": mem,
+        "meta_peak_live_bytes": int(cost.peak_live_bytes),
+        "n_chips": mesh.size,
+        "param_bytes_per_device": _tree_bytes(state.master),
+        "opt_state_bytes_per_device": _tree_bytes((state.m, state.v)),
+        "cost": {"flops": agg["flops"], "counted_unfused_bytes":
+                 agg["bytes"], "needed_bytes": needed_bytes(
+                     op_cost.read_bytes(_tensors(args), cost), mem,
+                     "train"),
+                 "transcendentals": agg["transcendentals"],
+                 "ops": agg["ops"]},
+        "collectives": by_kind,
+        "collective_bytes_by_dtype": tally_bytes(mesh, mesh.index),
+        "collective_bytes_by_axis": tally_bytes(mesh, mesh.index, "axis"),
+        "collective_bytes": sum(v["bytes"] for v in by_kind.values())}
+    return fields, cost
 
 
 def compile_cell(arch: str, shape_name: str, microbatch=None, *, cfg=None,
@@ -290,12 +377,52 @@ def _error(rec: dict, e: Exception) -> dict:
     return rec
 
 
+def count_mesh_cell(arch: str, shape_name: str, mesh_name: str, *,
+                    pod_wire=None, microbatch=None, cfg=None,
+                    shape=None) -> dict:
+    """One cell's record on a production mesh (``mesh_name`` in
+    :data:`PRODUCTION_MESHES`): "skipped" as ``cell_applicable`` says,
+    "not_ported" for a prefill or decode cell, else "ok" or "error"
+    (module docstring)."""
+    cfg = cfg or configs.get(arch)
+    shape = shape or SHAPES[shape_name]
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name}
+    ok, why = cell_applicable(cfg, shape)
+    if not ok:
+        rec.update(status="skipped", reason=why)
+        return rec
+    if shape.kind != "train":
+        rec.update(status="not_ported", reason=NOT_PORTED)
+        return rec
+    try:
+        mesh = make_production_mesh(multi_pod=mesh_name == "2x16x16")
+        fields, _ = count_on_mesh(cfg, shape, mesh, pod_wire=pod_wire,
+                                  microbatch=microbatch)
+        rec.update(fields)
+        if pod_wire is not None:
+            rec["pod_wire"] = pod_wire
+        rec["roofline"] = rl.roofline_terms(
+            {"flops": rec["cost"]["flops"],
+             "bytes accessed": rec["cost"]["needed_bytes"]},
+            rec["collective_bytes"], rl.model_flops(cfg, shape), mesh.size)
+        rec["roofline"]["t_unfused_memory_s"] = \
+            rec["cost"]["counted_unfused_bytes"] / rl.HW["hbm_bw"]
+        rec["status"] = "ok"
+    except Exception as e:  # noqa: BLE001 — record and continue the sweep
+        _error(rec, e)
+    return rec
+
+
 def count_cell(arch: str, shape_name: str, *, microbatch=None, cfg=None,
-               shape=None) -> dict:
+               shape=None, mesh: str = ONE_DEVICE) -> dict:
     """One cell's record, counted on meta: ``status`` "skipped"
     (``cell_applicable``), "ok" or "error" (with the error and its
     traceback). ``cfg`` / ``shape`` replace the arch's config and the
-    named shape (reduced cells)."""
+    named shape (reduced cells). ``mesh``: a production mesh's name
+    counts per device there (:func:`count_mesh_cell`)."""
+    if mesh != ONE_DEVICE:
+        return count_mesh_cell(arch, shape_name, mesh, microbatch=microbatch,
+                               cfg=cfg, shape=shape)
     cfg = cfg or configs.get(arch)
     shape = shape or SHAPES[shape_name]
     rec = {"arch": arch, "shape": shape_name, "mesh": _mesh_name()}
@@ -337,9 +464,16 @@ def run_counted(rec: dict, *, device=None, microbatch=None, cfg=None,
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
              run: bool = False, device=None, microbatch=None, cfg=None,
              shape=None) -> dict:
-    """:func:`count_cell`, then with ``run`` :func:`run_counted`."""
+    """:func:`count_cell` (``multi_pod``: per device on the 2 × 16 × 16
+    mesh, where a prefill or decode cell raises), then with ``run``
+    :func:`run_counted` (one device only)."""
     if multi_pod:
-        make_production_mesh(multi_pod=True)
+        shape_ = shape or SHAPES[shape_name]
+        if shape_.kind != "train":
+            raise NotImplementedError(f"{arch} x {shape_name} on the "
+                                      f"2x16x16 mesh: {NOT_PORTED}")
+        return count_cell(arch, shape_name, microbatch=microbatch, cfg=cfg,
+                          shape=shape, mesh="2x16x16")
     rec = count_cell(arch, shape_name, microbatch=microbatch, cfg=cfg,
                      shape=shape)
     if run and rec["status"] == "ok":
@@ -353,20 +487,24 @@ def _count_star(job) -> dict:
 
 
 def run_cells(cells, *, jobs: int = 1, run: bool = False, device=None,
-              microbatch=None, reduce: bool = False, each=None):
-    """The records of ``cells`` (``(arch, shape name)`` pairs), in order:
-    counted on meta in ``jobs`` processes (spawned; meta tracing is host
-    work, one core a cell), then with ``run`` each "ok" cell run in this
-    process on ``device``. ``reduce``: the reduced configs at
-    :func:`reduced_shape`. ``each(rec)`` sees every record as it is
-    done."""
+              microbatch=None, reduce: bool = False, each=None,
+              meshes=(ONE_DEVICE,)):
+    """The records of ``cells`` (``(arch, shape name)`` pairs) on each of
+    ``meshes`` in turn, in order: counted on meta in ``jobs`` processes
+    (spawned; meta tracing is host work, one core a cell), then with
+    ``run`` each "ok" one-device cell run in this process on ``device``.
+    ``reduce``: the reduced configs at :func:`reduced_shape`. ``each(rec)``
+    sees every record as it is done."""
     work = []
     for a, s in cells:
-        kw = {"microbatch": microbatch}
-        if reduce:
-            kw.update(cfg=configs.reduce(configs.get(a)),
-                      shape=reduced_shape(SHAPES[s]))
-        work.append((a, s, kw))
+        for m in meshes:
+            kw = {"microbatch": microbatch}
+            if m != ONE_DEVICE:
+                kw["mesh"] = m
+            if reduce:
+                kw.update(cfg=configs.reduce(configs.get(a)),
+                          shape=reduced_shape(SHAPES[s]))
+            work.append((a, s, kw))
     if jobs > 1:
         import multiprocessing as mp
 
@@ -375,7 +513,7 @@ def run_cells(cells, *, jobs: int = 1, run: bool = False, device=None,
     else:
         recs = [_count_star(job) for job in work]
     for rec, (_, _, kw) in zip(recs, work):
-        if run and rec["status"] == "ok":
+        if run and rec["status"] == "ok" and rec["mesh"] == ONE_DEVICE:
             run_counted(rec, device=device, **kw)
         if each is not None:
             each(rec)
@@ -419,6 +557,8 @@ def _line(rec: dict) -> str:
     tag = f"{rec['arch']} × {rec['shape']} × {rec['mesh']}"
     if rec["status"] == "skipped":
         return f"[skip] {tag}: {rec['reason']}"
+    if rec["status"] == "not_ported":
+        return f"[todo] {tag}: {rec['reason']}"
     if rec["status"] != "ok":
         return f"[ERR]  {tag}: {rec['error']}"
     r = rec["roofline"]
@@ -430,6 +570,12 @@ def _line(rec: dict) -> str:
          f"roofline_frac={r['roofline_fraction']:.3f}\n"
          f"       memory: {rec['memory_analysis']}, meta peak "
          f"{rec['meta_peak_live_bytes']}")
+    if rec["mesh"] != ONE_DEVICE:
+        s += (f"\n       per device of {rec['n_chips']}: parameters "
+              f"{rec['param_bytes_per_device']} B, optimizer state "
+              f"{rec['opt_state_bytes_per_device']} B; collectives "
+              f"{rec['collectives']}, by dtype "
+              f"{rec['collective_bytes_by_dtype']}")
     run = rec.get("run")
     if run:
         s += f"\n       run: {run}"
@@ -454,14 +600,22 @@ def main(argv=None) -> int:
     ap.add_argument("--jobs", type=int, default=1,
                     help="processes that count the cells on meta")
     args = ap.parse_args(argv)
-    if args.multi_pod or args.both_meshes:
-        make_production_mesh(multi_pod=True)
-
-    cells = ([(a, s) for a in configs.ARCH_IDS for s in SHAPES] if args.all
-             else [(args.arch, args.shape)])
+    meshes = ((ONE_DEVICE,) if not (args.multi_pod or args.both_meshes)
+              else PRODUCTION_MESHES if args.both_meshes
+              else PRODUCTION_MESHES[1:])
+    if args.all:
+        archs = (args.arch.split(",") if args.arch
+                 else list(configs.ARCH_IDS))
+        shapes = args.shape.split(",") if args.shape else list(SHAPES)
+        cells = [(a, s) for a in archs for s in shapes]
+    else:
+        cells = [(args.arch, args.shape)]
+        if meshes != (ONE_DEVICE,) and SHAPES[args.shape].kind != "train":
+            raise NotImplementedError(f"{args.arch} x {args.shape} on a "
+                                      f"production mesh: {NOT_PORTED}")
     results = run_cells(cells, jobs=args.jobs, run=args.run,
                         device=args.device, microbatch=args.microbatch,
-                        reduce=args.reduce,
+                        reduce=args.reduce, meshes=meshes,
                         each=lambda rec: print(_line(rec), flush=True))
     if args.out:
         with open(args.out, "w") as f:

@@ -50,8 +50,16 @@ order would not be rank order. :func:`fanout` gives a tensor's uses
 copies of their own whose gradients it sums in a fixed order, where
 autograd's order of accumulation could differ between the two forms.
 
-Not copied yet (:data:`~..parallel.sharding.MULTI_DEVICE`): the
-production mesh raises ``NotImplementedError``.
+**The production mesh** (:func:`make_production_mesh`: 16 × 16 in
+``("data", "model")``, or 2 × 16 × 16 with a leading ``"pod"`` axis) is
+counted, not run: :class:`MetaMesh` is one rank of such a process group
+on the meta device. Its exchanges return meta tensors of the shapes the
+real collective would give and record the bytes the rank puts on the
+wire (``tally``: by kind, axis and dtype), so tracing a step on it under
+``launch.op_cost`` gives one device's FLOPs, bytes and collectives with
+nothing allocated and no process made. Every rank of a uniform mesh
+holds the same shapes, so rank 0's count is every rank's. The stacked
+form keeps a ``tally`` per shard the same way (:func:`tally_bytes`).
 """
 from __future__ import annotations
 
@@ -61,11 +69,14 @@ import torch
 
 from .. import _device
 from ..parallel import collectives as co
-from ..parallel.sharding import MULTI_DEVICE
 
 #: the exchanges' axes: every shard, the data-parallel shards of one model
-#: index, then each axis
-AXES = ("world", "dp", "pod", "data", "model")
+#: index, each axis, then the shards of one pod
+AXES = ("world", "dp", "pod", "data", "model", "in_pod")
+#: the production mesh's axis sizes: (data, model), and the pods of the
+#: multi-pod mesh (the reference's TPU v5e pods of 16 x 16 chips)
+PRODUCTION = (16, 16)
+PRODUCTION_PODS = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +108,10 @@ class _DataMesh:
     data: int
     device: torch.device
     model: int = 1
+    #: the bytes each held shard sends, ``{shard: {(kind, axis, dtype):
+    #: [bytes, exchanges]}}`` (None: not kept; :meth:`_sent`)
+    tally: dict | None = dataclasses.field(default=None, compare=False,
+                                           repr=False)
 
     @property
     def axis_names(self) -> tuple:
@@ -141,11 +156,39 @@ class _DataMesh:
             return [(p * D + q % D) * M + r for p in range(self.pods)]
         if axis == "model":
             return [q * M + m for m in range(M)]
+        if axis == "in_pod":
+            lo = q // D * D * M
+            return list(range(lo, lo + D * M))
         raise ValueError(f"axis {axis!r} not in {AXES}")
 
     def axis_size(self, axis: str) -> int:
         return {"world": self.size, "dp": self.dp_size, "pod": self.pods,
-                "data": self.data, "model": self.model}[axis]
+                "data": self.data, "model": self.model,
+                "in_pod": self.data * self.model}[axis]
+
+    def _sent(self, shard: int, kind: str, axis: str, x: torch.Tensor,
+              nbytes: int) -> None:
+        """Count ``nbytes`` of ``x``'s dtype that ``shard`` puts on the
+        wire in one exchange (kept where :attr:`tally` is a dict)."""
+        if self.tally is None:
+            return
+        key = (kind, axis, str(x.dtype).removeprefix("torch."))
+        row = self.tally.setdefault(shard, {}).setdefault(key, [0, 0])
+        row[0] += nbytes
+        row[1] += 1
+
+    def _sent_a2a(self, shard: int, axis: str, x: torch.Tensor) -> None:
+        """An all-to-all of ``x`` (``[n, ...]``): every row but the
+        shard's own goes out."""
+        n = self.axis_size(axis)
+        self._sent(shard, "all-to-all", axis, x,
+                   x.numel() * x.element_size() * (n - 1) // n)
+
+    def _sent_gather(self, shard: int, axis: str, x: torch.Tensor) -> None:
+        """An all-gather of ``x``: it goes to every other member."""
+        self._sent(shard, "all-gather", axis, x,
+                   x.numel() * x.element_size()
+                   * (self.axis_size(axis) - 1))
 
     def reduce_scatter(self, axis: str, xs: list) -> list:
         """Row ``i`` of every member's ``xs[s]`` (``[n, ...]``) summed over
@@ -181,6 +224,7 @@ class StackedMesh(_DataMesh):
             mem = self.members(axis, s)
             i = mem.index(s)
             out[s] = torch.stack([xs[q][i] for q in mem])
+            self._sent_a2a(s, axis, xs[s])
         return out
 
     def all_gather(self, axis: str, xs: list) -> list:
@@ -188,6 +232,7 @@ class StackedMesh(_DataMesh):
         group of members (shared by them)."""
         out = [None] * self.size
         for s in self.local:
+            self._sent_gather(s, axis, xs[s])
             if out[s] is None:
                 mem = self.members(axis, s)
                 st = torch.stack([xs[q] for q in mem])
@@ -240,12 +285,70 @@ def all_sum(mesh, axis: str, xs: list) -> list:
             for g in mesh.all_gather(axis, mesh.reduce_scatter(axis, flats))]
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    shape = "2x16x16" if multi_pod else "16x16"
-    raise NotImplementedError(
-        f"the production mesh ({shape} chips) spans several devices: "
-        f"{MULTI_DEVICE}; a launcher cell runs on one device "
-        "(make_debug_mesh())")
+@dataclasses.dataclass(frozen=True)
+class MetaMesh(_DataMesh):
+    """Rank ``index`` of a process group of ``pods × data × model`` ranks,
+    on the meta device (module docstring): each exchange returns a meta
+    tensor of the real collective's shape and adds the bytes this rank
+    sends to :attr:`tally`."""
+
+    index: int = 0
+
+    @property
+    def local(self) -> list:
+        return [self.index]
+
+    @property
+    def lead(self) -> bool:
+        return self.index == 0
+
+    @property
+    def backend(self) -> str:
+        return "meta"
+
+    @property
+    def name(self) -> str:
+        """``"16x16"``, ``"2x16x16"``: the sizes, pods first where there
+        are several."""
+        return "x".join(str(n) for n in self.shape.values())
+
+    def all_to_all(self, axis: str, xs: list) -> list:
+        self._sent_a2a(self.index, axis, xs[0])
+        return [torch.empty_like(xs[0], device="meta")]
+
+    def all_gather(self, axis: str, xs: list) -> list:
+        x = xs[0]
+        self._sent_gather(self.index, axis, x)
+        return [torch.empty((self.axis_size(axis),) + tuple(x.shape),
+                            dtype=x.dtype, device="meta")]
+
+
+def make_meta_mesh(*, data: int = 1, model: int = 1, pods: int = 1,
+                   index: int = 0) -> MetaMesh:
+    """Rank ``index`` of a ``pods × data × model`` mesh on the meta device,
+    its tally empty."""
+    _check_sizes(data, model, pods)
+    return MetaMesh(pods, data, torch.device("meta"), model, tally={},
+                    index=index)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MetaMesh:
+    """Rank 0 of the production mesh (:data:`PRODUCTION`: data 16 × model
+    16; ``multi_pod``: 2 pods of them), counted on the meta device."""
+    data, model = PRODUCTION
+    return make_meta_mesh(data=data, model=model,
+                          pods=PRODUCTION_PODS if multi_pod else 1)
+
+
+def tally_bytes(mesh, shard: int | None = None, by: str = "dtype") -> dict:
+    """The bytes a shard of ``mesh`` (None: the first held) sent, summed by
+    ``"dtype"``, ``"kind"`` or ``"axis"`` (:attr:`_DataMesh.tally`)."""
+    shard = mesh.local[0] if shard is None else shard
+    at = {"kind": 0, "axis": 1, "dtype": 2}[by]
+    out = {}
+    for key, (nbytes, _) in (mesh.tally or {}).get(shard, {}).items():
+        out[key[at]] = out.get(key[at], 0) + nbytes
+    return out
 
 
 def _process_mesh(pods: int, data: int, model: int, group,

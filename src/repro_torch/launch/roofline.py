@@ -10,8 +10,10 @@ The port of the reference's ``launch/roofline.py``. Three terms per (arch
 The FLOPs come from ``launch.op_cost`` (the eager step's aten ops), not
 from HLO; the dry run passes the bytes the step needs
 (``dryrun.needed_bytes``), not the eager ops' unfused count. The
-reference's ``collective_stats`` parses HLO and has no counterpart here;
-on one card a step has no collectives.
+reference's ``collective_stats`` parses HLO and has no counterpart here:
+on one card a step has no collectives, and on the production mesh the
+collective bytes are those one rank of ``launch.mesh.MetaMesh`` puts on
+the wire.
 :func:`model_flops` and :func:`roofline_terms` are copies with the
 reference's output keys; ``peak_bandwidth`` keeps its rule (a constant on
 the GPU, a measured STREAM-triad probe on the CPU).
@@ -31,8 +33,11 @@ HW = {
     "peak_flops_f32": 67e12,
     # HBM3 bytes/s, H100 SXM 80 GB at 700 W
     "hbm_bw": 3.35e12,
-    # NVLink 4 bytes/s in one direction, H100 SXM at 700 W (the reference's
-    # key; on one card no collective runs)
+    # NVLink 4 bytes/s in one direction, H100 SXM (NVIDIA's data sheet:
+    # 900 GB/s per GPU both ways together), under the reference's key. The
+    # collective term charges every byte a rank of the production mesh
+    # sends at it; 256 cards span many nodes, whose network links are
+    # slower, so the term is a lower bound there
     "ici_bw": 450e9,
 }
 

@@ -24,10 +24,11 @@ ZeRO update of its slices (``optim.adamw.apply_zero_updates``):
   ``g / P`` with each shard's own error buffer: the quantised values go
   through the same reduce-scatter (the reference's compressed step);
 * ``pod_wire='u16'|'u8'``: the mean over the data axis inside a pod (a
-  rank-order all-reduce, ``launch.mesh.all_sum``), then across the pod
-  axis through ``optim.compression.compressed_wire_reduce``, leaf by
-  reference leaf; each shard then takes its slices. The reference
-  hard-codes 2 pods, and so does the port.
+  rank-order reduce-scatter into one chunk per data shard), then across
+  the pod axis through ``optim.compression.compressed_wire_reduce`` on
+  that chunk, leaf by reference leaf, the chunks gathered back inside
+  the pod (:func:`pod_wire_gradients`); each shard then takes its
+  slices. The reference hard-codes 2 pods, and so does the port.
 
 The loss is the rank-order mean of the shards' losses. The rank form and
 the stacked form run one code path over the mesh's exchanges, so the
@@ -44,11 +45,27 @@ tensor_parallel``: every model shard of a data shard reads the same rows)
 and the gradients of its pieces; a piece's gradient sums over the data
 shards of its model index, or over every shard for a piece each model
 shard holds (``ZeroLeaf.over``), before the ZeRO update within the model
-shard. ``grad_compression`` and ``pod_wire`` raise there: the reference
-runs its compressed step replicated over ``"model"``, and the port has
-not copied that yet.
+shard. The two compressed exchanges there are the reference's:
+
+* ``grad_compression=bits`` runs replicated over ``"model"``, as the
+  reference's ``shard_map`` step: every model shard of a data shard holds
+  the whole model and computes the same loss and gradients on the same
+  rows, and ``compressed_psum`` with its own error buffers runs over the
+  data shards of its model index (the step above, ``"dp"`` one model
+  index at a time), so the model shards of a data shard stay bit-equal;
+* ``pod_wire`` runs the tensor-parallel step with GSPMD's part done by
+  hand inside each pod (:func:`pod_wire_gradients`): each piece's
+  gradient is reduce-scattered over the pod's shards that sum it (its
+  data shards, or all of the pod's for a piece every model shard holds)
+  into one chunk per data index, divided by the pod's data shards, then
+  ``compressed_wire_reduce`` runs across the pods on the chunks of a
+  reference leaf's pieces joined, its ``u8`` scale shared by every shard
+  (the whole leaf's, as the reference's), and the chunks are all-gathered
+  over the pod's data shards before each shard takes its ZeRO slices.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -182,18 +199,44 @@ def reduce_gradients(mesh, layout: list, grads: list, *,
 
 
 def pod_wire_gradients(mesh, layout: list, grads: list, wire: str) -> list:
-    """The shards' gradients as each held shard's slices: the mean over
-    the data axis inside each pod, then ``compressed_wire_reduce`` across
-    the pods, per reference leaf."""
-    D = mesh.data
+    """The shards' gradients (per shard held, in the order ``layout``'s
+    indices read: whole leaves, or over a model axis each shard's pieces,
+    ``models.tensor_parallel``) as each held shard's slices, through the
+    pod wire (module docstring): per piece of ``layout``, the mean over
+    the pod's data shards in one chunk per data index; per reference
+    leaf, ``compressed_wire_reduce`` of its pieces' chunks joined, across
+    the pods (its ``u8`` scale over every shard: the whole leaf's); the
+    chunks gathered back over the data shards. The wire is elementwise but
+    for that scale, so the result is the one of the mean and the wire on
+    whole leaves."""
+    D, M = mesh.data, mesh.model
     out = [[None] * len(layout) for _ in grads]
-    for j, leaf in enumerate(layout):
-        fulls = [leaf.full(g) for g in grads]
-        if D > 1:
-            fulls = [t / D for t in all_sum(mesh, "data", fulls)]
-        fulls = compressed_wire_reduce(fulls, mesh, "pod", wire)
-        for i, s in enumerate(mesh.local):
-            out[i][j] = leaf.take(fulls[i], s)
+    for _, group in itertools.groupby(
+            range(len(layout)),
+            key=lambda j: layout[j].key.removesuffix("+shared")):
+        group, pieces, shapes = list(group), [], []
+        for j in group:
+            fulls = [layout[j].full(g) for g in grads]
+            shapes.append(fulls[0].shape)
+            rows = [torch.nn.functional.pad(
+                x.reshape(-1), (0, -x.numel() % D)).reshape(D, -1)
+                for x in fulls]
+            axis = "data"
+            if layout[j].over == "world":
+                axis = "in_pod"
+                rows = [x.repeat_interleave(M, 0) for x in rows]
+            pieces.append([t / D for t in mesh.reduce_scatter(axis, rows)])
+        del fulls, rows
+        sizes = [p[0].numel() for p in pieces]
+        joined = compressed_wire_reduce(
+            [torch.cat(ps) for ps in zip(*pieces)], mesh, "pod", wire,
+            scale_axis="world")
+        for j, shape, parts in zip(group, shapes, zip(
+                *(torch.split(x, sizes) for x in joined))):
+            for i, (g, s) in enumerate(zip(mesh.all_gather("data", parts),
+                                           mesh.local)):
+                whole = g.reshape(-1)[:shape.numel()].reshape(shape)
+                out[i][j] = layout[j].take(whole, mesh.dp_index(s))
     return out
 
 
@@ -210,10 +253,6 @@ def _mesh_step(cfg: ModelConfig, opt: OptConfig, mesh, *, pod_wire,
     ``train_step(state, errs, batches) -> (state, errs, {"loss"})`` with a
     ``ZeroState``, the error buffers per shard held (None without
     compression) and one batch per shard held."""
-    if mesh.model > 1:
-        return _model_step(cfg, opt, mesh, pod_wire=pod_wire,
-                           microbatch=microbatch,
-                           grad_compression=grad_compression)
     if pod_wire is not None:
         if pod_wire not in ("u16", "u8"):
             raise ValueError(f"pod_wire {pod_wire!r} not in ('u16', 'u8')")
@@ -223,6 +262,9 @@ def _mesh_step(cfg: ModelConfig, opt: OptConfig, mesh, *, pod_wire,
         if grad_compression is not None:
             raise ValueError("pod_wire and grad_compression are two ways to "
                              "compress the gradient exchange: pick one")
+    if mesh.model > 1 and grad_compression is None:
+        return _model_step(cfg, opt, mesh, pod_wire=pod_wire,
+                           microbatch=microbatch)
     layout = adamw.zero_layout(cfg, mesh)
     bks = buckets(layout)
     P = mesh.dp_size
@@ -252,25 +294,25 @@ def _mesh_step(cfg: ModelConfig, opt: OptConfig, mesh, *, pod_wire,
 
 
 def _model_step(cfg: ModelConfig, opt: OptConfig, mesh, *, pod_wire,
-                microbatch, grad_compression):
+                microbatch):
     """The step on a mesh with a model axis (module docstring): the
     tensor-parallel loss and gradients of each held shard's pieces
-    (``models.tensor_parallel``), then the ZeRO update of its slices."""
+    (``models.tensor_parallel``), reduced (across the pods through
+    ``pod_wire`` where it is set), then the ZeRO update of its slices."""
     from ..models import tensor_parallel as tp
-    from ..parallel.sharding import MULTI_DEVICE
 
-    for what, v in (("pod_wire", pod_wire),
-                    ("grad_compression", grad_compression)):
-        if v is not None:
-            raise NotImplementedError(
-                f"{what} at model = {mesh.model}: {MULTI_DEVICE}")
-    ctx = tp.make_ctx(cfg, mesh)
+    # under the pod wire the reference's step sees one pod's batch
+    ctx = tp.make_ctx(cfg, mesh,
+                      batch_axis="dp" if pod_wire is None else "data")
     layout = tp.zero_layout(cfg, mesh, ctx.layout)
     bks = buckets(layout)
 
     def train_step(state, errs, batches):
         losses, grads = tp.grads_of(ctx, state.master, batches, microbatch)
-        slices = reduce_gradients(mesh, layout, grads)
+        if pod_wire is None:
+            slices = reduce_gradients(mesh, layout, grads)
+        else:
+            slices = pod_wire_gradients(mesh, layout, grads, pod_wire)
         del grads
         state = adamw.apply_zero_updates(state, slices, opt, mesh, layout,
                                          bks)
@@ -280,6 +322,25 @@ def _model_step(cfg: ModelConfig, opt: OptConfig, mesh, *, pod_wire,
     train_step.buckets = bks
     train_step.ctx = ctx
     return train_step
+
+
+def tensor_parallel(step) -> bool:
+    """Whether ``step`` (``make_train_step``'s on a mesh) is the
+    tensor-parallel step, whose state holds each shard's pieces (the
+    compressed step holds the whole model on every model shard)."""
+    return getattr(step, "ctx", None) is not None
+
+
+def init_mesh_state(step, params, mesh):
+    """The step-0 ``ZeroState`` of ``params`` (a ``Transformer``) for
+    ``step``, the ZeRO step on ``mesh``: each held shard's pieces under
+    the tensor-parallel step, else the whole model, sliced by the step's
+    layout."""
+    if tensor_parallel(step):
+        from ..models import tensor_parallel as tp
+
+        return tp.init_state(params, step.ctx.layout, step.layout, mesh)
+    return adamw.init_zero_state(params, step.layout, mesh)
 
 
 def make_train_step(cfg: ModelConfig, opt: OptConfig,

@@ -18,9 +18,17 @@ nothing is tried and caught:
   card (every collective staged through the host), or when ``--backend
   gloo`` asks for it. ``--backend nccl`` with too few cards raises.
 
-Rank 0 logs and writes the checkpoints. ``--grad-compression`` and
-``--pod-wire`` with ``--model-axis`` above 1 raise: the compressed steps
-over a model axis are still to port (ROADMAP.md queue 1).
+Rank 0 logs and writes the checkpoints. ``--grad-compression N`` with
+``--model-axis M`` runs the reference's compressed step replicated over
+the model shards; ``--pods 2 --pod-wire u16|u8`` with ``--model-axis M``
+the tensor-parallel step whose gradients cross the pods through the wire
+(``launch.steps``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+        --reduce --device cpu --data-axis 2 --model-axis 2 \\
+        --grad-compression 10
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+        --reduce --device cpu --pods 2 --model-axis 2 --pod-wire u16
 """
 from __future__ import annotations
 

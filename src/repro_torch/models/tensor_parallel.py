@@ -31,7 +31,9 @@ per-shard lists (``launch.mesh``: :func:`~..launch.mesh.gather_seq`,
   column/row-parallel as an MLP. The aux terms are the same on every
   shard; model index 0 alone takes their gradient. The load-balance
   term's means run over the tokens of every data shard (an all-reduce
-  over ``"dp"``), as over the reference's global batch.
+  over ``"dp"``), as over the reference's global batch; under the pod
+  wire over the data shards of one pod (``batch_axis="data"``), as the
+  reference's step, manual over ``"pod"``, sees one pod's batch.
 * **Mamba2**: shard r computes its heads: ``z``, ``x`` and ``dt`` of its
   head range and ``B``/``C`` whole (one group), so its part of ``in_proj``
   is that index set of columns (not a contiguous slice: the reference's
@@ -327,6 +329,8 @@ class _Ctx:
     layout: Layout
     ranks: list          # the model index of each shard held
     dt: torch.dtype
+    #: the shards whose tokens make the batch of the MoE aux terms' means
+    batch_axis: str = "dp"
 
     @property
     def M(self) -> int:
@@ -465,8 +469,9 @@ def moe(ctx, ps, zs) -> tuple:
 def _aux(ctx, routes: list) -> list:
     """``moe_lb`` and ``moe_z`` of each held shard's routing (``moe.
     aux_losses``), the load-balance term's two means over the tokens of
-    every data shard (the reference's global batch): each shard's means
-    summed over the data shards in rank order, over their count."""
+    every data shard (the reference's global batch; ``ctx.batch_axis``):
+    each shard's means summed over those shards in rank order, over their
+    count."""
     cfg = ctx.cfg
     E = cfg.n_experts
     f32 = torch.float32
@@ -478,9 +483,10 @@ def _aux(ctx, routes: list) -> list:
             0, rt.experts.reshape(-1),
             torch.full((n,), 1.0 / n, dtype=f32, device=me.device))
         stats.append(torch.stack([me, ce]))
-    P = ctx.mesh.dp_size
+    P = ctx.mesh.axis_size(ctx.batch_axis)
     if P > 1:
-        stats = [s / P for s in lm.model_sum(ctx.mesh, stats, axis="dp")]
+        stats = [s / P for s in lm.model_sum(ctx.mesh, stats,
+                                             axis=ctx.batch_axis)]
     return [{"moe_lb": (E * torch.sum(s[0] * s[1])).to(f32),
              "moe_z": torch.mean(torch.logsumexp(rt.logits, dim=-1) ** 2)
              .to(f32)} for s, rt in zip(stats, routes)]
@@ -770,10 +776,11 @@ def forward_train(ctx, pieces: list, batches: list) -> list:
     return out
 
 
-def make_ctx(cfg, mesh, layout: Layout | None = None) -> _Ctx:
+def make_ctx(cfg, mesh, layout: Layout | None = None, *,
+             batch_axis: str = "dp") -> _Ctx:
     layout = Layout(cfg, mesh.model) if layout is None else layout
     return _Ctx(cfg, mesh, layout, [mesh.model_index(s) for s in mesh.local],
-                L.as_dtype(cfg.dtype))
+                L.as_dtype(cfg.dtype), batch_axis)
 
 
 def value_and_grad(ctx, pieces: list, batches: list):

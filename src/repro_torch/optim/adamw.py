@@ -334,14 +334,23 @@ def apply_updates(state: TrainState, grads, opt: OptConfig,
 @dataclasses.dataclass
 class ZeroState:
     """The train state on a mesh of data-parallel shards: the step, the
-    whole float32 master (``requires_grad``, the same bits on every
-    shard), and per shard this process holds (``mesh.local``) ``m`` and
-    ``v`` as lists of slices, one per :class:`ZeroLeaf`."""
+    float32 master (``requires_grad``): the whole model, one module with
+    the same bits on every shard, or under the tensor-parallel step each
+    held shard's list of pieces; and per shard this process holds
+    (``mesh.local``) ``m`` and ``v`` as lists of slices, one per
+    :class:`ZeroLeaf`."""
 
     step: torch.Tensor
-    master: nn.Module
+    master: nn.Module | list
     m: list
     v: list
+
+    def held_masters(self) -> list:
+        """Each held shard's master tensors: the whole model's parameters
+        (the one module every held shard shares), or its pieces."""
+        if isinstance(self.master, nn.Module):
+            return [list(self.master.parameters())] * len(self.m)
+        return self.master
 
 
 def zero_moments(layout: list, mesh) -> list:
@@ -403,11 +412,8 @@ def apply_zero_updates(state: ZeroState, slices: list, opt: OptConfig,
     master is the same (one module every held shard shares, or each held
     shard's list of pieces)."""
     coeffs = _coefficients(state.step, opt, zero_norm(mesh, layout, slices))
-    if isinstance(state.master, nn.Module):
-        masters = [list(state.master.parameters())]
-        own = [masters[0]] * len(mesh.local)
-    else:
-        masters = own = state.master
+    own = state.held_masters()
+    masters = own[:1] if isinstance(state.master, nn.Module) else own
     with torch.no_grad():
         for bucket in buckets:
             news = []

@@ -35,8 +35,10 @@ both reductions take one value per shard this process holds
   integers and NCCL has no unsigned 16-bit type.
 
 Without a mesh ``compressed_psum`` sums over one shard, the identity.
-Not copied yet: either over a model axis (the training step raises for
-model > 1, ``launch.steps``).
+Over a model axis (``launch.steps``) ``compressed_psum`` runs over the
+data shards of each model index, and ``compressed_wire_reduce`` over the
+pods on each shard's chunk of its pieces, the ``u8`` scale shared over
+every shard (``scale_axis="world"``).
 """
 from __future__ import annotations
 
@@ -145,7 +147,8 @@ def _scale(x: torch.Tensor) -> torch.Tensor:
                           448.0)
 
 
-def compressed_wire_reduce(g, mesh, axis: str = "pod", wire: str = "u16"):
+def compressed_wire_reduce(g, mesh, axis: str = "pod", wire: str = "u16",
+                           *, scale_axis: str | None = None):
     """Mean of ``g`` over ``axis`` of ``mesh`` (``launch.mesh``) with an
     integer wire format, the reference's construction: ``g / n`` split into
     ``n`` chunks, quantised (``u16``: the bf16 pattern; ``u8``: float8_e4m3
@@ -153,7 +156,9 @@ def compressed_wire_reduce(g, mesh, axis: str = "pod", wire: str = "u16"):
     the senders in rank order, quantised again (``u8``: a fresh shared
     scale), all-gathered and dequantised. ``g``: this shard's tensor, or a
     list with one per shard this process holds (``mesh.local``); returns
-    the same form."""
+    the same form. ``scale_axis``: the shards whose largest |value| the
+    ``u8`` scales share (None: ``axis``; ``"world"`` where each shard holds
+    a part of one tensor)."""
     from ..parallel import collectives as co
 
     one = torch.is_tensor(g)
@@ -175,14 +180,15 @@ def compressed_wire_reduce(g, mesh, axis: str = "pod", wire: str = "u16"):
         got = mesh.all_gather(axis, [co.u16_wire(_u16_of(p)) for p in parts])
         outs = [_u16_to_f32(co.u16_from_wire(w)).reshape(-1) for w in got]
     elif wire == "u8":
-        scales = mesh.pmax(axis, [_scale(c) for c in chunks])
+        scale_axis = axis if scale_axis is None else scale_axis
+        scales = mesh.pmax(scale_axis, [_scale(c) for c in chunks])
         recv = mesh.all_to_all(axis, [_f32_to_u8(c, s)
                                       for c, s in zip(chunks, scales)])
         parts = [co.shard_sum(_u8_to_f32(r, s))
                  for r, s in zip(recv, scales)]
         # the sum of n quantised chunks can pass 448 scales: a fresh scale
         # for the gather leg (e4m3fn has no inf; past it is NaN)
-        scales2 = mesh.pmax(axis, [_scale(p) for p in parts])
+        scales2 = mesh.pmax(scale_axis, [_scale(p) for p in parts])
         got = mesh.all_gather(axis, [_f32_to_u8(p, s)
                                      for p, s in zip(parts, scales2)])
         outs = [_u8_to_f32(w, s).reshape(-1) for w, s in zip(got, scales2)]

@@ -18,8 +18,9 @@ devices from ``XLA_FLAGS=--xla_force_host_platform_device_count=N``.
   ``[1, ...]`` row of every stacked operand. The collectives it runs are
   in :mod:`.collectives`, the launcher in :mod:`.launch`.
 
-A :class:`ShardMesh` over more than one device raises
-``NotImplementedError``: one shard per GPU is the rank mesh's job.
+A :class:`ShardMesh` holds every shard on one device; one shard per GPU
+is the rank mesh's job, so a ``ShardMesh`` over several devices is
+refused with ``NotImplementedError`` that says so.
 
 The training side's logical specs (the reference's ``PartitionSpec``s
 over ``"pod"``, ``"data"`` and ``"model"``) are kept as data: a spec is a
@@ -32,7 +33,11 @@ data-parallel axes holds under such a spec: the port's stand-in for
 GSPMD. A mesh here is anything with ``axis_names`` and a ``shape`` dict
 (``launch.mesh``); a shard's ``"model"`` coordinate is its index modulo
 the model size. The tensor-parallel layers keep their own slicing rules
-(``models.tensor_parallel``); what is still to port is
+(``models.tensor_parallel``). The training mesh runs one rank per shard
+(``launch.mesh.make_debug_mesh`` over a process group) with every step of
+the reference, the compressed ones too, and the production mesh is
+counted per device on one rank of a meta process group
+(``launch.mesh.make_production_mesh``); what is still to port is
 :data:`MULTI_DEVICE`.
 """
 from __future__ import annotations
@@ -45,15 +50,12 @@ import torch
 from .. import _device
 
 #: where the meshes over several devices stand
-MULTI_DEVICE = ("ROADMAP.md queue 1: the production mesh (16 x 16 and 2 x "
-                "16 x 16, counted per device), dryrun --multi-pod/"
-                "--both-meshes, analyze --multi-pod/--pod-compress, "
-                "grad_compression and pod_wire at model > 1 and the "
-                "tensor-parallel decode path are still to port; the "
-                "training mesh (\"pod\", \"data\", \"model\") already runs "
-                "one rank per shard (launch.mesh.make_debug_mesh over a "
-                "process group), as the solve path does "
-                "(parallel.sharding.RankMesh)")
+MULTI_DEVICE = ("ROADMAP.md queue 1: the tensor-parallel prefill and "
+                "decode (and so the prefill and decode cells on the "
+                "production mesh) are still to port; training runs one rank "
+                "per shard on the (\"pod\", \"data\", \"model\") mesh "
+                "(launch.mesh.make_debug_mesh over a process group), as the "
+                "solve path does (parallel.sharding.RankMesh)")
 
 #: the data-parallel axes, outermost first
 DP_AXES = ("pod", "data")

@@ -37,8 +37,12 @@ of one data shard read the same rows; each shard's ``ZeroState`` master
 is a list of its pieces of the leaves, and m and v its ZeRO slices of
 them. A checkpoint holds the reference's whole leaves (gathered over both
 axes before the lead writes), so it restores on any (data, model) shape,
-and in either package. ``grad_compression`` and ``pod_wire`` at
-``model_axis`` > 1 raise (``parallel.sharding.MULTI_DEVICE``).
+and in either package. With ``pods=2`` and ``pod_wire`` the pieces'
+gradients cross the pods through the wire (``launch.steps``). With
+``grad_compression`` the step is the reference's compressed one,
+replicated over ``"model"``: every model shard holds the whole master
+(a ``ZeroState`` as on the data axes alone, m and v sliced over the data
+shards) and the model shards of one data shard stay bit-equal.
 """
 from __future__ import annotations
 
@@ -151,6 +155,9 @@ class Trainer:
             vocab=model_cfg.vocab, seq_len=tcfg.seq_len,
             global_batch=tcfg.global_batch, seed=tcfg.seed))
         self.history: list[dict] = []
+        #: the error-feedback buffers after the last step of ``run`` (with
+        #: ``grad_compression``; per shard held on a mesh), else None
+        self.errors = None
         if self.mesh is not None:
             self._step_fn = self._make_mesh_step()
         elif tcfg.pod_wire is not None:
@@ -234,18 +241,16 @@ class Trainer:
         """The step-0 state of ``params`` (a ``Transformer``) for this
         trainer: a ``TrainState``, or on a mesh a ``ZeroState`` sliced by
         its ZeRO layout."""
-        if self.model_sharded:
-            return tp.init_state(params, self._step_fn.ctx.layout,
-                                 self._step_fn.layout, self.mesh)
         if self.mesh is not None:
-            return adamw.init_zero_state(params, self._step_fn.layout,
-                                         self.mesh)
+            return steps.init_mesh_state(self._step_fn, params, self.mesh)
         return init_state(params)
 
     @property
     def model_sharded(self) -> bool:
-        """Whether the state is split over a model axis."""
-        return self.mesh is not None and self.mesh.model > 1
+        """Whether the state is split over a model axis (the
+        tensor-parallel step; the compressed step holds the whole model on
+        every model shard)."""
+        return steps.tensor_parallel(self._step_fn)
 
     def _restore_mesh(self):
         """The latest checkpoint on the mesh: the step and the master
@@ -264,8 +269,12 @@ class Trainer:
                               whole)
         moment = {k: v for k, v in template.items()
                   if k.startswith(("2/", "3/"))}
-        zspecs = {f"{i}/{leaf.key}": leaf.spec for leaf in layout
-                  for i in (2, 3)}
+        # each shard's slices over the data-parallel shards alone: over a
+        # model axis the compressed step holds the leaves whole
+        zspecs = {f"{i}/{leaf.key}": tuple(
+            adamw.ZERO_ENTRY if d == leaf.dim else None
+            for d in range(len(leaf.shape))) for leaf in layout
+            for i in (2, 3)}
         m, v = [], []
         for s in self.mesh.local:
             got = restore_resharded(moment, arrays, meta, mesh=self.mesh,
@@ -372,6 +381,7 @@ class Trainer:
                                  "exiting cleanly")
                     self._save(state, step + 1)
                     break
+        self.errors = err
         return state
 
     def dump_history(self, path: str):

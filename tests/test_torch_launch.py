@@ -49,7 +49,6 @@ from repro_torch.launch import roofline as rl
 from repro_torch.models import SHAPES, io_spec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ShapeConfig
-from repro_torch.parallel.sharding import MULTI_DEVICE
 
 ARCHS = configs.ARCH_IDS
 FAMILIES = ("qwen2-0.5b", "qwen2-moe-a2.7b", "llava-next-mistral-7b",
@@ -352,14 +351,23 @@ def test_dryrun_cli_full_size_on_meta(tmp_path, capsys):
 
 
 def test_multi_pod_flags_raise():
-    for argv in (["--all", "--multi-pod"], ["--all", "--both-meshes"]):
-        with pytest.raises(NotImplementedError, match="several devices"):
+    """The production mesh counts train cells; a prefill or decode cell
+    there raises, naming ROADMAP (the tensor-parallel prefill and decode
+    are still to port), and ``--pod-compress`` needs ``--multi-pod``."""
+    for argv in (["--arch", "qwen2-0.5b", "--shape", "decode_32k",
+                  "--multi-pod"],
+                 ["--arch", "qwen2-0.5b", "--shape", "prefill_32k",
+                  "--both-meshes"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             dryrun.main(argv)
-    with pytest.raises(NotImplementedError, match="several devices"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         dryrun.run_cell("qwen2-0.5b", "decode_32k", multi_pod=True)
-    with pytest.raises(NotImplementedError, match="pod_wire"):
+    with pytest.raises(ValueError, match="--multi-pod"):
         analyze.main(["--arch", "qwen2-0.5b", "--shape", "train_4k",
                       "--pod-compress", "u8"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        analyze.main(["--arch", "qwen2-0.5b", "--shape", "decode_32k",
+                      "--multi-pod", "--reduce"])
 
 
 def test_mesh_one_device_only():
@@ -374,10 +382,12 @@ def test_mesh_one_device_only():
     for kw in ({"model": 16}, {"data": 16, "model": 16}):
         with pytest.raises(RuntimeError, match="initialised process group"):
             mesh.make_debug_mesh(device="cpu", **kw)
-    for mp in (False, True):
-        with pytest.raises(NotImplementedError) as e:
-            mesh.make_production_mesh(multi_pod=mp)
-        assert MULTI_DEVICE in str(e.value)
+    # the production mesh is counted on meta: rank 0 of 256 or 512
+    for mp, shape in ((False, {"data": 16, "model": 16}),
+                      (True, {"pod": 2, "data": 16, "model": 16})):
+        m = mesh.make_production_mesh(multi_pod=mp)
+        assert m.shape == shape and m.local == [0] and m.lead
+        assert m.device == torch.device("meta") and m.tally == {}
 
 
 @pytest.mark.parametrize("arch", ("qwen2-0.5b", "zamba2-2.7b"))

@@ -567,13 +567,17 @@ def test_mesh_rules_with_a_model_axis(tmp_path):
     assert sharding.shard_coords(m, 5) == {"pod": 1, "data": 0, "model": 1}
     with pytest.raises(RuntimeError, match="initialised process group"):
         tmesh.make_debug_mesh(data=1, model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="production mesh"):
-        tmesh.make_production_mesh()
+    assert m.members("in_pod", 5) == [4, 5, 6, 7]
+    assert tmesh.make_production_mesh().shape == {"data": 16, "model": 16}
     mesh = tmesh.make_stacked_mesh(model=2, device="cpu")
-    for kw in ({"grad_compression": 10}, {"pod_wire": "u16"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            steps.make_train_step(cases.cfg("dense"), cases.opt(), mesh=mesh,
-                                  **kw)
+    # the compressed step holds the whole model on every model shard; the
+    # pod wire needs the reference's 2 pods
+    step = steps.make_train_step(cases.cfg("dense"), cases.opt(), mesh=mesh,
+                                 grad_compression=10)
+    assert not steps.tensor_parallel(step)
+    with pytest.raises(ValueError, match="2 pods"):
+        steps.make_train_step(cases.cfg("dense"), cases.opt(), mesh=mesh,
+                              pod_wire="u16")
     with pytest.raises(ValueError, match="equal rows"):
         t = Trainer(cases.cfg("dense"), cases.opt(), dataclasses.replace(
             cases.tcfg(1, 2, str(tmp_path)), seq_len=31), mesh=mesh,
