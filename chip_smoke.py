@@ -37,7 +37,13 @@ one real cell); then distribution across processes (phase 13's matrix
 and tier ladder one rank per shard from the host dicts it built: one
 NCCL rank whose solve's graphs capture the collectives, four gloo ranks
 sharing the card against the stacked shards bit for bit, NCCL with one
-rank per card where the machine has cards enough)
+rank per card where the machine has cards enough), the training mesh
+across processes (the data axes, the model axis, the compressed steps
+over it, the production mesh counted on meta) and the tensor-parallel
+prefill and decode (qwen2-0.5b and mamba2-1.3b one rank per model shard,
+the KV cache over the shards, each rank bit-equal to its stacked form,
+the stacked form against the one-device forward, the serving cells of
+the production meshes counted on meta)
 -- times the kernels, and ends with one JSON line. Every solve runs as the port runs
 it, through CUDA-graph replays (``repro_torch.solvers.graphs``), and in
 turns with its eager loop (eager, captured, captured, eager), which it
@@ -58,6 +64,7 @@ import gc
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -171,6 +178,37 @@ TP_MASTER_TOL = 0.25
 #: same master and batches: the model shards round their bf16 partial sums
 #: in another order (the microbatch check's limit)
 TP_LOSS_TOL = MB_LOSS_TOL
+#: phase 25: the stacked tensor-parallel prefill and decode's logits against
+#: the one-device forward's on the same bf16 parameters and tokens,
+#: relative to the largest |logit|. A model shard rounds each row-parallel
+#: product's partial to bf16 before the rank-order sum rounds again (2^-9
+#: each, where one device rounds its float32 sum once), the prefill's
+#: reduce-scatters too: about three more roundings a layer, 72 over
+#: qwen2-0.5b's 24 layers, 96 over mamba2-1.3b's 48 (out_proj and the
+#: gated norm's scale), of random sign: sqrt(96) x 2^-9, about 2^-5.7 of
+#: the hidden state, which the head carries to the logits at about its own
+#: size; with 3x to spare, the decode-against-prefill limit. A shard that
+#: keeps its own partial drops the others' share of every product: the
+#: logits move by their own scale
+TP_SERVE_TOL = LM_DECODE_TOL
+#: phase 25's Mamba2 run: the SSM's decay exp(dt A) turns a bf16 rounding
+#: flip of dt's input (2^-8 of it: the shards' in_proj products take other
+#: columns than the one device's and round elsewhere) into 2^-8 |dt A| of
+#: the decay, and A reaches -16 at dt about 0.7: up to 2^-4.5 a flip,
+#: where a product's extra rounding moves a value by 2^-9. Flips in a few
+#: heads of 48 layers, of random sign, carry to the logits at about 2^-4
+#: (0.065 read on the card at seed 0): twice the attention families'
+#: limit. A shard that keeps its own partial moves the logits by their
+#: own scale (1.36 read)
+TP_SERVE_SSM_TOL = 2.0 ** -3
+#: phase 25's prompts: rows, tokens a row, cache positions, greedy steps
+SERVE_ROWS, SERVE_PROMPT, SERVE_MAX_LEN, SERVE_TICKS = 4, 512, 1024, 16
+#: phase 25's runs in phase 22's spawn, at full width and depth: (arch,
+#: data, model): qwen2-0.5b under the KV-head rule at (2, 2) and the
+#: query-row rule at (1, 4) (the one it takes on 16 x 16), mamba2-1.3b by
+#: head
+SERVE_RUNS = {"kv": ("qwen2-0.5b", 2, 2), "qc": ("qwen2-0.5b", 1, 4),
+              "ssm": ("mamba2-1.3b", 1, 2)}
 
 
 def _count_cell(cell) -> tuple:
@@ -182,18 +220,18 @@ def _count_cell(cell) -> tuple:
 
 
 def _count_mesh_cell(cell) -> tuple:
-    """A spawned counter's job: qwen2-0.5b x train_4k per device on the
-    production mesh ``cell = (name, pod_wire)``, and when it ended."""
+    """A spawned counter's job: ``cell = (arch, shape, mesh name,
+    pod_wire)`` per device on that production mesh, and when it ended."""
     from repro_torch.launch import dryrun
 
-    name, wire = cell
-    return (dryrun.count_mesh_cell("qwen2-0.5b", "train_4k", name,
-                                   pod_wire=wire), time.time())
+    arch, shape, name, wire = cell
+    return (dryrun.count_mesh_cell(arch, shape, name, pod_wire=wire),
+            time.time())
 
 
 class MetaCounts:
-    """Phase 21's dry-run cells (:data:`RUN_CELLS`) and phase 24 (h)'s
-    production-mesh cells (:data:`MESH_CELLS`), counted on meta in
+    """Phase 21's dry-run cells (:data:`RUN_CELLS`) and phases 24 (h) and
+    25's production-mesh cells (:data:`MESH_CELLS`), counted on meta in
     ``jobs`` spawned processes started before phase 14: host work, so it
     runs beside the card's phases and phases 21 and 24 read the records
     when they come (the pool re-imports this module as ``__mp_main__``: its work
@@ -270,9 +308,14 @@ RUN_CELLS = (("qwen2-0.5b", "decode_32k"), ("mamba2-1.3b", "decode_32k"),
              ("zamba2-2.7b", "long_500k"), ("mamba2-1.3b", "long_500k"))
 #: phase 9's scattered matrix for the mixed: kind through a precision store
 SCATTERED_ROWS = 262_144
-#: phase 24 (h): qwen2-0.5b x train_4k per device on each production mesh,
-#: the 2 x 16 x 16 one with the u16 pod wire
-MESH_CELLS = (("16x16", None), ("2x16x16", "u16"))
+#: (arch, shape, mesh, pod_wire) per device on a production mesh: phase 24
+#: (h)'s qwen2-0.5b x train_4k on each (2 x 16 x 16 with the u16 pod
+#: wire), then phase 25's serving cells
+MESH_CELLS = (("qwen2-0.5b", "train_4k", "16x16", None),
+              ("qwen2-0.5b", "train_4k", "2x16x16", "u16"),
+              ("qwen2-0.5b", "prefill_32k", "16x16", None),
+              ("qwen2-0.5b", "decode_32k", "16x16", None),
+              ("zamba2-2.7b", "long_500k", "2x16x16", None))
 #: the four turns of every solve, in order: the eager loop, the graphs'
 #: first solve (warm-up and capture), later ones (replays only), eager
 TURNS = ("eager", "capture", "replay", "eager again")
@@ -965,14 +1008,14 @@ def _train_tcfg(spec: dict, run: dict, ckpt_dir: str):
         grad_compression=run.get("grad_compression"))
 
 
-def _timed_exchange(trainer, rec: dict):
-    """Wrap ``trainer``'s step and the collectives its mesh calls: per step
-    the host wall and CUDA-event time, and the exchange's wall and the
-    bytes this rank sends to the others by wire dtype (the 16-bit
-    patterns travel as bfloat16). Returns the undo."""
+def _wrap_collectives(stat: dict):
+    """Wrap the collectives a rank's mesh calls: the exchange's wall into
+    ``stat["s"]`` and the bytes this rank sends to the others by wire
+    dtype into ``stat["b"]`` (the 16-bit patterns travel as bfloat16).
+    Returns the undo."""
     from repro_torch.parallel import collectives as co
 
-    stat = {"s": 0.0, "b": collections.Counter(), "depth": 0}
+    stat.update(s=0.0, b=collections.Counter(), depth=0)
     orig = {name: getattr(co, name) for name in ("all_to_all", "all_gather")}
 
     def wrap(name):
@@ -998,6 +1041,19 @@ def _timed_exchange(trainer, rec: dict):
             return out
         return call
 
+    co.all_to_all, co.all_gather = wrap("all_to_all"), wrap("all_gather")
+
+    def undo():
+        co.all_to_all, co.all_gather = orig["all_to_all"], orig["all_gather"]
+    return undo
+
+
+def _timed_exchange(trainer, rec: dict):
+    """Wrap ``trainer``'s step and the collectives its mesh calls: per step
+    the host wall and CUDA-event time, and the exchange's wall and the
+    bytes this rank sends (:func:`_wrap_collectives`). Returns the
+    undo."""
+    stat = {}
     step_fn = trainer._step_fn
 
     def step(state, errs, batches):
@@ -1018,10 +1074,10 @@ def _timed_exchange(trainer, rec: dict):
 
     functools.update_wrapper(step, step_fn)
     trainer._step_fn = step
-    co.all_to_all, co.all_gather = wrap("all_to_all"), wrap("all_gather")
+    undo_co = _wrap_collectives(stat)
 
     def undo():
-        co.all_to_all, co.all_gather = orig["all_to_all"], orig["all_gather"]
+        undo_co()
         trainer._step_fn = step_fn
     return undo
 
@@ -1081,9 +1137,10 @@ def rank_train(mesh, spec: dict) -> dict:
     ``spec["order"]`` over ranks 0 and 1 (a subgroup every rank makes,
     where the group has more); then, with ``spec["model"]``, phase 24's
     runs over the same processes (:func:`rank_model`), so that their start
-    and first steps are paid once. With ``spec["order"]`` alone and no
-    ``"a"`` run: the runs on whatever group spawned the ranks ((c): NCCL,
-    one rank per card)."""
+    and first steps are paid once, and with ``spec["serve"]`` phase 25's
+    prefill and decode runs (:func:`rank_serve`). With ``spec["order"]``
+    alone and no ``"a"`` run: the runs on whatever group spawned the ranks
+    ((c): NCCL, one rank per card)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_debug_mesh
@@ -1114,6 +1171,10 @@ def rank_train(mesh, spec: dict) -> dict:
     if "model" in spec:
         co.gather_values([0], mesh)        # ranks 2 and 3 wait here
         out["model"] = rank_model(mesh, spec["model"], pair)
+    if "serve" in spec:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["serve"] = rank_serve(mesh, spec["serve"], pair)
     out["span"] = (t_in, time.time())
     return out
 
@@ -1240,6 +1301,129 @@ def rank_model(mesh, spec: dict, pair=None) -> dict:
                 device=mesh.device, group=None if n == mesh.size else pair),
                 spec, key)
         co.gather_values([0], mesh)        # the next run starts together
+    out["span"].append(time.time())
+    return out
+
+
+def fp_any(t: torch.Tensor) -> tuple:
+    """:func:`fingerprint` of a tensor of any 2- or 4-byte dtype (a 16-bit
+    element's pattern widened to 32 bits)."""
+    t = t.detach().contiguous()
+    if t.element_size() == 2:
+        t = t.view(torch.int16).to(torch.int32)
+    return fingerprint(t)
+
+
+def _serve_cfg(key: str):
+    from repro_torch import configs
+
+    return configs.get(SERVE_RUNS[key][0])
+
+
+def own_partials(ctx, xs):
+    """A planted fault for phase 25, in place of
+    ``models.tensor_parallel._row_sum`` (the decode's row-parallel sums):
+    each model shard keeps its own partial."""
+    return list(xs)
+
+
+def serve_steps(mesh, spec: dict, key: str, *, keep: bool = False) -> dict:
+    """Phase 25's run ``key`` (:data:`SERVE_RUNS`) on ``mesh`` (a rank's,
+    or the stacked form on the card): the model drawn from
+    ``spec["seed"]`` in one bf16 copy, each held shard's pieces
+    (``tensor_parallel.serve_pieces``), the prefill of the run's prompts
+    into a cache of ``SERVE_MAX_LEN`` positions (``launch.steps.
+    make_prefill_step`` on the mesh), then ``SERVE_TICKS`` greedy steps
+    (``forward_decode``, then the argmax across the shards, as
+    ``make_decode_step``'s). Returns per held shard the fingerprints of
+    the logits and tokens of each step and of the cache after the prefill
+    and after the last step; per step the host wall, the exchange's wall
+    and the bytes sent by dtype (:func:`_wrap_collectives`); the peak
+    memory. With ``keep`` also each step's logits and tokens on the host,
+    the pieces and a copy of the prefill's cache (the planted fault's
+    start)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models import transformer as tfm
+
+    cfg = _serve_cfg(key)
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = tfm.init_params(cfg, spec["seed"], device=dev, dtype=cfg.dtype)
+    prefill = steps.make_prefill_step(cfg, SERVE_MAX_LEN, mesh)
+    ctx = prefill.ctx
+    pieces = tp.serve_pieces(ctx.layout, params, ctx.ranks)
+    del params
+    prompts = torch.from_numpy(spec["prompts"][SERVE_RUNS[key][0]]).to(dev)
+    rows = SERVE_ROWS // mesh.dp_size
+    batches = [{"tokens": prompts[q * rows:(q + 1) * rows]}
+               for q in (mesh.dp_index(s) for s in mesh.local)]
+    rec = {"wall": [], "xchg_s": [], "wire_bytes": [], "logits": [],
+           "tokens": [], "rule": ctx.plan.rule, "host": []}
+    stat = {}
+    undo = _wrap_collectives(stat)
+
+    def timed(fn):
+        stat["s"], stat["b"] = 0.0, collections.Counter()
+        out, sec = wall(fn)
+        rec["wall"].append(sec)
+        rec["xchg_s"].append(stat["s"])
+        rec["wire_bytes"].append(dict(stat["b"]))
+        return out
+
+    def caches_fps(caches):
+        return [{k: fp_any(v) for k, v in c.items()} for c in caches]
+
+    def decode():
+        lg, cs = tp.forward_decode(ctx, pieces, toks, caches)
+        return lg, cs, tp.next_tokens(ctx, lg)
+
+    try:
+        logits, caches = timed(lambda: prefill(pieces, batches))
+        rec["cache_prefill"] = caches_fps(caches)
+        if keep:
+            rec["start"] = [{k: v.clone() for k, v in c.items()}
+                            for c in caches]
+        toks = tp.next_tokens(ctx, logits)
+        for i in range(SERVE_TICKS + 1):
+            if i:
+                logits, caches, toks = timed(decode)
+            rec["logits"].append([fp_any(x) for x in logits])
+            rec["tokens"].append([fp_any(x) for x in toks])
+            if keep:
+                rec["host"].append(([x.cpu() for x in logits],
+                                    [x.cpu() for x in toks]))
+    finally:
+        undo()
+    rec["cache"] = caches_fps(caches)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if keep:
+        rec.update(pieces=pieces, ctx=ctx)
+    return rec
+
+
+def rank_serve(mesh, spec: dict, pair=None) -> dict:
+    """Phase 25's runs of ``spec["order"]`` on one of four gloo ranks
+    sharing the card, in phase 22's spawn after phase 24's runs, each over
+    the ranks its mesh needs (the first two: ``pair``, a subgroup every
+    rank made; all four: the whole group), the others waiting; and the
+    launches of this repository's kernels the runs made."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel import collectives as co
+
+    out = {"rank": mesh.rank, "span": [time.time()]}
+    before = _rank_all()
+    for key in spec["order"]:
+        _, data, model = SERVE_RUNS[key]
+        n = data * model
+        if mesh.rank < n:
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[key] = serve_steps(make_debug_mesh(
+                data=data, model=model, device=mesh.device,
+                group=None if n == mesh.size else pair), spec, key)
+        co.gather_values([0], mesh)        # the next run starts together
+    out["launches"] = {k: v - before[k] for k, v in _rank_all().items()}
     out["span"].append(time.time())
     return out
 
@@ -5892,7 +6076,7 @@ class Smoke:
                         "b3": dict(data=1, pods=2, steps=steps_cut,
                                    layers=cut, pod_wire="u16",
                                    ckpt_every=steps_cut)},
-                    model=self._model_spec())
+                    model=self._model_spec(), serve=self._serve_spec())
 
     def train_ranks_path(self):
         """Phase 20's model, seed, batches and schedule across processes,
@@ -5935,6 +6119,7 @@ class Smoke:
         cfg = k["cfg"]
         T = k["batch"] * k["seq_len"]
         self.model_ranks = [r["model"] for r in out]
+        self.serve_ranks = [r["serve"] for r in out]
         warm = [r["warm_s"] for r in out[1:]]
         out = out[:2]
 
@@ -6373,7 +6558,9 @@ class Smoke:
         recs, done = counts.get(counts.mesh)
         print(f"  (h) counted in a spawned counter started before phase 14, "
               f"done {done:.1f} s after its start", flush=True)
-        for (name, wire), rec in zip(MESH_CELLS, recs):
+        for (_, shape, name, wire), rec in zip(MESH_CELLS, recs):
+            if shape != "train_4k":
+                continue
             sec = rec["trace_s"]
             if rec["status"] != "ok":
                 fail(f"(h) qwen2-0.5b x train_4k on {name}: {rec['status']} "
@@ -6396,6 +6583,198 @@ class Smoke:
                   f"{r['roofline_fraction']!r}; counted on the host of "
                   f"{card}", flush=True)
         mark("(h) qwen2-0.5b x train_4k on the production meshes")
+
+    # -- phase 25: the tensor-parallel prefill and decode ---------------------
+    def _serve_spec(self, order=("kv", "qc", "ssm")) -> dict:
+        """Phase 25's runs (:data:`SERVE_RUNS`) on phase 20's seed: each
+        model's ``SERVE_ROWS`` prompts of ``SERVE_PROMPT`` tokens drawn by
+        numpy from it."""
+        from repro_torch import configs
+
+        seed = self.keep20["seed"]
+        prompts = {}
+        for key in order:
+            arch = SERVE_RUNS[key][0]
+            if arch not in prompts:
+                rng = np.random.default_rng(seed)
+                prompts[arch] = rng.integers(
+                    0, configs.get(arch).vocab,
+                    (SERVE_ROWS, SERVE_PROMPT)).astype(np.int32)
+        return dict(seed=seed, order=order, prompts=prompts)
+
+    @staticmethod
+    def _joined(mesh, plan, per_shard: list) -> torch.Tensor:
+        """One step's logits (``[b, 1, V/M]`` per shard) or tokens (``[b,
+        1]``) joined: a data shard's vocabulary shards in model order (its
+        first model shard's tokens), the data shards' rows in turn."""
+        M = mesh.model
+        rows = []
+        for q in range(mesh.dp_size):
+            sh = per_shard[q * M:(q + 1) * M]
+            rows.append(torch.cat(sh, -1) if plan.vocab and sh[0].dim() == 3
+                        else sh[0])
+        return torch.cat(rows, 0)
+
+    def serve_path(self, counts: MetaCounts):
+        """The tensor-parallel prefill and decode (``models.
+        tensor_parallel``; the runs of :data:`SERVE_RUNS`, one bf16 copy
+        drawn from the seed, ``SERVE_ROWS`` prompts of ``SERVE_PROMPT``
+        tokens into a cache of ``SERVE_MAX_LEN`` positions, then
+        ``SERVE_TICKS`` greedy steps): (a) four gloo ranks sharing the card
+        in phase 22's spawn (``self.serve_ranks``), each rank's logits,
+        tokens and cache pieces after the prefill and after the last step
+        bit-equal to the stacked form run here on the card; (b) the
+        stacked form's logits against the one-device ``forward_prefill``
+        and ``forward_decode`` on the same parameters and tokens, within
+        ``TP_SERVE_TOL`` (Mamba2: ``TP_SERVE_SSM_TOL``); (c) a planted
+        fault, one decode step whose row-parallel sums keep each shard's
+        own partial
+        (:func:`own_partials`), beyond it; (d) the serving cells of
+        :data:`MESH_CELLS` counted per device on the production meshes in
+        the spawned counters, each "ok". Prints each rank's prefill and
+        step walls, the exchange's wall, the bytes it sends by dtype and
+        its peak memory. Launches none of K1-K7."""
+        from repro_torch.launch import mesh as lm
+        from repro_torch.models import tensor_parallel as tp
+        from repro_torch.models import transformer as tfm
+
+        card = card_line()
+        self.zero_counts()
+        spec = self._serve_spec()
+        ranks = self.serve_ranks
+        for r in ranks:
+            if any(r["launches"].values()):
+                fail(f"rank {r['rank']} launched kernels of this repository "
+                     f"in phase 25: {r['launches']}")
+        work = max(r["span"][1] for r in ranks) - min(r["span"][0]
+                                                      for r in ranks)
+        print(f"  the ranks' runs: {work:.1f} s of phase 22's spawn, after "
+              f"phase 24's; the ranks share one card and every exchange "
+              f"goes through the host: not a multi-GPU figure", flush=True)
+        for key in spec["order"]:
+            arch, d, m = SERVE_RUNS[key]
+            cfg = _serve_cfg(key)
+            gc.collect()
+            torch.cuda.empty_cache()
+            mesh = lm.make_stacked_mesh(data=d, model=m, device=self.dev)
+            st, sec = wall(lambda: serve_steps(mesh, spec, key, keep=True))
+            plan = st["ctx"].plan
+            # (a) every rank against its stacked shard
+            for r in ranks[:d * m]:
+                got, s = r[key], r["rank"]
+                for what in ("logits", "tokens"):
+                    if [x[0] for x in got[what]] != [x[s] for x in st[what]]:
+                        fail(f"({key}) rank {s}: its {what} differ from the "
+                             "stacked form's shard")
+                for what in ("cache_prefill", "cache"):
+                    if got[what][0] != st[what][s]:
+                        fail(f"({key}) rank {s}: its {what} differs from the "
+                             "stacked form's shard")
+            mark(f"({key}) the stacked form")
+            # (b) the one-device forward on the same parameters and tokens
+            params = tfm.init_params(cfg, spec["seed"], device=self.dev,
+                                     dtype=cfg.dtype)
+            prompts = torch.from_numpy(spec["prompts"][arch]).to(self.dev)
+            logits, cache = tfm.forward_prefill(cfg, params,
+                                                {"tokens": prompts},
+                                                SERVE_MAX_LEN)
+            # the real vocabulary's columns (the padded ones hold -1e30)
+            V = cfg.vocab
+            gaps, agree, first = [], 0, None
+            for i, (lg, tk) in enumerate(st["host"]):
+                whole = self._joined(mesh, plan, lg)[..., :V]
+                toks = self._joined(mesh, plan, tk)
+                ref = logits.float().cpu()[..., :V]
+                gaps.append(max_abs(whole, ref) / float(ref.abs().max()))
+                agree += int(torch.equal(torch.argmax(
+                    ref[:, -1], dim=-1).to(torch.int32), toks[:, 0]))
+                if i == 1:
+                    first = ref
+                if i < SERVE_TICKS:
+                    logits, cache = tfm.forward_decode(cfg, params,
+                                                       toks.to(self.dev),
+                                                       cache)
+            del params, cache, logits
+            # (c) the planted fault: the first step from the prefill's cache
+            keep = tp._row_sum
+            tp._row_sum = own_partials
+            try:
+                flg, _ = tp.forward_decode(
+                    st["ctx"], st["pieces"],
+                    [t.to(self.dev) for t in st["host"][0][1]], st["start"])
+            finally:
+                tp._row_sum = keep
+            fault = max_abs(self._joined(mesh, plan, [x.cpu() for x in flg])
+                            [..., :V], first) / float(first.abs().max())
+            walls = st["wall"]
+            rule = f"rule {plan.rule!r}" if cfg.n_heads else "by head"
+            tol = TP_SERVE_SSM_TOL if cfg.family == "ssm" else TP_SERVE_TOL
+            print(f"  ({key}) {cfg.name} at full width, {cfg.n_layers} "
+                  f"layers, {cfg.dtype}, (data, model) ({d}, {m}), {rule}: "
+                  f"{SERVE_ROWS} prompts of {SERVE_PROMPT} "
+                  f"tokens, cache {SERVE_MAX_LEN}, {SERVE_TICKS} greedy "
+                  f"steps; each rank's logits, tokens and cache pieces equal "
+                  f"to the stacked form's bit for bit; the stacked form "
+                  f"against the one-device forward on the same tokens: "
+                  f"logits within {max(gaps)!r} of the largest (limit "
+                  f"{tol!r}; by step {[round(g, 4) for g in gaps]}; greedy "
+                  f"tokens agree at {agree} of "
+                  f"{SERVE_TICKS + 1} steps); a planted fault, one step "
+                  f"whose row-parallel sums keep each shard's own partial: "
+                  f"{fault!r}; stacked prefill {walls[0]:.3f} s, a step "
+                  f"{statistics.median(walls[1:]):.4f} s (median), run "
+                  f"{sec:.1f} s, peak {st['peak_bytes']} B; {card}",
+                  flush=True)
+            if not max(gaps) <= tol < fault:
+                fail(f"({key}) the stacked form's logits {max(gaps)} from "
+                     f"the one-device forward's, the planted fault's "
+                     f"{fault}: the limit {tol} must lie between")
+            for r in ranks[:d * m]:
+                g = r[key]
+                print(f"  ({key}) rank {r['rank']}: prefill {g['wall'][0]:.3f}"
+                      f" s (exchange {g['xchg_s'][0]:.3f} s, sends "
+                      f"{g['wire_bytes'][0]}); a step "
+                      f"{min(g['wall'][1:]):.4f}-{max(g['wall'][1:]):.4f} s "
+                      f"(exchange {min(g['xchg_s'][1:]):.4f}-"
+                      f"{max(g['xchg_s'][1:]):.4f} s, sends "
+                      f"{g['wire_bytes'][1]}); peak {g['peak_bytes']} B; "
+                      f"{card}", flush=True)
+            del st, flg
+            mark(f"({key}) the one-device forward, the fault")
+        # (d) the production meshes, per device
+        recs, done = counts.get(counts.mesh)
+        print(f"  (d) counted in a spawned counter started before phase 14, "
+              f"done {done:.1f} s after its start", flush=True)
+        for (arch, shape, name, _), rec in zip(MESH_CELLS, recs):
+            if shape == "train_4k":
+                continue
+            if rec["status"] != "ok":
+                fail(f"(d) {arch} x {shape} on {name}: {rec['status']} "
+                     f"{rec.get('error', '')}\n{rec.get('traceback', '')}")
+            r, c = rec["roofline"], rec["cost"]
+            print(f"  (d) {arch} x {shape} per device of {rec['n_chips']} on "
+                  f"the {name} mesh (meta, its trace {rec['trace_s']:.1f} "
+                  f"s): FLOPs {c['flops']!r}, needed bytes "
+                  f"{c['needed_bytes']!r}, meta peak "
+                  f"{rec['meta_peak_live_bytes']} B, parameters "
+                  f"{rec['param_bytes_per_device']} B, cache "
+                  f"{rec['cache_bytes_per_device']} B; collectives "
+                  f"{rec['collectives']}, by dtype "
+                  f"{rec['collective_bytes_by_dtype']}; roofline t_compute "
+                  f"{r['t_compute_s']!r} s, t_memory {r['t_memory_s']!r} s, "
+                  f"t_collective {r['t_collective_s']!r} s, dominant "
+                  f"{r['dominant']}, roofline_fraction "
+                  f"{r['roofline_fraction']!r}; counted on the host of "
+                  f"{card}", flush=True)
+        mark("(d) the production meshes")
+        launches = self.counts()
+        k7 = self.k7_ran()
+        if any(launches.values()) or k7:
+            fail(f"phase 25 launched kernels of this repository: {launches}, "
+                 f"K7 {k7}")
+        print(f"  launches in this run: {launches}, K7 {k7} (no kernel of "
+              f"this repository lies on the prefill and decode)", flush=True)
+        return dict(launches=launches)
 
     def launch_path(self, counts: MetaCounts):
         """The launchers: (c) the STREAM-triad probe on the card, within
@@ -6699,6 +7078,16 @@ def main(argv=None) -> int:
               "meshes; (d) NCCL with one rank per card where there are "
               "cards enough", lambda: smoke.model_axis_path(counts))
         runs.append(out[24]["launches"])
+        out.clear()
+        phase(25, "the tensor-parallel prefill and decode: qwen2-0.5b at "
+              "full width and depth at (2, 2) and (1, 4), mamba2-1.3b at "
+              "(1, 2), 4 prompts of 512 tokens, 16 greedy steps; (a) in "
+              "phase 22's spawn of four gloo ranks sharing the card, each "
+              "bit-equal to its stacked form; (b) the stacked form against "
+              "the one-device forward, (c) a planted fault beside it; (d) "
+              "the serving cells on the 16x16 and 2x16x16 meshes",
+              lambda: smoke.serve_path(counts))
+        runs.append(out[25]["launches"])
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -6722,8 +7111,8 @@ def main(argv=None) -> int:
     }
     rows["K7"] = smoke.k7_row
     counts.close()
-    print(f"== 25. done in {time.perf_counter() - t_start:.1f} s (phases "
-          f"3-24: {phase_s}; sub-walls {sub_s})", flush=True)
+    print(f"== 26. done in {time.perf_counter() - t_start:.1f} s (phases "
+          f"3-25: {phase_s}; sub-walls {sub_s})", flush=True)
     print(f"card: {card_line()}", flush=True)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in meta}
     kernels = []

@@ -22,10 +22,10 @@ saved rows (the reference's ``--save-hlo`` / ``--hlo``). ``--device
 meta`` (the default) counts on meta; ``cpu`` and ``cuda`` count one real
 step there (``--reduce`` for the reduced configs on the host).
 
-``--multi-pod`` analyzes a train cell per device on the 2 × 16 × 16
+``--multi-pod`` analyzes a cell per device on the 2 × 16 × 16
 production mesh (rank 0 of ``launch.mesh.make_production_mesh``, on
-meta: ``dryrun.count_on_mesh``), with ``--pod-compress u16|u8`` the
-``pod_wire`` step. The collectives section then lists the bytes the rank
+meta: ``dryrun.count_on_mesh``; any shape, as the reference's), a train
+cell with ``--pod-compress u16|u8`` the ``pod_wire`` step. The collectives section then lists the bytes the rank
 puts on the wire by kind, as the reference lists them, and a section
 ranks them by kind, axis and dtype, closed like the others so that it
 sums to the total.
@@ -137,8 +137,8 @@ def analyze_cell(arch: str, shape_name: str, *, top: int = 20,
     else one real step, and on the card the profiler's kernels) and
     print its sections; returns :func:`analyze_ops`' dict with the
     records under ``records``. ``mesh``: a ``launch.mesh.MetaMesh`` (the
-    production mesh's rank 0) to count the train step on, per device,
-    with ``pod_wire`` across its pods."""
+    production mesh's rank 0) to count the step on, per device, a train
+    step with ``pod_wire`` across its pods."""
     from . import dryrun
 
     cfg = cfg or configs.get(arch)
@@ -152,11 +152,13 @@ def analyze_cell(arch: str, shape_name: str, *, top: int = 20,
                                             pod_wire=pod_wire,
                                             microbatch=microbatch)
         wire = mesh.tally.get(mesh.index, {})
+        held = ("optimizer state", fields["opt_state_bytes_per_device"]) \
+            if shape.kind == "train" else ("cache",
+                                           fields["cache_bytes_per_device"])
         print(f"{mesh.name} mesh, per device of {mesh.size}: arguments "
               f"{fields['memory_analysis']['argument_size_in_bytes'] / 1e9:.3f}"
               f" GB (parameters {fields['param_bytes_per_device'] / 1e9:.3f}"
-              f" GB, optimizer state "
-              f"{fields['opt_state_bytes_per_device'] / 1e9:.3f} GB), peak "
+              f" GB, {held[0]} {held[1] / 1e9:.3f} GB), peak "
               f"live above them {fields['meta_peak_live_bytes'] / 1e9:.2f} "
               f"GB (meta){'' if pod_wire is None else f'; pod wire {pod_wire}'}")
     elif torch.device(device or "cuda").type == "meta":

@@ -42,8 +42,9 @@ the device to meta.
 
 **The production mesh.** ``--multi-pod`` counts the cells on the 2 × 16
 × 16 mesh, ``--both-meshes`` on 16 × 16 and 2 × 16 × 16 (the reference's
-two meshes), per device: the step of ``launch.steps`` on rank 0 of
-``launch.mesh.make_production_mesh`` (a ``MetaMesh``: its exchanges
+two meshes), per device: the step of ``launch.steps`` on one rank of
+``launch.mesh.make_production_mesh`` (rank 0; for a prefill the last
+model shard, :func:`count_mesh_cell`; a ``MetaMesh``: its exchanges
 return meta tensors and count the bytes the rank sends), traced on meta
 under ``op_cost`` like a one-device cell, with nothing allocated and no
 process made. A ``train_4k`` cell runs the tensor-parallel step (ZeRO
@@ -54,15 +55,20 @@ FLOPs, needed bytes and meta peak, the parameter bytes (the rank's master
 pieces) and optimizer-state bytes (its m and v slices), the collective
 bytes by kind (and by axis and dtype), and the roofline terms at
 ``n_chips`` = 256 or 512, the collective term the wire bytes over
-``roofline.HW["ici_bw"]``. The prefill and decode cells need the
-tensor-parallel prefill and decode, which are still to port
-(:data:`NOT_PORTED`): one such cell raises ``NotImplementedError``; under
-``--all`` each is recorded with status ``"not_ported"`` and printed as
-``[todo]``. ``--arch`` and ``--shape`` (comma-separated) narrow
+``roofline.HW["ici_bw"]``. A prefill or decode cell runs the
+tensor-parallel prefill or decode step (``models.tensor_parallel``: one
+rank per model shard, the KV cache over the model shards), on its data
+shard's rows, or on the whole batch where the data axes do not divide it
+(long_500k's one row: the reference's ``sanitize_spec``); its record holds
+the rank's pieces in the compute dtype as its parameter bytes and its
+cache's bytes (``cache_bytes_per_device``: the cache a decode step is
+given, donated and written in place, or the one a prefill returns).
+Every cell is counted: ``--all --both-meshes`` gives 64 ``ok`` and 16
+skipped records. ``--arch`` and ``--shape`` (comma-separated) narrow
 ``--all``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes \\
-        --arch qwen2-0.5b --shape train_4k
+        --arch qwen2-0.5b --shape train_4k,prefill_32k,decode_32k
 """
 from __future__ import annotations
 
@@ -104,9 +110,6 @@ HOST_BOUND_SHARE = 0.9
 #: the one-device mesh and the production meshes, by name
 ONE_DEVICE = "1x1"
 PRODUCTION_MESHES = ("16x16", "2x16x16")
-#: why a prefill or decode cell has no count on a production mesh
-NOT_PORTED = ("the tensor-parallel prefill and decode on the production "
-              "mesh are still to port (ROADMAP.md queue 1)")
 
 
 def _tensors(tree):
@@ -209,20 +212,15 @@ def _shard_batch(spec: dict, rows: int) -> dict:
                            device="meta") for k, v in spec.items()}
 
 
-def count_on_mesh(cfg, shape, mesh, *, pod_wire=None, microbatch=None,
-                  grad_compression=None):
-    """Trace one train step of ``cfg`` at ``shape`` on the meta mesh
-    ``mesh`` (``launch.mesh.MetaMesh``, rank ``mesh.index``) under
-    ``op_cost``; returns ``(fields, cost)``: the per-device counts of
-    the module docstring and the trace's ``OpCost``."""
-    if shape.kind != "train":
-        raise NotImplementedError(f"{shape.kind} on a {mesh.name} mesh: "
-                                  f"{NOT_PORTED}")
+def _train_on_mesh(cfg, shape, mesh, *, pod_wire, microbatch,
+                   grad_compression) -> tuple:
+    """``(step, args, donated, held)`` of a train cell on ``mesh``: the
+    ZeRO step, its state (donated) and one data shard's batch; ``held``:
+    the rank's parameter and optimizer-state trees."""
     P = mesh.dp_size
     if shape.global_batch % P:
         raise ValueError(f"global batch {shape.global_batch} over {P} "
                          "data-parallel shards")
-    t0 = time.time()
     step = make_train_step(cfg, OptConfig(), pod_wire,
                            None if microbatch is None else microbatch // P,
                            mesh=mesh, grad_compression=grad_compression)
@@ -232,9 +230,60 @@ def count_on_mesh(cfg, shape, mesh, *, pod_wire=None, microbatch=None,
         [torch.zeros_like(p) for p in state.master.parameters()]]
     batch = _shard_batch(io_spec.train_batch_spec(cfg, shape),
                          shape.global_batch // P)
-    args = (state, errs, [batch])
+    return step, (state, errs, [batch]), state, {
+        "param_bytes_per_device": _tree_bytes(state.master),
+        "opt_state_bytes_per_device": _tree_bytes((state.m, state.v))}
+
+
+def _serve_on_mesh(cfg, shape, mesh) -> tuple:
+    """``(step, args, donated, held)`` of a prefill or decode cell on
+    ``mesh``: the tensor-parallel step of ``launch.steps``, the rank's
+    pieces in the compute dtype, its data shard's rows (the whole batch
+    on every data shard where the data axes do not divide it: the
+    reference's ``sanitize_spec``) and, for decode, its cache (donated,
+    written in place)."""
+    from ..models import tensor_parallel as tp
+
+    P, B, S = mesh.dp_size, shape.global_batch, shape.seq_len
+    rows = B // P if B % P == 0 else B
+    step = (make_prefill_step(cfg, S, mesh=mesh) if shape.kind == "prefill"
+            else make_decode_step(cfg, mesh=mesh))
+    ctx = step.ctx
+    params = tfm.Transformer(cfg, dtype=cfg.dtype, device="meta")
+    pieces = tp.serve_pieces(ctx.layout, params, ctx.ranks)
+    if shape.kind == "prefill":
+        batch = _shard_batch(io_spec.prefill_batch_spec(cfg, shape), rows)
+        args, donated = (pieces, [batch]), None
+    else:
+        caches = tp.init_caches(ctx, rows, S,
+                                io_spec.frontend_lens(cfg, S)[0]
+                                if cfg.family == "encdec" else 0)
+        tokens = torch.empty((rows, 1), dtype=torch.int32, device="meta")
+        args, donated = (pieces, [tokens], caches), caches
+    return step, args, donated, {"param_bytes_per_device": _tree_bytes(
+        pieces)}
+
+
+def count_on_mesh(cfg, shape, mesh, *, pod_wire=None, microbatch=None,
+                  grad_compression=None):
+    """Trace one step of ``cfg`` at ``shape`` (train, prefill or decode) on
+    the meta mesh ``mesh`` (``launch.mesh.MetaMesh``, rank ``mesh.index``)
+    under ``op_cost``; returns ``(fields, cost)``: the per-device counts of
+    the module docstring and the trace's ``OpCost``. ``pod_wire``,
+    ``microbatch`` and ``grad_compression`` are the train step's."""
+    t0 = time.time()
+    if shape.kind == "train":
+        step, args, donated, held = _train_on_mesh(
+            cfg, shape, mesh, pod_wire=pod_wire, microbatch=microbatch,
+            grad_compression=grad_compression)
+    else:
+        if pod_wire is not None or microbatch is not None or \
+                grad_compression is not None:
+            raise ValueError(f"a {shape.kind} step has no pod_wire, "
+                             "microbatch or grad_compression")
+        step, args, donated, held = _serve_on_mesh(cfg, shape, mesh)
     out, cost = op_cost.count(step, *args)
-    mem = _mem_dict(_tree_bytes(args), _tree_bytes(out), _tree_bytes(state),
+    mem = _mem_dict(_tree_bytes(args), _tree_bytes(out), _tree_bytes(donated),
                     NOT_MEASURED)
     agg = cost.totals()
     by_kind = {}
@@ -246,19 +295,21 @@ def count_on_mesh(cfg, shape, mesh, *, pod_wire=None, microbatch=None,
     fields = {
         "trace_s": round(time.time() - t0, 1), "memory_analysis": mem,
         "meta_peak_live_bytes": int(cost.peak_live_bytes),
-        "n_chips": mesh.size,
-        "param_bytes_per_device": _tree_bytes(state.master),
-        "opt_state_bytes_per_device": _tree_bytes((state.m, state.v)),
+        "n_chips": mesh.size, **held,
         "cost": {"flops": agg["flops"], "counted_unfused_bytes":
                  agg["bytes"], "needed_bytes": needed_bytes(
                      op_cost.read_bytes(_tensors(args), cost), mem,
-                     "train"),
+                     shape.kind),
                  "transcendentals": agg["transcendentals"],
                  "ops": agg["ops"]},
         "collectives": by_kind,
         "collective_bytes_by_dtype": tally_bytes(mesh, mesh.index),
         "collective_bytes_by_axis": tally_bytes(mesh, mesh.index, "axis"),
         "collective_bytes": sum(v["bytes"] for v in by_kind.values())}
+    if shape.kind != "train":
+        # the cache a decode step is given, or the one a prefill returns
+        fields["cache_bytes_per_device"] = _tree_bytes(
+            donated if shape.kind == "decode" else out[1])
     return fields, cost
 
 
@@ -382,8 +433,10 @@ def count_mesh_cell(arch: str, shape_name: str, mesh_name: str, *,
                     shape=None) -> dict:
     """One cell's record on a production mesh (``mesh_name`` in
     :data:`PRODUCTION_MESHES`): "skipped" as ``cell_applicable`` says,
-    "not_ported" for a prefill or decode cell, else "ok" or "error"
-    (module docstring)."""
+    else "ok" or "error" (module docstring). A prefill is counted on the
+    last model shard of the first data shard: under the query-row rule
+    its causal attention grows with the model index, and the last
+    shard's is the most."""
     cfg = cfg or configs.get(arch)
     shape = shape or SHAPES[shape_name]
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name}
@@ -391,11 +444,10 @@ def count_mesh_cell(arch: str, shape_name: str, mesh_name: str, *,
     if not ok:
         rec.update(status="skipped", reason=why)
         return rec
-    if shape.kind != "train":
-        rec.update(status="not_ported", reason=NOT_PORTED)
-        return rec
     try:
         mesh = make_production_mesh(multi_pod=mesh_name == "2x16x16")
+        if shape.kind == "prefill":
+            mesh = dataclasses.replace(mesh, index=mesh.model - 1, tally={})
         fields, _ = count_on_mesh(cfg, shape, mesh, pod_wire=pod_wire,
                                   microbatch=microbatch)
         rec.update(fields)
@@ -465,13 +517,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
              run: bool = False, device=None, microbatch=None, cfg=None,
              shape=None) -> dict:
     """:func:`count_cell` (``multi_pod``: per device on the 2 × 16 × 16
-    mesh, where a prefill or decode cell raises), then with ``run``
+    mesh), then with ``run``
     :func:`run_counted` (one device only)."""
     if multi_pod:
-        shape_ = shape or SHAPES[shape_name]
-        if shape_.kind != "train":
-            raise NotImplementedError(f"{arch} x {shape_name} on the "
-                                      f"2x16x16 mesh: {NOT_PORTED}")
         return count_cell(arch, shape_name, microbatch=microbatch, cfg=cfg,
                           shape=shape, mesh="2x16x16")
     rec = count_cell(arch, shape_name, microbatch=microbatch, cfg=cfg,
@@ -557,8 +605,6 @@ def _line(rec: dict) -> str:
     tag = f"{rec['arch']} × {rec['shape']} × {rec['mesh']}"
     if rec["status"] == "skipped":
         return f"[skip] {tag}: {rec['reason']}"
-    if rec["status"] == "not_ported":
-        return f"[todo] {tag}: {rec['reason']}"
     if rec["status"] != "ok":
         return f"[ERR]  {tag}: {rec['error']}"
     r = rec["roofline"]
@@ -571,9 +617,11 @@ def _line(rec: dict) -> str:
          f"       memory: {rec['memory_analysis']}, meta peak "
          f"{rec['meta_peak_live_bytes']}")
     if rec["mesh"] != ONE_DEVICE:
+        held = (f"optimizer state {rec['opt_state_bytes_per_device']} B"
+                if "opt_state_bytes_per_device" in rec else
+                f"cache {rec['cache_bytes_per_device']} B")
         s += (f"\n       per device of {rec['n_chips']}: parameters "
-              f"{rec['param_bytes_per_device']} B, optimizer state "
-              f"{rec['opt_state_bytes_per_device']} B; collectives "
+              f"{rec['param_bytes_per_device']} B, {held}; collectives "
               f"{rec['collectives']}, by dtype "
               f"{rec['collective_bytes_by_dtype']}")
     run = rec.get("run")
@@ -610,9 +658,6 @@ def main(argv=None) -> int:
         cells = [(a, s) for a in archs for s in shapes]
     else:
         cells = [(args.arch, args.shape)]
-        if meshes != (ONE_DEVICE,) and SHAPES[args.shape].kind != "train":
-            raise NotImplementedError(f"{args.arch} x {args.shape} on a "
-                                      f"production mesh: {NOT_PORTED}")
     results = run_cells(cells, jobs=args.jobs, run=args.run,
                         device=args.device, microbatch=args.microbatch,
                         reduce=args.reduce, meshes=meshes,

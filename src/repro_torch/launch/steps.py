@@ -38,6 +38,11 @@ step gives the one-device step's bits.
 :func:`batch_spec_tree` and :func:`cache_spec_tree` are the reference's
 logical specs, kept as data (``parallel.sharding``); the synthetic
 stream places batches with the first (``data.synthetic.place_batch``).
+The port's cache over the model shards is ``models.tensor_parallel``'s
+(:func:`make_prefill_step` and :func:`make_decode_step` on a mesh: one
+rank per model shard, each shard's pieces, rows and cache; never the
+one-device step on each rank), which holds the same bytes a device as
+the second.
 
 **With a model axis** (``mesh.model`` > 1) each shard computes the
 tensor-parallel loss of its data shard's rows (``models.
@@ -372,16 +377,57 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: int):
+def _serve_ctx(cfg: ModelConfig, mesh):
+    """The tensor-parallel serving context on ``mesh`` (a mesh of shards),
+    or None on the one-device mesh or without one."""
+    if mesh is None or isinstance(mesh, Mesh):
+        return None
+    from ..models import tensor_parallel as tp
+
+    return tp.make_ctx(cfg, mesh, serve=True)
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int, mesh=None):
+    """``prefill_step(params, batch) -> (logits, cache)``: the one-device
+    ``forward_prefill``. On a mesh of shards (``launch.mesh``: one rank
+    per shard, or the stacked form), ``prefill_step(pieces, batches)``:
+    ``models.tensor_parallel.forward_prefill`` over each held shard's
+    pieces (``tensor_parallel.serve_pieces``) and its data shard's batch,
+    each shard's vocabulary columns of the logits and its cache."""
+    ctx = _serve_ctx(cfg, mesh)
+    if ctx is not None:
+        from ..models import tensor_parallel as tp
+
+        def prefill_step(pieces, batches):
+            return tp.forward_prefill(ctx, pieces, batches, max_len)
+
+        prefill_step.ctx = ctx
+        return prefill_step
+
     def prefill_step(params, batch):
         return tfm.forward_prefill(cfg, params, batch, max_len)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, mesh=None):
     """serve_step: one new token against an existing cache (written in
-    place); the next token by argmax, ``[B, 1]`` int32."""
+    place); the next token by argmax, ``[B, 1]`` int32. On a mesh of
+    shards, ``decode_step(pieces, tokens, caches)`` over each held
+    shard's pieces, tokens and cache (``tensor_parallel.forward_decode``),
+    the next token the argmax across the shards' vocabulary columns,
+    ``[b, 1]`` on every shard (``tensor_parallel.next_tokens``)."""
+    ctx = _serve_ctx(cfg, mesh)
+    if ctx is not None:
+        from ..models import tensor_parallel as tp
+
+        def decode_step(pieces, tokens, caches):
+            logits, caches = tp.forward_decode(ctx, pieces, tokens, caches)
+            return tp.next_tokens(ctx, logits), caches
+
+        decode_step.ctx = ctx
+        return decode_step
+
     def decode_step(params, tokens, cache):
         logits, new_cache = tfm.forward_decode(cfg, params, tokens, cache)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)

@@ -63,7 +63,7 @@ def _pad_seq(t, n: int):
 
 def flash_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
                     q_chunk: int = 512, kv_chunk: int = 1024,
-                    skip_offset: int = 0):
+                    skip_offset: int = 0, partial: bool = False):
     """Online-softmax attention.
 
     q: [B, Sq, H, hd]; k,v: [B, Sk, KV, hd] (GQA: H % KV == 0).
@@ -73,6 +73,10 @@ def flash_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
     axis's query rows pass their offset, so that no chunk they see is
     skipped).
     kv_len: optional [B] valid KV lengths (decode with ragged cache).
+    partial: return the float32 running state instead, ``(m, s, acc)``
+    ``[B, Sq, G, KV]``, ``[B, Sq, G, KV]`` and ``[B, Sq, G, KV, hd]``
+    before the division (one q chunk only): the model axis merges the
+    shards' states over their positions (``tensor_parallel``).
     """
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -121,13 +125,43 @@ def flash_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
             acc = acc * corr[..., None] + torch.einsum(
                 "bqgkc,bckh->bqgkh", p, vc)
             m = m_new
+        return m, s, acc
+
+    if partial:
+        if nq != 1:
+            raise ValueError(f"a partial state covers one q chunk, not {nq}")
+        m, s, acc = q_step(0)
+        return m[:, :Sq], s[:, :Sq], acc[:, :Sq]
+
+    def q_out(qi):
+        _, s, acc = q_step(qi)
         return acc / torch.clamp_min(s[..., None], 1e-30)  # [B,qc,G,KV,hd]
 
-    outs = torch.stack([q_step(qi) for qi in range(nq)], dim=0)
+    outs = torch.stack([q_out(qi) for qi in range(nq)], dim=0)
     # outs: [nq, B, qc, G, KV, hd] -> [B, Sq, H, hd]
     out = outs.permute(1, 0, 2, 4, 3, 5).reshape(B, nq * q_chunk, KV * G,
                                                  hd)[:, :Sq]
     return out.to(q.dtype)
+
+
+def merge_partials(states):
+    """The attention of :func:`flash_attention`'s ``partial`` states over
+    disjoint sets of positions, stacked ``[n, B, Sq, G, KV, hd + 2]``
+    (``acc``, then ``m`` and ``s``): the running maxima's largest, then
+    each set's sum and accumulator scaled to it, added in set order, as
+    the online softmax adds its chunks. Returns ``[B, Sq, H, hd]``
+    float32."""
+    acc, m, s = states[..., :-2], states[..., -2], states[..., -1]
+    top = m.amax(dim=0)
+    tot_s = tot_acc = None
+    for i in range(states.shape[0]):
+        w = torch.exp(m[i] - top)
+        a, b = acc[i] * w[..., None], s[i] * w
+        tot_acc = a if tot_acc is None else tot_acc + a
+        tot_s = b if tot_s is None else tot_s + b
+    out = tot_acc / torch.clamp_min(tot_s[..., None], 1e-30)
+    B, Sq, G, KV, hd = out.shape
+    return out.permute(0, 1, 3, 2, 4).reshape(B, Sq, KV * G, hd)
 
 
 def apply_full(p: Attention, cfg, x, positions, dtype, *, causal=True):
@@ -139,17 +173,21 @@ def apply_full(p: Attention, cfg, x, positions, dtype, *, causal=True):
     return y, (k, v)
 
 
-def write_kv(cache, new, cache_len) -> None:
+def write_kv(cache, new, cache_len, offset: int = 0) -> None:
     """Add ``new`` ``[B, 1, KV, hd]`` into ``cache`` ``[B, Smax, KV, hd]``
     at position ``cache_len[b]`` of each row, in place: the reference's
     one-hot einsum add. A row whose position is past the cache (an idle
     slot keeps advancing) writes nothing, where the one-hot is all zero;
-    it neither clamps nor raises."""
+    it neither clamps nor raises. ``offset``: the position of the cache's
+    first row (a model shard's range of positions); a row whose position
+    lies before it writes nothing either."""
     B, Smax = cache.shape[0], cache.shape[1]
     rows = torch.arange(B, device=cache.device)
-    pos = torch.clamp(cache_len, max=Smax - 1).long()
+    at = cache_len - offset if offset else cache_len
+    pos = torch.clamp(at, min=0 if offset else None, max=Smax - 1).long()
     cur = cache[rows, pos]                                 # [B, KV, hd]
-    keep = (cache_len < Smax)[:, None, None]
+    keep = (at < Smax) & (at >= 0) if offset else at < Smax
+    keep = keep[:, None, None]
     cache[rows, pos] = torch.where(keep, cur + new[:, 0].to(cache.dtype),
                                    cur)
 

@@ -1,6 +1,7 @@
-"""The model axis: tensor-parallel training over ``"model"`` for the six
-families, one model shard per rank (or all of them in one process, the
-stacked form), held to the stacked form bit for bit.
+"""The model axis: tensor-parallel training, prefill and decode over
+``"model"`` for the six families, one model shard per rank (or all of
+them in one process, the stacked form), held to the stacked form bit for
+bit.
 
 The reference lays its layers out with GSPMD constraints
 (``repro.parallel.sharding.constrain``; ``_sp`` in its ``_apply_block``,
@@ -73,6 +74,45 @@ shards within it; ``own`` gradients sum over the data shards of one model
 index, ``shared`` over every shard). The master, m and v on disk keep the
 reference's whole leaves (:func:`checkpoint_leaves`, :func:`restore`), so
 a checkpoint crosses mesh shapes and packages.
+
+**Serving** (:func:`forward_prefill`, :func:`forward_decode`,
+:func:`next_tokens`; ``launch.steps.make_prefill_step`` and
+``make_decode_step`` on a mesh). The pieces are the same index sets in
+the serving dtypes (:func:`serve_pieces`: ``transformer.cast_params``'
+rule, no master). The prefill is the training forward's layers without
+recompute or backward; it returns each shard's float32 logits of the last
+position over its vocabulary columns (the reference's out spec
+``P(("pod", "data"), None, "model")``) and its cache. The decode's
+residual ``[b, 1, d]`` is whole on every model shard of a data shard:
+column-parallel products read it, row-parallel partial sums are summed in
+rank order (``model_sum``, where training reduce-scatters), and the next
+token is the largest logit across the shards, ties to the lowest index.
+
+Rules the port does not copy, on purpose:
+
+* **The cache over the model shards** (:func:`cache_shapes`). The
+  reference's ``cache_spec_tree`` splits K/V (``ek``/``ev`` too) on the KV
+  heads where 16 divides them, else on the head dim. Under ``"kv"`` the
+  port splits the heads as well. Under ``"g"`` and ``"qc"`` it splits the
+  **positions** into M contiguous ranges of ``max_len`` (of ``enc_len``
+  for ``ek``/``ev``): the reference's own score never splits the head dim
+  (``repro/models/attention.py``), so a head-dim split would exchange
+  partial scores over every position; a position split holds the same
+  bytes a device and exchanges one ``(acc, max, sum)`` state,
+  ``[b, H, hd + 2]`` float32, per attention layer and token, merged in
+  rank order (``attention.merge_partials``). The prefill's K/V of every
+  position are on every shard under both rules (``"qc"`` gathers them,
+  ``"g"`` computes them whole), so each shard keeps its range with no
+  exchange, whatever the prompt's length. A decode step writes a row's new
+  K/V on the shard whose range holds its ``len``; rows advance apart.
+* **Mamba2's conv window** holds the shard's index set of the conv's
+  channels: ``x``'s channels of its heads and ``B``/``C``'s whole (the
+  ``conv_w`` rule), where the reference splits the packed channels
+  evenly; the SSM state holds the shard's heads, as the reference's.
+* **The decode's sums**: ``wo``, the MLP's and shared experts' ``wo``,
+  the experts' float32 combine, ``out_proj`` and the gated norm's sum of
+  squares are each a rank-order sum over the model shards (GSPMD picks
+  its own reduction); under ``"qc"`` ``wo`` is whole and not summed.
 """
 from __future__ import annotations
 
@@ -306,11 +346,15 @@ class Layout:
     def view(self, pieces: list, r: int, prefix: str, module, dt):
         """The namespace tree of ``module`` (a part of :attr:`meta` named
         ``prefix``) with shard r's compute tensors cast to ``dt``, as
-        ``transformer._cast_block`` gives the whole ones."""
+        ``transformer._cast_block`` gives the whole ones (None: as the
+        pieces hold them, the serving dtypes)."""
         ns = types.SimpleNamespace(**tfm._absent(module))
         for name, p in module._parameters.items():
-            setattr(ns, name, None if p is None else self.param(
-                pieces, self.index[prefix + name], r).to(dt))
+            if p is None:
+                setattr(ns, name, None)
+                continue
+            t = self.param(pieces, self.index[prefix + name], r)
+            setattr(ns, name, t if dt is None else t.to(dt))
         for name, c in module._modules.items():
             setattr(ns, name, None if c is None else self.view(
                 pieces, r, f"{prefix}{name}.", c, dt))
@@ -331,10 +375,18 @@ class _Ctx:
     dt: torch.dtype
     #: the shards whose tokens make the batch of the MoE aux terms' means
     batch_axis: str = "dp"
+    #: the serving forward: the pieces hold the serving dtypes
+    #: (:func:`serve_pieces`) and are read as they are
+    serve: bool = False
 
     @property
     def M(self) -> int:
         return self.layout.M
+
+    @property
+    def param_dt(self):
+        """The dtype a view casts the pieces to (None: not cast)."""
+        return None if self.serve else self.dt
 
     @property
     def plan(self) -> Plan:
@@ -352,11 +404,14 @@ def _norm(ps, xs, ctx):
             for p, x in zip(ps, xs)]
 
 
-def attention(ctx, ps, ns, pos, *, causal: bool, enc=None) -> list:
+def attention(ctx, ps, ns, pos, *, causal: bool, enc=None,
+              keep: bool = False):
     """Self-attention of the normed rows ``ns`` (``[B, S/M, d]`` per shard;
     ``pos``: ``[B, S]`` positions of the whole rows), or with ``enc``
     (``[B, Se, d]`` per shard, whole) the cross-attention over it, no
-    RoPE. Returns each shard's rows of the output (module docstring)."""
+    RoPE. Returns each shard's rows of the output (module docstring);
+    with ``keep`` also each shard's ``(k, v)`` over every position: its
+    KV heads under ``"kv"``, all of them under ``"g"`` and ``"qc"``."""
     cfg = ctx.cfg
     hd = cfg.head_dim
     if ctx.plan.rule == "qc":
@@ -386,9 +441,9 @@ def attention(ctx, ps, ns, pos, *, causal: bool, enc=None) -> list:
             o = attn.flash_attention(q, k, v, causal=causal, q_offset=r * S,
                                      skip_offset=r * S)
             outs.append(L.dense_apply(p.wo, o.reshape(B, S, -1), ctx.dt))
-        return outs
+        return (outs, list(zip(ks, vs))) if keep else outs
     full = lm.gather_seq(ctx.mesh, ns)
-    outs = []
+    outs, kvs = [], []
     for p, x in zip(ps, full):
         B, S, _ = x.shape
         if enc is None:
@@ -404,7 +459,9 @@ def attention(ctx, ps, ns, pos, *, causal: bool, enc=None) -> list:
             q, k = L.rope(q, k, pos, cfg.rope_theta)
         o = attn.flash_attention(q, k, v, causal=causal)
         outs.append(L.dense_apply(p.wo, o.reshape(B, S, -1), ctx.dt))
-    return lm.scatter_seq(ctx.mesh, outs)
+        kvs.append((k, v))
+    outs = lm.scatter_seq(ctx.mesh, outs)
+    return (outs, kvs) if keep else outs
 
 
 def mlp(ctx, ps, zs) -> list:
@@ -417,12 +474,33 @@ def mlp(ctx, ps, zs) -> list:
                                      for p, x in zip(ps, full)])
 
 
-def moe(ctx, ps, zs) -> tuple:
+def moe(ctx, ps, zs, *, aux: bool = True) -> tuple:
     """The MoE layer (module docstring): each shard's rows of the output,
-    and each shard's aux terms (the same values on every shard)."""
-    cfg, dt, M = ctx.cfg, ctx.dt, ctx.M
-    B = zs[0].shape[0]
+    and each shard's aux terms (the same values on every shard; None
+    without ``aux``, as the serving paths drop them)."""
+    dt = ctx.dt
     full = lm.gather_seq(ctx.mesh, zs)
+    ys, shs, routes = _moe_partials(ctx, ps, full)
+    auxes = _aux(ctx, routes) if aux else None
+    if ctx.plan.experts:
+        ys = lm.scatter_seq(ctx.mesh, ys)
+    else:
+        ys = _own_rows(ctx, ys)
+    ys = [y.to(dt) for y in ys]
+    if shs:
+        shs = (lm.scatter_seq(ctx.mesh, shs) if ctx.plan.mlp
+               else _own_rows(ctx, shs))
+        ys = [y + s for y, s in zip(ys, shs)]
+    return ys, auxes
+
+
+def _moe_partials(ctx, ps, full) -> tuple:
+    """Each shard's float32 sum of its experts' gated outputs over the
+    whole rows ``full`` (``[B, S, d]``; every shard routes them alike),
+    its shared experts' partial sums (``[]`` without them) and its
+    routing."""
+    cfg, dt, M = ctx.cfg, ctx.dt, ctx.M
+    B = full[0].shape[0]
     Ep, k = moe_mod.padded_experts(cfg.n_experts), cfg.top_k
     Ep_r = Ep // M if ctx.plan.experts else Ep
     ys, shs, auxes = [], [], []
@@ -453,17 +531,7 @@ def moe(ctx, ps, zs) -> tuple:
                                 "td,ndf->ntf", "ntf,nfd->ntd")
             shs.append(s.sum(dim=0).reshape(B, S, d))
         auxes.append(rt)
-    auxes = _aux(ctx, auxes)
-    if ctx.plan.experts:
-        ys = lm.scatter_seq(ctx.mesh, ys)
-    else:
-        ys = _own_rows(ctx, ys)
-    ys = [y.to(dt) for y in ys]
-    if shs:
-        shs = (lm.scatter_seq(ctx.mesh, shs) if ctx.plan.mlp
-               else _own_rows(ctx, shs))
-        ys = [y + s for y, s in zip(ys, shs)]
-    return ys, auxes
+    return ys, shs, auxes
 
 
 def _aux(ctx, routes: list) -> list:
@@ -492,17 +560,23 @@ def _aux(ctx, routes: list) -> list:
              .to(f32)} for s, rt in zip(stats, routes)]
 
 
-def mamba(ctx, ps, xs) -> list:
+def mamba(ctx, ps, xs, *, state: bool = False):
     """Mamba2 over the gathered rows, each shard its heads (module
-    docstring); each shard's rows of the output."""
+    docstring); each shard's rows of the output, and with ``state`` each
+    shard's final ``(conv, ssm)`` states of its channels and heads (the
+    prefill's; ``ssm._final_state``'s formula)."""
     cfg, dt = ctx.cfg, ctx.dt
     full = lm.gather_seq(ctx.mesh, xs)
     if not ctx.plan.ssm:
-        return _own_rows(ctx, [ssm_mod.apply_full(p, cfg, x, dt, state=False)[0]
-                               for p, x in zip(ps, full)])
+        got = [ssm_mod.apply_full(p, cfg, x, dt, state=state)
+               for p, x in zip(ps, full)]
+        rows = _own_rows(ctx, [y for y, _ in got])
+        if not state:
+            return rows
+        return rows, [(st["conv"], st["ssm"]) for _, st in got]
     N, Pd = cfg.ssm_state, cfg.ssm_head_dim
     f32 = torch.float32
-    ys, zs, sqs = [], [], []
+    ys, zs, sqs, states = [], [], [], []
     for p, x in zip(ps, full):
         B, S, _ = x.shape
         H_r = p.A_log.shape[0]
@@ -511,12 +585,16 @@ def mamba(ctx, ps, xs) -> list:
         z = zxbcdt[..., :di_r]
         xbc = zxbcdt[..., di_r:2 * di_r + 2 * N]
         dt_raw = zxbcdt[..., 2 * di_r + 2 * N:]
-        xbc, _ = ssm_mod._causal_conv(xbc, p.conv_w.to(dt), p.conv_b.to(dt))
+        xbc, conv = ssm_mod._causal_conv(xbc, p.conv_w.to(dt),
+                                         p.conv_b.to(dt))
         xh = xbc[..., :di_r].reshape(B, S, H_r, Pd).to(f32)
         Bc, Cc = xbc[..., di_r:di_r + N], xbc[..., di_r + N:]
         dts = ssm_mod.softplus(dt_raw.to(f32) + p.dt_bias)
         A = -torch.exp(p.A_log)
         y = ssm_mod._ssd_chunked(cfg, xh, dts, Bc.to(f32), Cc.to(f32), A)
+        if state:
+            states.append((conv, ssm_mod._final_state(cfg, xh, dts,
+                                                      Bc.to(f32), A)))
         y = y + xh * p.D[None, None, :, None]
         yz = (y.reshape(B, S, di_r).to(dt) * F.silu(z)).to(f32)
         ys.append(yz)
@@ -527,7 +605,8 @@ def mamba(ctx, ps, xs) -> list:
         rs = torch.rsqrt(t / cfg.d_inner + cfg.norm_eps)
         y = (yf * rs).to(dt) * p.norm_g.to(dt)
         outs.append(y @ p.out_proj.to(dt))
-    return lm.scatter_seq(ctx.mesh, outs)
+    rows = lm.scatter_seq(ctx.mesh, outs)
+    return (rows, states) if state else rows
 
 
 def block(ctx, bps, xs, pos, *, causal=True, enc=None):
@@ -551,8 +630,21 @@ def block(ctx, bps, xs, pos, *, causal=True, enc=None):
 
 
 def _views(ctx, pieces, prefix, module):
-    return [ctx.layout.view(p, r, prefix, module, ctx.dt)
+    return [ctx.layout.view(p, r, prefix, module, ctx.param_dt)
             for p, r in zip(pieces, ctx.ranks)]
+
+
+#: the parts of the model outside the layer lists
+_TOPS = ("embed", "lnf", "head", "shared", "enc_lnf", "projector")
+
+
+def _tops(ctx, pieces) -> list:
+    """Each held shard's views of :data:`_TOPS`."""
+    meta = ctx.layout.meta
+    return [types.SimpleNamespace(**{
+        name: None if getattr(meta, name) is None else ctx.layout.view(
+            p, r, name + ".", getattr(meta, name), ctx.param_dt)
+        for name in _TOPS}) for p, r in zip(pieces, ctx.ranks)]
 
 
 def _embed(ctx, tops, tokens):
@@ -585,16 +677,14 @@ def _to_rows(ctx, xs):
         else _own_rows(ctx, xs)
 
 
-def _inputs(ctx, tops, batches):
-    """Each shard's rows of the embedded input, the whole positions,
-    labels and mask (the vision stub's patches first)."""
+def _embedded(ctx, tops, batches) -> tuple:
+    """Each shard's rows of the embedded input and the whole positions
+    (the vision stub's patches first)."""
     cfg, dt = ctx.cfg, ctx.dt
     toks = [b["tokens"] for b in batches]
     xs = _embed(ctx, tops, toks)
     B = toks[0].shape[0]
     dev = toks[0].device
-    labels = [b["labels"] for b in batches]
-    masks = [b["mask"].to(torch.float32) for b in batches]
     if cfg.frontend == "vision_stub":
         out = []
         for t, b, x, r in zip(tops, batches, xs, ctx.ranks):
@@ -606,17 +696,28 @@ def _inputs(ctx, tops, batches):
                                    dtype=dt, device=dev)
             out.append(torch.cat([proj, x], dim=1))
         xs = out
-        P = batches[0]["patches"].shape[1]
-        zl = torch.zeros((B, P), dtype=labels[0].dtype, device=dev)
-        zm = torch.zeros((B, P), dtype=torch.float32, device=dev)
-        labels = [torch.cat([zl, lab], 1) for lab in labels]
-        masks = [torch.cat([zm, m], 1) for m in masks]
     S = xs[0].shape[1]
     if S % ctx.M:
         raise ValueError(f"a sequence of {S} over {ctx.M} model shards: the "
                          "residual stream is split into equal rows")
     pos = torch.arange(S, device=dev)[None, :].expand(B, S)
-    return _to_rows(ctx, xs), pos, labels, masks
+    return _to_rows(ctx, xs), pos
+
+
+def _inputs(ctx, tops, batches):
+    """Each shard's rows of the embedded input, the whole positions,
+    labels and mask (the vision stub's patches first)."""
+    xs, pos = _embedded(ctx, tops, batches)
+    labels = [b["labels"] for b in batches]
+    masks = [b["mask"].to(torch.float32) for b in batches]
+    if ctx.cfg.frontend == "vision_stub":
+        B, P = batches[0]["patches"].shape[:2]
+        dev = pos.device
+        zl = torch.zeros((B, P), dtype=labels[0].dtype, device=dev)
+        zm = torch.zeros((B, P), dtype=torch.float32, device=dev)
+        labels = [torch.cat([zl, lab], 1) for lab in labels]
+        masks = [torch.cat([zm, m], 1) for m in masks]
+    return xs, pos, labels, masks
 
 
 def _ce(ctx, tops, xs, labels, masks, chunk: int = 512) -> list:
@@ -717,11 +818,7 @@ def forward_train(ctx, pieces: list, batches: list) -> list:
     (:attr:`Layout.pieces`); ``batches``: each held shard's batch."""
     cfg = ctx.cfg
     meta = ctx.layout.meta
-    tops = [types.SimpleNamespace(**{
-        name: None if getattr(meta, name) is None else ctx.layout.view(
-            p, r, name + ".", getattr(meta, name), ctx.dt)
-        for name in ("embed", "lnf", "head", "shared", "enc_lnf",
-                     "projector")}) for p, r in zip(pieces, ctx.ranks)]
+    tops = _tops(ctx, pieces)
     n = len(pieces)
     zero = [torch.zeros((), dtype=torch.float32, device=ctx.mesh.device)
             for _ in range(n)]
@@ -777,10 +874,10 @@ def forward_train(ctx, pieces: list, batches: list) -> list:
 
 
 def make_ctx(cfg, mesh, layout: Layout | None = None, *,
-             batch_axis: str = "dp") -> _Ctx:
+             batch_axis: str = "dp", serve: bool = False) -> _Ctx:
     layout = Layout(cfg, mesh.model) if layout is None else layout
     return _Ctx(cfg, mesh, layout, [mesh.model_index(s) for s in mesh.local],
-                L.as_dtype(cfg.dtype), batch_axis)
+                L.as_dtype(cfg.dtype), batch_axis, serve)
 
 
 def value_and_grad(ctx, pieces: list, batches: list):
@@ -814,6 +911,403 @@ def grads_of(ctx, pieces, batches, microbatch: int | None = None):
         gsum = [[a + g for a, g in zip(x, y)] for x, y in zip(gsum, grads)]
     return ([l / n_micro for l in loss_sum],
             [[g / n_micro for g in x] for x in gsum])
+
+
+# ---------------------------------------------------------------------------
+# serving: the prefill and decode over the model shards
+# ---------------------------------------------------------------------------
+
+
+def serve_pieces(layout: Layout, params, ranks) -> list:
+    """The pieces of model indices ``ranks`` (a list, one per shard held)
+    of the one-device ``params`` (a ``Transformer``), where they lie, in
+    the serving dtypes of ``transformer.cast_params``: the compute dtype,
+    the router and Mamba2's ``A_log``, ``D`` and ``dt_bias`` float32 (no
+    master: the reference's prefill and decode read ``cfg.dtype``)."""
+    params = tfm.cast_params(params, layout.cfg.dtype)
+    whole = [p.detach() for p in params.parameters()]
+    return [[x.contiguous() for x in layout.take(whole, r)] for r in ranks]
+
+
+def _span(ctx, n: int, what: str) -> int:
+    """The positions of ``n`` one model shard holds under ``"g"``/``"qc"``
+    (module docstring)."""
+    if n % ctx.M:
+        raise ValueError(f"{what} of {n} positions over {ctx.M} model "
+                         "shards: each holds an equal range")
+    return n // ctx.M
+
+
+def cache_shapes(ctx, batch: int, max_len: int, enc_len: int = 0) -> dict:
+    """``{name: (shape, dtype)}`` of one shard's cache, the keys of
+    ``transformer.init_cache`` in its order (module docstring's layout):
+    ``k``/``v`` (``ek``/``ev``) ``[L, B, max_len, KV/M, hd]`` under
+    ``"kv"``, else ``[L, B, max_len/M, KV, hd]``; ``conv`` ``[L, B, K-1,
+    di/M + 2N]`` and ``ssm`` ``[L, B, H/M, N, P]`` where M divides the
+    heads (else whole); ``len`` ``[B]``."""
+    cfg, M = ctx.cfg, ctx.M
+    dt, i32, f32 = ctx.dt, torch.int32, torch.float32
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+
+    def kv(n, what):
+        if ctx.plan.rule == "kv":
+            return (batch, n, KV // M, hd)
+        return (batch, _span(ctx, n, what), KV, hd)
+
+    out = {}
+    na = tfm.n_attn_caches(cfg)
+    if na:
+        out["k"] = out["v"] = ((na,) + kv(max_len, "a cache"), dt)
+        out["len"] = ((batch,), i32)
+    if cfg.family in ("ssm", "hybrid"):
+        split = M if ctx.plan.ssm else 1
+        ch = cfg.d_inner // split + 2 * cfg.ssm_state
+        nl = cfg.n_layers
+        out["conv"] = ((nl, batch, cfg.ssm_conv - 1, ch), dt)
+        out["ssm"] = ((nl, batch, cfg.ssm_heads // split, cfg.ssm_state,
+                       cfg.ssm_head_dim), f32)
+        if cfg.family == "ssm":
+            out["len"] = ((batch,), i32)
+    if cfg.family == "encdec":
+        out["ek"] = out["ev"] = ((cfg.n_layers,) + kv(enc_len,
+                                                       "an encoder cache"), dt)
+    return out
+
+
+def init_caches(ctx, batch: int, max_len: int, enc_len: int = 0) -> list:
+    """Each held shard's zeroed cache (:func:`cache_shapes`) on the mesh's
+    device."""
+    shapes = cache_shapes(ctx, batch, max_len, enc_len)
+    dev = ctx.mesh.device
+    return [{k: torch.zeros(s, dtype=t, device=dev)
+             for k, (s, t) in shapes.items()} for _ in ctx.ranks]
+
+
+def _put_kv(ctx, caches, names, i: int, kvs: list) -> None:
+    """Layer ``i``'s K/V of every position (:func:`attention`'s ``keep``)
+    into each shard's cache ``names`` (``("k", "v")`` or ``("ek",
+    "ev")``): its heads under ``"kv"``, else its range of positions."""
+    for c, kv, r in zip(caches, kvs, ctx.ranks):
+        for name, t in zip(names, kv):
+            dst = c[name][i]
+            if ctx.plan.rule == "kv":
+                dst[:, :t.shape[1]] = t
+                continue
+            span = dst.shape[1]
+            lo, hi = r * span, min(t.shape[1], (r + 1) * span)
+            if hi > lo:
+                dst[:, :hi - lo] = t[:, lo:hi]
+
+
+def _serve_block(ctx, bps, xs, pos, enc=None) -> tuple:
+    """One attention block of the prefill on each shard's rows (the
+    training :func:`block` without the aux terms): ``(rows, (k, v) per
+    shard, (ek, ev) per shard or None)``."""
+    h, kvs = attention(ctx, [b.attn for b in bps],
+                       _norm([b.ln1 for b in bps], xs, ctx), pos,
+                       causal=True, keep=True)
+    xs = [x + a for x, a in zip(xs, h)]
+    ekvs = None
+    if enc is not None:
+        h, ekvs = attention(ctx, [b.xattn for b in bps],
+                            _norm([b.ln3 for b in bps], xs, ctx), pos,
+                            causal=False, enc=enc, keep=True)
+        xs = [x + a for x, a in zip(xs, h)]
+    zs = _norm([b.ln2 for b in bps], xs, ctx)
+    if bps[0].moe is not None:
+        m, _ = moe(ctx, [b.moe for b in bps], zs, aux=False)
+    else:
+        m = mlp(ctx, [b.mlp for b in bps], zs)
+    return [x + a for x, a in zip(xs, m)], kvs, ekvs
+
+
+def _head(ctx, tops, xs) -> list:
+    """Each shard's float32 logits of ``xs`` (``[B, 1, d]``, normed) over
+    its vocabulary columns (all of them where M does not divide the
+    vocabulary), the padded columns at -1e30."""
+    cfg = ctx.cfg
+    out = []
+    for t, x, r in zip(tops, xs, ctx.ranks):
+        h = t.head.w if t.head is not None else t.embed.w.T
+        lg = (x @ h.to(x.dtype)).to(torch.float32)
+        Vr = h.shape[-1]
+        if cfg.vocab_padded > cfg.vocab:
+            lo = r * Vr if ctx.plan.vocab else 0
+            cols = lo + torch.arange(Vr, device=lg.device)
+            lg = torch.where(cols < cfg.vocab, lg, -1e30)
+        out.append(lg)
+    return out
+
+
+@torch.no_grad()
+def forward_prefill(ctx, pieces: list, batches: list, max_len: int) -> tuple:
+    """The prompt of each held shard's batch (its data shard's rows; the
+    vision stub's ``patches``, the encoder's ``frames``) through the
+    tensor-parallel layers of the training forward (module docstring), no
+    recompute, no backward: ``(logits, caches)``, each shard's float32
+    logits of the last position over its vocabulary columns ``[B, 1,
+    V/M]`` (the reference's out sharding) and its cache
+    (:func:`cache_shapes`), ``len`` at the prompt's length. The hybrid's
+    shared block runs after layer ``i`` where ``i % attn_every ==
+    attn_every - 1``, its K/V in cache ``i // attn_every``."""
+    cfg = ctx.cfg
+    meta = ctx.layout.meta
+    tops = _tops(ctx, pieces)
+    B = batches[0]["tokens"].shape[0]
+    encs = None
+    if cfg.family == "encdec":
+        encs = lm.gather_seq(ctx.mesh, _encode(ctx, tops, pieces, batches))
+    xs, pos = _embedded(ctx, tops, batches)
+    S = pos.shape[1]
+    if S > max_len:
+        raise ValueError(f"a prompt of {S} positions in a cache of {max_len}")
+    caches = init_caches(ctx, B, max_len,
+                         0 if encs is None else encs[0].shape[1])
+    for i, b in enumerate(meta.blocks):
+        bps = _views(ctx, pieces, f"blocks.{i}.", b)
+        if b.ssm is None:
+            xs, kvs, ekvs = _serve_block(ctx, bps, xs, pos, encs)
+            _put_kv(ctx, caches, ("k", "v"), i, kvs)
+            if ekvs is not None:
+                _put_kv(ctx, caches, ("ek", "ev"), i, ekvs)
+            continue
+        h, states = mamba(ctx, [bp.ssm for bp in bps],
+                          _norm([bp.ln1 for bp in bps], xs, ctx), state=True)
+        xs = [x + a for x, a in zip(xs, h)]
+        for c, (conv, st) in zip(caches, states):
+            c["conv"][i] = conv
+            c["ssm"][i] = st
+        if tfm._uses_shared(cfg, i):
+            xs, kvs, _ = _serve_block(ctx, [t.shared for t in tops], xs, pos)
+            _put_kv(ctx, caches, ("k", "v"), i // cfg.attn_every, kvs)
+    xs = _norm([t.lnf for t in tops], xs, ctx)
+    # the last position lies in the last model shard's rows
+    last = ctx.mesh.all_gather("model", [x[:, -1:].contiguous() for x in xs])
+    logits = _head(ctx, tops, [g[-1] for g in last])
+    for c in caches:
+        c["len"].fill_(S)
+    return logits, caches
+
+
+def _row_sum(ctx, xs: list) -> list:
+    """The row-parallel products' partial sums of the decode, summed over
+    the model shards in rank order (``launch.mesh.model_sum``)."""
+    return lm.model_sum(ctx.mesh, xs)
+
+
+def _decode_attention(ctx, ps, ns, kvs, lens) -> list:
+    """One token's attention (``ns``: ``[b, 1, d]`` per shard, whole) over
+    each shard's cache ``kvs`` (``(k, v)`` of one layer), written in place
+    at ``lens`` (None: the cross-attention over ``ek``/``ev``, no RoPE, no
+    write, every position valid). Under ``"kv"`` each shard's heads over
+    its cache heads, then ``wo``'s rank-order sum; else every shard's
+    query heads (gathered under ``"g"``) over its positions, the partial
+    states merged in rank order (``attention.merge_partials``), then
+    ``wo`` (whole under ``"qc"``: no sum)."""
+    cfg, dt, hd, rule = ctx.cfg, ctx.dt, ctx.cfg.head_dim, ctx.plan.rule
+    lens = lens if lens is not None else [None] * len(ns)
+    qs, news = [], []
+    for p, x, ln in zip(ps, ns, lens):
+        B = x.shape[0]
+        q = L.dense_apply(p.wq, x, dt).reshape(B, 1, -1, hd)
+        if ln is not None:
+            k = L.dense_apply(p.wk, x, dt).reshape(B, 1, -1, hd)
+            v = L.dense_apply(p.wv, x, dt).reshape(B, 1, -1, hd)
+            q, k = L.rope(q, k, ln[:, None], cfg.rope_theta)
+            news.append((k, v))
+        qs.append(q)
+    if rule == "kv":
+        outs = []
+        for p, q, (ck, cv), ln, new in zip(ps, qs, kvs, lens,
+                                           news or [None] * len(qs)):
+            B = q.shape[0]
+            if ln is None:
+                o = attn.flash_attention(q, ck, cv, causal=False)
+            else:
+                attn.write_kv(ck, new[0], ln)
+                attn.write_kv(cv, new[1], ln)
+                o = attn.flash_attention(q, ck.to(dt), cv.to(dt),
+                                         causal=False, kv_len=ln + 1,
+                                         q_chunk=1, kv_chunk=4096)
+            outs.append(L.dense_apply(p.wo, o.reshape(B, 1, -1), dt))
+        return _row_sum(ctx, outs)
+    if rule == "g":
+        # each shard's query heads, G/M of every GQA group: whole heads
+        M, KV = ctx.M, cfg.n_kv_heads
+        got = ctx.mesh.all_gather("model", [q.contiguous() for q in qs])
+        qs = [g.unflatten(3, (KV, -1)).permute(1, 2, 3, 0, 4, 5).reshape(
+            g.shape[1], 1, -1, hd) for g in got]
+    states = []
+    for q, (ck, cv), ln, new, r in zip(qs, kvs, lens,
+                                       news or [None] * len(qs), ctx.ranks):
+        span = ck.shape[1]
+        lo = r * span
+        if ln is None:
+            m, s, acc = attn.flash_attention(q, ck, cv, causal=False,
+                                             partial=True)
+        else:
+            attn.write_kv(ck, new[0], ln, offset=lo)
+            attn.write_kv(cv, new[1], ln, offset=lo)
+            m, s, acc = attn.flash_attention(
+                q, ck.to(dt), cv.to(dt), causal=False,
+                kv_len=torch.clamp(ln + 1 - lo, 0, span), q_chunk=1,
+                kv_chunk=4096, partial=True)
+        states.append(torch.cat([acc, m[..., None], s[..., None]], dim=-1))
+    got = ctx.mesh.all_gather("model", states)
+    outs = []
+    for p, g, r in zip(ps, got, ctx.ranks):
+        o = attn.merge_partials(g).to(dt)
+        B = o.shape[0]
+        if rule == "g":
+            # this shard's heads: G/M of every group, in index order
+            o = o.unflatten(2, (cfg.n_kv_heads, ctx.M, -1))[:, :, :, r]
+        outs.append(L.dense_apply(p.wo, o.reshape(B, 1, -1), dt))
+    return outs if rule == "qc" else _row_sum(ctx, outs)
+
+
+def _decode_moe(ctx, ps, zs) -> list:
+    """The MoE layer on one token a row, whole on every shard: every shard
+    routes it, sums its experts' gated outputs, and the shards' float32
+    partials are summed in rank order (the shared experts as an MLP)."""
+    ys, shs, _ = _moe_partials(ctx, ps, zs)
+    if ctx.plan.experts:
+        ys = _row_sum(ctx, ys)
+    ys = [y.to(ctx.dt) for y in ys]
+    if shs:
+        if ctx.plan.mlp:
+            shs = _row_sum(ctx, shs)
+        ys = [y + s for y, s in zip(ys, shs)]
+    return ys
+
+
+def _decode_block(ctx, bps, xs, caches, ai: int) -> list:
+    """One attention block of the decode (cache index ``ai``)."""
+    lens = [c["len"] for c in caches]
+    h = _decode_attention(ctx, [b.attn for b in bps],
+                          _norm([b.ln1 for b in bps], xs, ctx),
+                          [(c["k"][ai], c["v"][ai]) for c in caches], lens)
+    xs = [x + a for x, a in zip(xs, h)]
+    if bps[0].xattn is not None:
+        h = _decode_attention(ctx, [b.xattn for b in bps],
+                              _norm([b.ln3 for b in bps], xs, ctx),
+                              [(c["ek"][ai], c["ev"][ai]) for c in caches],
+                              None)
+        xs = [x + a for x, a in zip(xs, h)]
+    zs = _norm([b.ln2 for b in bps], xs, ctx)
+    if bps[0].moe is not None:
+        m = _decode_moe(ctx, [b.moe for b in bps], zs)
+    else:
+        m = [L.swiglu_apply(b.mlp, z, ctx.dt) for b, z in zip(bps, zs)]
+        if ctx.plan.mlp:
+            m = _row_sum(ctx, m)
+    return [x + a for x, a in zip(xs, m)]
+
+
+def _decode_mamba(ctx, ps, xs, convs, sts) -> list:
+    """Mamba2's decode step on each shard's heads (``ssm.apply_decode``'s
+    rule), the gated norm's sum of squares summed across the shards,
+    ``out_proj``'s partials in rank order; the conv and SSM states
+    written in place."""
+    cfg, dt = ctx.cfg, ctx.dt
+    if not ctx.plan.ssm:
+        outs = []
+        for p, x, conv, st in zip(ps, xs, convs, sts):
+            h, new = ssm_mod.apply_decode(p, cfg, x, {"conv": conv,
+                                                      "ssm": st}, dt)
+            conv.copy_(new["conv"])
+            st.copy_(new["ssm"])
+            outs.append(h)
+        return outs
+    N, Pd = cfg.ssm_state, cfg.ssm_head_dim
+    f32 = torch.float32
+    ys, sqs = [], []
+    for p, x, conv, st in zip(ps, xs, convs, sts):
+        B = x.shape[0]
+        H_r = p.A_log.shape[0]
+        di_r = H_r * Pd
+        zxbcdt = x.to(dt) @ p.in_proj.to(dt)
+        z = zxbcdt[..., :di_r]
+        xbc, new_conv = ssm_mod._causal_conv(
+            zxbcdt[..., di_r:2 * di_r + 2 * N], p.conv_w.to(dt),
+            p.conv_b.to(dt), conv)
+        xh = xbc[:, 0, :di_r].reshape(B, H_r, Pd).to(f32)
+        Bc = xbc[:, 0, di_r:di_r + N].to(f32)
+        Cc = xbc[:, 0, di_r + N:].to(f32)
+        dts = ssm_mod.softplus(zxbcdt[:, 0, 2 * di_r + 2 * N:].to(f32)
+                               + p.dt_bias)
+        decay = torch.exp(dts * -torch.exp(p.A_log))
+        h = st * decay[..., None, None] \
+            + Bc[:, None, :, None] * (dts[..., None] * xh)[:, :, None, :]
+        y = torch.einsum("bn,bhnp->bhp", Cc, h) + xh * p.D[None, :, None]
+        conv.copy_(new_conv)
+        st.copy_(h)
+        yz = (y.reshape(B, 1, di_r).to(dt) * F.silu(z)).to(f32)
+        ys.append(yz)
+        sqs.append(torch.sum(yz * yz, dim=-1, keepdim=True))
+    tot = lm.model_sum(ctx.mesh, sqs)
+    outs = []
+    for p, yf, t in zip(ps, ys, tot):
+        rs = torch.rsqrt(t / cfg.d_inner + cfg.norm_eps)
+        y = (yf * rs).to(dt) * p.norm_g.to(dt)
+        outs.append(y @ p.out_proj.to(dt))
+    return _row_sum(ctx, outs)
+
+
+@torch.no_grad()
+def forward_decode(ctx, pieces: list, tokens: list, caches: list) -> tuple:
+    """One decode step of each held shard's tokens (``[b, 1]`` int32, its
+    data shard's rows) against its cache (:func:`forward_prefill`'s),
+    written in place, ``len`` advanced for every row: ``(logits,
+    caches)``, each shard's float32 logits over its vocabulary columns.
+    The residual ``[b, 1, d]`` is whole on every model shard of a data
+    shard (module docstring)."""
+    cfg = ctx.cfg
+    meta = ctx.layout.meta
+    tops = _tops(ctx, pieces)
+    xs = _embed(ctx, tops, tokens)
+    if ctx.plan.vocab:
+        xs = lm.model_sum(ctx.mesh, xs)
+    for i, b in enumerate(meta.blocks):
+        bps = _views(ctx, pieces, f"blocks.{i}.", b)
+        if b.ssm is None:
+            xs = _decode_block(ctx, bps, xs, caches, i)
+            continue
+        h = _decode_mamba(ctx, [bp.ssm for bp in bps],
+                          _norm([bp.ln1 for bp in bps], xs, ctx),
+                          [c["conv"][i] for c in caches],
+                          [c["ssm"][i] for c in caches])
+        xs = [x + a for x, a in zip(xs, h)]
+        if tfm._uses_shared(cfg, i):
+            xs = _decode_block(ctx, [t.shared for t in tops], xs, caches,
+                               i // cfg.attn_every)
+    for c in caches:
+        c["len"] += 1
+    return _head(ctx, tops, _norm([t.lnf for t in tops], xs, ctx)), caches
+
+
+@torch.no_grad()
+def next_tokens(ctx, logits: list) -> list:
+    """The greedy next token ``[b, 1]`` int32 of each held shard's logits
+    (:func:`forward_decode`'s), the same on every model shard: the
+    largest logit across the shards' columns, ties to the lowest index
+    (``jnp.argmax``'s rule): each shard's first largest and its index,
+    gathered, the first shard holding the largest."""
+    if not ctx.plan.vocab:
+        return [torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+                for lg in logits]
+    best = []
+    for lg, r in zip(logits, ctx.ranks):
+        lg = lg[:, -1]
+        idx = torch.argmax(lg, dim=-1, keepdim=True)
+        # vocabulary indices are exact in float32 (< 2^24)
+        best.append(torch.cat([torch.gather(lg, 1, idx),
+                               (idx + r * lg.shape[-1]).to(torch.float32)],
+                              dim=1))
+    out = []
+    for g in ctx.mesh.all_gather("model", best):
+        at = torch.argmax(g[..., 0], dim=0, keepdim=True)
+        out.append(torch.gather(g[..., 1], 0, at)[0].to(torch.int32)[:, None])
+    return out
 
 
 # ---------------------------------------------------------------------------

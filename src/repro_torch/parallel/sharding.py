@@ -35,10 +35,10 @@ GSPMD. A mesh here is anything with ``axis_names`` and a ``shape`` dict
 the model size. The tensor-parallel layers keep their own slicing rules
 (``models.tensor_parallel``). The training mesh runs one rank per shard
 (``launch.mesh.make_debug_mesh`` over a process group) with every step of
-the reference, the compressed ones too, and the production mesh is
-counted per device on one rank of a meta process group
-(``launch.mesh.make_production_mesh``); what is still to port is
-:data:`MULTI_DEVICE`.
+the reference, the compressed ones too, as do the prefill and decode
+(``models.tensor_parallel``, the KV cache over the model shards), and the
+production mesh counts every cell per device on one rank of a meta
+process group (``launch.mesh.make_production_mesh``): :data:`MULTI_DEVICE`.
 """
 from __future__ import annotations
 
@@ -50,12 +50,15 @@ import torch
 from .. import _device
 
 #: where the meshes over several devices stand
-MULTI_DEVICE = ("ROADMAP.md queue 1: the tensor-parallel prefill and "
-                "decode (and so the prefill and decode cells on the "
-                "production mesh) are still to port; training runs one rank "
-                "per shard on the (\"pod\", \"data\", \"model\") mesh "
-                "(launch.mesh.make_debug_mesh over a process group), as the "
-                "solve path does (parallel.sharding.RankMesh)")
+MULTI_DEVICE = ("training, prefill and decode run one rank per shard on the "
+                "(\"pod\", \"data\", \"model\") mesh "
+                "(launch.mesh.make_debug_mesh over a process group; "
+                "models.tensor_parallel, the KV cache over the model "
+                "shards), as the solve path does (parallel.sharding."
+                "RankMesh); every train, prefill and decode cell of the "
+                "production mesh is counted per device "
+                "(launch.dryrun --both-meshes; ROADMAP.md, \"Where the port "
+                "stands\")")
 
 #: the data-parallel axes, outermost first
 DP_AXES = ("pod", "data")

@@ -351,23 +351,21 @@ def test_dryrun_cli_full_size_on_meta(tmp_path, capsys):
 
 
 def test_multi_pod_flags_raise():
-    """The production mesh counts train cells; a prefill or decode cell
-    there raises, naming ROADMAP (the tensor-parallel prefill and decode
-    are still to port), and ``--pod-compress`` needs ``--multi-pod``."""
-    for argv in (["--arch", "qwen2-0.5b", "--shape", "decode_32k",
-                  "--multi-pod"],
-                 ["--arch", "qwen2-0.5b", "--shape", "prefill_32k",
-                  "--both-meshes"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dryrun.main(argv)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dryrun.run_cell("qwen2-0.5b", "decode_32k", multi_pod=True)
+    """The production mesh counts every cell, and the train step's flags
+    raise elsewhere: ``--pod-compress`` needs ``--multi-pod``, and a
+    prefill or decode cell takes no ``pod_wire`` (a ``ValueError``, the
+    record an error)."""
     with pytest.raises(ValueError, match="--multi-pod"):
         analyze.main(["--arch", "qwen2-0.5b", "--shape", "train_4k",
                       "--pod-compress", "u8"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="pod_wire"):
         analyze.main(["--arch", "qwen2-0.5b", "--shape", "decode_32k",
-                      "--multi-pod", "--reduce"])
+                      "--multi-pod", "--pod-compress", "u16", "--reduce"])
+    rec = dryrun.count_mesh_cell(
+        "qwen2-0.5b", "prefill_32k", "2x16x16", pod_wire="u16",
+        cfg=configs.reduce(configs.get("qwen2-0.5b")),
+        shape=dryrun.reduced_shape(dryrun.SHAPES["prefill_32k"]))
+    assert rec["status"] == "error" and "pod_wire" in rec["error"]
 
 
 def test_mesh_one_device_only():

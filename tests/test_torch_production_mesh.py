@@ -39,8 +39,10 @@ batch 8, 2 steps, from the reference's initial parameters:
   reference's ``hlo_cost`` of its compiled step: equal for dense, within
   ``HLO_RTOL`` where the port's train step differs on purpose;
 * the CLIs: ``dryrun --all --both-meshes`` at full size on meta for
-  qwen2-0.5b and dbrx-132b x train_4k, the exact set of ``not_ported``
-  cells, ``analyze --multi-pod --pod-compress u16`` on a reduced cell,
+  qwen2-0.5b and dbrx-132b x train_4k, no ``not_ported`` cell (every
+  prefill, decode and long_500k cell ``ok`` or skipped, reduced; and
+  qwen2-0.5b x prefill_32k and x decode_32k ``ok`` at full size on
+  16 x 16), ``analyze --multi-pod --pod-compress u16`` on a reduced cell,
   ``launch.train --model-axis 2 --grad-compression 10 --device cpu``;
 * a compressed (2, 2) run's checkpoint restored on one device and on a
   (2, 2) mesh bit for bit.
@@ -116,13 +118,21 @@ SHAPE = ShapeConfig("x", cases.SEQ, cases.BATCH, "train")
 #: the experts over the model shards, Mamba2's index sets); the port may
 #: count at most this much more
 HLO_RTOL = {"dense": 0.0, "moe": 0.05, "ssm": 0.05, "hybrid": 0.05}
-#: the cells a production mesh cannot count yet: every prefill_32k and
-#: decode_32k cell and the long_500k cells that apply (the sub-quadratic
-#: families). The slice that ports the tensor-parallel prefill and decode
-#: changes this set
-NOT_PORTED = {(a, s) for a in configs.ARCH_IDS
-              for s in ("prefill_32k", "decode_32k")} | {
+#: the cells a production mesh cannot count: none since the
+#: tensor-parallel prefill and decode (``models.tensor_parallel``)
+NOT_PORTED = set()
+#: the cells that slice made countable: every prefill_32k and decode_32k
+#: cell and the long_500k cells that apply (the sub-quadratic families)
+SERVE_CELLS = {(a, s) for a in configs.ARCH_IDS
+               for s in ("prefill_32k", "decode_32k")} | {
     ("zamba2-2.7b", "long_500k"), ("mamba2-1.3b", "long_500k")}
+#: qwen2-0.5b's serving cells at full size on 16 x 16, counted in a
+#: process of their own beside the fixture's work (the prefill's trace
+#: takes about half a minute)
+SERVE_FULL = ("import json, sys; from repro_torch.launch import dryrun; "
+              "json.dump([dryrun.count_mesh_cell('qwen2-0.5b', s, '16x16') "
+              "for s in ('prefill_32k', 'decode_32k')], "
+              "open(sys.argv[1], 'w'))")
 
 _REFERENCE = (Path(__file__).resolve().parent
               / "torch_production_mesh_reference.py")
@@ -165,6 +175,10 @@ def run(tmp_path_factory):
             [sys.executable] + DRYRUN + [str(root / "dryrun.json")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=dict(os.environ, PYTHONPATH=str(SRC)))
+        procs["serve"] = subprocess.Popen(
+            [sys.executable, "-c", SERVE_FULL, str(root / "serve.json")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONPATH=str(SRC)))
         try:
             inits = {fam: jax.tree.map(np.asarray, rtfm.init_params(
                 rconfigs.reduce(rconfigs.get(arch)),
@@ -190,6 +204,7 @@ def run(tmp_path_factory):
         torch.set_num_threads(threads)
     ref, ref_meta = {}, {}
     dry = done.pop("dryrun")
+    serve = done.pop("serve")
     for part, (stdout, stderr) in done.items():
         assert procs[part].returncode == 0, (part, stderr[-4000:])
         name = part.replace(":", "_").replace(",", "_")
@@ -197,7 +212,8 @@ def run(tmp_path_factory):
         ref_meta.update(json.loads(stdout.strip().splitlines()[-1]))
     return {"root": root, "inits": inits, "ranks": ranks,
             "stacked": stacked, "ref": ref, "ref_meta": ref_meta,
-            "dryrun": (procs["dryrun"].returncode, *dry)}
+            "dryrun": (procs["dryrun"].returncode, *dry),
+            "serve": (procs["serve"].returncode, *serve)}
 
 
 def _same(a, b, what):
@@ -463,21 +479,38 @@ def test_dryrun_both_meshes_at_full_size(run):
         assert one / n <= got <= one / n + whole, (got, one / n, whole)
 
 
-def test_dryrun_not_ported_cells(capsys):
-    """Every production-mesh cell but train_4k is ``not_ported`` where it
-    applies, printed as ``[todo]``; the set is pinned."""
+def test_dryrun_not_ported_cells(run, capsys, tmp_path):
+    """No production-mesh cell is ``not_ported``: ``dryrun --all
+    --both-meshes --reduce`` over the prefill, decode and long_500k shapes
+    exits 0 with no ``[todo]`` line, every record ``ok`` or skipped as
+    ``cell_applicable`` says (each of :data:`SERVE_CELLS` ``ok`` on both
+    meshes); qwen2-0.5b x prefill_32k and x decode_32k are ``ok`` at full
+    size on 16 x 16, on meta."""
     shapes = "prefill_32k,decode_32k,long_500k"
-    assert dryrun.main(["--all", "--both-meshes", "--shape", shapes]) == 0
+    out = tmp_path / "serve_cells.json"
+    assert dryrun.main(["--all", "--both-meshes", "--reduce", "--shape",
+                        shapes, "--out", str(out)]) == 0
     text = capsys.readouterr().out
-    todo = [line for line in text.splitlines() if line.startswith("[todo]")]
-    assert len(todo) == 2 * len(NOT_PORTED)
-    recs = dryrun.run_cells([(a, s) for a in configs.ARCH_IDS
-                             for s in shapes.split(",")],
-                            meshes=dryrun.PRODUCTION_MESHES)
-    got = {(r["arch"], r["shape"]) for r in recs
-           if r["status"] == "not_ported"}
-    assert got == NOT_PORTED
-    assert {r["status"] for r in recs} == {"not_ported", "skipped"}
+    assert "[todo]" not in text and "[ERR]" not in text
+    assert text.count("[ok]") == 2 * len(SERVE_CELLS)
+    recs = json.loads(out.read_text())
+    assert len(recs) == 2 * 3 * len(configs.ARCH_IDS)
+    assert {r["status"] for r in recs} == {"ok", "skipped"}
+    ok = {(r["arch"], r["shape"]) for r in recs if r["status"] == "ok"}
+    assert ok == SERVE_CELLS and not ok & NOT_PORTED
+    for r in recs:
+        if r["status"] == "ok":
+            assert r["cache_bytes_per_device"] > 0
+            assert r["collective_bytes"] == sum(
+                r["collective_bytes_by_dtype"].values()) > 0
+    rc, _, stderr = run["serve"]
+    assert rc == 0, stderr[-4000:]
+    full = json.loads((run["root"] / "serve.json").read_text())
+    assert [(r["shape"], r["mesh"], r["status"]) for r in full] == [
+        ("prefill_32k", "16x16", "ok"), ("decode_32k", "16x16", "ok")]
+    # the decode's K/V: the whole 51,539,607,552 B over the 256 devices
+    kv = 2 * 24 * 128 * 32_768 * 2 * 64 * 2
+    assert full[1]["cache_bytes_per_device"] == kv // 256 + 8 * 4
     # the one-device records are the dry run's own
     one = dryrun.count_cell("qwen2-0.5b", "decode_32k", cfg=configs.reduce(
         configs.get("qwen2-0.5b")), shape=dryrun.reduced_shape(

@@ -6,11 +6,16 @@ subprocess with eight XLA host devices:
 ``PART``: ``comp:FAMILIES`` (the compressed ``Trainer`` at (data 2, model
 2) for the comma-separated families, with every device's error-feedback
 buffers after the last step), ``wire:WIRE`` (``make_train_step(
-pod_wire=WIRE)`` on (pod 2, data 1, model 2)) or ``hlo:MESH``
+pod_wire=WIRE)`` on (pod 2, data 1, model 2)), ``hlo:MESH``
 (``hlo_cost`` of the compiled train step on the ``2x2`` or ``2x2x2``
-mesh). Writes each run's master (and error buffers) to
-``ROOT/ref_<PART>.npz`` (``:`` and ``,`` as ``_``) and prints its losses
-and counts as one JSON line.
+mesh), ``serve:MESH`` (``hlo_cost`` of the compiled prefill and decode
+steps there, the six families) or ``decode:INPUTS`` (``forward_prefill``
+and ``TICKS`` greedy ``forward_decode`` steps of the six families on one
+device, from the prompts in the npz ``INPUTS``: their logits and tokens).
+Writes each run's master (and error buffers, or logits) to
+``ROOT/ref_<PART>.npz`` (``:`` and ``,`` as ``_``; ``decode:INPUTS``'s
+to ``ROOT/ref_decode.npz``) and prints its losses and counts as one JSON
+line.
 """
 import dataclasses
 import json
@@ -27,6 +32,14 @@ from repro.train import checkpoint as rckpt, trainer as rtrainer
 root, part, steps = sys.argv[1], sys.argv[2], int(sys.argv[3])
 FAM = {"dense": "qwen2-0.5b", "moe": "qwen2-moe-a2.7b",
        "ssm": "mamba2-1.3b", "hybrid": "zamba2-2.7b"}
+#: the six families of the serving parts
+SERVE_FAM = {**FAM, "vlm": "llava-next-mistral-7b",
+             "encdec": "seamless-m4t-large-v2"}
+#: the serving parts' shapes (``tests/test_torch_mesh_serve.py``): prefill
+#: of 32 positions, decode into a cache of 64, 4 rows; the decode chain's
+#: cache and steps
+SERVE_SHAPES = (("prefill", 32), ("decode", 64))
+SERVE_BATCH, MAX_LEN, TICKS = 4, 64, 4
 opt = radamw.OptConfig(warmup=1, total_steps=steps)
 out, meta = {}, {}
 
@@ -125,6 +138,42 @@ if part.startswith("hlo"):
                     rcfg, ShapeConfig("x", 32, 8, "train"), mesh)
                 text = lowered.compile().as_text()
             meta[f"hlo_{fam}_{tag}"] = rhc.aggregate(text)["flops"]
-np.savez(f"{root}/ref_{part.replace(':', '_').replace(',', '_')}.npz",
+if part.startswith("serve"):
+    from repro.launch import dryrun as rdry, hlo_cost as rhc
+    # per-device dot FLOPs of the prefill and decode steps, lowered as the
+    # dry run lowers them (the hybrid's shared block at every layer)
+    tag = part.split(":")[1]
+    ms = tuple(int(n) for n in tag.split("x"))
+    with jax.enable_x64(False):
+        for fam, arch in SERVE_FAM.items():
+            rcfg = configs.reduce(configs.get(arch))
+            if rcfg.family == "hybrid":
+                rcfg = dataclasses.replace(rcfg, attn_every=1)
+            for kind, S in SERVE_SHAPES:
+                with mesh_of(ms) as mesh:
+                    lowered = rdry._lower_cell(
+                        rcfg, ShapeConfig("x", S, SERVE_BATCH, kind), mesh)
+                    text = lowered.compile().as_text()
+                meta[f"hlo_{fam}_{kind}_{tag}"] = rhc.aggregate(text)["flops"]
+if part.startswith("decode"):
+    import jax.numpy as jnp
+    io = np.load(part.split(":", 1)[1])
+    for fam, arch in SERVE_FAM.items():
+        rcfg = configs.reduce(configs.get(arch))
+        p = rtfm.init_params(rcfg, jax.random.PRNGKey(0))[0]
+        b = {k.split("/", 1)[1]: jnp.asarray(io[k]) for k in io.files
+             if k.startswith(fam + "/")}
+        logits, cache = rtfm.forward_prefill(rcfg, p, b, MAX_LEN)
+        for i in range(TICKS + 1):
+            tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
+            out[f"logits_{fam}/{i}"] = np.asarray(logits)
+            out[f"tokens_{fam}/{i}"] = np.asarray(tok)
+            if i < TICKS:
+                logits, cache = rtfm.forward_decode(rcfg, p, tok[:, None],
+                                                    cache)
+        for k, v in cache.items():
+            out[f"cache_{fam}/{k}"] = np.asarray(v)
+name = part.split(":")[0] if part.startswith("decode") else part
+np.savez(f"{root}/ref_{name.replace(':', '_').replace(',', '_')}.npz",
          **out)
 print(json.dumps(meta))
